@@ -1,0 +1,120 @@
+"""Model base: embedding front-end + multi-head epilogue (the port of
+``mmlrec_tpu/models/base.py``, forward).
+
+Every model is an ``nn.Module`` called as::
+
+    probs = model(ids, dense, domain_mask)
+
+with ``ids: int32 [B, n_sparse]``, ``dense: float32 [B, n_dense]``,
+``domain_mask: [B, D] or None`` and output ``[B, num_tasks]``
+probabilities (reference forward contract, e.g. model/mmoe.py:65-119).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from ..config import ExperimentConfig
+from ..features import FeatureLayout
+from ..ops.embedding import EmbeddingCollection
+from ..ops.layers import PredictionHeads
+
+
+class RecModel(nn.Module):
+    """Base of the port's model families."""
+
+    def __init__(
+        self,
+        layout: FeatureLayout,
+        cfg: ExperimentConfig,
+        *,
+        generator: torch.Generator,
+        init_std: float = 1e-4,
+    ):
+        super().__init__()
+        self.layout = layout
+        self.cfg = cfg
+        self.init_std = init_std
+        extra = self.mc.extra
+        if extra.get("use_wide_linear"):
+            raise NotImplementedError(
+                "use_wide_linear is not ported yet (ROADMAP A5)")
+        if (str(extra.get("table_container", "split")) == "stacked"
+                or int(extra.get("stacked_shards", 1) or 1) > 1):
+            raise NotImplementedError(
+                "the stacked table container (dual_container / dual_shards) "
+                "is a training layout, not ported yet (ROADMAP A4)")
+
+    # ---- config shortcuts -------------------------------------------------
+    @property
+    def mc(self):
+        return self.cfg.model_config
+
+    @property
+    def dc(self):
+        return self.cfg.data_config
+
+    @property
+    def task_name(self) -> str:
+        return self.mc.task_name
+
+    @property
+    def num_tasks(self) -> int:
+        return self.cfg.num_tasks
+
+    @property
+    def num_domains(self) -> int:
+        return self.dc.num_domains
+
+    @property
+    def task_types(self) -> Tuple[str, ...]:
+        tt = tuple(self.mc.task_types)
+        if len(tt) != self.num_tasks:
+            tt = tuple(["binary"] * self.num_tasks)
+        return tt
+
+    @property
+    def input_dim(self) -> int:
+        return self.layout.input_dim
+
+    # ---- shared submodules ------------------------------------------------
+    def _make_embeddings(self, generator: torch.Generator) -> EmbeddingCollection:
+        return EmbeddingCollection(
+            self.layout, generator=generator, init_std=self.init_std)
+
+    def embed_inputs(self, ids: torch.Tensor, dense: torch.Tensor):
+        """Return (dnn_input [B, input_dim], sparse_emb [B, F, D_emb] or None):
+        flattened sparse embeddings ++ dense values (reference
+        basemodel.py:461-487, model/utils.py:434-446), built by one
+        embed-concat kernel; ``sparse_emb`` is a view into ``dnn_input``."""
+        fused = self.embeddings.fused
+        n_dense = self.layout.num_dense_dims
+        if fused is None:
+            if not n_dense:
+                raise ValueError("dnn_feature_columns is null!")
+            return dense, None
+        n_sparse = len(self.layout.sparse_slots)
+        if not n_dense:
+            dense = dense.new_empty((dense.shape[0], 0))
+        dnn_input = fused.embed_concat(ids[:, :n_sparse], dense)
+        sparse_emb = dnn_input[:, : n_sparse * fused.dim].unflatten(1, (n_sparse, fused.dim))
+        return dnn_input, sparse_emb
+
+    def make_heads(self) -> PredictionHeads:
+        return PredictionHeads(self.task_types)
+
+    def apply_domain_mask(self, probs: torch.Tensor, domain_mask) -> torch.Tensor:
+        """Per-head domain gating (reference epilogue, e.g. model/mmoe.py:
+        101-106).  msl: head i gated by domain i; mtmsl: head i by domain
+        i % D.  No-op when domain_mask is None."""
+        if domain_mask is None:
+            return probs
+        if self.task_name == "msl":
+            return probs * domain_mask
+        if self.task_name == "mtmsl":
+            idx = torch.arange(probs.shape[-1], device=probs.device) % self.num_domains
+            return probs * domain_mask[:, idx]
+        return probs

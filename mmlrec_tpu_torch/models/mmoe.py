@@ -1,0 +1,66 @@
+"""MMoE (reference model/mmoe.py; the port of ``mmlrec_tpu/models/mmoe.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.kernels import gated_expert_mix
+from ..ops.layers import StackedDense, StackedMLP
+from .base import RecModel
+
+
+class MMOE(RecModel):
+    """Multi-gate mixture-of-experts (reference model/mmoe.py:8-119).
+
+    The forward runs three kernels: embed-concat builds the DNN input, the
+    gated expert mix fuses the gate softmax with the expert mix, and the
+    heads' multihead score fuses the tower's final layer with the bias and
+    sigmoid.  The stacked layers between them are plain matrix products.
+    """
+
+    def __init__(self, layout, cfg, *, generator: torch.Generator, init_std: float = 1e-4):
+        super().__init__(layout, cfg, generator=generator, init_std=init_std)
+        mc, T = self.mc, self.num_tasks
+        mlp = dict(
+            generator=generator, activation=mc.dnn_activation,
+            dropout_rate=mc.dnn_dropout, use_bn=mc.dnn_use_bn, init_std=init_std,
+        )
+        self.embeddings = self._make_embeddings(generator)
+        d_in = self.input_dim
+        self.expert_dnn = StackedMLP(mc.num_experts, d_in, mc.expert_dnn_hidden_units, **mlp)
+        expert_dim = mc.expert_dnn_hidden_units[-1]
+        gate_in = d_in
+        self.gate_dnn = None
+        if len(mc.gate_dnn_hidden_units) > 0:
+            self.gate_dnn = StackedMLP(T, d_in, mc.gate_dnn_hidden_units, **mlp)
+            gate_in = mc.gate_dnn_hidden_units[-1]
+        self.gate_final = StackedDense(
+            T, gate_in, mc.num_experts, generator=generator, use_bias=False)
+        tower_in = expert_dim
+        self.tower_dnn = None
+        if len(mc.tower_dnn_hidden_units) > 0:
+            self.tower_dnn = StackedMLP(T, expert_dim, mc.tower_dnn_hidden_units, **mlp)
+            tower_in = mc.tower_dnn_hidden_units[-1]
+        self.tower_final = StackedDense(
+            T, tower_in, 1, generator=generator, use_bias=False)
+        self.out = self.make_heads()
+
+    def forward(self, ids, dense, domain_mask=None, *, return_intermediates: bool = False):
+        dnn_input, _ = self.embed_inputs(ids, dense)
+        expert_outs = self.expert_dnn(dnn_input).contiguous()  # [B, E, dim]
+        gate_hidden = self.gate_dnn(dnn_input) if self.gate_dnn is not None else dnn_input
+        gate_logits = self.gate_final(gate_hidden).contiguous()  # [B, T, E]
+        mmoe_outs = gated_expert_mix(gate_logits, expert_outs)  # [B, T, dim]
+        tower = self.tower_dnn(mmoe_outs) if self.tower_dnn is not None else mmoe_outs
+        probs = self.out(tower.contiguous(), self.tower_final.kernel[..., 0])
+        probs = self.apply_domain_mask(probs, domain_mask)
+        if not return_intermediates:
+            return probs
+        inter = {
+            "dnn_input": dnn_input,
+            "expert_outputs": expert_outs,
+            "mmoe_outputs": mmoe_outs,
+        }
+        if self.tower_dnn is not None:
+            inter["tower_outputs"] = tower
+        return probs, inter

@@ -1,0 +1,154 @@
+"""Embedding stores (forward), the port of ``mmlrec_tpu/ops/embedding.py``.
+
+All sparse features that share an embedding dim live in ONE fused table with
+per-feature row offsets, so the sparse side of a batch is one gather.  The
+parameter keeps the JAX package's layout so that weights copy across
+unchanged: ``[rows, D]`` unpacked, or lane-packed ``[rows/P, 128]`` from
+2^18 fused rows on (``pack_factor_for``), with zeroed pad rows.
+
+Lane packing is a TPU layout only.  A row-major ``[rows/P, P*D]`` array is
+the ``[rows, D]`` array in memory, so the port gathers from
+``table.view(-1, D)`` at row ``ids + offsets`` for both layouts, which is
+bit-identical to the JAX package's super-row gather plus one-hot sub-row
+select (embedding.py:314-318).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..features import FeatureLayout
+from .kernels import embed_concat
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _padded_normal_init(std: float, total_logical: int, pack_factor: int, dim: int):
+    """normal(std) for the real vocab rows, EXACT ZERO for padding rows
+    (mmlrec_tpu/ops/embedding.py:32-57: pad rows are never gathered and
+    must not inflate the L2 penalty)."""
+
+    def init(gen: torch.Generator, shape) -> torch.Tensor:
+        x = std * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+        logical = torch.arange(shape[0])[:, None] * pack_factor + (
+            torch.arange(shape[1]) // dim
+        )[None, :]
+        return torch.where(logical < total_logical, x, torch.zeros(()))
+
+    return init
+
+
+def pack_factor_for(
+    total_rows: int,
+    dim: int,
+    *,
+    pad_to: int = 128,
+    pack_lanes: int = 128,
+    pack_min_rows: int = 1 << 18,
+    packed: bool | None = None,
+) -> int:
+    """Logical rows per physical table row (1 = unpacked); the JAX package's
+    single source of truth for the lane-packing decision."""
+    rows = _round_up(max(total_rows, 1), pad_to)
+    packable = dim < pack_lanes and pack_lanes % dim == 0
+    use_pack = (
+        packable and rows >= pack_min_rows if packed is None else packed and packable
+    )
+    return pack_lanes // dim if use_pack else 1
+
+
+def fused_table_geometry(layout):
+    """(dim, pack_factor, physical_rows) of the fused table a FeatureLayout
+    would build, or None when no fused path exists (non-uniform embedding
+    dims or varlen features)."""
+    if getattr(layout, "varlen_slots", None):
+        return None
+    dims = {int(s.feature.embedding_dim) for s in layout.sparse_slots}
+    if len(dims) != 1:
+        return None
+    dim = dims.pop()
+    total = int(sum(s.feature.vocabulary_size for s in layout.sparse_slots))
+    P = pack_factor_for(total, dim)
+    rows = _round_up(max(total, 1), 128)
+    if P > 1:
+        rows = _round_up(rows, P * 128)
+    return dim, P, rows // P
+
+
+class FusedEmbedding(nn.Module):
+    """One table for many categorical features with a shared dim
+    (mmlrec_tpu/ops/embedding.py:159-318, forward)."""
+
+    def __init__(
+        self,
+        vocab_sizes: Tuple[int, ...],
+        dim: int,
+        *,
+        generator: torch.Generator,
+        init_std: float = 1e-4,
+    ):
+        super().__init__()
+        self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
+        self.dim = int(dim)
+        offsets = np.concatenate([[0], np.cumsum(self.vocab_sizes)[:-1]])
+        self.register_buffer(
+            "offsets", torch.as_tensor(offsets, dtype=torch.int32), persistent=False
+        )
+        total = int(sum(self.vocab_sizes))
+        # physical [rows/P, P*dim]; row-major, so logical row r lives at
+        # physical [r // P, (r % P)*dim : (r % P + 1)*dim]
+        self.pack_factor = pack_factor_for(total, self.dim)
+        rows = _round_up(max(total, 1), 128 * self.pack_factor)
+        shape = (rows // self.pack_factor, self.pack_factor * self.dim)
+        init = _padded_normal_init(init_std, total, self.pack_factor, self.dim)
+        self.table = nn.Parameter(init(generator, shape))
+
+    def embed_concat(self, ids: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+        """ids int32 [B, F] (per-feature local ids), dense [B, Nd] ->
+        [B, F*dim + Nd]: the gathered rows flattened, then the dense block,
+        in one pass (the embed-concat kernel on CUDA)."""
+        flat_ids = ids.to(torch.int32) + self.offsets[None, :]
+        return embed_concat(self.table.view(-1, self.dim), flat_ids, dense)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids int32 [B, F] -> [B, F, dim]."""
+        empty = self.table.new_empty((ids.shape[0], 0))
+        return self.embed_concat(ids, empty).view(ids.shape[0], -1, self.dim)
+
+
+class EmbeddingCollection(nn.Module):
+    """Embedding bank for a FeatureLayout (mmlrec_tpu/ops/embedding.py:
+    321-390).  The port has the fused path only: every reference config
+    uses one global ``emb``, and per-feature tables (non-uniform dims,
+    varlen features) are ROADMAP A5."""
+
+    def __init__(
+        self, layout: FeatureLayout, *, generator: torch.Generator,
+        init_std: float = 1e-4,
+    ):
+        super().__init__()
+        if layout.varlen_slots:
+            raise NotImplementedError(
+                "varlen features are not ported yet (ROADMAP A5)")
+        names = [s.feature.embedding_name for s in layout.sparse_slots]
+        dims = {layout.embedding_specs[n][1] for n in names}
+        if len(dims) > 1:
+            raise NotImplementedError(
+                "per-feature tables of non-uniform embedding dims are not "
+                "ported yet (ROADMAP A5)")
+        self.fused = None
+        if names:
+            self.fused = FusedEmbedding(
+                tuple(layout.embedding_specs[n][0] for n in names),
+                dims.pop(), generator=generator, init_std=init_std,
+            )
+
+    def sparse_embeddings(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids [B, n_sparse] -> [B, n_sparse, D]."""
+        return self.fused(ids)

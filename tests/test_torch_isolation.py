@@ -1,0 +1,93 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, a CPU
+tensor never reaches a CUDA kernel, and the default device is the card."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mmlrec_tpu_torch.ops import kernels as K
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "mmlrec_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmlrec_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mmlrec_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'mmlrec_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('\\n'.join(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.split()
+    assert "mmlrec_tpu_torch.serving" in out and "mmlrec_tpu_torch.convert" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_sources_import_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{f.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+    def no_kernel(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA path")
+
+    monkeypatch.setattr(K, "_lib", no_kernel)
+    monkeypatch.setattr(K, "_launch", no_kernel)
+    K.reset_launch_counts()
+    g = torch.Generator().manual_seed(0)
+    table, dense = torch.randn(16, 4, generator=g), torch.randn(5, 2, generator=g)
+    ids = torch.randint(0, 16, (5, 3), generator=g, dtype=torch.int32)
+    assert K.embed_concat(table, ids, dense).shape == (5, 14)
+    assert K.gated_expert_mix(torch.randn(5, 2, 4), torch.randn(5, 4, 8)).shape == (5, 2, 8)
+    assert K.multihead_score(torch.randn(5, 2, 8), torch.randn(2, 8), torch.zeros(2)).shape == (5, 2)
+    assert K.launch_counts == {k: 0 for k in K.launch_counts}
+
+
+def test_default_device_is_the_card(monkeypatch, tmp_path):
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.serving import ServingBundle, save_serving_bundle
+    from mmlrec_tpu_torch.synthetic import make_config, make_data
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_config(emb=4, n_sparse=3, n_dense=2, hidden=(8,), tower=(4,), gate=(4,))
+    layout, *_ = make_data(cfg, n=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("mmoe", layout, cfg)
+    save_serving_bundle(get_model("mmoe", layout, cfg, device="cpu"), str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingBundle.load(str(tmp_path))
+    assert ServingBundle.load(str(tmp_path), device="cpu").device.type == "cpu"
+
+
+def test_kernel_source_builds_for_hopper():
+    """The build flags target sm_90a and the library is keyed by the source."""
+    flags = " ".join(K.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    path = K.library_path()
+    assert path.parent == ROOT / "build" / "torch_kernels"
+    assert path == K.library_path() and path.suffix == ".so"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert os.path.exists(ROOT / "mmlrec_tpu_torch" / "csrc" / "recsys_kernels.cu")

@@ -1,0 +1,123 @@
+"""The port's kernel wrappers on the CPU, held against the JAX package's
+Pallas kernels (interpret mode) on the same numpy-made inputs.
+
+On the CPU a wrapper runs its kernel's plain version, so these tests pin
+the plain versions that the CUDA kernels are compared with on the card
+(chip_smoke.py).  Tolerances: the embed-concat is pure data movement and
+must match bitwise; the mix and the score sum in another order than XLA,
+so they are held to f32 rounding (rtol 1e-5, atol 1e-6).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmlrec_tpu.ops.pallas_kernels import (
+    fused_embed_concat,
+    gated_expert_mix,
+    multihead_score,
+)
+from mmlrec_tpu_torch.ops import kernels as K
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("V,D,B,F,Nd,block_b", [
+    (64, 8, 40, 5, 3, 16),
+    (32, 4, 37, 3, 2, 16),  # ragged last tile
+    (128, 8, 16, 4, 1, 8),  # a one-column dense tail
+])
+def test_embed_concat_plain_matches_pallas_bitwise(V, D, B, F, Nd, block_b):
+    rng = np.random.default_rng(V + B)
+    table = rng.normal(0, 0.3, (V, D)).astype(np.float32)
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    dense = rng.normal(0, 1, (B, Nd)).astype(np.float32)
+    want = fused_embed_concat(jnp.asarray(table), jnp.asarray(ids),
+                              jnp.asarray(dense), block_b=block_b, interpret=True)
+    got = K.embed_concat(torch.from_numpy(table), torch.from_numpy(ids),
+                         torch.from_numpy(dense))
+    assert got.shape == (B, F * D + Nd)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_embed_concat_out_of_range_ids_follow_jnp_take():
+    """The JAX forward gathers with jnp.take's fill mode: an id in [-V, 0)
+    wraps once, any other out-of-range id gives a NaN row."""
+    V, D, Nd = 16, 4, 2
+    rng = np.random.default_rng(5)
+    table = rng.normal(0, 0.3, (V, D)).astype(np.float32)
+    ids = np.array([[0, -1, V - 1], [-V, -V - 1, V], [3, V + 7, -2**31]], np.int32)
+    dense = rng.normal(0, 1, (3, Nd)).astype(np.float32)
+    want = np.asarray(jnp.concatenate(
+        [jnp.take(jnp.asarray(table), jnp.asarray(ids), axis=0).reshape(3, -1),
+         jnp.asarray(dense)], axis=1))
+    got = K.embed_concat(torch.from_numpy(table), torch.from_numpy(ids),
+                         torch.from_numpy(dense)).numpy()
+    nan = np.isnan(want)
+    assert nan.any() and not nan.all()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+@pytest.mark.parametrize("B,T,E,D", [(24, 3, 4, 16), (33, 2, 4, 128)])
+def test_gated_expert_mix_plain_matches_pallas(B, T, E, D):
+    rng = np.random.default_rng(B)
+    logits = rng.normal(0, 2, (B, T, E)).astype(np.float32)
+    experts = rng.normal(0, 1, (B, E, D)).astype(np.float32)
+    want = gated_expert_mix(jnp.asarray(logits), jnp.asarray(experts),
+                            block_b=8, interpret=True)
+    got = K.gated_expert_mix(torch.from_numpy(logits), torch.from_numpy(experts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,T,H", [(32, 4, 8), (37, 2, 64)])
+def test_multihead_score_plain_matches_pallas(B, T, H):
+    rng = np.random.default_rng(H)
+    tower = rng.normal(0, 1, (B, T, H)).astype(np.float32)
+    w = rng.normal(0, 0.3, (T, H)).astype(np.float32)
+    b = rng.normal(0, 0.5, (T,)).astype(np.float32)
+    want = multihead_score(jnp.asarray(tower), jnp.asarray(w), jnp.asarray(b),
+                           block_b=16, interpret=True)
+    got = K.multihead_score(torch.from_numpy(tower), torch.from_numpy(w),
+                            torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_multihead_score_mask_is_prediction_heads():
+    """With a binary/regression mask the score is the JAX PredictionHeads
+    epilogue (mmlrec_tpu/ops/layers.py:366-369) after the tower's final
+    StackedDense."""
+    from mmlrec_tpu.ops.layers import PredictionHeads
+
+    B, T, H = 20, 3, 8
+    rng = np.random.default_rng(0)
+    tower = rng.normal(0, 1, (B, T, H)).astype(np.float32)
+    w = rng.normal(0, 0.3, (T, H)).astype(np.float32)
+    b = rng.normal(0, 0.5, (T,)).astype(np.float32)
+    types = ("binary", "regression", "binary")
+    logits = jnp.einsum("bki,kio->bko", jnp.asarray(tower), jnp.asarray(w)[..., None])[..., 0]
+    want = PredictionHeads(task_types=types).apply({"params": {"bias": jnp.asarray(b)}}, logits)
+    binary = torch.tensor([1.0, 0.0, 1.0])
+    got = K.multihead_score(torch.from_numpy(tower), torch.from_numpy(w),
+                            torch.from_numpy(b), binary)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_wrappers_reject_bad_inputs():
+    t = torch.zeros(8, 4)
+    with pytest.raises(TypeError):
+        K.embed_concat(t, torch.zeros(2, 3, dtype=torch.int64), torch.zeros(2, 1))
+    with pytest.raises(ValueError):
+        K.embed_concat(t, torch.zeros(2, 3, dtype=torch.int32), torch.zeros(3, 1))
+    with pytest.raises(ValueError):
+        K.gated_expert_mix(torch.zeros(2, 2, 4), torch.zeros(2, 3, 8))
+    with pytest.raises(ValueError):
+        K.multihead_score(torch.zeros(2, 2, 4), torch.zeros(2, 5), torch.zeros(2))
+    # a device that is neither the CPU nor CUDA never reaches a kernel
+    meta = torch.empty(2, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        K.gated_expert_mix(meta, torch.empty(2, 4, 8, device="meta"))
