@@ -1,10 +1,11 @@
-"""Load the JAX package's flax variables into a port module.
+"""Load the JAX package's flax variables and training state into the port.
 
 The port names its parameters as the flax modules do, so the flax path
 ``embeddings/fused/table`` is the state-dict key ``embeddings.fused.table``
 and every leaf keeps its layout (``[K, in, out]`` kernels, the lane-packed
-``[rows/P, 128]`` table).  The tree is given as numpy arrays (or anything
-``np.asarray`` takes); this module imports no JAX.
+``[rows/P, 128]`` table, the stacked ``[2Vp, 128]`` container).  Trees are
+given as numpy arrays (or anything ``np.asarray`` takes); this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -52,5 +53,56 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         arrays[key] = a
     with torch.no_grad():
         for key, p in params.items():
-            p.copy_(torch.from_numpy(np.ascontiguousarray(arrays[key])))
+            p.copy_(torch.as_tensor(np.array(arrays[key])))
     return model
+
+
+def _flat_names(tree: Mapping) -> Dict[str, np.ndarray]:
+    return {k.replace("/", "."): np.asarray(v) for k, v in _flatten(tree).items()}
+
+
+def load_jax_train_state(trainer, params: Mapping, table_opt: Mapping,
+                         opt_state: Mapping):
+    """Carry a JAX two-phase Trainer's state into a port ``Trainer``.
+
+    * ``params``: the flax params tree (the fused table included, fat for
+      the stacked container, whose bottom half holds the moments);
+    * ``table_opt``: ``{"count": ...}``, plus ``"monu"`` ([Vp, W] f32
+      packed moments) for the split container;
+    * ``opt_state``: the optax Adam state of every other parameter,
+      ``{"count": ..., "mu": tree, "nu": tree}`` with the trees shaped as
+      ``params`` without the table (an ``optax.flatten`` state unravelled).
+
+    Returns the trainer, ready to continue training from that state."""
+    from .train.sparse_embedding import SparseAdamPackedState
+
+    load_jax_variables(trainer.model, {"params": params})
+    trainer.init_state()
+    dev = trainer.device
+
+    def tensor(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    count = tensor(np.asarray(table_opt["count"]).reshape(()), torch.int32)
+    if trainer.table_container == "stacked":
+        trainer.table_opt = trainer.table_opt._replace(count=count)
+    else:
+        monu = np.asarray(table_opt["monu"])
+        if monu.shape != tuple(trainer.table.shape) or monu.dtype != np.float32:
+            raise ValueError(f"monu: got {monu.dtype}{list(monu.shape)}, expected "
+                             f"float32{list(trainer.table.shape)}")
+        trainer.table_opt = SparseAdamPackedState(monu=tensor(monu), count=count)
+    rest = trainer.rest_params()
+    moments = {}
+    for which in ("mu", "nu"):
+        flat = _flat_names(opt_state[which])
+        if set(flat) != set(rest):
+            raise ValueError(f"opt_state[{which!r}] leaves {sorted(flat)} do not "
+                             f"match the parameters {sorted(rest)}")
+        for k, p in rest.items():
+            if flat[k].shape != tuple(p.shape):
+                raise ValueError(f"opt_state[{which!r}][{k}]: shape {flat[k].shape}")
+        moments[which] = {k: tensor(flat[k]) for k in rest}
+    trainer.opt_state = trainer.opt_state._replace(
+        count=tensor(np.asarray(opt_state["count"]).reshape(()), torch.int32), **moments)
+    return trainer

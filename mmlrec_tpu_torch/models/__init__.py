@@ -27,10 +27,11 @@ def get_model(
     generator: Optional[torch.Generator] = None,
     device: Union[str, torch.device, None] = None,
 ) -> RecModel:
-    """Build ``model_name`` with weights drawn from ``generator`` (seed 0 by
-    default) and place it on ``device``, in eval mode: the port serves and
-    does not train yet (ROADMAP A3).  ``device=None`` means the card, and
-    raises when there is none rather than run on the CPU quietly."""
+    """Build ``model_name`` with weights drawn from ``generator`` (a CPU
+    generator of seed 0 by default; a CUDA generator draws on the card) and
+    place it on ``device``, in eval mode (``train.Trainer`` switches it to
+    training for its steps).  ``device=None`` means the card, and raises
+    when there is none rather than run on the CPU quietly."""
     name = model_name.lower()
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(

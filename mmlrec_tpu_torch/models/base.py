@@ -26,6 +26,11 @@ from ..ops.layers import PredictionHeads
 class RecModel(nn.Module):
     """Base of the port's model families."""
 
+    # Per-model ``l2_reg_dnn`` inclusion set (mmlrec_tpu/models/base.py:
+    # 42-49): top-level parameter-group prefixes whose ``kernel`` leaves are
+    # penalized; () means embeddings only.
+    REG_DNN_PREFIXES: Tuple[str, ...] = ()
+
     def __init__(
         self,
         layout: FeatureLayout,
@@ -42,11 +47,10 @@ class RecModel(nn.Module):
         if extra.get("use_wide_linear"):
             raise NotImplementedError(
                 "use_wide_linear is not ported yet (ROADMAP A5)")
-        if (str(extra.get("table_container", "split")) == "stacked"
-                or int(extra.get("stacked_shards", 1) or 1) > 1):
+        if int(extra.get("stacked_shards", 1) or 1) > 1:
             raise NotImplementedError(
-                "the stacked table container (dual_container / dual_shards) "
-                "is a training layout, not ported yet (ROADMAP A4)")
+                "the shard-major stacked container (stacked_shards > 1) is "
+                "not ported yet (ROADMAP A9)")
 
     # ---- config shortcuts -------------------------------------------------
     @property
@@ -82,14 +86,24 @@ class RecModel(nn.Module):
 
     # ---- shared submodules ------------------------------------------------
     def _make_embeddings(self, generator: torch.Generator) -> EmbeddingCollection:
+        extra = self.mc.extra
         return EmbeddingCollection(
-            self.layout, generator=generator, init_std=self.init_std)
+            self.layout, generator=generator, init_std=self.init_std,
+            # "stacked": the two-phase moment container folded into the
+            # table param (mmlrec_tpu/models/base.py:95-104)
+            dual_container=str(extra.get("table_container", "split")) == "stacked",
+            dual_shards=int(extra.get("stacked_shards", 1) or 1),
+        )
 
-    def embed_inputs(self, ids: torch.Tensor, dense: torch.Tensor):
+    def embed_inputs(self, ids: torch.Tensor, dense: torch.Tensor, rows=None):
         """Return (dnn_input [B, input_dim], sparse_emb [B, F, D_emb] or None):
         flattened sparse embeddings ++ dense values (reference
         basemodel.py:461-487, model/utils.py:434-446), built by one
-        embed-concat kernel; ``sparse_emb`` is a view into ``dnn_input``."""
+        embed-concat kernel; ``sparse_emb`` is a view into ``dnn_input``.
+
+        ``rows`` [B, F, D] are the two-phase step's injected rows: then
+        ``dnn_input = cat(rows.flatten(1), dense)`` in plain ops,
+        differentiable w.r.t. the rows, and the table is not read."""
         fused = self.embeddings.fused
         n_dense = self.layout.num_dense_dims
         if fused is None:
@@ -99,6 +113,9 @@ class RecModel(nn.Module):
         n_sparse = len(self.layout.sparse_slots)
         if not n_dense:
             dense = dense.new_empty((dense.shape[0], 0))
+        if rows is not None:
+            rows = self.embeddings.sparse_embeddings(ids, rows)
+            return torch.cat([rows.flatten(1), dense], dim=1), rows
         dnn_input = fused.embed_concat(ids[:, :n_sparse], dense)
         sparse_emb = dnn_input[:, : n_sparse * fused.dim].unflatten(1, (n_sparse, fused.dim))
         return dnn_input, sparse_emb

@@ -18,6 +18,11 @@ class MMOE(RecModel):
     sigmoid.  The stacked layers between them are plain matrix products.
     """
 
+    # reference mmoe.py:36-38 (gate_dnn), :49-51 (tower_dnn), :59-62
+    # (expert_dnn + gate/tower final layers); mmlrec_tpu/models/mmoe.py:22
+    REG_DNN_PREFIXES = ("gate_dnn", "tower_dnn", "expert_dnn",
+                        "gate_final", "tower_final")
+
     def __init__(self, layout, cfg, *, generator: torch.Generator, init_std: float = 1e-4):
         super().__init__(layout, cfg, generator=generator, init_std=init_std)
         mc, T = self.mc, self.num_tasks
@@ -45,8 +50,11 @@ class MMOE(RecModel):
             T, tower_in, 1, generator=generator, use_bias=False)
         self.out = self.make_heads()
 
-    def forward(self, ids, dense, domain_mask=None, *, return_intermediates: bool = False):
-        dnn_input, _ = self.embed_inputs(ids, dense)
+    def forward(self, ids, dense, domain_mask=None, *, rows=None,
+                return_intermediates: bool = False):
+        """``rows`` [B, F, D]: injected embedding rows (the two-phase
+        training step), used instead of the table."""
+        dnn_input, _ = self.embed_inputs(ids, dense, rows)
         expert_outs = self.expert_dnn(dnn_input).contiguous()  # [B, E, dim]
         gate_hidden = self.gate_dnn(dnn_input) if self.gate_dnn is not None else dnn_input
         gate_logits = self.gate_final(gate_hidden).contiguous()  # [B, T, E]

@@ -1,0 +1,152 @@
+"""Build, load and launch the port's hand-written CUDA libraries.
+
+Each ``csrc/*.cu`` file is one shared library with a plain C interface,
+compiled at first use with ``nvcc`` for ``sm_90a`` into
+``build/torch_kernels/`` of the checkout, keyed by a hash of its source, and
+loaded with ctypes.  Nothing is built or loaded at import: the CPU tests
+import every module of the package without nvcc or a card.
+
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them: the build counts against the time of a fresh checkout's first run.
+
+Every wrapper adds one to ``launch_counts[name]`` where it launches its
+kernel, and nowhere else, so a run can show which kernels its path went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+#: launches of each kernel since the last reset_launch_counts()
+launch_counts: Dict[str, int] = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+class CudaLibrary:
+    """One ``csrc/<source>`` file built into one ctypes-loaded library.
+
+    ``signatures`` maps each exported C function to its ctypes argument
+    types; every one returns an ``int`` CUDA error code (0 = launched).
+    """
+
+    def __init__(self, source: str, signatures: Dict[str, List]):
+        self.source = CSRC / source
+        self.signatures = signatures
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def path(self) -> Path:
+        key = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.source.stem}_{key}.so"
+
+    def _start(self) -> Optional[subprocess.Popen]:
+        """Start nvcc for this source unless its build exists."""
+        out = self.path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        proc.tmp = tmp  # type: ignore[attr-defined]
+        return proc
+
+    def _finish(self, proc: Optional[subprocess.Popen]) -> Path:
+        out = self.path()
+        if proc is None:
+            return out
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {self.source.name} ({proc.returncode}):\n{stderr}")
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(proc.tmp, out)  # atomic: a concurrent build sees all or nothing
+        return out
+
+    def build(self) -> Path:
+        """Compile the source unless its build exists; the compiler's output
+        (ptxas registers and shared memory) is kept beside it as ``.log``."""
+        return self._finish(self._start())
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            for name, argtypes in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mmlrec_error_string.argtypes = [ctypes.c_int]
+            lib.mmlrec_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+def build_all(libraries: Iterable[CudaLibrary]) -> List[Path]:
+    """Build every library that is not built yet, one nvcc each, all
+    started together."""
+    libraries = list(libraries)
+    procs = [lib._start() for lib in libraries]
+    return [lib._finish(p) for lib, p in zip(libraries, procs)]
+
+
+def on_cuda(name: str, *tensors: torch.Tensor, forward_only: bool = True) -> bool:
+    """False for all-CPU inputs (plain version), True for inputs on one CUDA
+    device (kernel); anything else raises.  ``forward_only`` kernels refuse
+    inputs that require grad while grad mode is on."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{name}: inputs on {sorted(map(str, devices))}; they must all "
+            "lie on the CPU or on one CUDA device")
+    if forward_only and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is forward only; run under "
+            "torch.no_grad() (its backward is ROADMAP A3)")
+    return True
+
+
+def launch(library: CudaLibrary, name: str, fn, *args, device: torch.device) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream, raise if
+    the launch was refused, and count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    if code != 0:
+        msg = library.load().mmlrec_error_string(code).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({code})")
+    launch_counts[name] += 1
+
+
+def check_dtype(name: str, t: torch.Tensor, dtypes: Sequence[torch.dtype], what: str):
+    if t.dtype not in tuple(dtypes):
+        raise TypeError(f"{name}: {what} must be one of {list(dtypes)}, got {t.dtype}")

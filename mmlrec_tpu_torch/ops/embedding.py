@@ -4,7 +4,9 @@ All sparse features that share an embedding dim live in ONE fused table with
 per-feature row offsets, so the sparse side of a batch is one gather.  The
 parameter keeps the JAX package's layout so that weights copy across
 unchanged: ``[rows, D]`` unpacked, or lane-packed ``[rows/P, 128]`` from
-2^18 fused rows on (``pack_factor_for``), with zeroed pad rows.
+2^18 fused rows on (``pack_factor_for``), with zeroed pad rows.  The
+two-phase step's stacked container (``dual_container``) is ``[2Vp, W]``:
+the table in the top half, its packed Adam moments in the bottom half.
 
 Lane packing is a TPU layout only.  A row-major ``[rows/P, P*D]`` array is
 the ``[rows, D]`` array in memory, so the port gathers from
@@ -32,14 +34,16 @@ def _round_up(x: int, m: int) -> int:
 def _padded_normal_init(std: float, total_logical: int, pack_factor: int, dim: int):
     """normal(std) for the real vocab rows, EXACT ZERO for padding rows
     (mmlrec_tpu/ops/embedding.py:32-57: pad rows are never gathered and
-    must not inflate the L2 penalty)."""
+    must not inflate the L2 penalty).  Logical row r lives at physical row
+    r // P, lanes (r % P) * dim onwards, so the pads are the tail of the
+    flat ``[rows * P, dim]`` view; the draw happens on the generator's
+    device."""
 
     def init(gen: torch.Generator, shape) -> torch.Tensor:
-        x = std * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
-        logical = torch.arange(shape[0])[:, None] * pack_factor + (
-            torch.arange(shape[1]) // dim
-        )[None, :]
-        return torch.where(logical < total_logical, x, torch.zeros(()))
+        x = std * torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                              device=gen.device)
+        x.view(-1, dim)[total_logical:] = 0.0
+        return x
 
     return init
 
@@ -92,6 +96,8 @@ class FusedEmbedding(nn.Module):
         *,
         generator: torch.Generator,
         init_std: float = 1e-4,
+        dual_container: bool = False,
+        dual_shards: int = 1,
     ):
         super().__init__()
         self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
@@ -107,7 +113,27 @@ class FusedEmbedding(nn.Module):
         rows = _round_up(max(total, 1), 128 * self.pack_factor)
         shape = (rows // self.pack_factor, self.pack_factor * self.dim)
         init = _padded_normal_init(init_std, total, self.pack_factor, self.dim)
-        self.table = nn.Parameter(init(generator, shape))
+        if dual_shards != 1:
+            raise NotImplementedError(
+                "the shard-major stacked container (stacked_shards > 1) is not "
+                "ported yet (ROADMAP A9)")
+        self.dual_container = bool(dual_container)
+        if self.dual_container:
+            # table_container="stacked" (embedding.py:245-276): [2Vp, W],
+            # table rows in [0, Vp) drawn exactly as the split table, the
+            # two-phase step's packed (mu, nu) container in [Vp, 2Vp) zeroed
+            fat = torch.zeros((2 * shape[0], shape[1]), dtype=torch.float32,
+                              device=generator.device)
+            fat[: shape[0]] = init(generator, shape)
+            self.table = nn.Parameter(fat)
+        else:
+            self.table = nn.Parameter(init(generator, shape))
+
+    @property
+    def phys_rows(self) -> int:
+        """Physical table rows (Vp): the top half of a stacked container."""
+        rows = self.table.shape[0]
+        return rows // 2 if self.dual_container else rows
 
     def embed_concat(self, ids: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
         """ids int32 [B, F] (per-feature local ids), dense [B, Nd] ->
@@ -130,7 +156,7 @@ class EmbeddingCollection(nn.Module):
 
     def __init__(
         self, layout: FeatureLayout, *, generator: torch.Generator,
-        init_std: float = 1e-4,
+        init_std: float = 1e-4, dual_container: bool = False, dual_shards: int = 1,
     ):
         super().__init__()
         if layout.varlen_slots:
@@ -147,8 +173,13 @@ class EmbeddingCollection(nn.Module):
             self.fused = FusedEmbedding(
                 tuple(layout.embedding_specs[n][0] for n in names),
                 dims.pop(), generator=generator, init_std=init_std,
+                dual_container=dual_container, dual_shards=dual_shards,
             )
 
-    def sparse_embeddings(self, ids: torch.Tensor) -> torch.Tensor:
-        """ids [B, n_sparse] -> [B, n_sparse, D]."""
+    def sparse_embeddings(self, ids: torch.Tensor, rows=None) -> torch.Tensor:
+        """ids [B, n_sparse] -> [B, n_sparse, D].  Injected ``rows`` [B, F, D]
+        (the two-phase step's pre-gathered rows, embedding.py:377-383) are
+        used verbatim and the table is not touched."""
+        if rows is not None:
+            return rows
         return self.fused(ids)

@@ -7,7 +7,8 @@
   U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for kernel and bias.
 
 Kernels keep the JAX layout ``[..., in, out]``; fan_in is ``shape[-2]``.
-Each init draws on the host from an explicit ``torch.Generator``.
+Each init draws from an explicit ``torch.Generator``, on its device (the
+host by default; a CUDA generator draws a full-width table on the card).
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ import torch
 
 def normal_init(std: float = 1e-4):
     def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-        return std * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+        return std * torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                           device=gen.device)
 
     return init
 
 
 def _uniform(gen, shape, bound):
-    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32, device=gen.device)
     return (2.0 * u - 1.0) * bound
 
 

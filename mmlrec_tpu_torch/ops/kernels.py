@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the serving path, with their plain versions.
+"""Hand-written CUDA kernels of the MMoE forward, with their plain versions.
 
 The counterpart of ``mmlrec_tpu/ops/pallas_kernels.py``.  Each of the three
 functions below is a wrapper that
@@ -12,125 +12,66 @@ functions below is a wrapper that
   ``torch.empty``, launches on the current stream, and adds one to
   ``launch_counts[name]`` per launch.
 
-The kernels are forward only: a CUDA call whose inputs require grad while
-grad mode is on raises NotImplementedError (backward kernels are ROADMAP
-A3).
+``gated_expert_mix`` and ``multihead_score`` are differentiable on the card:
+a ``torch.autograd.Function`` launches the kernel forward and runs the named
+plain backward (``*_backward``) on the saved tensors, as the JAX package's
+training path computes this math with XLA ops (the Pallas kernels are
+forward only).  ``embed_concat`` stays forward only: a CUDA call whose
+inputs require grad while grad mode is on raises NotImplementedError (its
+backward is ROADMAP A3; the two-phase step injects the rows instead).
 
-The shared library is built at first use with ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` of the checkout, keyed by a hash of the source, and
-loaded with ctypes.  Nothing is built or loaded at import.
+The shared library is built at first use (``cuda_build``), keyed by a hash
+of the source, and loaded with ctypes.  Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "recsys_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+from . import cuda_build
+from .cuda_build import (  # noqa: F401  (re-exported)
+    BUILD_DIR,
+    NVCC_FLAGS,
+    launch_counts,
+    reset_launch_counts,
 )
 
-#: launches of each kernel since the last reset_launch_counts()
-launch_counts = {"embed_concat": 0, "gated_expert_mix": 0, "multihead_score": 0}
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = cuda_build.CudaLibrary("recsys_kernels.cu", {
+    "mmlrec_embed_concat": [_p, _ll, _i, _p, _i, _i, _p, _i, _p, _p],
+    "mmlrec_gated_expert_mix": [_p, _p, _i, _i, _i, _i, _p, _p],
+    "mmlrec_multihead_score": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
+})
+launch_counts.update(embed_concat=0, gated_expert_mix=0, multihead_score=0)
 
-_LIB: Optional[ctypes.CDLL] = None
 _EMBED_ROWS_PER_BLOCK = 16  # kEmbedRowsPerBlock in the CUDA source
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 # ----------------------------------------------------------------------
 # build and load
 # ----------------------------------------------------------------------
 def library_path() -> Path:
-    key = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"librecsys_kernels_{key}.so"
-
-
-def build_kernels() -> Path:
-    """Compile ``recsys_kernels.cu`` unless this source's build exists.
-
-    Returns the library's path; the compiler's output (ptxas register and
-    shared-memory report included) is kept beside it as ``.log``.
-    """
-    out = library_path()
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
+    return LIBRARY.path()
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_kernels()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mmlrec_embed_concat.argtypes = [p, ll, i, p, i, i, p, i, p, p]
-        lib.mmlrec_gated_expert_mix.argtypes = [p, p, i, i, i, i, p, p]
-        lib.mmlrec_multihead_score.argtypes = [p, p, p, p, i, i, i, p, p]
-        for fn in (lib.mmlrec_embed_concat, lib.mmlrec_gated_expert_mix,
-                   lib.mmlrec_multihead_score):
-            fn.restype = ctypes.c_int
-        lib.mmlrec_error_string.argtypes = [i]
-        lib.mmlrec_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    return LIBRARY.load()
 
 
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    """False for all-CPU inputs (plain version), True for inputs on one CUDA
-    device (kernel); anything else raises."""
-    devices = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devices):
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(
-            f"{name}: inputs on {sorted(map(str, devices))}; they must all "
-            "lie on the CPU or on one CUDA device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; run under "
-            "torch.inference_mode() (backward kernels are ROADMAP A3)")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the CUDA kernel needs contiguous inputs")
-    return True
+def _on_cuda(name: str, *tensors: torch.Tensor, forward_only: bool = True) -> bool:
+    on = cuda_build.on_cuda(name, *tensors, forward_only=forward_only)
+    if on and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the CUDA kernel needs contiguous inputs")
+    return on
 
 
 def _launch(name: str, fn, *args, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*args, stream)
-    if code != 0:
-        msg = _lib().mmlrec_error_string(code).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({code})")
-    launch_counts[name] += 1
+    cuda_build.launch(LIBRARY, name, fn, *args, device=device)
 
 
 def _check_dtype(name: str, t: torch.Tensor, dtype: torch.dtype, what: str):
@@ -225,19 +166,49 @@ def gated_expert_mix(gate_logits: torch.Tensor, experts: torch.Tensor):
         raise ValueError(
             f"{name}: experts {tuple(experts.shape)} do not match logits "
             f"{tuple(gate_logits.shape)}")
-    if not _on_cuda(name, gate_logits, experts):
+    if not _on_cuda(name, gate_logits, experts, forward_only=False):
         return gated_expert_mix_plain(gate_logits, experts)
     if E < 1 or 4 * T * E > _SMEM_LIMIT:
         raise ValueError(f"{name}: unsupported T={T}, E={E}")
+    if torch.is_grad_enabled() and (gate_logits.requires_grad or experts.requires_grad):
+        return _GatedExpertMix.apply(gate_logits, experts)
+    return _gated_expert_mix_cuda(gate_logits, experts)
+
+
+def _gated_expert_mix_cuda(gate_logits, experts):
+    B, T, E = gate_logits.shape
     D = experts.shape[2]
     out = torch.empty((B, T, D), dtype=torch.float32, device=experts.device)
     if out.numel() == 0:
         return out
     lib = _lib()
-    _launch(name, lib.mmlrec_gated_expert_mix, gate_logits.data_ptr(),
+    _launch("gated_expert_mix", lib.mmlrec_gated_expert_mix, gate_logits.data_ptr(),
             experts.data_ptr(), B, T, E, D, out.data_ptr(),
             device=experts.device)
     return out
+
+
+def gated_expert_mix_backward(gate_logits, experts, grad_out):
+    """Plain backward of the mix: (d_logits [B, T, E], d_experts [B, E, D])
+    from the saved inputs and the output's cotangent [B, T, D]."""
+    p = torch.softmax(gate_logits, dim=-1)
+    d_experts = torch.einsum("bte,btd->bed", p, grad_out)
+    d_p = torch.einsum("btd,bed->bte", grad_out, experts)
+    d_logits = p * (d_p - (d_p * p).sum(dim=-1, keepdim=True))
+    return d_logits, d_experts
+
+
+class _GatedExpertMix(torch.autograd.Function):
+    """The mix kernel forward, ``gated_expert_mix_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, gate_logits, experts):
+        ctx.save_for_backward(gate_logits, experts)
+        return _gated_expert_mix_cuda(gate_logits, experts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return gated_expert_mix_backward(*ctx.saved_tensors, grad_out)
 
 
 # ----------------------------------------------------------------------
@@ -277,13 +248,46 @@ def multihead_score(
         raise ValueError(
             f"{name}: weights {tuple(weights.shape)}, bias {tuple(bias.shape)}"
             f", binary {tuple(binary.shape)} do not match tower {(B, T, H)}")
-    if not _on_cuda(name, tower, weights, bias, binary):
+    if not _on_cuda(name, tower, weights, bias, binary, forward_only=False):
         return multihead_score_plain(tower, weights, bias, binary)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (tower, weights, bias, binary)):
+        return _MultiheadScore.apply(tower, weights, bias, binary)
+    return _multihead_score_cuda(tower, weights, bias, binary)
+
+
+def _multihead_score_cuda(tower, weights, bias, binary):
+    B, T, H = tower.shape
     out = torch.empty((B, T), dtype=torch.float32, device=tower.device)
     if out.numel() == 0:
         return out
     lib = _lib()
-    _launch(name, lib.mmlrec_multihead_score, tower.data_ptr(),
+    _launch("multihead_score", lib.mmlrec_multihead_score, tower.data_ptr(),
             weights.data_ptr(), bias.data_ptr(), binary.data_ptr(), B, T, H,
             out.data_ptr(), device=tower.device)
     return out
+
+
+def multihead_score_backward(tower, weights, bias, binary, grad_out):
+    """Plain backward of the score: (d_tower [B, T, H], d_weights [T, H],
+    d_bias [T]) from the saved inputs and the output's cotangent [B, T];
+    ``binary`` is a constant mask."""
+    z = torch.einsum("bth,th->bt", tower, weights) + bias[None]
+    s = torch.sigmoid(z)
+    d_z = grad_out * (binary * (s * (1.0 - s)) + (1.0 - binary))
+    d_tower = d_z[..., None] * weights[None]
+    d_weights = torch.einsum("bt,bth->th", d_z, tower)
+    return d_tower, d_weights, d_z.sum(dim=0)
+
+
+class _MultiheadScore(torch.autograd.Function):
+    """The score kernel forward, ``multihead_score_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, tower, weights, bias, binary):
+        ctx.save_for_backward(tower, weights, bias, binary)
+        return _multihead_score_cuda(tower, weights, bias, binary)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*multihead_score_backward(*ctx.saved_tensors, grad_out), None)

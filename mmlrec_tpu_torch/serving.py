@@ -134,6 +134,12 @@ def save_serving_bundle(model, path: str) -> Dict:
     ``model`` is a port model (``get_model``).  Returns the bundle's meta
     dict, in the JAX bundle's schema.
     """
+    fused = model.embeddings.fused
+    if fused is not None and fused.dual_container:
+        raise NotImplementedError(
+            "a stacked-container model holds its Adam moments in the bottom "
+            "half of the table; exporting it needs the moment half stripped "
+            "(ROADMAP A7)")
     cfg, layout = model.cfg, model.layout
     mc, dc = cfg.model_config, cfg.data_config
     needs_mask = bool(mc.masked_loss) and mc.task_name in ("msl", "mtmsl")

@@ -1,0 +1,115 @@
+"""Where the two-phase training step's time goes on the card.
+
+Builds the production-vocabulary step (MMoE mtl, 16 sparse x 2,500,000 ids
+x emb 32 = 40 M logical rows, P = 4, 4 dense, experts (256, 128), gate
+(64,), tower (64,), batch 4096, bf16 packed moments, in-step metadata),
+with its weights drawn on the card, warms it up, and traces ``--steps``
+steps with torch.profiler.  Prints, per step: the device time by kernel
+(the largest first), the number of kernel launches, the device time in
+all, the wall time and the host's largest self CPU times, and the device
+numbers as one JSON line last.
+
+    python -m mmlrec_tpu_torch.tools.profile_step [--container stacked|split]
+        [--steps 10] [--trace step_trace.json]
+
+Needs one CUDA device; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+VOCAB, FEATURES, EMB, DENSE, BATCH = 2_500_000, 16, 32, 4, 4096
+
+
+def build_trainer(container: str):
+    from ..features import DenseFeat, FeatureLayout, SparseFeat
+    from ..models import get_model
+    from ..synthetic import make_config
+    from ..train import Trainer
+    from ..utils.seeding import make_generator
+
+    cfg = make_config(task_name="mtl", model_name="mmoe", emb=EMB, n_sparse=FEATURES,
+                      n_dense=DENSE, hidden=(256, 128), tower=(64,), gate=(64,),
+                      batch_size=BATCH, two_phase_embedding=True, table_update="pallas",
+                      table_opt_dtype="bfloat16", device_metadata=True,
+                      table_container=container,
+                      monu_gather="pallas" if container == "split" else "xla")
+    layout = FeatureLayout([SparseFeat(f"s{i}", VOCAB, EMB) for i in range(FEATURES)]
+                           + [DenseFeat(f"d{i}", 1) for i in range(DENSE)])
+    model = get_model("mmoe", layout, cfg, generator=make_generator(0, "cuda"), device="cuda")
+    return Trainer(model, seed=0, device="cuda").compile()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--container", default="stacked", choices=("stacked", "split"))
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device is available", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = build_trainer(args.container)
+    rng = np.random.default_rng(40)
+    batches = []
+    for _ in range(args.steps + 5):
+        ids = rng.integers(0, VOCAB, (BATCH, FEATURES)).astype(np.int32)
+        dense = rng.random((BATCH, DENSE)).astype(np.float32)
+        y = (rng.random((BATCH, 2)) < 0.3).astype(np.float32)
+        batches.append([torch.from_numpy(a).cuda() for a in (ids, dense, y)]
+                       + [None, torch.ones(BATCH, device="cuda")])
+    for b in batches[:5]:
+        tr.train_step(*b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[5:]:
+            tr.train_step(*b)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    by_kernel = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name][0] += e.time_range.elapsed_us()
+            by_kernel[e.name][1] += 1
+    steps = args.steps
+    busy_us = sum(v[0] for v in by_kernel.values()) / steps
+    launches = sum(v[1] for v in by_kernel.values()) / steps
+    card = torch.cuda.get_device_name(0)
+    print(f"{args.container}: {steps} steps, wall {wall_s / steps * 1e3:.3f} ms per step, "
+          f"device {busy_us / 1e3:.3f} ms per step ({busy_us / 1e3 / (wall_s / steps * 1e3):.1%} "
+          f"busy), {launches:.0f} device launches per step [{card}]")
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in rows[:30]:
+        print(f"  {us / steps:9.1f} us  {n / steps:5.1f}x  {name[:110]}")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    print(f"  host: {sum(e.count for e in host if e.key.startswith('aten::')) / steps:.0f} "
+          f"aten calls per step; the largest self CPU times per step:")
+    for e in host[:15]:
+        print(f"  {e.self_cpu_time_total / steps:9.1f} us  {e.count / steps:5.1f}x  {e.key[:110]}")
+    print(json.dumps({
+        "container": args.container, "steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
+        "device_ms_per_step": busy_us / 1e3, "launches_per_step": launches,
+        "kernels": [{"name": name, "us_per_step": us / steps, "per_step": n / steps}
+                    for name, (us, n) in rows],
+        "device": card,
+    }))
+    return 0 if busy_us > 0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,455 @@
+"""Trainer of the port: the two-phase SparseAdam step of the fused embedding
+(the port of ``mmlrec_tpu/train/trainer.py``, its device-metadata two-phase
+step, trainer.py:745-962, and the streaming fit around it).
+
+One step, all on the model's device:
+
+1. dedup metadata of the batch's ids from one stable sort
+   (``device_step_metadata``);
+2. phase 1: the touched rows are gathered once, NOT differentiated: with
+   the stacked container each (table, moment) row pair comes from one
+   launch of the dual gather (``rows_gather_dual``);
+3. phase 2: the loss forward and backward w.r.t. the dense parameters and
+   the gathered rows, injected into the model (``rows=``);
+4. SparseAdam of the touched rows (``two_phase_sparse_adam_unique``: one
+   write launch per step, ``rows_write_dual`` or ``rows_write``) and Adam
+   of the dense parameters.
+
+No ``[V, D]`` gradient or moment exists, and nothing in the step reads a
+device value on the host.
+
+The configurations ported are the production recipe and its split twin:
+``two_phase_embedding``, ``table_update: "pallas"``, ``table_opt_dtype:
+"bfloat16"``, ``device_metadata: true``, ``table_container`` "stacked" or
+"split" (``monu_gather`` "xla" or "pallas").  Every other knob raises
+NotImplementedError naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import ExperimentConfig
+from ..models.base import RecModel
+from ..ops.embedding import pack_factor_for
+from ..ops.row_gather import rows_gather_dual
+from .losses import l2_regularization, multitask_loss
+from .optimizers import get_optimizer
+from .sparse_embedding import (
+    SparseAdamFoldedState,
+    device_step_metadata,
+    init_sparse_adam,
+    two_phase_sparse_adam_unique,
+)
+
+_TABLE = "embeddings.fused.table"
+
+
+def get_mask(domain_values, mask_values, num_domains) -> np.ndarray:
+    """[B] domain column -> one-hot [B, num_domains]
+    (reference model/utils.py:639-645)."""
+    dv = np.asarray(domain_values).reshape(-1, 1)
+    mv = np.asarray(mask_values).reshape(1, -1)
+    return (dv == mv).astype(np.float32)
+
+
+def _choice(mc, key: str, default: str, allowed: Tuple[str, ...]) -> str:
+    value = str(mc.extra.get(key, default))
+    if value not in allowed:
+        raise ValueError(f"{key} must be {'|'.join(allowed)}, got {value!r}")
+    return value
+
+
+class Trainer:
+    def __init__(
+        self,
+        model: RecModel,
+        seed: int = 0,
+        mesh=None,
+        *,
+        device: Union[str, torch.device, None] = None,
+    ):
+        """``device=None`` means the card, and raises when there is none;
+        ``device="cpu"`` runs every kernel's plain version."""
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported yet (ROADMAP A9)")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device is available; pass device='cpu' to run the "
+                    "plain versions of the kernels on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.cfg: ExperimentConfig = model.cfg
+        self.layout = model.layout
+        self.seed = seed
+        self.history: List[Dict[str, float]] = []
+        self.opt_state = None
+        self.table_opt = None
+
+        mc = self.cfg.model_config
+        self.task_name = mc.task_name
+        self.num_tasks = self.cfg.num_tasks
+        self.num_domains = self.cfg.data_config.num_domains
+        self.model_name = mc.model_name
+        self._reg_dnn_prefixes = (
+            None if mc.extra.get("l2_reg_inclusion") == "all_kernels"
+            else model.REG_DNN_PREFIXES
+        )
+        self._resolve_knobs()
+
+    # ------------------------------------------------------------------
+    # knob resolution (trainer.py:205-486, for the two ported configurations)
+    # ------------------------------------------------------------------
+    def _resolve_knobs(self) -> None:
+        mc = self.cfg.model_config
+        extra = mc.extra
+        if not extra.get("two_phase_embedding"):
+            raise NotImplementedError(
+                "the dense-table fit is not ported yet (ROADMAP A3); the port "
+                "trains with two_phase_embedding")
+        if self.model_name == "pcg" or extra.get("use_gradnorm") or extra.get("use_cagrad"):
+            raise NotImplementedError(
+                "per-task gradient methods are not ported yet (ROADMAP A6)")
+        if float(mc.dnn_dropout or 0.0) > 0.0:
+            raise NotImplementedError("dropout in training is not ported yet (ROADMAP A3)")
+        if mc.dnn_use_bn:
+            raise NotImplementedError("dnn_use_bn is not ported yet (ROADMAP A5)")
+        if extra.get("scan_steps"):
+            raise NotImplementedError(
+                "scanned steps (scan_steps) are not ported yet (ROADMAP A3); the "
+                "port runs one step per batch")
+        sparse_dims = {int(s.feature.embedding_dim) for s in self.layout.sparse_slots}
+        if len(sparse_dims) != 1 or self.layout.varlen_slots:
+            raise ValueError(
+                "two_phase_embedding requires the fused embedding path "
+                "(uniform dims, no varlen features)")
+        if self.cfg.optim_config.optimizer != "adam":
+            raise ValueError("two_phase_embedding implements SparseAdam")
+        vocabs = [s.feature.vocabulary_size for s in self.layout.sparse_slots]
+        self._emb_dim = sparse_dims.pop()
+        self._emb_pack_factor = pack_factor_for(int(sum(vocabs)), self._emb_dim)
+        self._fused_offsets = torch.as_tensor(
+            np.concatenate([[0], np.cumsum(vocabs)[:-1]]).astype(np.int32),
+            device=self.device)
+        mdt = str(extra.get("table_opt_dtype") or "float32")
+
+        self.table_update = _choice(mc, "table_update", "auto",
+                                    ("auto", "scatter", "unique", "pallas"))
+        if self.table_update == "auto":
+            self.table_update = (
+                "pallas"
+                if (self._emb_dim * self._emb_pack_factor == 128
+                    and mdt in ("float32", "bfloat16")
+                    and self.device.type == "cuda")
+                else "scatter"
+            )
+        if self.table_update != "pallas":
+            raise NotImplementedError(
+                f"table_update={self.table_update!r} is not ported yet (ROADMAP "
+                "A4); the port runs table_update='pallas'")
+        if mdt != "bfloat16":
+            raise NotImplementedError(
+                f"table_opt_dtype={mdt!r} moments are not ported yet (ROADMAP A4); "
+                "the port keeps packed bfloat16 moments")
+        self.monu_gather = _choice(mc, "monu_gather", "auto", ("auto", "xla", "pallas"))
+        if self.monu_gather == "auto":
+            self.monu_gather = "xla"
+        if not extra.get("device_metadata"):
+            raise NotImplementedError(
+                "host step metadata (batch_step_metadata, native/libstepmeta.so) "
+                "is not ported yet (ROADMAP A4); set device_metadata")
+        if _choice(mc, "dedup_route", "auto", ("auto", "scatter", "gather")) == "gather":
+            raise NotImplementedError(
+                "dedup_route='gather' is not ported yet (ROADMAP A4)")
+        self.dedup_route = "scatter"
+        if _choice(mc, "update_space", "auto", ("auto", "position", "slot")) == "slot":
+            raise NotImplementedError("update_space='slot' is not ported yet (ROADMAP A4)")
+        self.update_space = "position"
+        self.table_container = _choice(mc, "table_container", "split", ("split", "stacked"))
+        fused = self.model.embeddings.fused
+        if fused.dual_container != (self.table_container == "stacked"):
+            raise ValueError(
+                f"the model was built with table_container="
+                f"{'stacked' if fused.dual_container else 'split'}, the config "
+                f"says {self.table_container!r}")
+        self.pair_gather = _choice(mc, "pair_gather", "auto", ("auto", "split", "dual"))
+        if self.pair_gather == "auto":
+            self.pair_gather = "dual" if self.table_container == "stacked" else "split"
+        elif self.pair_gather == "dual" and self.table_container != "stacked":
+            raise ValueError("pair_gather='dual' requires table_container='stacked'")
+        self._emb_phys_rows = self._emb_phys_rows_static()
+
+    def _emb_phys_rows_static(self) -> int:
+        """Physical rows of the fused table (staging.py:119-129)."""
+        total = int(sum(s.feature.vocabulary_size for s in self.layout.sparse_slots))
+        rows = -(-max(total, 1) // 128) * 128
+        P = self._emb_pack_factor
+        if P > 1:
+            rows = -(-rows // (P * 128)) * (P * 128)
+        return rows // P
+
+    # ------------------------------------------------------------------
+    # compile
+    # ------------------------------------------------------------------
+    def compile(self, optimizer=None, loss=None, metrics=None):
+        """Bind optimizer and loss (reference basemodel.py:557-567).  The
+        epoch metrics of the JAX fit are ROADMAP A3: ``fit`` logs the loss."""
+        oc = self.cfg.optim_config
+        self.tx = get_optimizer(optimizer or oc.optimizer, oc.lr)
+        loss = loss if loss is not None else oc.loss
+        self.loss_names = [loss] if isinstance(loss, str) else list(loss)
+        self.metric_names = list(metrics if metrics is not None else oc.metrics)
+        return self
+
+    # ------------------------------------------------------------------
+    # input packing (trainer.py:585-636)
+    # ------------------------------------------------------------------
+    def pack_inputs(self, x) -> Tuple[np.ndarray, np.ndarray]:
+        """dict {feature_name: array} -> (ids [N,S] int32, dense [N,Dd]
+        float32) in layout order."""
+        if isinstance(x, tuple) and len(x) == 2:
+            return np.asarray(x[0], np.int32), np.asarray(x[1], np.float32)
+        n = None
+        ids_parts: List[np.ndarray] = []
+        for slot in self.layout.sparse_slots:
+            col = np.asarray(x[slot.feature.name]).reshape(-1, 1)
+            ids_parts.append(col.astype(np.int32))
+            n = len(col)
+        dense_parts = [
+            np.asarray(x[slot.feature.name], np.float32).reshape(-1, slot.feature.dimension)
+            for slot in self.layout.dense_slots
+        ]
+        ids = np.concatenate(ids_parts, axis=1) if ids_parts else np.zeros((n or 0, 0), np.int32)
+        dense = (np.concatenate(dense_parts, axis=1) if dense_parts
+                 else np.zeros((len(ids), 0), np.float32))
+        return ids, dense
+
+    def _domain_mask_from(self, x) -> Optional[np.ndarray]:
+        dc = self.cfg.data_config
+        if self.task_name in ("msl", "mtmsl") and dc.mask_column:
+            if isinstance(x, dict) and dc.mask_column in x:
+                return get_mask(np.asarray(x[dc.mask_column]), dc.mask_values, dc.num_domains)
+        return None
+
+    def _prepare_y(self, y) -> np.ndarray:
+        y = np.asarray(y, np.float32)
+        if y.ndim == 1:
+            y = y.reshape(-1, 1)
+        T = self.num_tasks
+        if y.shape[1] != T and T % y.shape[1] == 0:
+            # each label column replicated across its domains (the
+            # reference's duplicated label_columns layout)
+            y = np.repeat(y, T // y.shape[1], axis=1)
+        return y
+
+    # ------------------------------------------------------------------
+    # state (trainer.py:1429-1476)
+    # ------------------------------------------------------------------
+    @property
+    def table(self) -> torch.nn.Parameter:
+        return self.model.embeddings.fused.table
+
+    def rest_params(self) -> Dict[str, torch.nn.Parameter]:
+        """Every parameter but the fused table: the dense Adam's domain."""
+        return {k: p for k, p in self.model.named_parameters() if k != _TABLE}
+
+    def init_state(self) -> None:
+        """Dense Adam state of the rest params and the table's SparseAdam
+        state: the step counter alone for the stacked container (the moments
+        live in its bottom half), a zero packed container for the split one.
+        Kept across fit() calls, as the JAX trainer keeps its state."""
+        self.table.requires_grad_(False)  # never differentiated: rows are injected
+        self.opt_state = self.tx.init(self.rest_params())
+        if self.table_container == "stacked":
+            self.table_opt = SparseAdamFoldedState(
+                count=torch.zeros((), dtype=torch.int32, device=self.device))
+        else:
+            self.table_opt = init_sparse_adam(self.table, packed=True)
+
+    # ------------------------------------------------------------------
+    # the two-phase step (trainer.py:745-962, device-metadata branch)
+    # ------------------------------------------------------------------
+    def _loss_terms_injected(self, rows, rep, ids, dense, y, dmask, weight):
+        """Loss with the pre-gathered rows injected (trainer.py:745-795): the
+        embedding penalty is the touched-rows form."""
+        mc = self.cfg.model_config
+        model_mask = dmask if (mc.masked_loss and dmask is not None) else None
+        probs = self.model(ids, dense, model_mask, rows=rows)
+        data_loss = multitask_loss(
+            probs, y, weight, self.loss_names, self.task_name, self.num_domains,
+            domain_mask=dmask if mc.masked_loss else None,
+            model_name=self.model_name,
+            loss_weights=mc.loss_weights if mc.extra.get("use_loss_weights") else None,
+        )
+        reg = l2_regularization(
+            self.rest_params(), mc.l2_reg_embedding, mc.l2_reg_dnn,
+            dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
+        if mc.l2_reg_embedding:
+            flat_rows = rows.reshape(-1, rows.shape[-1])
+            reg = reg + mc.l2_reg_embedding * torch.sum(rep[:, None] * torch.square(flat_rows))
+        return data_loss + reg, data_loss, probs
+
+    def train_step(self, ids, dense, y, dmask, weight):
+        """One two-phase step on a padded batch of device tensors; returns
+        (total_loss, data_loss, probs) as device tensors, without a sync."""
+        if self.opt_state is None:
+            self.init_state()
+        table = self.table
+        B, F = ids.shape[0], len(self.layout.sparse_slots)
+        P, D, W = self._emb_pack_factor, self._emb_dim, table.shape[1]
+        K = B * F
+        Kp = -(-K // 256) * 256
+        with torch.no_grad():
+            flat_ids = (ids[:, :F] + self._fused_offsets[None, :]).reshape(-1)
+            inv, rep, pids, pinv, nuniq, prep = device_step_metadata(
+                flat_ids, P, Kp, self._emb_phys_rows)
+            phys = torch.div(flat_ids, P, rounding_mode="floor") if P > 1 else flat_ids
+            if self.pair_gather == "dual":
+                pair = rows_gather_dual(table.view(2, table.shape[0] // 2, W), phys)
+                sup, sup_c = pair[0], pair[1]
+            else:
+                sup, sup_c = table.index_select(0, phys.long()), None
+            if P > 1:  # the logical sub-row of each super-row
+                sub = torch.arange(K, device=flat_ids.device) * P + torch.remainder(flat_ids, P)
+                rows = sup.reshape(K * P, D).index_select(0, sub)
+            else:
+                rows = sup
+            rows = rows.reshape(B, F, D)
+        rows.requires_grad_(True)
+        rest = self.rest_params()
+        self.model.train()
+        with torch.enable_grad():
+            total, data_loss, probs = self._loss_terms_injected(
+                rows, rep, ids, dense, y, dmask, weight)
+            grads = torch.autograd.grad(total, [*rest.values(), rows])
+        with torch.no_grad():
+            _, self.table_opt = two_phase_sparse_adam_unique(
+                table, grads[-1].reshape(K, D), flat_ids, inv, rep, pids, pinv,
+                self.table_opt, lr=self.cfg.optim_config.lr, pack_factor=P,
+                use_pallas=True, n_real=nuniq, sup=sup, sup_c=sup_c, prep=prep,
+                monu_gather=self.monu_gather)
+            self.opt_state = self.tx.step(rest, dict(zip(rest, grads[:-1])), self.opt_state)
+        self.model.eval()
+        return total.detach(), data_loss.detach(), probs.detach()
+
+    # ------------------------------------------------------------------
+    # fit (streaming, one step per batch; trainer.py:1366-1538)
+    # ------------------------------------------------------------------
+    def _check_headroom(self, batch_size: int) -> None:
+        """staging.py:132-186: the unique-row list of a batch must fit below
+        the physical row count."""
+        K = batch_size * len(self.layout.sparse_slots)
+        Kp = -(-K // 256) * 256
+        if self._emb_phys_rows <= Kp:
+            raise ValueError(
+                f"table_update='pallas' needs the physical table "
+                f"({self._emb_phys_rows} rows) to exceed the padded per-batch id "
+                f"count Kp={Kp}; use a larger vocabulary or a smaller batch")
+
+    def _to_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def fit(
+        self,
+        x=None,
+        y=None,
+        batch_size: Optional[int] = None,
+        epochs: int = 1,
+        initial_epoch: int = 0,
+        validation_split: float = 0.0,
+        validation_data=None,
+        shuffle: bool = True,
+        verbose: int = 1,
+    ) -> "Trainer":
+        """Stream ``x`` through the two-phase step, one batch per step.
+
+        Each call draws its epoch orders from ``np.random.default_rng(seed)``
+        (``permutation(n)`` per epoch, or the identity with
+        ``shuffle=False``); the last partial batch is padded with dataset
+        row 0 at weight 0, as the JAX fit does.  Validation, block shuffle
+        and staging on the device are ROADMAP A3."""
+        if validation_data is not None or validation_split:
+            raise NotImplementedError("validation inside fit is not ported yet (ROADMAP A3)")
+        if shuffle not in (True, False):
+            raise NotImplementedError(
+                f"shuffle={shuffle!r} (staged block mode) is not ported yet (ROADMAP A3)")
+        if not hasattr(self, "tx"):
+            raise RuntimeError("call compile() before fit()")
+        batch_size = batch_size or 256
+        self._check_headroom(batch_size)
+        ids, dense = self.pack_inputs(x)
+        y = self._prepare_y(y)
+        dmask = self._domain_mask_from(x)
+        n = len(ids)
+        if self.opt_state is None:
+            self.init_state()
+        steps_per_epoch = (n - 1) // batch_size + 1
+        max_steps = self.cfg.training_config.max_steps or 0
+        rng_np = np.random.default_rng(self.seed)
+        total_steps = 0
+        for epoch in range(initial_epoch, epochs):
+            t0 = time.time()
+            order = rng_np.permutation(n) if shuffle else np.arange(n)
+            steps = steps_per_epoch
+            if max_steps:
+                steps = min(steps_per_epoch, max_steps - total_steps)
+                if steps <= 0:
+                    break
+            losses = []
+            for s in range(steps):
+                idx = order[s * batch_size:(s + 1) * batch_size]
+                weight = np.ones(batch_size, np.float32)
+                pad = batch_size - len(idx)
+                if pad:
+                    weight[len(idx):] = 0.0
+                    idx = np.concatenate([idx, np.zeros(pad, np.int64)])
+                total, _, _ = self.train_step(
+                    self._to_device(ids[idx]), self._to_device(dense[idx]),
+                    self._to_device(y[idx]),
+                    self._to_device(dmask[idx]) if dmask is not None else None,
+                    self._to_device(weight))
+                losses.append(total)
+            total_steps += steps
+            epoch_loss = float(torch.stack(losses).sum())  # the epoch's one sync
+            logs = {"loss": epoch_loss / max(n, 1), "epoch_s": time.time() - t0}
+            self.history.append(logs)
+            if verbose:
+                print(f"Epoch {epoch + 1}/{epochs} - {logs['epoch_s']:.1f}s - "
+                      f"loss: {logs['loss']:.4f}")
+        return self
+
+    # ------------------------------------------------------------------
+    # predict (trainer.py:1752-1768, 1879-1895)
+    # ------------------------------------------------------------------
+    def predict(self, x, batch_size: int = 256) -> np.ndarray:
+        """[N, num_heads] float64 probabilities; the last batch is padded
+        with its last row, as the JAX predict does."""
+        ids, dense = self.pack_inputs(x)
+        dmask = self._domain_mask_from(x)
+        mc = self.cfg.model_config
+        n = len(ids)
+        steps = (n - 1) // batch_size + 1
+        pad = steps * batch_size - n
+
+        def padded(a):
+            if a is None or not pad:
+                return a
+            return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+
+        ids, dense, dmask = padded(ids), padded(dense), padded(dmask)
+        self.model.eval()
+        outs = []
+        with torch.inference_mode():
+            for s in range(steps):
+                sl = slice(s * batch_size, (s + 1) * batch_size)
+                mask = (self._to_device(dmask[sl])
+                        if (mc.masked_loss and dmask is not None) else None)
+                outs.append(self.model(self._to_device(ids[sl]), self._to_device(dense[sl]),
+                                       mask).cpu().numpy())
+        return np.concatenate(outs)[:n].astype(np.float64)

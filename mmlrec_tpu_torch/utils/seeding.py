@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 
-def make_generator(seed: int) -> torch.Generator:
-    """A CPU generator for parameter init (weights are drawn on the host and
-    then moved to the model's device)."""
-    return torch.Generator().manual_seed(int(seed))
+def make_generator(seed: int, device: str = "cpu") -> torch.Generator:
+    """A generator for parameter init.  Weights are drawn on its device: the
+    host by default (then moved to the model's device), or the card, where a
+    table of several GB is drawn in place."""
+    return torch.Generator(device=device).manual_seed(int(seed))

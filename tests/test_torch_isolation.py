@@ -32,6 +32,9 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()
     assert "mmlrec_tpu_torch.serving" in out and "mmlrec_tpu_torch.convert" in out
+    for m in ("train.trainer", "train.sparse_embedding", "train.losses", "train.optimizers",
+              "ops.row_gather", "ops.row_scatter", "ops.cuda_build"):
+        assert f"mmlrec_tpu_torch.{m}" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -91,3 +94,15 @@ def test_kernel_source_builds_for_hopper():
     assert path == K.library_path() and path.suffix == ".so"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert os.path.exists(ROOT / "mmlrec_tpu_torch" / "csrc" / "recsys_kernels.cu")
+
+
+def test_row_kernel_source_builds_for_hopper():
+    """The row kernels are a second library of the same build: keyed by
+    their own source, next to the forward kernels."""
+    from mmlrec_tpu_torch.ops import row_gather
+
+    path = row_gather.LIBRARY.path()
+    assert path.parent == K.library_path().parent and path != K.library_path()
+    assert path.name.startswith("librow_kernels_") and path.suffix == ".so"
+    assert row_gather.LIBRARY.source == ROOT / "mmlrec_tpu_torch" / "csrc" / "row_kernels.cu"
+    assert {"mmlrec_rows_gather", "mmlrec_rows_write"} <= set(row_gather.LIBRARY.signatures)

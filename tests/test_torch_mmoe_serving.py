@@ -219,7 +219,7 @@ def test_unported_options_are_refused():
     tl, *_ = tsyn.make_data(tsyn.make_config(**SMALL), n=8)
     for kw in ({"dnn_use_bn": True}, {"dnn_activation": "prelu"},
                {"dnn_activation": "dice"}, {"use_wide_linear": True},
-               {"table_container": "stacked"}):
+               {"table_container": "stacked", "stacked_shards": 2}):
         cfg = tsyn.make_config(**SMALL, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             get_model("mmoe", tl, cfg, device="cpu")
