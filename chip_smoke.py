@@ -15,19 +15,29 @@ failure and carries on):
    card at the flagship serving shapes: embed_concat bitwise, the mix and
    the score within atol 1e-6 / rtol 1e-5 (their sums run in another
    order); kernel and plain times (median of CUDA-event timings after
-   warm-up), bytes moved and the bound;
+   warm-up), bytes moved and the bound; then the backward of embed_concat
+   (kernel forward, plain backward) against autograd of the plain version
+   in both modes of the table cotangent: d_dense bitwise, d_table within
+   2e-6 of its largest entry (each row sums ~41 f32 cotangents of order 1,
+   in another order: a few ulps of the sum), two runs bitwise equal;
 4. serve the flagship MMoE (AliExpress-MSL widths, vocab 100) from a
    bundle loaded on the card: 4 requests of 4096 rows and one of 1000,
    held against the same bundle on the CPU (plain path) within atol 1e-5,
    with every kernel's launch count read around the requests;
 5. the same at production vocabulary (16 features x 65,536 ids = 2^20
    fused rows, a lane-packed [65536, 128] table of 32 MB);
-6. the row kernels B1-B4 of the two-phase step against their plain
-   versions at the step shapes of phase 8 (a [2, 10,000,000, 128] f32
-   container, K = 65,536 ids, the unique-row window with tail pads one past
-   the last row): bitwise on every slot, every row a write leaves alone
-   untouched, and a guard region after the container intact; kernel,
-   plain and library-call times;
+6. the row kernels B1-B4 of the two-phase step and the library functions
+   B8-B10 against their plain versions at the step shapes of phase 8 (a
+   [2, 10,000,000, 128] f32 container, K = 65,536 ids, the unique-row
+   window with tail pads one past the last row): bitwise on every slot,
+   every row a write leaves alone untouched, and a guard region after each
+   array intact; B10 also against B3's kernel, with n_real and with a
+   [lo, hi) window; B8 in three forms ((add, set) on (table, monu), all-add
+   on three arrays, f32 deltas into a bf16 array with NaN, infinities and
+   denormals); kernel, plain and library-call times; then a few row updates
+   driven through the public B8-B10 functions (gather + add + pipelined
+   write == fused read-modify-write, bitwise), whose launches are the ones
+   reported for those three;
 7. the two-phase training step of the flagship AE widths at 2^20 fused
    rows (P = 16, stacked [131072, 128]), batch 4000 (the largest round
    batch whose 16 ids per row stay below the 65,536 physical rows, as the
@@ -46,7 +56,19 @@ failure and carries on):
    table and moments bitwise; median step time, examples/s, device-busy
    share and launches per step (B1 and B2 once each for stacked, B3 and
    B4 once each for split);
-9. one JSON line with every kernel's numbers; the last line is the device
+9. the dense-table fit of the flagship at full width (MMoE on the
+   AliExpress-MSL shapes: 16 sparse x emb 8, 61 dense, 2 domains, experts
+   (256, 128), gate (64,), tower (64,), batch 4096, vocab 100, the masked
+   loss, so that the summed heads stay probabilities and logloss is
+   defined): (a) 3 steps, the last batch partial, on the card and on the
+   CPU from one numpy init: loss rtol 1e-5, dense weights atol 1e-6, the
+   table atol 5e-6, Adam's moments relative to each tensor's largest (see
+   dense_fit); (b) Trainer.fit on the card over 64 batches x 2 epochs with
+   validation data and the metrics auc and logloss, then evaluate: one
+   launch of embed_concat, its backward, the mix and the score per step
+   and one of each forward per validation batch; evaluate reads the best
+   epoch's snapshot; 20 timed steps as in phase 8;
+10. one JSON line with every kernel's numbers; the last line is the device
    line.
 
 TF32 is switched off for matrix products and cuDNN, so the card computes
@@ -77,6 +99,9 @@ SOURCES = {
     "rows_write_dual": "mmlrec_tpu_torch/csrc/row_kernels.cu",
     "rows_write": "mmlrec_tpu_torch/csrc/row_kernels.cu",
     "rows_gather_hbm": "mmlrec_tpu_torch/csrc/row_kernels.cu",
+    "rows_update": "mmlrec_tpu_torch/csrc/row_kernels.cu",
+    "row_gather": "mmlrec_tpu_torch/csrc/row_kernels.cu",
+    "rows_write_pipelined": "mmlrec_tpu_torch/csrc/row_kernels.cu",
 }
 REPLACES = {
     "embed_concat": "mmlrec_tpu/ops/pallas_kernels.py:43",
@@ -86,11 +111,17 @@ REPLACES = {
     "rows_write_dual": "mmlrec_tpu/ops/pallas_scatter.py:532",
     "rows_write": "mmlrec_tpu/ops/pallas_scatter.py:194",
     "rows_gather_hbm": "mmlrec_tpu/ops/pallas_gather.py:90",
+    "rows_update": "mmlrec_tpu/ops/pallas_scatter.py:397",
+    "row_gather": "mmlrec_tpu/ops/pallas_gather.py:39",
+    "rows_write_pipelined": "mmlrec_tpu/ops/pallas_scatter.py:349",
 }
 ROW_KERNELS = ("rows_gather_dual", "rows_write_dual", "rows_write", "rows_gather_hbm")
+LIBRARY_KERNELS = ("rows_update", "row_gather", "rows_write_pipelined")
 # phase 8: the production-vocabulary step (benchmarks/bench_40m_table_update.py)
 FULL_VOCAB, FULL_FEATURES, FULL_EMB, FULL_DENSE = 2_500_000, 16, 32, 4
 FULL_STEPS = 20
+LIBRARY_STEPS = 3  # phase 6: row updates driven through the public B8-B10 functions
+DENSE_BATCHES, DENSE_EPOCHS, DENSE_VAL_BATCHES = 64, 2, 4  # phase 9 (b)
 DEV = "cuda"  # the card every phase runs on
 TWO_PHASE = dict(two_phase_embedding=True, table_update="pallas",
                  table_opt_dtype="bfloat16", device_metadata=True)
@@ -237,6 +268,192 @@ def check_kernels(torch, K, card):
     return results
 
 
+def check_embed_backward(torch, K, card):
+    """Phase 3, second half: embed_concat differentiated on the card."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, F, D, Nd, vocab = FLAGSHIP_BATCH, 16, 8, 61, 100
+    V = 1664  # 16 x 100 ids, padded to 128
+    vocab_sizes = (vocab,) * F
+    offsets = torch.arange(F, device=dev, dtype=torch.int32) * vocab
+    table = torch.randn(V, D, generator=g, device=dev)
+    ids = torch.randint(0, vocab, (B, F), generator=g, device=dev, dtype=torch.int32) + offsets
+    dense = torch.rand(B, Nd, generator=g, device=dev)
+    cot = torch.randn(B, F * D + Nd, generator=g, device=dev)
+    stray = ids.clone()  # the scatter-add must drop the forward's NaN rows
+    stray[0, 0], stray[1, 1], stray[2, 2] = V + 5, -1, -2**31 + 1
+
+    def grads(fn, ids_, **kw):
+        t, d = table.clone().requires_grad_(True), dense.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(t, ids_, d, **kw), (t, d), cot)
+
+    out = {}
+    for mode, ids_, kw in (("scatter", stray, {}),
+                           ("matmul", ids, dict(matmul_grad=(vocab_sizes, offsets)))):
+        K.reset_launch_counts()
+        g_t, g_d = grads(K.embed_concat, ids_, **kw)
+        if K.launch_counts["embed_concat"] != 1 or K.backward_counts["embed_concat"] != 1:
+            raise AssertionError("embed_concat: the gradient did not go through the kernel "
+                                 "forward and the plain backward once each")
+        want_t, want_d = grads(K.embed_concat_plain, ids_)
+        again_t, _ = grads(K.embed_concat, ids_, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(g_d.view(torch.int32), want_d.view(torch.int32)):
+            raise AssertionError(f"embed_concat backward ({mode}): d_dense differs")
+        if not torch.equal(g_t.view(torch.int32), again_t.view(torch.int32)):
+            raise AssertionError(f"embed_concat backward ({mode}): two runs differ")
+        err, largest = float((g_t - want_t).abs().max()), float(want_t.abs().max())
+        if not err <= 2e-6 * largest:
+            raise AssertionError(f"embed_concat backward ({mode}): d_table off by {err} of "
+                                 f"{largest}")
+        ms = eager_ms(torch, lambda: K.embed_concat_backward(cot, ids_, V, D, kw.get("matmul_grad")),
+                      reps=11, inner=10)
+        out[mode] = dict(d_table_max_abs_err=err, d_table_max_abs=largest, backward_eager_ms=ms)
+        log(f"[3] embed_concat backward ({mode}): kernel forward, plain backward vs autograd of "
+            f"the plain version: d_dense bitwise, d_table max_abs_err {err:.3g} of "
+            f"{largest:.3g} (tol 2e-6 of it), two runs bitwise equal; backward "
+            f"issued eagerly {ms * 1e3:.1f} us [{card}]")
+    return out
+
+
+def dense_fit(torch, K, card):
+    """Phase 9: the dense-table fit of the flagship at full width."""
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.train import Trainer
+    from mmlrec_tpu_torch.train.metrics import regime_eval
+
+    cfg = aliexpress_like_config("mmoe", masked_loss=True)
+    batch = cfg.training_config.train_batch_size
+    forwards = ("embed_concat", "gated_expert_mix", "multihead_score")
+
+    def trainer(layout, dev):
+        model = get_model("mmoe", layout, cfg, device="cpu")
+        load_jax_variables(model, _numpy_train_state(model, seed=10))
+        return Trainer(model, seed=0, device=dev).compile(metrics=["auc", "logloss"])
+
+    # ---- (a) 3 steps, the last partial, card against CPU
+    n = 3 * batch - 1000
+    layout, x, y, _ = make_data(cfg, n=n, vocab=100, seed=9)
+    gpu, cpu = trainer(layout, DEV), trainer(layout, "cpu")
+    K.reset_launch_counts()
+    gpu.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    launches = {**_per_step(K, 3), "embed_concat_backward": K.backward_counts["embed_concat"] / 3}
+    cpu.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+    lg, lc = gpu.history[-1]["loss"], cpu.history[-1]["loss"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    # tolerances: an Adam step moves a weight by at most lr = 1e-3 whatever
+    # the gradient's size, and sums of 4096 f32 terms in another order move
+    # the step by ~1e-6 of it; the table's cotangent is a one-hot product
+    # over the batch (~4e-6, mmlrec_tpu/ops/embedding.py:129-131).  The
+    # moments carry the gradient's own scale, so they are held relative to
+    # each tensor's largest: mu 2e-5, nu 1e-4.
+    worst = dict(dense=0.0, table=0.0, mu=0.0, nu=0.0)
+    for k, p in gpu.model.named_parameters():
+        q = dict(cpu.model.named_parameters())[k]
+        which = "table" if k.endswith("table") else "dense"
+        worst[which] = max(worst[which], float((p.detach().cpu() - q.detach()).abs().max()))
+        for m in ("mu", "nu"):
+            a, b = getattr(gpu.opt_state, m)[k].cpu(), getattr(cpu.opt_state, m)[k]
+            scale = float(b.abs().max())
+            if scale:
+                worst[m] = max(worst[m], float((a - b).abs().max()) / scale)
+    log(f"[9] dense fit, card vs CPU, 3 steps of {batch} ({n} rows), table "
+        f"{list(gpu.table.shape)}, cotangent by {gpu.model.embeddings.fused.table_grad_mode(batch * 16)}: "
+        f"epoch loss card {lg:.9g} cpu {lc:.9g}; max |card - cpu|: dense {worst['dense']:.3g} "
+        f"(tol 1e-6), table {worst['table']:.3g} (tol 5e-6), Adam mu {worst['mu']:.3g} (tol 2e-5) "
+        f"and nu {worst['nu']:.3g} (tol 1e-4) of each tensor's largest; launches per step "
+        f"{launches} [{card}]")
+    if (worst["dense"] > 1e-6 or worst["table"] > 5e-6 or worst["mu"] > 2e-5
+            or worst["nu"] > 1e-4 or int(gpu.opt_state.count) != 3):
+        raise AssertionError("phase 9: the card's dense steps left the CPU's tolerance")
+    for name in forwards + ("embed_concat_backward",):
+        if launches.get(name) != 1:
+            raise AssertionError(f"phase 9: {name} ran {launches.get(name)} times per step")
+    del gpu, cpu
+
+    # ---- (b) the fit on the card: 64 batches x 2 epochs, validation, evaluate
+    n_val = DENSE_VAL_BATCHES * batch
+    layout, x, y, _ = make_data(cfg, n=DENSE_BATCHES * batch + n_val, vocab=100, seed=11)
+    cut = DENSE_BATCHES * batch
+    x_tr, y_tr = {k: v[:cut] for k, v in x.items()}, y[:cut]
+    val = ({k: v[cut:] for k, v in x.items()}, y[cut:])
+    tr = trainer(layout, DEV)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit(x_tr, y_tr, batch_size=batch, epochs=DENSE_EPOCHS, validation_data=val, verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = DENSE_BATCHES * DENSE_EPOCHS
+    fit_launches = dict(K.launch_counts)
+    backwards = K.backward_counts["embed_concat"]
+    for name in forwards:  # once per step, once per validation batch
+        if fit_launches[name] != steps + DENSE_EPOCHS * DENSE_VAL_BATCHES:
+            raise AssertionError(f"phase 9: {name} launched {fit_launches[name]} times in the fit")
+    if backwards != steps or any(fit_launches[k] for k in ROW_KERNELS + LIBRARY_KERNELS):
+        raise AssertionError(f"phase 9: {backwards} backwards in {steps} steps, or a row kernel ran")
+    K.reset_launch_counts()
+    ev = tr.evaluate(*val, batch_size=batch)
+    eval_launches = {k: K.launch_counts[k] for k in forwards}
+    if set(eval_launches.values()) != {DENSE_VAL_BATCHES}:
+        raise AssertionError(f"phase 9: evaluate launched {eval_launches}")
+    preds = tr.predict(val[0], batch)
+    if preds.shape != (n_val, 2) or not np.isfinite(preds).all() or preds.min() < 0 or preds.max() > 1:
+        raise AssertionError("phase 9: predictions are not finite probabilities [N, 2]")
+    again = regime_eval(tr.metric_fns, tr._prepare_y(val[1]), preds, "msl", 2)
+    history = tr.history
+    aucs = [h["val_auc"] for h in history]
+    best = int(np.argmax(aucs))  # the first epoch at the maximum: strict '>'
+    if ev != again or ev["auc"] != aucs[best] or set(ev) != {"auc", "logloss"}:
+        raise AssertionError(f"phase 9: evaluate {ev} vs recomputed {again}, val_auc {aucs}")
+    if (tr.best_variables is None) or not all(np.isfinite(list(h.values())).all() for h in history):
+        raise AssertionError("phase 9: no best snapshot, or a log that is not finite")
+    last_is_best = all(torch.equal(v, dict(tr.model.named_parameters())[k])
+                       for k, v in tr.best_variables.items())
+    if last_is_best != (best == len(aucs) - 1):
+        raise AssertionError("phase 9: best_variables is not the epoch with the best val_auc")
+    # the card's predictions against the plain path on the CPU, same weights
+    cpu_model = get_model("mmoe", layout, cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in tr.best_variables.items()})
+    cpu_preds = Trainer(cpu_model, device="cpu").compile(metrics=["auc", "logloss"]).predict(
+        val[0], batch)
+    np.testing.assert_allclose(preds, cpu_preds, atol=1e-5, rtol=0)
+    cpu_ev = regime_eval(tr.metric_fns, tr._prepare_y(val[1]), cpu_preds, "msl", 2)
+    np.testing.assert_allclose([ev["auc"], ev["logloss"]], [cpu_ev["auc"], cpu_ev["logloss"]],
+                               atol=1e-4, rtol=0)
+
+    ids, dense = tr.pack_inputs(x_tr)
+    dmask, yy = tr._domain_mask_from(x_tr), tr._prepare_y(y_tr)
+    batches = []
+    for s in range(FULL_STEPS):
+        sl = slice(s * batch, (s + 1) * batch)
+        batches.append([torch.from_numpy(a[sl]).to(DEV) for a in (ids, dense, yy, dmask)]
+                       + [torch.ones(batch, device=DEV)])
+    step_ms, dev_ms = _timed_steps(torch, tr, batches)
+    med = statistics.median(step_ms)
+    busy = None if dev_ms is None else dev_ms / med
+    log(f"[9] dense fit on the card: {DENSE_BATCHES} batches x {DENSE_EPOCHS} epochs of {batch} "
+        f"+ {DENSE_VAL_BATCHES} validation batches per epoch in {fit_s:.2f} s "
+        f"({tr.throughput_examples_per_s:.0f} examples/s through Trainer.fit, first epoch left "
+        f"out); history {[{k: round(v, 5) for k, v in h.items()} for h in history]}; best epoch "
+        f"{best + 1}; evaluate {ev} == the metrics of predict(); max |card - cpu| of the "
+        f"predictions {float(np.abs(preds - cpu_preds).max()):.3g}; launches in the fit "
+        f"{ {k: v for k, v in fit_launches.items() if v} }, embed_concat backwards {backwards}, "
+        f"in evaluate {eval_launches}; median step {med:.3f} ms (CUDA events, min "
+        f"{min(step_ms):.3f}) = {batch / med * 1e3:.0f} examples/s; step device time "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, device busy "
+        f"{'not measured' if busy is None else f'{busy:.1%}'} [{card}]")
+    return dict(card_vs_cpu=dict(loss_card=lg, loss_cpu=lc, **worst, launches_per_step=launches),
+                fit_s=fit_s, fit_examples_per_s=tr.throughput_examples_per_s, history=history,
+                best_epoch=best + 1, evaluate=ev, launches_in_fit=fit_launches,
+                embed_concat_backwards=backwards, launches_in_evaluate=eval_launches,
+                step_ms_median=med, step_ms=step_ms, examples_per_s=batch / med * 1e3,
+                step_device_ms=dev_ms, device_busy_share=busy,
+                predictions_max_abs_err_vs_cpu=float(np.abs(preds - cpu_preds).max()))
+
+
 def numpy_variables(model, seed: int):
     """A flax-style {"params": ...} tree of numpy weights for ``model``:
     He-scaled kernels, table std 0.3, biases std 0.1."""
@@ -365,6 +582,7 @@ def _time(torch, fn, capturable: bool) -> float:
 
 def check_row_kernels(torch, card):
     """Phase 6: B1-B4 against their plain versions at the step shapes."""
+    from mmlrec_tpu_torch.ops import cuda_build
     from mmlrec_tpu_torch.ops import row_gather as G
     from mmlrec_tpu_torch.ops import row_scatter as S
     from mmlrec_tpu_torch.train.sparse_embedding import device_step_metadata
@@ -459,6 +677,115 @@ def check_row_kernels(torch, card):
         bytes=8 + 4 * n + 2 * 2 * 4 * W * n,
         shapes=f"(table, monu) 2 x [{V},{W}] ids[{K}] window [0, {n})")
 
+    def equal_and_guarded(what):
+        torch.cuda.synchronize()
+        if not same_bits(kernel_out, plain_out) or not same_bits(buf[2 * V:], guard):
+            raise AssertionError(f"{what}: differs from its counterpart, touched a row outside "
+                                 "the window, or wrote past the arrays")
+
+    # ---- B9: the staged single-array gather; also against B4's kernel
+    got = G.row_gather(table, phys)
+    if not (same_bits(got, G.row_gather_plain(table, phys))
+            and same_bits(got, G.rows_gather_hbm(table, phys))):
+        raise AssertionError("row_gather differs from its plain version or from rows_gather_hbm")
+    results["row_gather"] = dict(
+        run=lambda: G.row_gather(table, phys),
+        plain=lambda: G.row_gather_plain(table, phys), plain_capturable=True,
+        library=lambda: table.index_select(0, phys),
+        bytes=4 * K + 4 * W * (u_phys + K), shapes=f"table[{V},{W}] ids[{K}]")
+
+    # ---- B10: the pipelined write against its plain version and against
+    # B3's kernel, with n_real and with a [lo, hi) window
+    arrays_k, arrays_p = (kernel_out[0], kernel_out[1]), (plain_out[0], plain_out[1])
+    lohi = torch.tensor([n // 3, 2 * n // 3], dtype=torch.int32, device=dev)
+    for window, other, what in (
+            (dict(n_real=nuniq), S.rows_write_pipelined_plain, "plain version, n_real"),
+            (dict(bounds=lohi), S.rows_write_pipelined_plain, "plain version, [lo, hi)"),
+            (dict(n_real=nuniq), S.rows_write, "rows_write's kernel, n_real"),
+            (dict(bounds=lohi), S.rows_write, "rows_write's kernel, [lo, hi)")):
+        fresh = torch.randn((2, K, W), generator=g, device=dev)
+        S.rows_write_pipelined(arrays_k, pids, (fresh[0], fresh[1]), **window)
+        other(arrays_p, pids, (fresh[0], fresh[1]), **window)
+        equal_and_guarded(f"rows_write_pipelined vs {what}")
+    results["rows_write_pipelined"] = dict(
+        run=lambda: S.rows_write_pipelined(arrays_k, pids, (vt, vm), n_real=nuniq),
+        plain=lambda: S.rows_write_pipelined_plain(arrays_p, pids, (vt, vm), n_real=nuniq),
+        plain_capturable=False, library=index_copy_each,
+        bytes=8 + 4 * n + 2 * 2 * 4 * W * n,
+        shapes=f"(table, monu) 2 x [{V},{W}] ids[{K}] window [0, {n})")
+
+    # ---- B8: the fused read-modify-write, three forms
+    # (a) table "add", monu "set" (opaque lanes) with the n_real window
+    d_t = torch.randn((K, W), generator=g, device=dev)
+    d_m = torch.randint(-2**31, 2**31 - 1, (K, W), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    mask = (torch.rand((K, W), generator=g, device=dev) > 0.5).float()
+    mask[:, 0], mask[:, 1] = -0.0, float("nan")  # a zero, and not a zero
+    S.rows_update(arrays_k, pids, (d_t, d_m), modes=("add", "set"), masks=(None, mask),
+                  n_real=nuniq)
+    S.rows_update_plain(arrays_p, pids, (d_t, d_m), modes=("add", "set"), masks=(None, mask),
+                        n_real=nuniq)
+    equal_and_guarded("rows_update (add, set)")
+    add_set_bytes = 4 + 4 * n + (3 + 4) * 4 * W * n
+    add_set_ms = device_ms(torch, lambda: S.rows_update(
+        arrays_k, pids, (d_t, d_m), modes=("add", "set"), masks=(None, mask), n_real=nuniq))
+    plain_out.copy_(kernel_out)  # the timing replayed the update on one side only
+    # (b) all-"add" on three arrays (the JAX package's rows-add benchmark form)
+    third = torch.empty((V + guard_rows, W), dtype=torch.float32, device=dev)
+    third.normal_(generator=g)
+    third_guard = third[V:].clone()
+    third_plain = third[:V].clone()
+    d_3 = torch.randn((K, W), generator=g, device=dev)
+    d_n = torch.randn((K, W), generator=g, device=dev)
+    S.rows_add((*arrays_k, third[:V]), pids, (d_t, d_3, d_n), n_real=nuniq)
+    S.rows_update_plain((*arrays_p, third_plain), pids, (d_t, d_3, d_n), n_real=nuniq)
+    equal_and_guarded("rows_add (three arrays)")
+    if not (same_bits(third[:V], third_plain) and same_bits(third[V:], third_guard)):
+        raise AssertionError("rows_add: the third array differs or its guard was written")
+    pids_n64 = pids[:n].long()
+
+    def index_add_each():
+        kernel_out[0].index_add_(0, pids_n64, d_t[:n])
+        kernel_out[1].index_add_(0, pids_n64, d_3[:n])
+        third[:V].index_add_(0, pids_n64, d_n[:n])
+
+    results["rows_update"] = dict(
+        run=lambda: S.rows_add((*arrays_k, third[:V]), pids, (d_t, d_3, d_n), n_real=nuniq),
+        plain=lambda: S.rows_update_plain((*arrays_p, third_plain), pids, (d_t, d_3, d_n),
+                                          n_real=nuniq),
+        plain_capturable=False, library=index_add_each,
+        bytes=4 + 4 * n + 3 * 3 * 4 * W * n,
+        shapes=f"all-add, 3 x [{V},{W}] ids[{K}] window [0, {n})")
+    # (c) "add" of f32 deltas into a bf16 array: NaN, infinities, denormals,
+    # ties and the largest finite value as rows and as deltas
+    special = torch.tensor(
+        [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001, 0x7F800001,
+         0x00000001, 0x80000001, 0x007FFFFF, 0x00010000, 0x00018000, 0x3F808000, 0x3F818000,
+         0x3F807FFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000],
+        dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
+    ns = special.numel()
+    half = torch.empty((V + guard_rows, W), dtype=torch.bfloat16, device=dev)
+    half.normal_(generator=g)
+    d_h = d_t.clone()
+    half[pids_n64[0], :ns], d_h[0, :ns] = special.to(torch.bfloat16), 0.0
+    half[pids_n64[1], :ns], d_h[1, :ns] = 0.0, special
+    half[pids_n64[2], :ns], d_h[2, :ns] = special.to(torch.bfloat16), special.flip(0)
+    half_guard, half_plain = half[V:].clone(), half[:V].clone()
+    S.rows_add((half[:V],), pids, (d_h,), n_real=nuniq)
+    S.rows_update_plain((half_plain,), pids, (d_h,), n_real=nuniq)
+    torch.cuda.synchronize()
+    if not (torch.equal(half[:V].view(torch.int16), half_plain.view(torch.int16))
+            and torch.equal(half[V:].view(torch.int16), half_guard.view(torch.int16))):
+        raise AssertionError("rows_add (f32 into bf16) differs from its plain version")
+    bf16_ms = device_ms(torch, lambda: S.rows_add((half[:V],), pids, (d_h,), n_real=nuniq))
+    bf16_bytes = 4 + 4 * n + (2 * 2 + 4) * W * n
+    log(f"[6] rows_update forms, all bitwise equal to the plain version: (add, set) on "
+        f"(table, monu) {add_set_ms * 1e3:.2f} us for {add_set_bytes / 1e6:.2f} MB (bound "
+        f"{bound(add_set_bytes, 0)[0] * 1e3:.2f} us); f32 deltas into a bf16 [{V},{W}] array, "
+        f"special values included, {bf16_ms * 1e3:.2f} us for {bf16_bytes / 1e6:.2f} MB (bound "
+        f"{bound(bf16_bytes, 0)[0] * 1e3:.2f} us) [{card}]")
+    del half, half_plain, d_h
+
     out = {}
     for name, c in results.items():
         ms = device_ms(torch, c["run"])
@@ -473,7 +800,34 @@ def check_row_kernels(torch, card):
             f"{'' if c['plain_capturable'] else ' (eager: it synchronises)'}, library "
             f"{lib_ms * 1e3:.2f} us; {c['bytes'] / 1e6:.2f} MB, bound {bound_ms * 1e3:.2f} us "
             f"({bound_by}) [{card}]")
-    del buf, base, plain_out, kernel_out, values
+    out["rows_update"]["forms"] = {
+        "add_set": dict(ms=add_set_ms, bytes=add_set_bytes, bound_ms=bound(add_set_bytes, 0)[0]),
+        "f32_into_bf16": dict(ms=bf16_ms, bytes=bf16_bytes, bound_ms=bound(bf16_bytes, 0)[0])}
+
+    # ---- the library functions as a caller uses them: a row update of the
+    # table built from the public ops, two ways.  Gather the touched rows
+    # (row_gather), add the deltas, write them back (rows_write_pipelined);
+    # and the fused read-modify-write (rows_add) on a copy.  One f32 add per
+    # element either way, so the two tables must end bitwise equal.  The
+    # launch counts of this drive are the ones reported for B8-B10.
+    plain_out.copy_(kernel_out)
+    cuda_build.reset_launch_counts()
+    for _ in range(LIBRARY_STEPS):
+        delta = torch.randn((K, W), generator=g, device=dev)
+        rows = G.row_gather(kernel_out[0], pids)  # pad slots: poison rows, never written
+        S.rows_write_pipelined((kernel_out[0],), pids, (rows + delta,), n_real=nuniq)
+        S.rows_add((plain_out[0],), pids, (delta,), n_real=nuniq)
+    equal_and_guarded("gather + add + pipelined write vs rows_add")
+    launches = {k: v for k, v in cuda_build.launch_counts.items() if v}
+    want = dict(row_gather=LIBRARY_STEPS, rows_write_pipelined=LIBRARY_STEPS,
+                rows_update=LIBRARY_STEPS)
+    if launches != want:
+        raise AssertionError(f"library drive launched {launches}, expected {want}")
+    log(f"[6] {LIBRARY_STEPS} row updates of table[{V},{W}] through the public ops: row_gather "
+        f"+ add + rows_write_pipelined == rows_add bitwise; launches {launches} [{card}]")
+    for name, count in launches.items():
+        out[name]["launches"] = count
+    del buf, base, plain_out, kernel_out, values, third, third_plain
     torch.cuda.empty_cache()
     return out
 
@@ -633,6 +987,21 @@ def _step_device_ms(torch, step, reps: int = 5):
     return statistics.median(times)
 
 
+def _timed_steps(torch, tr, batches):
+    """(CUDA-event ms of each step on batches already on the card, device
+    ms of one step queued behind a spin or None)."""
+    step_ms = []
+    for b in batches:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        tr.train_step(*b)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    it = iter(batches)
+    return step_ms, _step_device_ms(torch, lambda: tr.train_step(*next(it)))
+
+
 def full_width(torch, K, card):
     """Phase 8: the production-vocabulary step at full width on the card."""
     rng = np.random.default_rng(40)
@@ -661,16 +1030,7 @@ def full_width(torch, K, card):
             sl = slice(s * FLAGSHIP_BATCH, (s + 1) * FLAGSHIP_BATCH)
             batches.append([torch.from_numpy(a[sl]).to(DEV) for a in (ids, dense, y)]
                            + [None, torch.ones(FLAGSHIP_BATCH, device=DEV)])
-        step_ms = []
-        for b in batches:
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            tr.train_step(*b)
-            e1.record()
-            e1.synchronize()
-            step_ms.append(e0.elapsed_time(e1))
-        it = iter(batches)
-        dev_ms = _step_device_ms(torch, lambda: tr.train_step(*next(it)))
+        step_ms, dev_ms = _timed_steps(torch, tr, batches)
         med = statistics.median(step_ms)
         busy = None if dev_ms is None else dev_ms / med
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -765,14 +1125,18 @@ def main() -> int:
                     log(f"[2] {line.strip()}")
 
     kernels = check_kernels(torch, K, card)
+    embed_backward = check_embed_backward(torch, K, card)
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
     flagship = serve(torch, K, card, vocab=100, tag="4", workdir=workdir)
     production = serve(torch, K, card, vocab=1 << 16, tag="5", workdir=workdir)
     kernels.update(check_row_kernels(torch, card))
     step = step_card_vs_cpu(torch, K, card)
     full = full_width(torch, K, card)
+    dense = dense_fit(torch, K, card)
 
-    launches = {name: flagship["launches"][name] for name in REPLACES if name not in ROW_KERNELS}
+    launches = {name: flagship["launches"][name] for name in REPLACES
+                if name not in ROW_KERNELS + LIBRARY_KERNELS}
+    launches.update({name: kernels[name].pop("launches") for name in LIBRARY_KERNELS})
     launches.update(rows_gather_dual=full["stacked"]["launches"]["rows_gather_dual"],
                     rows_write_dual=full["stacked"]["launches"]["rows_write_dual"],
                     rows_write=full["split"]["launches"]["rows_write"],
@@ -782,12 +1146,16 @@ def main() -> int:
              launches=launches[name], status="ok", **kernels[name])
         for name in REPLACES
     ], "serving": {"flagship_vocab_100": flagship, "production_vocab_65536": production},
+        "embed_concat_backward": embed_backward,
         "two_phase_step_2p20_rows": step, "two_phase_step_40m_rows": full,
         "launches_counted_in": {"serving": "phase 4 (5 forwards)",
+                                "rows_update, row_gather, rows_write_pipelined":
+                                    f"phase 6 ({LIBRARY_STEPS} row updates through the public ops)",
                                 "rows_gather_dual, rows_write_dual": f"phase 8 stacked fit ({FULL_STEPS} steps)",
                                 "rows_write, rows_gather_hbm": f"phase 8 split fit ({FULL_STEPS} steps)"},
         "card": card}
     print(json.dumps(line), flush=True)
+    print(json.dumps({"dense_fit": dense, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

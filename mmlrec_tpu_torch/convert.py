@@ -10,7 +10,7 @@ imports no JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -61,17 +61,21 @@ def _flat_names(tree: Mapping) -> Dict[str, np.ndarray]:
     return {k.replace("/", "."): np.asarray(v) for k, v in _flatten(tree).items()}
 
 
-def load_jax_train_state(trainer, params: Mapping, table_opt: Mapping,
+def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
                          opt_state: Mapping):
-    """Carry a JAX two-phase Trainer's state into a port ``Trainer``.
+    """Carry a JAX Trainer's state into a port ``Trainer`` (compiled with the
+    same optimizer).
 
-    * ``params``: the flax params tree (the fused table included, fat for
+    * ``params``: the flax params tree (the fused table included; fat for
       the stacked container, whose bottom half holds the moments);
-    * ``table_opt``: ``{"count": ...}``, plus ``"monu"`` ([Vp, W] f32
-      packed moments) for the split container;
-    * ``opt_state``: the optax Adam state of every other parameter,
-      ``{"count": ..., "mu": tree, "nu": tree}`` with the trees shaped as
-      ``params`` without the table (an ``optax.flatten`` state unravelled).
+    * ``table_opt``: for a two-phase trainer ``{"count": ...}``, plus
+      ``"monu"`` ([Vp, W] f32 packed moments) for the split container; None
+      for a dense-fit trainer, whose table is a parameter like any other;
+    * ``opt_state``: the optax state by field name, each tree shaped as the
+      parameters the optimizer covers (all of them for the dense fit, all
+      but the table for the two-phase step; an ``optax.flatten`` state
+      unravelled): ``{"count", "mu", "nu"}`` for adam, ``{"sum_of_squares"}``
+      for adagrad, ``{"nu"}`` for rmsprop, ``{}`` for sgd.
 
     Returns the trainer, ready to continue training from that state."""
     from .train.sparse_embedding import SparseAdamPackedState
@@ -83,26 +87,39 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Mapping,
     def tensor(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    count = tensor(np.asarray(table_opt["count"]).reshape(()), torch.int32)
-    if trainer.table_container == "stacked":
-        trainer.table_opt = trainer.table_opt._replace(count=count)
+    if not trainer.two_phase_embedding:
+        if table_opt is not None:
+            raise ValueError("a dense-fit trainer has no table_opt: its table's moments "
+                             "are part of opt_state")
+        covered = dict(trainer.model.named_parameters())
     else:
-        monu = np.asarray(table_opt["monu"])
-        if monu.shape != tuple(trainer.table.shape) or monu.dtype != np.float32:
-            raise ValueError(f"monu: got {monu.dtype}{list(monu.shape)}, expected "
-                             f"float32{list(trainer.table.shape)}")
-        trainer.table_opt = SparseAdamPackedState(monu=tensor(monu), count=count)
-    rest = trainer.rest_params()
-    moments = {}
-    for which in ("mu", "nu"):
-        flat = _flat_names(opt_state[which])
-        if set(flat) != set(rest):
-            raise ValueError(f"opt_state[{which!r}] leaves {sorted(flat)} do not "
-                             f"match the parameters {sorted(rest)}")
-        for k, p in rest.items():
+        covered = trainer.rest_params()
+        count = tensor(np.asarray(table_opt["count"]).reshape(()), torch.int32)
+        if trainer.table_container == "stacked":
+            trainer.table_opt = trainer.table_opt._replace(count=count)
+        else:
+            monu = np.asarray(table_opt["monu"])
+            if monu.shape != tuple(trainer.table.shape) or monu.dtype != np.float32:
+                raise ValueError(f"monu: got {monu.dtype}{list(monu.shape)}, expected "
+                                 f"float32{list(trainer.table.shape)}")
+            trainer.table_opt = SparseAdamPackedState(monu=tensor(monu), count=count)
+
+    fields = trainer.opt_state._asdict()
+    if set(opt_state) != set(fields):
+        raise ValueError(f"opt_state has {sorted(opt_state)}, the trainer's "
+                         f"{type(trainer.opt_state).__name__} needs {sorted(fields)}")
+    loaded = {}
+    for field, value in fields.items():
+        if not isinstance(value, dict):  # the step counter
+            loaded[field] = tensor(np.asarray(opt_state[field]).reshape(()), torch.int32)
+            continue
+        flat = _flat_names(opt_state[field])
+        if set(flat) != set(covered):
+            raise ValueError(f"opt_state[{field!r}] leaves {sorted(flat)} do not "
+                             f"match the parameters {sorted(covered)}")
+        for k, p in covered.items():
             if flat[k].shape != tuple(p.shape):
-                raise ValueError(f"opt_state[{which!r}][{k}]: shape {flat[k].shape}")
-        moments[which] = {k: tensor(flat[k]) for k in rest}
-    trainer.opt_state = trainer.opt_state._replace(
-        count=tensor(np.asarray(opt_state["count"]).reshape(()), torch.int32), **moments)
+                raise ValueError(f"opt_state[{field!r}][{k}]: shape {flat[k].shape}")
+        loaded[field] = {k: tensor(flat[k]) for k in covered}
+    trainer.opt_state = type(trainer.opt_state)(**loaded)
     return trainer

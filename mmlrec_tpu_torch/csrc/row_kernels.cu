@@ -1,6 +1,7 @@
-// Row kernels of the two-phase SparseAdam step, written for Hopper (sm_90a).
+// Row kernels of the embedding-table update, written for Hopper (sm_90a).
 //
-// They replace four Pallas kernels of the JAX package:
+// They replace seven Pallas kernels of the JAX package.  Four carry the
+// two-phase SparseAdam step:
 //
 //   rows_gather  <- ops/pallas_gather.py::pallas_rows_gather_dual (:171)
 //                   (planes = 2, optional [lo, hi) window) and
@@ -11,7 +12,20 @@
 //                   ops/pallas_scatter.py::pallas_rows_write (:194)
 //                   (up to kMaxArrays arrays of 1 plane each)
 //
-// All four are pure row copies: each touched row is read once and written
+// and three are library functions of the package's ops/ (its trainer calls
+// none of them), each a __global__ function of its own further down:
+//
+//   row_gather_staged_kernel    <- ops/pallas_gather.py::pallas_row_gather
+//                                  (:39): the gather with its rows staged in
+//                                  shared memory and stored as blocks
+//   rows_write_pipelined_kernel <- ops/pallas_scatter.py::
+//                                  pallas_rows_write_pipelined (:349): the
+//                                  write with double-buffered value chunks
+//   rows_update_kernel          <- ops/pallas_scatter.py::pallas_rows_update
+//                                  (:397) and pallas_rows_add (:479): the
+//                                  fused read-modify-write
+//
+// The first four are pure row copies: each touched row is read once and written
 // once, so each is bound by memory traffic (a 512-byte row per id and plane
 // at the production width of 128 f32 lanes).  On the TPU each row was one
 // DMA issued by the scalar core; here one warp moves one slot's rows, its 32
@@ -166,6 +180,288 @@ rows_write_kernel(const WriteArgs w, const int* __restrict__ ids, int n_slots,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Asynchronous copies into shared memory (cp.async): 16 bytes bypass L1
+// (.cg), 4 bytes go through it (.ca; .cg takes 16 only).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp starts the copy of `bytes` from global src into shared dst, in
+// units of `unit` bytes; a unit of 1 has no asynchronous form and is copied
+// with plain loads and stores.
+__device__ __forceinline__ void warp_stage(unsigned char* dst, const char* src,
+                                           long long bytes, long long unit,
+                                           int lane) {
+  if (unit == 16) {
+    for (long long i = lane; i < (bytes >> 4); i += 32)
+      cp_async_16(dst + (i << 4), src + (i << 4));
+  } else if (unit == 4) {
+    for (long long i = lane; i < (bytes >> 2); i += 32)
+      cp_async_4(dst + (i << 2), src + (i << 2));
+  } else {
+    for (long long i = lane; i < bytes; i += 32) dst[i] = src[i];
+  }
+}
+
+__device__ __forceinline__ long long round16(long long x) {
+  return (x + 15) & ~15LL;
+}
+
+// out[k] = table[ids[k]], staged: a block takes `slots_per_block` consecutive
+// slots, brings their rows into shared memory with cp.async (poison rows for
+// ids outside the table are written there directly), and then stores the
+// whole chunk as one contiguous stretch, every thread on the 16 bytes after
+// its neighbour's.  rows_gather_kernel above is the other design of the same
+// gather (one warp copies one row through registers); the two are timed side
+// by side.
+__global__ void __launch_bounds__(kThreads)
+row_gather_staged_kernel(const char* __restrict__ table, char* __restrict__ out,
+                         long long rows, long long row_bytes, long long unit,
+                         uint32_t poison, const int* __restrict__ ids,
+                         int n_slots, int slots_per_block) {
+  extern __shared__ __align__(16) unsigned char stage[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long first = static_cast<long long>(blockIdx.x) * slots_per_block;
+  const long long left = n_slots - first;
+  const int n = left < slots_per_block ? static_cast<int>(left) : slots_per_block;
+  for (int j = warp; j < n; j += kSlotsPerBlock) {
+    const long long r = resolve(ids[first + j], rows);
+    unsigned char* dst = stage + j * row_bytes;
+    if (r >= 0) {
+      warp_stage(dst, table + r * row_bytes, row_bytes, unit, lane);
+    } else {
+      warp_fill(reinterpret_cast<char*>(dst), row_bytes, unit, poison, lane);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  char* o = out + first * row_bytes;
+  const long long total = n * row_bytes;
+  if (unit == 16) {
+    uint4* d = reinterpret_cast<uint4*>(o);
+    const uint4* s = reinterpret_cast<const uint4*>(stage);
+    for (long long i = threadIdx.x; i < (total >> 4); i += kThreads) d[i] = s[i];
+  } else {
+    uint32_t* d = reinterpret_cast<uint32_t*>(o);
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(stage);
+    for (long long i = threadIdx.x; i < (total >> 2); i += kThreads) d[i] = s[i];
+  }
+}
+
+// The write of rows_write_kernel with its values staged: a persistent block
+// walks over chunks of `chunk` slots (the loop takes the place of the TPU
+// kernel's sequential grid).  While the rows of chunk c are stored from one
+// shared-memory buffer into the arrays, the values of the block's next chunk
+// arrive in the other (cp.async, one commit group per chunk).  Only slots in
+// [lo, hi) are staged and stored, and the id's range is checked before the id
+// becomes an address, exactly as in rows_write_kernel.  Each array's region
+// of a buffer starts on a 16-byte boundary.
+__global__ void __launch_bounds__(kThreads)
+rows_write_pipelined_kernel(const WriteArgs w, const int* __restrict__ ids,
+                            int n_slots, int chunk, int n_chunks,
+                            long long buffer_bytes, const int* lo_p,
+                            const int* hi_p) {
+  extern __shared__ __align__(16) unsigned char stage[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int lo, hi;
+  read_window(lo_p, hi_p, n_slots, lo, hi);
+  if (hi > n_slots) hi = n_slots;
+
+  auto stage_chunk = [&](int c, unsigned char* buf) {
+    const long long c0 = static_cast<long long>(c) * chunk;
+    if (c0 >= hi || c0 + chunk <= lo) return;  // no slot of it is in the window
+    long long off = 0;
+    for (int i = 0; i < w.n; ++i) {
+      const WriteArray& a = w.a[i];
+      for (int j = warp; j < chunk; j += kSlotsPerBlock) {
+        const long long slot = c0 + j;
+        if (slot < lo || slot >= hi) continue;
+        warp_stage(buf + off + j * a.row_bytes,
+                   reinterpret_cast<const char*>(a.src) + slot * a.src_row,
+                   a.row_bytes, a.unit, lane);
+      }
+      off += round16(chunk * a.row_bytes);
+    }
+  };
+
+  auto store_chunk = [&](int c, const unsigned char* buf) {
+    const long long c0 = static_cast<long long>(c) * chunk;
+    if (c0 >= hi || c0 + chunk <= lo) return;
+    for (int j = warp; j < chunk; j += kSlotsPerBlock) {
+      const long long slot = c0 + j;
+      if (slot < lo || slot >= hi) continue;  // pads and other windows
+      const long long id = ids[slot];
+      long long off = 0;
+      for (int i = 0; i < w.n; ++i) {
+        const WriteArray& a = w.a[i];
+        const long long r = resolve(id, a.rows);  // checked BEFORE any address
+        if (r >= 0) {
+          warp_copy(reinterpret_cast<char*>(a.dst) + r * a.row_bytes,
+                    reinterpret_cast<const char*>(buf) + off + j * a.row_bytes,
+                    a.row_bytes, a.unit, lane);
+        }
+        off += round16(chunk * a.row_bytes);
+      }
+    }
+  };
+
+  int c = blockIdx.x;
+  int b = 0;
+  if (c < n_chunks) stage_chunk(c, stage);
+  cp_async_commit();
+  for (; c < n_chunks; c += gridDim.x) {
+    const int next = c + gridDim.x;
+    if (next < n_chunks) stage_chunk(next, stage + (b ^ 1) * buffer_bytes);
+    cp_async_commit();   // possibly empty: one group per iteration
+    cp_async_wait<1>();  // all but the newest group: chunk c has landed
+    __syncthreads();
+    store_chunk(c, stage + b * buffer_bytes);
+    __syncthreads();  // this buffer is staged again in the next iteration
+    b ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+// One array of a read-modify-write; every field a 64-bit integer, as in
+// WriteArray.  `kind` and `delta_kind`: 0 = float32, 1 = bfloat16, 2 = opaque
+// 32-bit lanes (int32; "set" only).
+struct UpdateArray {
+  long long dst;         // address of row 0 of the array
+  long long delta;       // address of delta (or set-value) row 0
+  long long mask;        // address of mask row 0 ("set"), else 0
+  long long rows;        // rows of the array
+  long long width;       // elements of one row
+  long long delta_row;   // bytes between consecutive delta rows
+  long long mask_row;    // bytes between consecutive mask rows
+  long long mode;        // 0 = "add", 1 = "set"
+  long long kind;        // element type of the array (and of the mask)
+  long long delta_kind;  // element type of the deltas
+  long long vec;         // 1: every row address allows 16-byte accesses
+};
+
+struct UpdateArgs {
+  UpdateArray a[kMaxArrays];
+  long long n;
+};
+
+// f32 -> the 16 bits of its round-to-nearest-even bfloat16 in integer
+// arithmetic: denormals keep their bits, a NaN becomes the quiet NaN of its
+// sign (0x7FC0 / 0xFFC0), as XLA's convert does.  (__float2bfloat16_rn
+// writes 0x7FFF for every NaN.)
+__device__ __forceinline__ uint32_t bf16_bits_rne(float x) {
+  const uint32_t b = __float_as_uint(x);
+  if ((b & 0x7FFFFFFFu) > 0x7F800000u) return ((b >> 16) & 0x8000u) | 0x7FC0u;
+  return ((b + 0x7FFFu + ((b >> 16) & 1u)) >> 16) & 0xFFFFu;
+}
+
+__device__ __forceinline__ float load_as_f32(const char* p, long long e,
+                                             long long kind) {
+  if (kind == 0) return reinterpret_cast<const float*>(p)[e];
+  return __uint_as_float(
+      static_cast<uint32_t>(reinterpret_cast<const unsigned short*>(p)[e]) << 16);
+}
+
+__device__ __forceinline__ uint32_t select_bits(uint32_t m, uint32_t abs_mask,
+                                                uint32_t d, uint32_t o) {
+  return (m & abs_mask) ? d : o;
+}
+
+// arrays[a][clamp(ids[k])] = f(old row, deltas[a][k]) for every array a and
+// slot k < n_real, in one pass: "add" is old + delta in f32, stored in the
+// array's type; "set" is where(mask != 0, delta, old) on the bits of the
+// payload (the mask compared as a value: -0.0 is zero, a NaN is not).  One
+// warp per slot walks the arrays, 16 bytes a lane where the addresses allow
+// it.  Slots >= n_real are left alone EXACTLY: -0.0 + 0.0 is +0.0, so a pad
+// slot that were processed with a zero delta could change bits.  Ids must be
+// unique below n_real.
+__global__ void __launch_bounds__(kThreads)
+rows_update_kernel(const UpdateArgs u, const int* __restrict__ ids, int n_slots,
+                   const int* n_real_p) {
+  const int slot = blockIdx.x * kSlotsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (slot >= n_slots) return;
+  const int n_real = n_real_p ? *n_real_p : n_slots;
+  if (slot >= n_real) return;
+  const long long id = ids[slot];
+  for (int i = 0; i < u.n; ++i) {
+    const UpdateArray& a = u.a[i];
+    const long long r = id < 0 ? 0 : (id >= a.rows ? a.rows - 1 : id);
+    const long long esize = a.kind == 1 ? 2 : 4;
+    char* row = reinterpret_cast<char*>(a.dst) + r * a.width * esize;
+    const char* d = reinterpret_cast<const char*>(a.delta) + slot * a.delta_row;
+    if (a.mode == 1) {  // "set": a select on bits, no arithmetic
+      const char* m = reinterpret_cast<const char*>(a.mask) + slot * a.mask_row;
+      if (a.kind == 1) {
+        unsigned short* o16 = reinterpret_cast<unsigned short*>(row);
+        const unsigned short* d16 = reinterpret_cast<const unsigned short*>(d);
+        const unsigned short* m16 = reinterpret_cast<const unsigned short*>(m);
+        for (long long e = lane; e < a.width; e += 32)
+          if (m16[e] & 0x7FFFu) o16[e] = d16[e];
+      } else {
+        const uint32_t abs_mask = a.kind == 0 ? 0x7FFFFFFFu : 0xFFFFFFFFu;
+        if (a.vec) {
+          uint4* o4 = reinterpret_cast<uint4*>(row);
+          const uint4* d4 = reinterpret_cast<const uint4*>(d);
+          const uint4* m4 = reinterpret_cast<const uint4*>(m);
+          for (long long e = lane; e < (a.width >> 2); e += 32) {
+            const uint4 o = o4[e], dv = d4[e], mv = m4[e];
+            o4[e] = make_uint4(select_bits(mv.x, abs_mask, dv.x, o.x),
+                               select_bits(mv.y, abs_mask, dv.y, o.y),
+                               select_bits(mv.z, abs_mask, dv.z, o.z),
+                               select_bits(mv.w, abs_mask, dv.w, o.w));
+          }
+        } else {
+          uint32_t* o32 = reinterpret_cast<uint32_t*>(row);
+          const uint32_t* d32 = reinterpret_cast<const uint32_t*>(d);
+          const uint32_t* m32 = reinterpret_cast<const uint32_t*>(m);
+          for (long long e = lane; e < a.width; e += 32)
+            if (m32[e] & abs_mask) o32[e] = d32[e];
+        }
+      }
+    } else if (a.kind == 0 && a.delta_kind == 0 && a.vec) {  // f32 += f32
+      float4* o4 = reinterpret_cast<float4*>(row);
+      const float4* d4 = reinterpret_cast<const float4*>(d);
+      for (long long e = lane; e < (a.width >> 2); e += 32) {
+        const float4 o = o4[e], dv = d4[e];
+        o4[e] = make_float4(o.x + dv.x, o.y + dv.y, o.z + dv.z, o.w + dv.w);
+      }
+    } else {  // any pair of f32 / bf16: the sum in f32, stored in the array's type
+      for (long long e = lane; e < a.width; e += 32) {
+        const float sum = load_as_f32(row, e, a.kind) + load_as_f32(d, e, a.delta_kind);
+        if (a.kind == 0) {
+          reinterpret_cast<float*>(row)[e] = sum;
+        } else {
+          reinterpret_cast<unsigned short*>(row)[e] =
+              static_cast<unsigned short>(bf16_bits_rne(sum));
+        }
+      }
+    }
+  }
+}
+
 unsigned blocks_for(int n_slots) {
   return static_cast<unsigned>((n_slots + kSlotsPerBlock - 1) / kSlotsPerBlock);
 }
@@ -198,6 +494,63 @@ int mmlrec_rows_write(const long long* args, const int* ids, int n_slots,
   rows_write_kernel<<<blocks_for(n_slots), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(w, ids, n_slots,
                                                            lo_p, hi_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The staged gather; `smem` = slots_per_block * row_bytes (at most 48 KB).
+int mmlrec_row_gather_staged(const void* table, void* out, long long rows,
+                             long long row_bytes, long long unit,
+                             unsigned poison, const int* ids, int n_slots,
+                             int slots_per_block, void* stream) {
+  if (slots_per_block < 1 || unit == 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = slots_per_block * row_bytes;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks =
+      static_cast<unsigned>((n_slots + slots_per_block - 1) / slots_per_block);
+  row_gather_staged_kernel<<<blocks, kThreads, static_cast<size_t>(smem),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const char*>(table), static_cast<char*>(out), rows, row_bytes,
+      unit, poison, ids, n_slots, slots_per_block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pipelined write; `args` as for mmlrec_rows_write (one plane per array),
+// `chunk` slots per stage, `blocks` persistent blocks.
+int mmlrec_rows_write_pipelined(const long long* args, const int* ids,
+                                int n_slots, int chunk, int blocks,
+                                const int* lo_p, const int* hi_p,
+                                void* stream) {
+  WriteArgs w;
+  memcpy(&w, args, sizeof(WriteArgs));
+  if (w.n < 1 || w.n > kMaxArrays || chunk < 1 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long buffer_bytes = 0;
+  for (int i = 0; i < w.n; ++i) {
+    if (w.a[i].planes != 1) return static_cast<int>(cudaErrorInvalidValue);
+    buffer_bytes += (chunk * w.a[i].row_bytes + 15) & ~15LL;
+  }
+  if (2 * buffer_bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (n_slots + chunk - 1) / chunk;
+  const int grid = blocks < n_chunks ? blocks : n_chunks;
+  rows_write_pipelined_kernel<<<static_cast<unsigned>(grid), kThreads,
+                                static_cast<size_t>(2 * buffer_bytes),
+                                static_cast<cudaStream_t>(stream)>>>(
+      w, ids, n_slots, chunk, n_chunks, buffer_bytes, lo_p, hi_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `args` is a host array of 11 * kMaxArrays + 1 long longs laid out as
+// UpdateArgs.
+int mmlrec_rows_update(const long long* args, const int* ids, int n_slots,
+                       const int* n_real_p, void* stream) {
+  UpdateArgs u;
+  static_assert(sizeof(UpdateArgs) == sizeof(long long) * (11 * kMaxArrays + 1),
+                "UpdateArgs must be a flat array of long longs");
+  memcpy(&u, args, sizeof(UpdateArgs));
+  if (u.n < 1 || u.n > kMaxArrays) return static_cast<int>(cudaErrorInvalidValue);
+  rows_update_kernel<<<blocks_for(n_slots), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(u, ids, n_slots,
+                                                            n_real_p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 """Model base: embedding front-end + multi-head epilogue (the port of
-``mmlrec_tpu/models/base.py``, forward).
+``mmlrec_tpu/models/base.py``).
 
 Every model is an ``nn.Module`` called as::
 
@@ -93,6 +93,11 @@ class RecModel(nn.Module):
             # table param (mmlrec_tpu/models/base.py:95-104)
             dual_container=str(extra.get("table_container", "split")) == "stacked",
             dual_shards=int(extra.get("stacked_shards", 1) or 1),
+            # "auto" | "matmul" | "scatter" table cotangent, and the stack
+            # width a vmapped suite divides the one-hot budget by
+            # (mmlrec_tpu/models/base.py:90-94)
+            grad_mode=str(extra.get("embedding_grad", "auto")),
+            grad_budget_divisor=int(extra.get("_grad_budget_div", 1)),
         )
 
     def embed_inputs(self, ids: torch.Tensor, dense: torch.Tensor, rows=None):
@@ -119,6 +124,14 @@ class RecModel(nn.Module):
         dnn_input = fused.embed_concat(ids[:, :n_sparse], dense)
         sparse_emb = dnn_input[:, : n_sparse * fused.dim].unflatten(1, (n_sparse, fused.dim))
         return dnn_input, sparse_emb
+
+    def set_dropout_generator(self, generator: torch.Generator) -> None:
+        """Hand every dropout layer the generator its training masks are
+        drawn from (on the model's device).  The trainer owns it and reseeds
+        it once per step."""
+        for module in self.modules():
+            if hasattr(module, "dropout_generator"):
+                module.dropout_generator = generator
 
     def make_heads(self) -> PredictionHeads:
         return PredictionHeads(self.task_types)

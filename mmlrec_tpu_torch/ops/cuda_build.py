@@ -11,7 +11,9 @@ them: the build counts against the time of a fresh checkout's first run.
 
 Every wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path went
-through.
+through.  ``backward_counts[name]`` counts the calls of a kernel's plain
+backward (the JAX package's backwards are plain too): no kernel is launched
+there, so they are kept apart.
 """
 
 from __future__ import annotations
@@ -35,11 +37,14 @@ NVCC_FLAGS = (
 
 #: launches of each kernel since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {}
+#: calls of each kernel's plain backward since the last reset_launch_counts()
+backward_counts: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, backward_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -130,8 +135,8 @@ def on_cuda(name: str, *tensors: torch.Tensor, forward_only: bool = True) -> boo
             "lie on the CPU or on one CUDA device")
     if forward_only and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; run under "
-            "torch.no_grad() (its backward is ROADMAP A3)")
+            f"{name}: the CUDA kernel is forward only and has no backward; run "
+            "under torch.no_grad()")
     return True
 
 

@@ -1,4 +1,4 @@
-"""Embedding stores (forward), the port of ``mmlrec_tpu/ops/embedding.py``.
+"""Embedding stores, the port of ``mmlrec_tpu/ops/embedding.py``.
 
 All sparse features that share an embedding dim live in ONE fused table with
 per-feature row offsets, so the sparse side of a batch is one gather.  The
@@ -13,6 +13,12 @@ the ``[rows, D]`` array in memory, so the port gathers from
 ``table.view(-1, D)`` at row ``ids + offsets`` for both layouts, which is
 bit-identical to the JAX package's super-row gather plus one-hot sub-row
 select (embedding.py:314-318).
+
+The lookup is differentiable w.r.t. the table (the dense-table fit): the
+gradient lands in the parameter through the same flat view.  As in the JAX
+package (embedding.py:303-313) the unpacked table's cotangent is a one-hot
+product per feature while the one-hot fits ``MATMUL_GRAD_BUDGET_BYTES``,
+and a scatter-add otherwise and for the lane-packed table.
 """
 
 from __future__ import annotations
@@ -25,6 +31,11 @@ from torch import nn
 
 from ..features import FeatureLayout
 from .kernels import embed_concat
+
+
+#: one-hot budget of the matmul backward: f32 [B, F, vmax] bytes
+#: (mmlrec_tpu/ops/embedding.py:110)
+MATMUL_GRAD_BUDGET_BYTES = 128 << 20
 
 
 def _round_up(x: int, m: int) -> int:
@@ -87,7 +98,7 @@ def fused_table_geometry(layout):
 
 class FusedEmbedding(nn.Module):
     """One table for many categorical features with a shared dim
-    (mmlrec_tpu/ops/embedding.py:159-318, forward)."""
+    (mmlrec_tpu/ops/embedding.py:159-318)."""
 
     def __init__(
         self,
@@ -98,8 +109,15 @@ class FusedEmbedding(nn.Module):
         init_std: float = 1e-4,
         dual_container: bool = False,
         dual_shards: int = 1,
+        grad_mode: str = "auto",
+        grad_budget_divisor: int = 1,
     ):
         super().__init__()
+        if grad_mode not in ("auto", "matmul", "scatter"):
+            raise ValueError(
+                f"embedding_grad must be 'auto', 'matmul' or 'scatter'; got {grad_mode!r}")
+        self.grad_mode = grad_mode
+        self.grad_budget_divisor = int(grad_budget_divisor)
         self.vocab_sizes = tuple(int(v) for v in vocab_sizes)
         self.dim = int(dim)
         offsets = np.concatenate([[0], np.cumsum(self.vocab_sizes)[:-1]])
@@ -135,12 +153,29 @@ class FusedEmbedding(nn.Module):
         rows = self.table.shape[0]
         return rows // 2 if self.dual_container else rows
 
+    def table_grad_mode(self, n_ids: int) -> str:
+        """"matmul" or "scatter" for a batch of ``n_ids`` ids
+        (embedding.py:303-313): the one-hot product on the unpacked table
+        when asked for, or under "auto" while its f32 [B, F, vmax] one-hot
+        fits the budget; the scatter-add otherwise."""
+        if self.pack_factor > 1 or self.grad_mode == "scatter":
+            return "scatter"
+        onehot_bytes = int(n_ids) * int(max(self.vocab_sizes)) * 4
+        budget = MATMUL_GRAD_BUDGET_BYTES // max(self.grad_budget_divisor, 1)
+        return "matmul" if self.grad_mode == "matmul" or onehot_bytes <= budget else "scatter"
+
     def embed_concat(self, ids: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
         """ids int32 [B, F] (per-feature local ids), dense [B, Nd] ->
         [B, F*dim + Nd]: the gathered rows flattened, then the dense block,
-        in one pass (the embed-concat kernel on CUDA)."""
+        in one pass (the embed-concat kernel on CUDA), differentiable w.r.t.
+        the table and the dense block."""
         flat_ids = ids.to(torch.int32) + self.offsets[None, :]
-        return embed_concat(self.table.view(-1, self.dim), flat_ids, dense)
+        matmul_grad = None
+        if (self.table.requires_grad and torch.is_grad_enabled()
+                and self.table_grad_mode(ids.numel()) == "matmul"):
+            matmul_grad = (self.vocab_sizes, self.offsets)
+        return embed_concat(self.table.view(-1, self.dim), flat_ids, dense,
+                            matmul_grad=matmul_grad)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         """ids int32 [B, F] -> [B, F, dim]."""
@@ -157,6 +192,7 @@ class EmbeddingCollection(nn.Module):
     def __init__(
         self, layout: FeatureLayout, *, generator: torch.Generator,
         init_std: float = 1e-4, dual_container: bool = False, dual_shards: int = 1,
+        grad_mode: str = "auto", grad_budget_divisor: int = 1,
     ):
         super().__init__()
         if layout.varlen_slots:
@@ -174,6 +210,7 @@ class EmbeddingCollection(nn.Module):
                 tuple(layout.embedding_specs[n][0] for n in names),
                 dims.pop(), generator=generator, init_std=init_std,
                 dual_container=dual_container, dual_shards=dual_shards,
+                grad_mode=grad_mode, grad_budget_divisor=grad_budget_divisor,
             )
 
     def sparse_embeddings(self, ids: torch.Tensor, rows=None) -> torch.Tensor:

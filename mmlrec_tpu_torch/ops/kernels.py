@@ -12,13 +12,13 @@ functions below is a wrapper that
   ``torch.empty``, launches on the current stream, and adds one to
   ``launch_counts[name]`` per launch.
 
-``gated_expert_mix`` and ``multihead_score`` are differentiable on the card:
-a ``torch.autograd.Function`` launches the kernel forward and runs the named
-plain backward (``*_backward``) on the saved tensors, as the JAX package's
-training path computes this math with XLA ops (the Pallas kernels are
-forward only).  ``embed_concat`` stays forward only: a CUDA call whose
-inputs require grad while grad mode is on raises NotImplementedError (its
-backward is ROADMAP A3; the two-phase step injects the rows instead).
+All three are differentiable: a ``torch.autograd.Function`` launches the
+kernel forward and runs the named plain backward (``*_backward``) on the
+saved tensors.  The JAX package has no backward kernel either: its training
+path computes the mix and the score with XLA ops, and the backward of its
+``embed_concat`` is plain ``jnp`` (pallas_kernels.py:82-88).  For
+``embed_concat`` the Function also runs on the CPU (plain forward), so that
+the CPU tests reach the same backward as the card.
 
 The shared library is built at first use (``cuda_build``), keyed by a hash
 of the source, and loaded with ctypes.  Nothing is built or loaded at import.
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +36,7 @@ from . import cuda_build
 from .cuda_build import (  # noqa: F401  (re-exported)
     BUILD_DIR,
     NVCC_FLAGS,
+    backward_counts,
     launch_counts,
     reset_launch_counts,
 )
@@ -47,6 +48,7 @@ LIBRARY = cuda_build.CudaLibrary("recsys_kernels.cu", {
     "mmlrec_multihead_score": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
 })
 launch_counts.update(embed_concat=0, gated_expert_mix=0, multihead_score=0)
+backward_counts.update(embed_concat=0)
 
 _EMBED_ROWS_PER_BLOCK = 16  # kEmbedRowsPerBlock in the CUDA source
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
@@ -63,8 +65,8 @@ def _lib() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def _on_cuda(name: str, *tensors: torch.Tensor, forward_only: bool = True) -> bool:
-    on = cuda_build.on_cuda(name, *tensors, forward_only=forward_only)
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    on = cuda_build.on_cuda(name, *tensors, forward_only=False)  # all three have a backward
     if on and not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: the CUDA kernel needs contiguous inputs")
     return on
@@ -96,11 +98,100 @@ def embed_concat_plain(table, ids, dense):
     return torch.cat([rows.reshape(B, F * D), dense], dim=1)
 
 
-def embed_concat(table: torch.Tensor, ids: torch.Tensor, dense: torch.Tensor):
+def scatter_add_rows(values: torch.Tensor, index: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``zeros([n_rows, D]).at[index].add(values)``, deterministic on both
+    devices; an index outside ``[0, n_rows)`` adds nothing.  On the card,
+    ``index_put_`` with accumulate sorts the indices (stable) and adds each
+    segment in position order, where ``index_add_`` would race with float
+    atomics.  On the CPU, ``index_add_`` adds the rows one after another in
+    position order, as XLA's CPU scatter does (``index_put_`` there spreads
+    the adds over threads with atomics once the input is large)."""
+    idx = index.long()
+    # strays go to a sacrificial last row: no mask, no host synchronisation
+    idx = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows)
+    out = values.new_zeros((n_rows + 1, values.shape[1]))
+    if values.device.type == "cpu":
+        out.index_add_(0, idx, values)
+    else:
+        out.index_put_((idx,), values, accumulate=True)
+    return out[:n_rows]
+
+
+def onehot_matmul_rows(g: torch.Tensor, ids_local: torch.Tensor,
+                       vocab_sizes: Sequence[int], n_rows: int) -> torch.Tensor:
+    """The table cotangent as a one-hot product per feature (the backward of
+    ``mmlrec_tpu/ops/embedding.py::take_rows_matmul_grad``, :142-153):
+    ``g`` [B, F, D], ``ids_local`` [B, F] per-feature ids -> [n_rows, D],
+    the features' blocks one after another and zero rows after them.  An id
+    outside its feature's vocabulary adds nothing.  A library product: the
+    JAX package computes this einsum outside any Pallas kernel."""
+    vmax = int(max(vocab_sizes))
+    lanes = torch.arange(vmax, device=g.device, dtype=ids_local.dtype)
+    onehot = (ids_local[..., None] == lanes).to(g.dtype)  # [B, F, vmax]
+    blocks = torch.einsum("bsv,bsd->svd", onehot, g)  # [F, vmax, D]
+    parts = [blocks[s, :v] for s, v in enumerate(vocab_sizes)]
+    pad = n_rows - int(sum(vocab_sizes))
+    if pad:
+        parts.append(g.new_zeros((pad, g.shape[-1])))
+    return torch.cat(parts, dim=0)
+
+
+def embed_concat_backward(grad_out, ids, n_rows: int, dim: int, matmul_grad=None):
+    """Plain backward of the embed-concat (pallas_kernels.py:82-88):
+    ``(d_table [n_rows, dim], d_dense [B, Nd])`` from the output's cotangent
+    [B, F*dim + Nd] and the pre-offset ids [B, F].  ``d_table`` is the
+    scatter-add of the row cotangents at ``ids`` (an id in [-n_rows, 0)
+    wraps once, as in the forward; the forward's NaN rows add nothing), or,
+    when ``matmul_grad`` gives ``(vocab_sizes, offsets [F])``, the one-hot
+    product per feature."""
+    B, F = ids.shape
+    g_rows = grad_out[:, : F * dim]
+    d_dense = grad_out[:, F * dim:]
+    if matmul_grad is not None:
+        vocab_sizes, offsets = matmul_grad
+        d_table = onehot_matmul_rows(g_rows.reshape(B, F, dim), ids - offsets[None],
+                                     vocab_sizes, n_rows)
+    else:
+        flat = ids.reshape(-1).long()
+        flat = torch.where(flat < 0, flat + n_rows, flat)
+        d_table = scatter_add_rows(g_rows.reshape(B * F, dim), flat, n_rows)
+    return d_table, d_dense
+
+
+class _EmbedConcat(torch.autograd.Function):
+    """The embed-concat kernel forward (its plain version on the CPU),
+    ``embed_concat_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, table, ids, dense, matmul_grad):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = tuple(table.shape)
+        ctx.matmul_grad = matmul_grad
+        if table.device.type == "cuda":
+            return _embed_concat_cuda(table, ids, dense)
+        return embed_concat_plain(table, ids, dense)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        backward_counts["embed_concat"] += 1
+        d_table, d_dense = embed_concat_backward(
+            grad_out, ids, *ctx.table_shape, matmul_grad=ctx.matmul_grad)
+        need_table, _, need_dense, _ = ctx.needs_input_grad
+        return (d_table if need_table else None, None,
+                d_dense if need_dense else None, None)
+
+
+def embed_concat(table: torch.Tensor, ids: torch.Tensor, dense: torch.Tensor,
+                 *, matmul_grad: Optional[Tuple[Tuple[int, ...], torch.Tensor]] = None):
     """[V, D] f32 table, [B, F] int32 pre-offset ids, [B, Nd] f32 dense ->
     [B, F*D + Nd] f32.
 
-    Replaces ``mmlrec_tpu/ops/pallas_kernels.py::fused_embed_concat`` (:43).
+    Replaces ``mmlrec_tpu/ops/pallas_kernels.py::fused_embed_concat`` (:43)
+    and, when an input requires grad, ``embed_concat`` (:103, the
+    ``custom_vjp``): the backward is plain (``embed_concat_backward``): the
+    deterministic scatter-add, or the one-hot product per feature when
+    ``matmul_grad`` gives the features' ``(vocab_sizes, offsets [F] int32)``.
     Bound on the H100 by bytes: the gathered rows, the ids and the dense
     block are read once and the output written once (4.4 MB at the flagship
     batch, 1.3 us at 3.35 TB/s), so at serving batch sizes the launch itself
@@ -119,18 +210,28 @@ def embed_concat(table: torch.Tensor, ids: torch.Tensor, dense: torch.Tensor):
     B, F = ids.shape
     if dense.shape[0] != B:
         raise ValueError(f"{name}: ids have {B} rows, dense {dense.shape[0]}")
-    if not _on_cuda(name, table, ids, dense):
+    on_cuda = _on_cuda(name, table, ids, dense)
+    if on_cuda:
+        if D < 1 or V < 1:
+            raise ValueError(f"{name}: empty table {tuple(table.shape)}")
+        if 8 * _EMBED_ROWS_PER_BLOCK * F > _SMEM_LIMIT:
+            raise ValueError(f"{name}: {F} features exceed the kernel's tile")
+    if torch.is_grad_enabled() and (table.requires_grad or dense.requires_grad):
+        return _EmbedConcat.apply(table, ids, dense, matmul_grad)
+    if not on_cuda:
         return embed_concat_plain(table, ids, dense)
-    if D < 1 or V < 1:
-        raise ValueError(f"{name}: empty table {tuple(table.shape)}")
-    if 8 * _EMBED_ROWS_PER_BLOCK * F > _SMEM_LIMIT:
-        raise ValueError(f"{name}: {F} features exceed the kernel's tile")
+    return _embed_concat_cuda(table, ids, dense)
+
+
+def _embed_concat_cuda(table, ids, dense):
+    V, D = table.shape
+    B, F = ids.shape
     Nd = dense.shape[1]
     out = torch.empty((B, F * D + Nd), dtype=torch.float32, device=table.device)
     if B == 0 or out.shape[1] == 0:
         return out
     lib = _lib()
-    _launch(name, lib.mmlrec_embed_concat, table.data_ptr(), V, D,
+    _launch("embed_concat", lib.mmlrec_embed_concat, table.data_ptr(), V, D,
             ids.data_ptr(), B, F, dense.data_ptr(), Nd, out.data_ptr(),
             device=table.device)
     return out
@@ -166,7 +267,7 @@ def gated_expert_mix(gate_logits: torch.Tensor, experts: torch.Tensor):
         raise ValueError(
             f"{name}: experts {tuple(experts.shape)} do not match logits "
             f"{tuple(gate_logits.shape)}")
-    if not _on_cuda(name, gate_logits, experts, forward_only=False):
+    if not _on_cuda(name, gate_logits, experts):
         return gated_expert_mix_plain(gate_logits, experts)
     if E < 1 or 4 * T * E > _SMEM_LIMIT:
         raise ValueError(f"{name}: unsupported T={T}, E={E}")
@@ -248,7 +349,7 @@ def multihead_score(
         raise ValueError(
             f"{name}: weights {tuple(weights.shape)}, bias {tuple(bias.shape)}"
             f", binary {tuple(binary.shape)} do not match tower {(B, T, H)}")
-    if not _on_cuda(name, tower, weights, bias, binary, forward_only=False):
+    if not _on_cuda(name, tower, weights, bias, binary):
         return multihead_score_plain(tower, weights, bias, binary)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (tower, weights, bias, binary)):

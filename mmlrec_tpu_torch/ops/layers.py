@@ -1,4 +1,4 @@
-"""Core NN primitives (the port of ``mmlrec_tpu/ops/layers.py``, forward).
+"""Core NN primitives (the port of ``mmlrec_tpu/ops/layers.py``).
 
 Every "list of K parallel layers" of the reference is one stacked parameter
 ``[K, in, out]`` contracted with one einsum, as in the JAX package; the
@@ -32,6 +32,19 @@ def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]
             f"activation {name!r} carries parameters and is not ported yet "
             "(ROADMAP A5)")
     raise NotImplementedError(f"activation {name!r}")
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """``nn.Dropout`` semantics as the JAX package's ``ShardedDropout`` has
+    them on one device (layers.py:133-160): a Bernoulli keep mask drawn from
+    ``generator`` (on ``x``'s device), kept values scaled by ``1 / keep``."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class StackedDense(nn.Module):
@@ -72,8 +85,10 @@ class StackedDense(nn.Module):
 
 class StackedMLP(nn.Module):
     """K parallel MLPs as stacked einsums (mmlrec_tpu/ops/layers.py:
-    299-347).  Dropout is the identity at eval; BatchNorm and the
-    parameterised activations are ROADMAP A5, training is ROADMAP A3."""
+    299-347).  Dropout follows each activation in training mode and is the
+    identity at eval; its masks come from ``dropout_generator``, which the
+    trainer sets and reseeds every step.  BatchNorm and the parameterised
+    activations are ROADMAP A5."""
 
     def __init__(
         self,
@@ -94,6 +109,7 @@ class StackedMLP(nn.Module):
             raise NotImplementedError("dnn_use_bn is not ported yet (ROADMAP A5)")
         self.act = activation_fn(activation)
         self.dropout_rate = float(dropout_rate)
+        self.dropout_generator: Optional[torch.Generator] = None
         self.depth = len(hidden_units)
         fan_in = in_dim
         for i, units in enumerate(hidden_units):
@@ -105,11 +121,15 @@ class StackedMLP(nn.Module):
             fan_in = units
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.dropout_rate > 0:
-            raise NotImplementedError(
-                "dropout in training mode is not ported yet (ROADMAP A3)")
+        drop = self.training and self.dropout_rate > 0
+        if drop and self.dropout_generator is None:
+            raise RuntimeError(
+                "dropout in training mode needs a generator: set "
+                "RecModel.set_dropout_generator (the Trainer does)")
         for i in range(self.depth):
             x = self.act(getattr(self, f"dense_{i}")(x))
+            if drop:
+                x = dropout(x, self.dropout_rate, self.dropout_generator)
         return x
 
 

@@ -1,4 +1,4 @@
-"""Row gathers of the two-phase SparseAdam step, with their plain versions.
+"""Row gathers of the embedding table, with their plain versions.
 
 The counterpart of ``mmlrec_tpu/ops/pallas_gather.py``:
 
@@ -6,19 +6,24 @@ The counterpart of ``mmlrec_tpu/ops/pallas_gather.py``:
   row from each plane of the stacked ``[2, V, W]`` (table, moment)
   container per id, with an optional ``[lo, hi)`` window;
 * ``rows_gather_hbm`` replaces ``pallas_rows_gather_hbm`` (:90):
-  ``table[ids]``.
+  ``table[ids]``;
+* ``row_gather`` replaces ``pallas_row_gather`` (:39): ``table[ids]`` with
+  the rows staged in fast memory and stored as blocks.
 
-Both wrappers route as ``ops/kernels.py`` does: CPU tensors take the plain
-version; tensors on one CUDA device launch ``rows_gather_kernel`` of
+The wrappers route as ``ops/kernels.py`` does: CPU tensors take the plain
+version; tensors on one CUDA device launch a kernel of
 ``csrc/row_kernels.cu`` or raise; each launch adds one to
 ``launch_counts``.  The kernels take 4-byte element types (float32, int32).
 
-Both are bound by bytes on the H100: every gathered row is read once and
-written once (2 x 512 B per id for the dual gather at 128 lanes).  Design:
-one warp per slot, 16-byte loads and stores on neighbouring addresses; the
-window is read from device memory, so the caller never synchronises on the
-step's unique-row count.  Pure data movement: bit-identical to the plain
-versions, poison pattern included.
+All are bound by bytes on the H100: every gathered row is read once and
+written once (2 x 512 B per id for the dual gather at 128 lanes).  Design
+of ``rows_gather_kernel`` (the first two): one warp per slot, 16-byte loads
+and stores on neighbouring addresses; the window is read from device
+memory, so the caller never synchronises on the step's unique-row count.
+``row_gather`` is the other design of the single-array gather, as it is in
+the JAX package: a block brings a chunk of rows into shared memory with
+``cp.async`` and stores the chunk as one contiguous stretch.  Pure data
+movement: bit-identical to the plain versions, poison pattern included.
 """
 
 from __future__ import annotations
@@ -32,11 +37,16 @@ from . import cuda_build
 from .cuda_build import launch_counts
 
 _p, _i, _ll, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+# every list ends with the stream: a pointer left to ctypes' default conversion
+# would be cut to 32 bits
 LIBRARY = cuda_build.CudaLibrary("row_kernels.cu", {
-    "mmlrec_rows_gather": [_p, _p, _ll, _ll, _ll, _ll, _i, _ll, _u, _p, _i, _p, _p],
-    "mmlrec_rows_write": [_p, _p, _i, _p, _p],
+    "mmlrec_rows_gather": [_p, _p, _ll, _ll, _ll, _ll, _i, _ll, _u, _p, _i, _p, _p, _p],
+    "mmlrec_rows_write": [_p, _p, _i, _p, _p, _p],
+    "mmlrec_row_gather_staged": [_p, _p, _ll, _ll, _ll, _u, _p, _i, _i, _p],
+    "mmlrec_rows_write_pipelined": [_p, _p, _i, _i, _i, _p, _p, _p],
+    "mmlrec_rows_update": [_p, _p, _i, _p, _p],
 })
-launch_counts.update(rows_gather_dual=0, rows_gather_hbm=0)
+launch_counts.update(rows_gather_dual=0, rows_gather_hbm=0, row_gather=0)
 
 _GATHER_DTYPES = (torch.float32, torch.int32)
 
@@ -192,3 +202,51 @@ def rows_gather_hbm(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     return _gather_launch(name, table, ids, out, 1)
+
+
+# ----------------------------------------------------------------------
+# B9: single-array row gather, staged in shared memory
+# ----------------------------------------------------------------------
+_STAGE_BYTES = 16 * 1024  # shared memory of one block's chunk of rows
+
+
+def row_gather_plain(table, ids):
+    """``jnp.take(table, ids, axis=0)`` (pallas_gather.py:49)."""
+    return take_fill(table, ids, 0)
+
+
+def row_gather(table: torch.Tensor, ids: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """table [V, D], ids [K] int32 with ``K % chunk == 0`` -> rows [K, D];
+    duplicates allowed, out-of-range ids as ``jnp.take``'s fill mode.
+    Replaces ``mmlrec_tpu/ops/pallas_gather.py::pallas_row_gather`` (:39).
+
+    ``chunk`` is the JAX function's contract on K.  The kernel stages as
+    many consecutive slots of a chunk per block as fit 16 KB of shared
+    memory (32 rows of 512 bytes), so that several blocks share an SM."""
+    name = "row_gather"
+    cuda_build.check_dtype(name, table, _GATHER_DTYPES, "table")
+    _check_ids(name, ids)
+    if table.dim() != 2:
+        raise ValueError(f"{name}: expected a [V, D] table, got {list(table.shape)}")
+    K = ids.shape[0]
+    if chunk < 1 or K % chunk:
+        raise ValueError(f"{name}: {K} ids are not a multiple of chunk={chunk}")
+    if not cuda_build.on_cuda(name, table, ids):
+        return row_gather_plain(table, ids)
+    if not table.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel needs a contiguous table")
+    rows, D = table.shape
+    row_bytes = D * table.element_size()
+    out = torch.empty((K, D), dtype=table.dtype, device=table.device)
+    if K == 0 or row_bytes == 0:
+        return out
+    if row_bytes > 3 * _STAGE_BYTES:
+        raise ValueError(f"{name}: rows of {row_bytes} bytes exceed the kernel's stage")
+    slots = max(1, min(chunk, _STAGE_BYTES // row_bytes))
+    ids = ids.contiguous()
+    unit = _unit(row_bytes, table.data_ptr(), out.data_ptr())
+    cuda_build.launch(
+        LIBRARY, name, LIBRARY.load().mmlrec_row_gather_staged, table.data_ptr(),
+        out.data_ptr(), rows, row_bytes, unit, _poison_bits(table.dtype),
+        ids.data_ptr(), K, slots, device=table.device)
+    return out

@@ -129,11 +129,16 @@ def _layout_from_specs(specs: List[Dict]) -> FeatureLayout:
 
 
 def save_serving_bundle(model, path: str) -> Dict:
-    """Write ``model``'s weights, config and feature schema to ``path``.
+    """Write a model's weights, config and feature schema to ``path``.
 
-    ``model`` is a port model (``get_model``).  Returns the bundle's meta
-    dict, in the JAX bundle's schema.
+    ``model`` is a port model (``get_model``) or a ``train.Trainer``: a
+    trainer exports its ``best_variables`` (the best epoch's snapshot, not
+    the last epoch's weights) when its fit kept one, as the JAX function
+    does.  Returns the bundle's meta dict, in the JAX bundle's schema.
     """
+    best = None
+    if hasattr(model, "best_variables"):  # a Trainer
+        model, best = model.model, model.best_variables
     fused = model.embeddings.fused
     if fused is not None and fused.dual_container:
         raise NotImplementedError(
@@ -160,7 +165,7 @@ def save_serving_bundle(model, path: str) -> Dict:
         "config": cfg.to_dict(),
     }
     os.makedirs(path, exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    state = {k: v.detach().cpu() for k, v in {**model.state_dict(), **(best or {})}.items()}
     torch.save(state, os.path.join(path, _PARAMS_FILE))
     with open(os.path.join(path, _META_FILE), "w") as f:
         json.dump(meta, f, indent=1)

@@ -1,16 +1,22 @@
-"""Where the two-phase training step's time goes on the card.
+"""Where a training step's time goes on the card.
 
-Builds the production-vocabulary step (MMoE mtl, 16 sparse x 2,500,000 ids
-x emb 32 = 40 M logical rows, P = 4, 4 dense, experts (256, 128), gate
-(64,), tower (64,), batch 4096, bf16 packed moments, in-step metadata),
-with its weights drawn on the card, warms it up, and traces ``--steps``
-steps with torch.profiler.  Prints, per step: the device time by kernel
-(the largest first), the number of kernel launches, the device time in
-all, the wall time and the host's largest self CPU times, and the device
-numbers as one JSON line last.
+Builds one of the port's two steps with its weights drawn on the card,
+warms it up, and traces ``--steps`` steps with torch.profiler:
 
-    python -m mmlrec_tpu_torch.tools.profile_step [--container stacked|split]
-        [--steps 10] [--trace step_trace.json]
+* ``--fit two-phase`` (the default): the production-vocabulary step (MMoE
+  mtl, 16 sparse x 2,500,000 ids x emb 32 = 40 M logical rows, P = 4, 4
+  dense, experts (256, 128), gate (64,), tower (64,), batch 4096, bf16
+  packed moments, in-step metadata), with ``--container`` stacked or split;
+* ``--fit dense``: the dense-table step of the flagship (MMoE on the
+  AliExpress-MSL shapes: 16 sparse x 100 ids x emb 8, 61 dense, 2 domains,
+  the same towers, batch 4096, the masked loss, Adam over every parameter).
+
+Prints, per step: the device time by kernel (the largest first), the number
+of kernel launches, the device time in all, the wall time and the host's
+largest self CPU times, and the device numbers as one JSON line last.
+
+    python -m mmlrec_tpu_torch.tools.profile_step [--fit two-phase|dense]
+        [--container stacked|split] [--steps 10] [--trace step_trace.json]
 
 Needs one CUDA device; exits 1 without one.
 """
@@ -48,8 +54,39 @@ def build_trainer(container: str):
     return Trainer(model, seed=0, device="cuda").compile()
 
 
+def build_dense_trainer():
+    from ..models import get_model
+    from ..synthetic import aliexpress_like_config, make_data
+    from ..train import Trainer
+    from ..utils.seeding import make_generator
+
+    cfg = aliexpress_like_config("mmoe", masked_loss=True)
+    layout, *_ = make_data(cfg, n=8, vocab=100)
+    # the reference's init (std 1e-4) leaves every relu dead-flat; a wider
+    # draw gives the backward its usual work
+    model = get_model("mmoe", layout, cfg, init_std=0.05, generator=make_generator(0, "cuda"),
+                      device="cuda")
+    return Trainer(model, seed=0, device="cuda").compile(metrics=[])
+
+
+def _batches(n: int, dense_fit: bool):
+    """``n`` random batches on the card, as ``Trainer.train_step`` takes them."""
+    rng = np.random.default_rng(40)
+    vocab, n_dense = (100, 61) if dense_fit else (VOCAB, DENSE)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (BATCH, FEATURES)).astype(np.int32)
+        dense = rng.random((BATCH, n_dense)).astype(np.float32)
+        y = (rng.random((BATCH, 2)) < 0.3).astype(np.float32)
+        dmask = np.eye(2, dtype=np.float32)[rng.integers(0, 2, BATCH)] if dense_fit else None
+        out.append([None if a is None else torch.from_numpy(a).cuda()
+                    for a in (ids, dense, y, dmask)] + [torch.ones(BATCH, device="cuda")])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--fit", default="two-phase", choices=("two-phase", "dense"))
     ap.add_argument("--container", default="stacked", choices=("stacked", "split"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", default=None)
@@ -60,15 +97,10 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    tr = build_trainer(args.container)
-    rng = np.random.default_rng(40)
-    batches = []
-    for _ in range(args.steps + 5):
-        ids = rng.integers(0, VOCAB, (BATCH, FEATURES)).astype(np.int32)
-        dense = rng.random((BATCH, DENSE)).astype(np.float32)
-        y = (rng.random((BATCH, 2)) < 0.3).astype(np.float32)
-        batches.append([torch.from_numpy(a).cuda() for a in (ids, dense, y)]
-                       + [None, torch.ones(BATCH, device="cuda")])
+    dense_fit = args.fit == "dense"
+    tr = build_dense_trainer() if dense_fit else build_trainer(args.container)
+    what = "dense" if dense_fit else args.container
+    batches = _batches(args.steps + 5, dense_fit)
     for b in batches[:5]:
         tr.train_step(*b)
     torch.cuda.synchronize()
@@ -89,7 +121,7 @@ def main(argv=None) -> int:
     busy_us = sum(v[0] for v in by_kernel.values()) / steps
     launches = sum(v[1] for v in by_kernel.values()) / steps
     card = torch.cuda.get_device_name(0)
-    print(f"{args.container}: {steps} steps, wall {wall_s / steps * 1e3:.3f} ms per step, "
+    print(f"{what}: {steps} steps, wall {wall_s / steps * 1e3:.3f} ms per step, "
           f"device {busy_us / 1e3:.3f} ms per step ({busy_us / 1e3 / (wall_s / steps * 1e3):.1%} "
           f"busy), {launches:.0f} device launches per step [{card}]")
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
@@ -102,7 +134,8 @@ def main(argv=None) -> int:
     for e in host[:15]:
         print(f"  {e.self_cpu_time_total / steps:9.1f} us  {e.count / steps:5.1f}x  {e.key[:110]}")
     print(json.dumps({
-        "container": args.container, "steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
+        "fit": args.fit, "container": None if dense_fit else args.container,
+        "steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
         "device_ms_per_step": busy_us / 1e3, "launches_per_step": launches,
         "kernels": [{"name": name, "us_per_step": us / steps, "per_step": n / steps}
                     for name, (us, n) in rows],

@@ -26,7 +26,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.kernels import scatter_add_rows
 from ..ops.row_gather import rows_gather_hbm
+from ..ops.row_scatter import bf16_bits_rne as _bf16_bits
+from ..ops.row_scatter import bits_as_bf16 as _bits_as_bf16
 from ..ops.row_scatter import rows_write, rows_write_dual
 
 
@@ -49,24 +52,6 @@ class SparseAdamFoldedState(NamedTuple):
 
 _LOW16 = 0xFFFF
 _HIGH16 = -65536  # 0xFFFF0000 as int32
-
-
-def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> the 16 bits of its round-to-nearest-even bf16, as int32 in
-    [0, 65535], computed in integer math.  Matches XLA's convert bit for
-    bit: denormals keep their bits, a NaN becomes the quiet NaN of its sign
-    (0x7FC0 / 0xFFC0).  (``tensor.to(torch.bfloat16)`` rounds the same way
-    but writes 0xFFFF for a NaN on the CPU.)"""
-    b = x.contiguous().view(torch.int32)
-    rounded = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16) & _LOW16
-    nan = (b & 0x7FFFFFFF) > 0x7F800000
-    quiet = ((b >> 16) & 0x8000) | 0x7FC0
-    return torch.where(nan, quiet, rounded)
-
-
-def _bits_as_bf16(bits: torch.Tensor) -> torch.Tensor:
-    """int32 holding 16 bits in its low half -> bfloat16 with those bits."""
-    return ((bits << 16) >> 16).to(torch.int16).view(torch.bfloat16)
 
 
 def _bf16_as_bits(x: torch.Tensor) -> torch.Tensor:
@@ -183,16 +168,9 @@ def device_step_metadata(flat_ids: torch.Tensor, pack_factor: int, Kp: int, n_ph
 
 
 def _segment_sum(g_rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
-    """``zeros.at[inv].add(g_rows)``, deterministic on both devices.  On the
-    card, index_put_ with accumulate sorts the indices (stable) and adds
-    each segment in position order, where index_add_ would race with float
-    atomics.  On the CPU, index_add_ adds the rows one after another in
-    position order, as XLA's CPU scatter does (index_put_ there spreads the
-    adds over threads with atomics once the input is large)."""
-    out = torch.zeros_like(g_rows)
-    if g_rows.device.type == "cpu":
-        return out.index_add_(0, inv.long(), g_rows)
-    return out.index_put_((inv.long(),), g_rows, accumulate=True)
+    """``zeros.at[inv].add(g_rows)``, deterministic on both devices (see
+    ``ops.kernels.scatter_add_rows``)."""
+    return scatter_add_rows(g_rows, inv, g_rows.shape[0])
 
 
 def two_phase_sparse_adam_unique(

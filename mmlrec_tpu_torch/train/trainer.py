@@ -1,8 +1,15 @@
-"""Trainer of the port: the two-phase SparseAdam step of the fused embedding
-(the port of ``mmlrec_tpu/train/trainer.py``, its device-metadata two-phase
-step, trainer.py:745-962, and the streaming fit around it).
+"""Trainer of the port (``mmlrec_tpu/train/trainer.py``): the dense-table fit
+of the flagship and the two-phase SparseAdam step of production
+vocabularies, inside one streaming ``fit`` with validation, host metrics,
+best snapshot and early stop, plus ``evaluate`` and ``predict``.
 
-One step, all on the model's device:
+**The dense step** (``two_phase_embedding`` off; trainer.py:996-1107 without
+the per-task loop): forward and loss, one ``torch.autograd.grad`` over all
+parameters, the fused table included (through the embed-concat kernel's
+plain backward), then the compiled optimizer over all of them.
+
+**The two-phase step** (trainer.py:745-962, device-metadata branch), all on
+the model's device:
 
 1. dedup metadata of the batch's ids from one stable sort
    (``device_step_metadata``);
@@ -15,13 +22,14 @@ One step, all on the model's device:
    write launch per step, ``rows_write_dual`` or ``rows_write``) and Adam
    of the dense parameters.
 
-No ``[V, D]`` gradient or moment exists, and nothing in the step reads a
-device value on the host.
+No ``[V, D]`` gradient or moment exists there.  Neither step reads a device
+value on the host: a fit synchronises once per epoch, for the loss and the
+collected probabilities.
 
-The configurations ported are the production recipe and its split twin:
-``two_phase_embedding``, ``table_update: "pallas"``, ``table_opt_dtype:
-"bfloat16"``, ``device_metadata: true``, ``table_container`` "stacked" or
-"split" (``monu_gather`` "xla" or "pallas").  Every other knob raises
+Of the two-phase configurations the production recipe and its split twin are
+ported: ``table_update: "pallas"``, ``table_opt_dtype: "bfloat16"``,
+``device_metadata: true``, ``table_container`` "stacked" or "split"
+(``monu_gather`` "xla" or "pallas").  Every knob that is not ported raises
 NotImplementedError naming its ROADMAP item.
 """
 
@@ -38,6 +46,7 @@ from ..models.base import RecModel
 from ..ops.embedding import pack_factor_for
 from ..ops.row_gather import rows_gather_dual
 from .losses import l2_regularization, multitask_loss
+from .metrics import get_metric_fns, regime_eval
 from .optimizers import get_optimizer
 from .sparse_embedding import (
     SparseAdamFoldedState,
@@ -91,6 +100,18 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.opt_state = None
         self.table_opt = None
+        #: the parameters of the last fit's best epoch by ``val_auc`` (owned
+        #: copies, by state-dict key), or None: then the model's current
+        #: parameters are the best there is.  ``predict`` and ``evaluate``
+        #: read them.
+        self.best_variables: Optional[Dict[str, torch.Tensor]] = None
+        self.throughput_examples_per_s: Optional[float] = None
+        # the seed of each step's dropout masks is drawn from this CPU
+        # generator, once per step, so the masks are a function of (seed,
+        # step) and the state carries over from one fit() to the next
+        self._dropout_master = torch.Generator().manual_seed(seed + 1)
+        self._dropout_gen = torch.Generator(device=self.device)
+        self.model.set_dropout_generator(self._dropout_gen)
 
         mc = self.cfg.model_config
         self.task_name = mc.task_name
@@ -104,33 +125,48 @@ class Trainer:
         self._resolve_knobs()
 
     # ------------------------------------------------------------------
-    # knob resolution (trainer.py:205-486, for the two ported configurations)
+    # knob resolution (trainer.py:205-486)
     # ------------------------------------------------------------------
     def _resolve_knobs(self) -> None:
         mc = self.cfg.model_config
         extra = mc.extra
-        if not extra.get("two_phase_embedding"):
-            raise NotImplementedError(
-                "the dense-table fit is not ported yet (ROADMAP A3); the port "
-                "trains with two_phase_embedding")
         if self.model_name == "pcg" or extra.get("use_gradnorm") or extra.get("use_cagrad"):
             raise NotImplementedError(
                 "per-task gradient methods are not ported yet (ROADMAP A6)")
-        if float(mc.dnn_dropout or 0.0) > 0.0:
-            raise NotImplementedError("dropout in training is not ported yet (ROADMAP A3)")
+        if mc.use_cka_loss and self.task_name in ("msl", "mtmsl"):
+            raise NotImplementedError("the CKA domain loss is not ported yet (ROADMAP A6)")
         if mc.dnn_use_bn:
             raise NotImplementedError("dnn_use_bn is not ported yet (ROADMAP A5)")
         if extra.get("scan_steps"):
             raise NotImplementedError(
                 "scanned steps (scan_steps) are not ported yet (ROADMAP A3); the "
                 "port runs one step per batch")
+        if extra.get("sparse_embedding_update"):
+            raise NotImplementedError(
+                "sparse_embedding_update is not ported yet (ROADMAP A4)")
+        if extra.get("batch_metric_curves"):
+            raise NotImplementedError(
+                "batch_metric_curves is not ported yet (ROADMAP A3)")
+        if self.cfg.training_config.extra.get("device_eval"):
+            raise NotImplementedError(
+                "device_eval (metrics on the device) is not ported yet (ROADMAP A6)")
+        if self.cfg.save_config.save:
+            raise NotImplementedError("checkpoints are not ported yet (ROADMAP A7)")
+        self._has_dropout = float(mc.dnn_dropout or 0.0) > 0.0
+        self.two_phase_embedding = bool(extra.get("two_phase_embedding"))
+        fused = self.model.embeddings.fused
+        if not self.two_phase_embedding:
+            # the dense-table fit reads none of the two-phase knobs
+            if fused is not None and fused.dual_container:
+                raise ValueError(
+                    "table_container='stacked' folds the two-phase step's moments "
+                    "into the table; the dense-table fit needs the split table")
+            return
         sparse_dims = {int(s.feature.embedding_dim) for s in self.layout.sparse_slots}
         if len(sparse_dims) != 1 or self.layout.varlen_slots:
             raise ValueError(
                 "two_phase_embedding requires the fused embedding path "
                 "(uniform dims, no varlen features)")
-        if self.cfg.optim_config.optimizer != "adam":
-            raise ValueError("two_phase_embedding implements SparseAdam")
         vocabs = [s.feature.vocabulary_size for s in self.layout.sparse_slots]
         self._emb_dim = sparse_dims.pop()
         self._emb_pack_factor = pack_factor_for(int(sum(vocabs)), self._emb_dim)
@@ -172,7 +208,6 @@ class Trainer:
             raise NotImplementedError("update_space='slot' is not ported yet (ROADMAP A4)")
         self.update_space = "position"
         self.table_container = _choice(mc, "table_container", "split", ("split", "stacked"))
-        fused = self.model.embeddings.fused
         if fused.dual_container != (self.table_container == "stacked"):
             raise ValueError(
                 f"the model was built with table_container="
@@ -198,13 +233,15 @@ class Trainer:
     # compile
     # ------------------------------------------------------------------
     def compile(self, optimizer=None, loss=None, metrics=None):
-        """Bind optimizer and loss (reference basemodel.py:557-567).  The
-        epoch metrics of the JAX fit are ROADMAP A3: ``fit`` logs the loss."""
+        """Bind optimizer, loss and metrics (reference basemodel.py:557-567)."""
         oc = self.cfg.optim_config
-        self.tx = get_optimizer(optimizer or oc.optimizer, oc.lr)
+        name = optimizer or oc.optimizer
+        if self.two_phase_embedding and (name or "").lower() != "adam":
+            raise ValueError("two_phase_embedding implements SparseAdam")
+        self.tx = get_optimizer(name, oc.lr)
         loss = loss if loss is not None else oc.loss
         self.loss_names = [loss] if isinstance(loss, str) else list(loss)
-        self.metric_names = list(metrics if metrics is not None else oc.metrics)
+        self.metric_fns = get_metric_fns(metrics if metrics is not None else oc.metrics)
         return self
 
     # ------------------------------------------------------------------
@@ -256,14 +293,19 @@ class Trainer:
         return self.model.embeddings.fused.table
 
     def rest_params(self) -> Dict[str, torch.nn.Parameter]:
-        """Every parameter but the fused table: the dense Adam's domain."""
+        """Every parameter but the fused table: the dense Adam's domain in
+        the two-phase step."""
         return {k: p for k, p in self.model.named_parameters() if k != _TABLE}
 
     def init_state(self) -> None:
-        """Dense Adam state of the rest params and the table's SparseAdam
+        """Optimizer state, kept across fit() calls as the JAX trainer keeps
+        its state.  Dense fit: the compiled optimizer over every parameter.
+        Two-phase: Adam over the rest params plus the table's SparseAdam
         state: the step counter alone for the stacked container (the moments
-        live in its bottom half), a zero packed container for the split one.
-        Kept across fit() calls, as the JAX trainer keeps its state."""
+        live in its bottom half), a zero packed container for the split one."""
+        if not self.two_phase_embedding:
+            self.opt_state = self.tx.init(dict(self.model.named_parameters()))
+            return
         self.table.requires_grad_(False)  # never differentiated: rows are injected
         self.opt_state = self.tx.init(self.rest_params())
         if self.table_container == "stacked":
@@ -271,6 +313,38 @@ class Trainer:
                 count=torch.zeros((), dtype=torch.int32, device=self.device))
         else:
             self.table_opt = init_sparse_adam(self.table, packed=True)
+
+    # ------------------------------------------------------------------
+    # the dense step (trainer.py:668-715, 996-1107)
+    # ------------------------------------------------------------------
+    def _data_loss(self, probs, y, dmask, weight):
+        mc = self.cfg.model_config
+        return multitask_loss(
+            probs, y, weight, self.loss_names, self.task_name, self.num_domains,
+            domain_mask=dmask if mc.masked_loss else None,
+            model_name=self.model_name,
+            loss_weights=mc.loss_weights if mc.extra.get("use_loss_weights") else None,
+        )
+
+    def _loss_terms(self, params, ids, dense, y, dmask, weight):
+        """(total, data loss, probs) with the L2 penalty over ``params``, the
+        whole table included (trainer.py:668-715)."""
+        mc = self.cfg.model_config
+        model_mask = dmask if (mc.masked_loss and dmask is not None) else None
+        probs = self.model(ids, dense, model_mask)
+        data_loss = self._data_loss(probs, y, dmask, weight)
+        reg = l2_regularization(
+            params, mc.l2_reg_embedding, mc.l2_reg_dnn,
+            dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
+        return data_loss + reg, data_loss, probs
+
+    def _train_step_dense(self, ids, dense, y, dmask, weight):
+        params = dict(self.model.named_parameters())
+        with torch.enable_grad():
+            total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
+            grads = torch.autograd.grad(total, list(params.values()))
+        self.opt_state = self.tx.step(params, dict(zip(params, grads)), self.opt_state)
+        return total.detach(), data_loss.detach(), probs.detach()
 
     # ------------------------------------------------------------------
     # the two-phase step (trainer.py:745-962, device-metadata branch)
@@ -281,12 +355,7 @@ class Trainer:
         mc = self.cfg.model_config
         model_mask = dmask if (mc.masked_loss and dmask is not None) else None
         probs = self.model(ids, dense, model_mask, rows=rows)
-        data_loss = multitask_loss(
-            probs, y, weight, self.loss_names, self.task_name, self.num_domains,
-            domain_mask=dmask if mc.masked_loss else None,
-            model_name=self.model_name,
-            loss_weights=mc.loss_weights if mc.extra.get("use_loss_weights") else None,
-        )
+        data_loss = self._data_loss(probs, y, dmask, weight)
         reg = l2_regularization(
             self.rest_params(), mc.l2_reg_embedding, mc.l2_reg_dnn,
             dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
@@ -296,10 +365,23 @@ class Trainer:
         return data_loss + reg, data_loss, probs
 
     def train_step(self, ids, dense, y, dmask, weight):
-        """One two-phase step on a padded batch of device tensors; returns
-        (total_loss, data_loss, probs) as device tensors, without a sync."""
+        """One training step on a padded batch of device tensors; returns
+        (total_loss, data_loss, probs) as device tensors, without a sync.
+        The model is in training mode for the step only (dropout)."""
         if self.opt_state is None:
             self.init_state()
+        if self._has_dropout:
+            seed = int(torch.randint(0, 2**62, (), generator=self._dropout_master))
+            self._dropout_gen.manual_seed(seed)
+        self.model.train()
+        try:
+            step = (self._train_step_two_phase if self.two_phase_embedding
+                    else self._train_step_dense)
+            return step(ids, dense, y, dmask, weight)
+        finally:
+            self.model.eval()
+
+    def _train_step_two_phase(self, ids, dense, y, dmask, weight):
         table = self.table
         B, F = ids.shape[0], len(self.layout.sparse_slots)
         P, D, W = self._emb_pack_factor, self._emb_dim, table.shape[1]
@@ -323,7 +405,6 @@ class Trainer:
             rows = rows.reshape(B, F, D)
         rows.requires_grad_(True)
         rest = self.rest_params()
-        self.model.train()
         with torch.enable_grad():
             total, data_loss, probs = self._loss_terms_injected(
                 rows, rep, ids, dense, y, dmask, weight)
@@ -335,7 +416,6 @@ class Trainer:
                 use_pallas=True, n_real=nuniq, sup=sup, sup_c=sup_c, prep=prep,
                 monu_gather=self.monu_gather)
             self.opt_state = self.tx.step(rest, dict(zip(rest, grads[:-1])), self.opt_state)
-        self.model.eval()
         return total.detach(), data_loss.detach(), probs.detach()
 
     # ------------------------------------------------------------------
@@ -366,33 +446,65 @@ class Trainer:
         validation_data=None,
         shuffle: bool = True,
         verbose: int = 1,
+        resume_from: Optional[str] = None,
     ) -> "Trainer":
-        """Stream ``x`` through the two-phase step, one batch per step.
+        """Stream ``x`` through the training step, one batch per step
+        (trainer.py:1366-1747).
 
         Each call draws its epoch orders from ``np.random.default_rng(seed)``
         (``permutation(n)`` per epoch, or the identity with
         ``shuffle=False``); the last partial batch is padded with dataset
-        row 0 at weight 0, as the JAX fit does.  Validation, block shuffle
-        and staging on the device are ROADMAP A3."""
-        if validation_data is not None or validation_split:
-            raise NotImplementedError("validation inside fit is not ported yet (ROADMAP A3)")
+        row 0 at weight 0, as the JAX fit does.  ``validation_split`` takes
+        the tail of the data, before any shuffling; ``validation_data`` is
+        ``(x, y)``.  With validation, the epoch with the best ``val_auc``
+        (strictly above every earlier one, from 0.0) is kept as
+        ``best_variables``, and the fit stops after ``optim_config.early_stop``
+        epochs in a row without a new best.  With compiled metrics each
+        epoch also logs them over its own training predictions (pad rows
+        left out).  ``training_config.max_steps`` caps the steps of the call.
+
+        The dataset stays on the host: staging it on the device, block
+        shuffle, scanned steps and the thread-ahead pool are ROADMAP A3."""
+        if resume_from is not None:
+            raise NotImplementedError("resume_from (checkpoints) is not ported yet (ROADMAP A7)")
         if shuffle not in (True, False):
             raise NotImplementedError(
                 f"shuffle={shuffle!r} (staged block mode) is not ported yet (ROADMAP A3)")
         if not hasattr(self, "tx"):
             raise RuntimeError("call compile() before fit()")
+        oc = self.cfg.optim_config
         batch_size = batch_size or 256
-        self._check_headroom(batch_size)
+        if self.two_phase_embedding:
+            self._check_headroom(batch_size)
         ids, dense = self.pack_inputs(x)
         y = self._prepare_y(y)
         dmask = self._domain_mask_from(x)
         n = len(ids)
+
+        val = None
+        if validation_data is not None:
+            vx, vy = validation_data[:2]
+            val = (*self.pack_inputs(vx), self._prepare_y(vy), self._domain_mask_from(vx))
+        elif validation_split and 0.0 < validation_split < 1.0:
+            split = int(n * (1.0 - validation_split))
+            val = (ids[split:], dense[split:], y[split:],
+                   dmask[split:] if dmask is not None else None)
+            ids, dense, y = ids[:split], dense[:split], y[:split]
+            dmask = dmask[:split] if dmask is not None else None
+            n = split
+
         if self.opt_state is None:
             self.init_state()
         steps_per_epoch = (n - 1) // batch_size + 1
         max_steps = self.cfg.training_config.max_steps or 0
+        if verbose:
+            print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
+                  f"{steps_per_epoch} steps per epoch")
         rng_np = np.random.default_rng(self.seed)
-        total_steps = 0
+        best_auc, early_stop_count, best_snapshot = 0.0, 0, None
+        total_steps = examples_seen = 0
+        train_time = 0.0
+        val_batches = None
         for epoch in range(initial_epoch, epochs):
             t0 = time.time()
             order = rng_np.permutation(n) if shuffle else np.arange(n)
@@ -401,7 +513,8 @@ class Trainer:
                 steps = min(steps_per_epoch, max_steps - total_steps)
                 if steps <= 0:
                     break
-            losses = []
+            take = min(n, steps * batch_size)  # the epoch's real rows; the rest are pads
+            losses, probs = [], []
             for s in range(steps):
                 idx = order[s * batch_size:(s + 1) * batch_size]
                 weight = np.ones(batch_size, np.float32)
@@ -409,29 +522,66 @@ class Trainer:
                 if pad:
                     weight[len(idx):] = 0.0
                     idx = np.concatenate([idx, np.zeros(pad, np.int64)])
-                total, _, _ = self.train_step(
+                total, _, p = self.train_step(
                     self._to_device(ids[idx]), self._to_device(dense[idx]),
                     self._to_device(y[idx]),
                     self._to_device(dmask[idx]) if dmask is not None else None,
                     self._to_device(weight))
                 losses.append(total)
+                if self.metric_fns:
+                    probs.append(p)
             total_steps += steps
-            epoch_loss = float(torch.stack(losses).sum())  # the epoch's one sync
-            logs = {"loss": epoch_loss / max(n, 1), "epoch_s": time.time() - t0}
+            examples_seen += take
+            epoch_loss = float(torch.stack(losses).sum())  # the epoch's first sync
+            epoch_time = time.time() - t0
+            train_time += epoch_time
+            logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
+            if self.metric_fns:
+                probs_all = torch.cat(probs).cpu().numpy()[:take]
+                logs.update(regime_eval(self.metric_fns, y[order[:take]], probs_all,
+                                        self.task_name, self.num_domains))
+            if val is not None:
+                if val_batches is None:  # the validation set goes to the device once
+                    val_batches = self._eval_batches(val[0], val[1], val[3], batch_size)
+                preds = self._predict_batches(val_batches, len(val[0]), use_best=False)
+                val_result = regime_eval(self.metric_fns, val[2], preds,
+                                         self.task_name, self.num_domains)
+                logs.update({f"val_{k}": v for k, v in val_result.items()})
+                auc = val_result.get("auc", 0.0)
+                if auc > best_auc:
+                    best_auc, early_stop_count = auc, 0
+                    # the steps update the parameters in place: the snapshot owns its copy
+                    best_snapshot = {k: p_.detach().clone()
+                                     for k, p_ in self.model.named_parameters()}
+                else:
+                    early_stop_count += 1
             self.history.append(logs)
             if verbose:
-                print(f"Epoch {epoch + 1}/{epochs} - {logs['epoch_s']:.1f}s - "
-                      f"loss: {logs['loss']:.4f}")
+                print(f"Epoch {epoch + 1}/{epochs} - {epoch_time:.1f}s - " + " - ".join(
+                    f"{k}: {v:.4f}" for k, v in logs.items() if k != "epoch_s"))
+            if val is not None and early_stop_count >= oc.early_stop:
+                break
+            if max_steps and total_steps >= max_steps:
+                break
+
+        if train_time > 0:
+            # steady state: the first epoch (warm-up) is left out when more ran
+            epoch_times = [h["epoch_s"] for h in self.history]
+            warm_time = sum(epoch_times[1:])
+            if len(epoch_times) > 1 and warm_time > 0:
+                per_epoch = examples_seen / len(epoch_times)
+                self.throughput_examples_per_s = per_epoch * (len(epoch_times) - 1) / warm_time
+            else:
+                self.throughput_examples_per_s = examples_seen / train_time
+        self.best_variables = best_snapshot
         return self
 
     # ------------------------------------------------------------------
-    # predict (trainer.py:1752-1768, 1879-1895)
+    # predict and evaluate (trainer.py:1752-1768, 1879-1907)
     # ------------------------------------------------------------------
-    def predict(self, x, batch_size: int = 256) -> np.ndarray:
-        """[N, num_heads] float64 probabilities; the last batch is padded
-        with its last row, as the JAX predict does."""
-        ids, dense = self.pack_inputs(x)
-        dmask = self._domain_mask_from(x)
+    def _eval_batches(self, ids, dense, dmask, batch_size: int):
+        """(ids, dense, mask) device tensors per batch; the last batch is
+        padded with its last row, as the JAX predict does."""
         mc = self.cfg.model_config
         n = len(ids)
         steps = (n - 1) // batch_size + 1
@@ -442,14 +592,58 @@ class Trainer:
                 return a
             return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
 
-        ids, dense, dmask = padded(ids), padded(dense), padded(dmask)
+        ids, dense = padded(ids), padded(dense)
+        dmask = padded(dmask) if (mc.masked_loss and dmask is not None) else None
+        batches = []
+        for s in range(steps):
+            sl = slice(s * batch_size, (s + 1) * batch_size)
+            batches.append((self._to_device(ids[sl]), self._to_device(dense[sl]),
+                            self._to_device(dmask[sl]) if dmask is not None else None))
+        return batches
+
+    def _predict_batches(self, batches, n: int, use_best: bool = True) -> np.ndarray:
+        """[n, num_heads] float64 probabilities of the staged batches, with
+        the best snapshot's parameters when there is one and ``use_best``."""
         self.model.eval()
+        best = self.best_variables if use_best else None
         outs = []
         with torch.inference_mode():
-            for s in range(steps):
-                sl = slice(s * batch_size, (s + 1) * batch_size)
-                mask = (self._to_device(dmask[sl])
-                        if (mc.masked_loss and dmask is not None) else None)
-                outs.append(self.model(self._to_device(ids[sl]), self._to_device(dense[sl]),
-                                       mask).cpu().numpy())
-        return np.concatenate(outs)[:n].astype(np.float64)
+            for args in batches:
+                out = (self.model(*args) if best is None
+                       else torch.func.functional_call(self.model, best, args))
+                outs.append(out)
+            probs = torch.cat(outs).cpu().numpy()
+        return probs[:n].astype(np.float64)
+
+    def _predict_packed(self, ids, dense, dmask, batch_size: int) -> np.ndarray:
+        return self._predict_batches(self._eval_batches(ids, dense, dmask, batch_size), len(ids))
+
+    def predict(self, x, batch_size: int = 256) -> np.ndarray:
+        """[N, num_heads] float64 probabilities from ``best_variables`` (the
+        current parameters when there is no snapshot)."""
+        ids, dense = self.pack_inputs(x)
+        return self._predict_packed(ids, dense, self._domain_mask_from(x), batch_size)
+
+    def evaluate(self, x, y, batch_size: int = 256) -> Dict[str, float]:
+        """The compiled metrics of ``predict(x)`` against ``y``, aggregated
+        per regime (``metrics.regime_eval``)."""
+        ids, dense = self.pack_inputs(x)
+        preds = self._predict_packed(ids, dense, self._domain_mask_from(x), batch_size)
+        return regime_eval(self.metric_fns, self._prepare_y(y), preds,
+                           self.task_name, self.num_domains)
+
+    # ------------------------------------------------------------------
+    # not ported yet
+    # ------------------------------------------------------------------
+    def masked_test_metrics_device(self, *args, **kwargs):
+        raise NotImplementedError(
+            "metrics on the device are not ported yet (ROADMAP A6); use predict() and "
+            "train.metrics.masked_test_metrics")
+
+    def save_checkpoint(self, path: str):
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A7)")
+
+    def profile(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Trainer.profile is not ported yet (ROADMAP A3); "
+            "python -m mmlrec_tpu_torch.tools.profile_step traces the step")

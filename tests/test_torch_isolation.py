@@ -2,7 +2,9 @@
 tensor never reaches a CUDA kernel, and the default device is the card."""
 
 import ast
+import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -14,7 +16,7 @@ from mmlrec_tpu_torch.ops import kernels as K
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mmlrec_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmlrec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmlrec_tpu", "sklearn")
 
 
 def _forbidden(module: str) -> bool:
@@ -33,8 +35,12 @@ def test_import_pulls_in_no_jax():
                          capture_output=True, text=True).stdout.split()
     assert "mmlrec_tpu_torch.serving" in out and "mmlrec_tpu_torch.convert" in out
     for m in ("train.trainer", "train.sparse_embedding", "train.losses", "train.optimizers",
-              "ops.row_gather", "ops.row_scatter", "ops.cuda_build"):
+              "train.metrics", "ops.row_gather", "ops.row_scatter", "ops.cuda_build",
+              "ops.kernels", "ops.embedding", "ops.layers", "tools.profile_step"):
         assert f"mmlrec_tpu_torch.{m}" in out
+    on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+               for f in PORT.rglob("*.py")}
+    assert on_disk <= set(out), sorted(on_disk - set(out))  # every file of the port was imported
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -53,6 +59,31 @@ def test_sources_import_no_jax():
             assert not bad, f"{f.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
+def test_ctypes_signatures_match_the_c_sources():
+    """Every exported launcher's ctypes argument list has one entry per C
+    parameter, pointers as pointers, the stream included.  An argument
+    beyond the list would go through ctypes' default conversion, which cuts
+    a Python int to 32 bits: a stream handle above 4 GB then crashes the
+    launch (the row kernels' lists once ended before the stream)."""
+    from mmlrec_tpu_torch.ops import row_gather
+
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_uint: "unsigned",
+             ctypes.c_longlong: "long long"}
+    seen = 0
+    for library in (K.LIBRARY, row_gather.LIBRARY):
+        source = library.source.read_text()
+        for name, argtypes in library.signatures.items():
+            found = re.search(r"\bint " + name + r"\(([^)]*)\)", source)
+            assert found, f"{name} is not exported by {library.source.name}"
+            params = [" ".join(p.split()) for p in found.group(1).split(",")]
+            want = ["pointer" if "*" in p else p.replace("const ", "").rsplit(" ", 1)[0]
+                    for p in params]
+            assert [kinds[t] for t in argtypes] == want, (name, params)
+            assert params[-1] == "void* stream"
+            seen += 1
+    assert seen == 8
+
+
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     def no_kernel(*a, **k):
         raise AssertionError("a CPU tensor reached the CUDA path")
@@ -66,6 +97,9 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     assert K.embed_concat(table, ids, dense).shape == (5, 14)
     assert K.gated_expert_mix(torch.randn(5, 2, 4), torch.randn(5, 4, 8)).shape == (5, 2, 8)
     assert K.multihead_score(torch.randn(5, 2, 8), torch.randn(2, 8), torch.zeros(2)).shape == (5, 2)
+    t = table.clone().requires_grad_(True)  # differentiable: still the plain version
+    K.embed_concat(t, ids, dense).sum().backward()
+    assert t.grad is not None and K.backward_counts["embed_concat"] == 1
     assert K.launch_counts == {k: 0 for k in K.launch_counts}
 
 
@@ -83,6 +117,10 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingBundle.load(str(tmp_path))
     assert ServingBundle.load(str(tmp_path), device="cpu").device.type == "cpu"
+    from mmlrec_tpu_torch.train import Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_model("mmoe", layout, cfg, device="cpu"))  # and with it fit / evaluate
 
 
 def test_kernel_source_builds_for_hopper():
@@ -105,4 +143,11 @@ def test_row_kernel_source_builds_for_hopper():
     assert path.parent == K.library_path().parent and path != K.library_path()
     assert path.name.startswith("librow_kernels_") and path.suffix == ".so"
     assert row_gather.LIBRARY.source == ROOT / "mmlrec_tpu_torch" / "csrc" / "row_kernels.cu"
-    assert {"mmlrec_rows_gather", "mmlrec_rows_write"} <= set(row_gather.LIBRARY.signatures)
+    assert set(row_gather.LIBRARY.signatures) == {
+        "mmlrec_rows_gather", "mmlrec_rows_write", "mmlrec_row_gather_staged",
+        "mmlrec_rows_write_pipelined", "mmlrec_rows_update"}
+    source = row_gather.LIBRARY.source.read_text()
+    for kernel in ("rows_gather_kernel", "rows_write_kernel", "row_gather_staged_kernel",
+                   "rows_write_pipelined_kernel", "rows_update_kernel"):  # one __global__ each
+        assert len(re.findall(r"\n" + kernel + r"\(", source)) == 1
+        assert source.count(kernel + "<<<") == 1

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from mmlrec_tpu.ops.embedding import take_rows_matmul_grad
 from mmlrec_tpu.ops.pallas_kernels import (
+    embed_concat,
     fused_embed_concat,
     gated_expert_mix,
     multihead_score,
@@ -61,6 +63,89 @@ def test_embed_concat_out_of_range_ids_follow_jnp_take():
     assert nan.any() and not nan.all()
     np.testing.assert_array_equal(np.isnan(got), nan)
     np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+def _embed_grad_case(seed=2):
+    rng = np.random.default_rng(seed)
+    vocab_sizes = (20, 7, 30)  # 57 rows, padded to V = 64
+    V, D, B, Nd = 64, 4, 48, 3
+    offsets = np.array([0, 20, 27], np.int32)
+    table = rng.normal(0, 0.3, (V, D)).astype(np.float32)
+    local = np.stack([rng.integers(0, v, B) for v in vocab_sizes], 1).astype(np.int32)
+    local[:8, 0] = 3  # a row hit many times
+    dense = rng.normal(0, 1, (B, Nd)).astype(np.float32)
+    cot = rng.normal(0, 1, (B, len(vocab_sizes) * D + Nd)).astype(np.float32)
+    return vocab_sizes, offsets, table, local, dense, cot
+
+
+def _port_embed_grads(table, ids, dense, cot, matmul_grad=None):
+    t = torch.from_numpy(table).requires_grad_(True)
+    d = torch.from_numpy(dense).requires_grad_(True)
+    K.reset_launch_counts()
+    out = K.embed_concat(t, torch.from_numpy(ids), d, matmul_grad=matmul_grad)
+    g_t, g_d = torch.autograd.grad(out, (t, d), torch.from_numpy(cot))
+    assert K.backward_counts["embed_concat"] == 1 and K.launch_counts["embed_concat"] == 0
+    return out.detach().numpy(), g_t.numpy(), g_d.numpy()
+
+
+def test_embed_concat_gradient_matches_jax_scatter_add():
+    """Against ``jax.grad`` of the JAX ``embed_concat`` (its custom_vjp's
+    ``jnp`` scatter-add, pallas_kernels.py:82-88).  d_dense is a slice:
+    bitwise.  d_table sums up to 8 f32 cotangents per row, in position order
+    on both sides on the CPU: atol 1e-6 covers any order."""
+    _, offsets, table, local, dense, cot = _embed_grad_case()
+    ids = local + offsets[None]
+    want_out, vjp = jax.vjp(lambda t, d: embed_concat(t, jnp.asarray(ids), d, interpret=True),
+                            jnp.asarray(table), jnp.asarray(dense))
+    want_t, want_d = vjp(jnp.asarray(cot))
+    out, g_t, g_d = _port_embed_grads(table, ids, dense, cot)
+    np.testing.assert_array_equal(_bits(out), _bits(want_out))
+    np.testing.assert_array_equal(_bits(g_d), _bits(want_d))
+    np.testing.assert_allclose(g_t, np.asarray(want_t), rtol=0, atol=1e-6)
+    assert not g_t[57:].any()  # the pad rows
+
+
+def test_embed_concat_gradient_matches_jax_onehot_matmul():
+    """Against ``jax.grad`` of ``take_rows_matmul_grad`` (embedding.py:
+    113-156), the route the JAX model takes for the flagship: a one-hot
+    product per feature, equal to the scatter-add to f32 rounding (~4e-6 at
+    flagship scale per its docstring; atol 2e-6 at 48 rows)."""
+    vocab_sizes, offsets, table, local, dense, cot = _embed_grad_case()
+    D = table.shape[1]
+    g_rows = cot[:, : len(vocab_sizes) * D].reshape(len(local), len(vocab_sizes), D)
+    _, vjp = jax.vjp(lambda t: take_rows_matmul_grad(t, jnp.asarray(local), vocab_sizes,
+                                                    max(vocab_sizes)), jnp.asarray(table))
+    (want_t,) = vjp(jnp.asarray(g_rows))
+    ids = local + offsets[None]
+    _, g_mm, g_d = _port_embed_grads(table, ids, dense, cot,
+                                     matmul_grad=(vocab_sizes, torch.from_numpy(offsets)))
+    np.testing.assert_allclose(g_mm, np.asarray(want_t), rtol=0, atol=2e-6)
+    _, g_sc, g_d2 = _port_embed_grads(table, ids, dense, cot)
+    np.testing.assert_allclose(g_mm, g_sc, rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(g_d, g_d2)
+    np.testing.assert_array_equal(_bits(g_d), _bits(cot[:, len(vocab_sizes) * D:]))
+
+
+def test_embed_concat_gradient_ignores_out_of_range_ids():
+    """The forward's NaN rows (ids outside the table) add nothing to
+    d_table; an id in [-V, 0) wraps once, as in the forward; two runs of the
+    scatter-add give equal bits."""
+    V, D = 16, 4
+    table = np.zeros((V, D), np.float32)
+    ids = np.array([[0, -1], [V, 3], [-V - 1, 3], [-2**31, -V]], np.int32)
+    cot = np.ones((4, 2 * D), np.float32)
+    out, g_t, _ = _port_embed_grads(table, ids, np.zeros((4, 0), np.float32), cot)
+    want = np.zeros((V, D), np.float32)
+    want[0], want[V - 1], want[3] = 2.0, 1.0, 2.0  # rows 0 (id 0, id -V), 15 (id -1), 3 (twice)
+    np.testing.assert_array_equal(g_t, want)
+    assert np.isnan(out).sum() == 3 * D
+    _, again, _ = _port_embed_grads(table, ids, np.zeros((4, 0), np.float32), cot)
+    np.testing.assert_array_equal(_bits(g_t), _bits(again))
+    # the one-hot route: an id outside its feature's vocabulary adds nothing
+    got = K.onehot_matmul_rows(torch.ones(2, 2, D), torch.tensor([[0, 5], [9, -1]]), (4, 6), V)
+    want = np.zeros((V, D), np.float32)
+    want[0], want[4 + 5] = 1.0, 1.0
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("B,T,E,D", [(24, 3, 4, 16), (33, 2, 4, 128)])

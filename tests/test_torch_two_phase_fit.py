@@ -273,7 +273,7 @@ def test_multihead_score_backward_matches_autograd():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(two_phase_embedding=False), "A3"),
+    (dict(two_phase_embedding=False, scan_steps=16), "A3"),  # the dense fit refuses it too
     (dict(table_update="scatter"), "A4"),
     (dict(table_update="unique"), "A4"),
     (dict(table_update="auto"), "A4"),  # the CPU resolves auto to scatter
@@ -282,7 +282,7 @@ def test_multihead_score_backward_matches_autograd():
     (dict(dedup_route="gather"), "A4"),
     (dict(update_space="slot"), "A4"),
     (dict(scan_steps=16), "A3"),
-    (dict(dnn_dropout=0.1), "A3"),
+    (dict(batch_metric_curves=True), "A3"),
     (dict(use_gradnorm=True), "A6"),
 ])
 def test_unported_knobs_raise_naming_their_roadmap_item(override, item):
@@ -304,6 +304,8 @@ def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch):
         Trainer(model)
     tr = Trainer(model, device="cpu").compile()
     with pytest.raises(NotImplementedError, match="A3"):
-        tr.fit(x, y, batch_size=64, validation_split=0.2, verbose=0)
+        tr.fit(x, y, batch_size=64, shuffle="block", verbose=0)
+    with pytest.raises(NotImplementedError, match="A7"):
+        tr.fit(x, y, batch_size=64, resume_from="ckpt", verbose=0)
     with pytest.raises(ValueError, match="Kp"):
         tr.fit(x, y, batch_size=512, verbose=0)
