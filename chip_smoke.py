@@ -11,15 +11,21 @@ failure and carries on):
 1. the card's name and power limit (nvidia-smi);
 2. build csrc/recsys_kernels.cu and csrc/row_kernels.cu for sm_90a, one
    nvcc each, started together, with the build seconds;
-3. each forward kernel (B5-B7) against its plain PyTorch version on the
-   card at the flagship serving shapes: embed_concat bitwise, the mix and
-   the score within atol 1e-6 / rtol 1e-5 (their sums run in another
-   order); kernel and plain times (median of CUDA-event timings after
-   warm-up), bytes moved and the bound; then the backward of embed_concat
-   (kernel forward, plain backward) against autograd of the plain version
-   in both modes of the table cotangent: d_dense bitwise, d_table within
-   2e-6 of its largest entry (each row sums ~41 f32 cotangents of order 1,
-   in another order: a few ulps of the sum), two runs bitwise equal;
+3. the launch floor (an empty kernel replayed from a CUDA graph, as one
+   warp and on embed_concat's grid); each forward kernel (B5-B7) against
+   its plain PyTorch version on the card at the flagship serving shapes:
+   embed_concat bitwise, the mix and the score within atol 1e-6 / rtol
+   1e-5 (their sums run in another order); kernel and plain times (median
+   of CUDA-event timings after warm-up), bytes moved and the bound;
+   embed_concat bitwise on its vector body (the flagship and the
+   lane-packed table, batches of 1000 and of 4090 rows, no dense block;
+   out-of-range and negative ids in each) and on its scalar body (D = 6, a
+   table view and a dense view off by 4 bytes, a batch of 3); then the
+   backward of embed_concat (kernel forward, plain backward) against
+   autograd of the plain version in both modes of the table cotangent:
+   d_dense bitwise, d_table within 2e-6 of its largest entry (each row
+   sums ~41 f32 cotangents of order 1, in another order: a few ulps of the
+   sum), two runs bitwise equal, with the backward's device time;
 4. serve the flagship MMoE (AliExpress-MSL widths, vocab 100) from a
    bundle loaded on the card: 4 requests of 4096 rows and one of 1000,
    held against the same bundle on the CPU (plain path) within atol 1e-5,
@@ -32,9 +38,15 @@ failure and carries on):
    window with tail pads one past the last row): bitwise on every slot,
    every row a write leaves alone untouched, and a guard region after each
    array intact; B10 also against B3's kernel, with n_real and with a
-   [lo, hi) window; B8 in three forms ((add, set) on (table, monu), all-add
-   on three arrays, f32 deltas into a bf16 array with NaN, infinities and
-   denormals); kernel, plain and library-call times; then a few row updates
+   [lo, hi) window; B8 as (add, set) on (table, monu), as all-add on three
+   arrays, and one array at a time in every pair of element types (f32 or
+   bf16 deltas into a bf16 or an f32 array, "set" on bf16 and on f32) with
+   NaN, infinities, denormals and ties among rows and deltas and n_real
+   short of K: on the wide path at the step shape (timed on replay, and
+   on four sets of ids and deltas in turn so that the L2 is cold) and at
+   32-wide rows, and on the path of one element a lane at 126-wide rows and
+   on arrays that start 2 or 4 bytes off; kernel, plain and library-call
+   times; then a few row updates
    driven through the public B8-B10 functions (gather + add + pipelined
    write == fused read-modify-write, bitwise), whose launches are the ones
    reported for those three;
@@ -77,6 +89,7 @@ in full f32 like the CPU reference.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -137,55 +150,6 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def _event_ms(torch, run, reps: int, inner: int) -> float:
-    """Median over ``reps`` CUDA-event windows of ``run()``, per call of the
-    ``inner`` calls that one ``run()`` makes."""
-    per_call = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / inner)
-    return statistics.median(per_call)
-
-
-def eager_ms(torch, fn, reps: int = 31, inner: int = 20) -> float:
-    """Time per call of ``fn`` issued eagerly from Python, back to back
-    after a warm-up: at these sizes this is the host's issue rate."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(inner):
-            fn()
-
-    return _event_ms(torch, run, reps, inner)
-
-
-def device_ms(torch, fn, reps: int = 31, inner: int = 20) -> float:
-    """Device time per call of ``fn``: ``inner`` calls captured in one CUDA
-    graph and replayed, so the host's issue rate is out of the way."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture, as capture needs
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    for _ in range(3):
-        graph.replay()
-    torch.cuda.synchronize()
-    return _event_ms(torch, graph.replay, reps, inner)
-
-
 def bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -193,6 +157,8 @@ def bound(nbytes: float, flops: float):
 
 def check_kernels(torch, K, card):
     """Phase 3: each kernel against its plain version at flagship shapes."""
+    from mmlrec_tpu_torch.tools.timing import device_ms, eager_ms
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B, F, D, Nd, V = FLAGSHIP_BATCH, 16, 8, 61, 1664  # 16 x 100 ids, padded to 128
@@ -235,6 +201,14 @@ def check_kernels(torch, K, card):
             bytes=4 * (B * T * H + T * H + 2 * T + B * T), flops=B * T * (2 * H + 4),
             shapes=f"tower[{B},{T},{H}] w[{T},{H}]"),
     }
+    # what a launch alone costs here: an empty kernel through the same ctypes
+    # route, replayed from the same kind of graph, as one warp and on
+    # embed_concat's grid
+    floor_ms = {f"{b}x{t}": device_ms(lambda b=b, t=t: K.empty_launch(b, t))
+                for b, t in ((1, 32), K.embed_concat_grid(B))}
+    log(f"[3] launch floor: an empty kernel replayed from a CUDA graph takes "
+        f"{', '.join(f'{v * 1e3:.2f} us as {k}' for k, v in floor_ms.items())} per launch "
+        f"[{card}]")
     results = {}
     for name, c in cases.items():
         with torch.inference_mode():
@@ -253,9 +227,9 @@ def check_kernels(torch, K, card):
             lib_ms = None
             if c["library"] is not None:
                 torch.testing.assert_close(c["library"](), want, atol=1e-5, rtol=1e-5)
-                lib_ms = device_ms(torch, c["library"])
-            ms, plain_ms = device_ms(torch, c["run"]), device_ms(torch, c["plain"])
-            host_ms = eager_ms(torch, c["run"])
+                lib_ms = device_ms(c["library"])
+            ms, plain_ms = device_ms(c["run"]), device_ms(c["plain"])
+            host_ms = eager_ms(c["run"])
         bound_ms, bound_by = bound(c["bytes"], c["flops"])
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
@@ -265,11 +239,67 @@ def check_kernels(torch, K, card):
             f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}; kernel issued eagerly "
             f"{host_ms * 1e3:.2f} us; {c['bytes'] / 1e6:.2f} MB, bound "
             f"{bound_ms * 1e3:.2f} us ({bound_by}) [{card}]")
+    ec, floor = results["embed_concat"], max(floor_ms.values())
+    ec["launch_floor_ms"] = floor_ms
+    log(f"[3] embed_concat: {ec['ms'] * 1e3:.2f} us = launch floor {floor * 1e3:.2f} us + "
+        f"{(ec['ms'] - floor) * 1e3:.2f} us (bar: floor + 1.5 us and 4.0 us; byte bound "
+        f"{ec['bound_ms'] * 1e3:.2f} us, below the floor) [{card}]")
+    ec["paths"] = check_embed_paths(torch, K, card)
     return results
+
+
+def check_embed_paths(torch, K, card):
+    """Phase 3: embed_concat against its plain version, bitwise, on the
+    kernel's vector body and on its scalar body."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(13)
+    F, V = 16, 1664
+    flagship = torch.randn(V, 8, generator=g, device=dev)
+    packed = torch.randn(1 << 16, 128, generator=g, device=dev)  # [2^20, 8] in memory
+    shifted = torch.randn(V * 8 + 1, generator=g, device=dev)[1:].view(V, 8)
+    cases = (  # what, table, batch, dense columns, dense view off by 4 bytes, vector body
+        ("flagship table, batch 4096", flagship, 4096, 61, False, "all"),
+        ("lane-packed [65536, 128] table seen as [2^20, 8]", packed.view(-1, 8), 4096, 61,
+         False, "all"),
+        ("batch 1000", flagship, 1000, 61, False, "all"),
+        ("batch 4090, B % 4 != 0", flagship, 4090, 61, False, "but the last tile"),
+        ("batch 3", flagship, 3, 61, False, "none"),
+        ("no dense block", flagship, 4096, 0, False, "all"),
+        ("D = 6", torch.randn(V, 6, generator=g, device=dev), 4096, 61, False, "none"),
+        ("table view off by 4 bytes", shifted, 4096, 61, False, "none"),
+        ("dense view off by 4 bytes", flagship, 4096, 61, True, "none"),
+    )
+    out = {}
+    for what, table, B, Nd, shift_dense, expect in cases:
+        rows, D = table.shape
+        ids = torch.randint(0, rows, (B, F), generator=g, device=dev, dtype=torch.int32)
+        ids[0, 0], ids[1, 1], ids[2, 2] = rows + 5, -1, -2**31 + 1  # fill-mode rows
+        dense = torch.rand(B * Nd + 1, generator=g, device=dev)
+        dense = (dense[1:] if shift_dense else dense[:-1]).view(B, Nd)
+        with torch.inference_mode():
+            got, want = K.embed_concat(table, ids, dense), K.embed_concat_plain(table, ids, dense)
+        torch.cuda.synchronize()
+        vector_rows = K.embed_concat_vector_rows(
+            B, D, F * D + Nd, table.data_ptr(), dense.data_ptr() if Nd else 0, got.data_ptr())
+        if expect != {B: "all", 0: "none"}.get(vector_rows, "but the last tile"):
+            raise AssertionError(f"embed_concat ({what}): {vector_rows} of {B} rows on the "
+                                 f"vector body, expected {expect}")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"embed_concat ({what}): kernel differs from the plain version")
+        nan = torch.isnan(got)
+        if not (nan[0, :D].all() and nan[2, 2 * D:3 * D].all() and int(nan.sum()) == 2 * D):
+            raise AssertionError(f"embed_concat ({what}): fill-mode rows are wrong")
+        out[what] = vector_rows
+        log(f"[3] embed_concat, {what}: {vector_rows} of {B} rows on the vector body, the rest "
+            f"on the scalar body; bitwise equal to the plain version, out-of-range and "
+            f"negative ids included [{card}]")
+    return out
 
 
 def check_embed_backward(torch, K, card):
     """Phase 3, second half: embed_concat differentiated on the card."""
+    from mmlrec_tpu_torch.tools.timing import device_ms, eager_ms
+
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(3)
     B, F, D, Nd, vocab = FLAGSHIP_BATCH, 16, 8, 61, 100
@@ -306,13 +336,18 @@ def check_embed_backward(torch, K, card):
         if not err <= 2e-6 * largest:
             raise AssertionError(f"embed_concat backward ({mode}): d_table off by {err} of "
                                  f"{largest}")
-        ms = eager_ms(torch, lambda: K.embed_concat_backward(cot, ids_, V, D, kw.get("matmul_grad")),
-                      reps=11, inner=10)
-        out[mode] = dict(d_table_max_abs_err=err, d_table_max_abs=largest, backward_eager_ms=ms)
+        def backward():
+            return K.embed_concat_backward(cot, ids_, V, D, kw.get("matmul_grad"))
+
+        ms = eager_ms(backward, reps=11, inner=10)
+        dev_ms = device_ms(backward, reps=11, inner=10)
+        out[mode] = dict(d_table_max_abs_err=err, d_table_max_abs=largest, backward_eager_ms=ms,
+                         backward_device_ms=dev_ms)
         log(f"[3] embed_concat backward ({mode}): kernel forward, plain backward vs autograd of "
             f"the plain version: d_dense bitwise, d_table max_abs_err {err:.3g} of "
-            f"{largest:.3g} (tol 2e-6 of it), two runs bitwise equal; backward "
-            f"issued eagerly {ms * 1e3:.1f} us [{card}]")
+            f"{largest:.3g} (tol 2e-6 of it), two runs bitwise equal; backward device time "
+            f"{dev_ms * 1e3:.1f} us (CUDA-graph replay), launched eagerly {ms * 1e3:.1f} us "
+            f"[{card}]")
     return out
 
 
@@ -478,6 +513,7 @@ def serve(torch, K, card, vocab: int, tag: str, workdir: str):
     from mmlrec_tpu_torch.models import get_model
     from mmlrec_tpu_torch.serving import ServingBundle, _pack_from_schema, save_serving_bundle
     from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.tools.timing import device_ms, eager_ms
 
     cfg = aliexpress_like_config("mmoe")
     layout, x, _, _ = make_data(cfg, n=sum(REQUESTS), vocab=vocab, seed=0)
@@ -529,8 +565,8 @@ def serve(torch, K, card, vocab: int, tag: str, workdir: str):
         ids_d, dense_d = torch.from_numpy(ids).cuda(), torch.from_numpy(dense).cuda()
         with torch.inference_mode():
             fn = lambda: gpu.model(ids_d, dense_d)  # noqa: E731
-            forward[len(ids)] = dict(device_ms=device_ms(torch, fn, reps=15, inner=10),
-                                     eager_ms=eager_ms(torch, fn, reps=15, inner=10))
+            forward[len(ids)] = dict(device_ms=device_ms(fn, reps=15, inner=10),
+                                     eager_ms=eager_ms(fn, reps=15, inner=10))
     # steady state: the host clock shares its cores with other machines'
     # work, so the same five requests are served ROUNDS more times and the
     # median round is kept; host packing is timed on its own
@@ -577,7 +613,130 @@ def _ids_like_the_step(torch, g, batch, n_feat, vocab, pack):
 def _time(torch, fn, capturable: bool) -> float:
     """Device time per call (CUDA graph replay) where the call can be
     captured; otherwise CUDA-event time of eager back-to-back calls."""
-    return device_ms(torch, fn) if capturable else eager_ms(torch, fn, reps=11, inner=5)
+    from mmlrec_tpu_torch.tools.timing import device_ms, eager_ms
+
+    return device_ms(fn) if capturable else eager_ms(fn, reps=11, inner=5)
+
+
+UPDATE_FORMS = (  # name, array dtype, delta dtype, mode
+    ("f32_into_bf16", "bfloat16", "float32", "add"),
+    ("bf16_into_bf16", "bfloat16", "bfloat16", "add"),
+    ("bf16_into_f32", "float32", "bfloat16", "add"),
+    ("bf16_set", "bfloat16", "bfloat16", "set"),
+    ("f32_into_f32", "float32", "float32", "add"),
+    ("f32_set", "float32", "float32", "set"),
+)
+# f32 values whose sums and roundings have a corner each: zeros, infinities,
+# NaNs (quiet, signalling, negative), denormals, bf16 ties, the largest
+SPECIAL_F32 = (
+    0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001, 0x7F800001,
+    0x00000001, 0x80000001, 0x007FFFFF, 0x00010000, 0x00018000, 0x3F808000, 0x3F818000,
+    0x3F807FFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000)
+# bf16 pairs (old, delta): a tie to even downwards and one upwards, a negative
+# sum, an overflow to infinity, a denormal sum, and inf - inf
+SPECIAL_BF16_PAIRS = ((0x3F80, 0x3B80), (0x3F81, 0x3B80), (0xBF80, 0x3B80), (0x7F7F, 0x7F7F),
+                      (0x0001, 0x0001), (0x7F80, 0xFF80))
+
+
+def _check_update_pairs(torch, S, g, card, V, W, ids, n_real, n, *, offset, expect_wide, timed):
+    """Phase 6, B8: every form of UPDATE_FORMS on fresh ``[V, W]`` arrays
+    that start ``offset`` elements into their buffer, against the plain
+    version: bitwise on every row, guard rows after the array intact, slots
+    at or past ``n_real`` skipped.  The first four slots carry the special
+    values as old rows against zero deltas, as deltas against zero rows, and
+    against each other.  Returns ``{form: numbers}``; when ``timed``, with
+    the device time of the replayed call (``ms``: the same ids and deltas
+    every time, as every kernel here is timed) and of calls that take four
+    disjoint sets of ids and deltas in turn (``cold_ms``)."""
+    from mmlrec_tpu_torch.tools.timing import device_ms
+
+    dev = torch.device(DEV)
+    K, guard_rows = ids.shape[0], 64
+    f32_bits = torch.tensor(SPECIAL_F32, dtype=torch.int64, device=dev).to(torch.int32)
+    pairs = torch.tensor(SPECIAL_BF16_PAIRS, dtype=torch.int32, device=dev)
+
+    def from_bits(bits32, dtype):  # f32 bit patterns as `dtype` (bf16: their high halves)
+        if dtype == torch.bfloat16:
+            return S.bits_as_bf16((bits32 >> 16) & 0xFFFF)
+        return bits32.view(torch.float32)
+
+    def fresh(rows, dtype, start):
+        flat = torch.empty(start + rows * W, dtype=dtype, device=dev)
+        return flat.normal_(generator=g)[start:].view(rows, W)
+
+    rows4 = ids[:4].long()
+    if timed:
+        cold_ids = torch.randperm(V - 1, generator=g, device=dev)[:4 * K].to(torch.int32).view(4, K)
+        cold_ids[:, n:] = V
+    out = {}
+    for form, a_name, d_name, mode in UPDATE_FORMS:
+        a_dtype, d_dtype = getattr(torch, a_name), getattr(torch, d_name)
+        whole = fresh(V + guard_rows, a_dtype, offset)
+        array, guard = whole[:V], whole[V:].clone()
+        delta = fresh(K, d_dtype, 0)
+        sa, sd = from_bits(f32_bits, a_dtype), from_bits(f32_bits, d_dtype)
+        ns, npair = sa.numel(), pairs.shape[0]
+        if W < ns:
+            raise AssertionError(f"rows of {W} elements cannot hold the {ns} special values")
+        array[rows4[0], :ns], delta[0, :ns] = sa, 0.0
+        array[rows4[1], :ns], delta[1, :ns] = 0.0, sd
+        array[rows4[2], :ns], delta[2, :ns] = sa, sd.flip(0)
+        array[rows4[3], :npair] = from_bits(pairs[:, 0] << 16, a_dtype)
+        delta[3, :npair] = from_bits(pairs[:, 1] << 16, d_dtype)
+        masks = None
+        if mode == "set":  # the deltas are the values: any bits; the mask a value
+            mask = (torch.rand((K, W), generator=g, device=dev) > 0.5).to(a_dtype)
+            mask[:, 0], mask[:, 1] = -0.0, float("nan")  # a zero, and not a zero
+            masks = (mask,)
+        plain = array.clone()
+
+        def run(target=array):
+            return S.rows_update((target,), ids, (delta,), modes=(mode,), masks=masks,
+                                 n_real=n_real)
+
+        run()
+        S.rows_update_plain((plain,), ids, (delta,), modes=(mode,), masks=masks, n_real=n_real)
+        torch.cuda.synchronize()
+        es, des = array.element_size(), delta.element_size()
+        wide = S.update_lane_run(
+            W, es, des, array.data_ptr(), delta.data_ptr(), delta.stride(0) * des,
+            masks[0].data_ptr() if masks else 0, masks[0].stride(0) * es if masks else 0) > 1
+        if wide != expect_wide:
+            raise AssertionError(f"rows_update ({form}, width {W}, offset {offset}): "
+                                 f"wide path {wide}, expected {expect_wide}")
+        as_int = torch.int16 if es == 2 else torch.int32
+        if not (torch.equal(array.view(as_int), plain.view(as_int))
+                and torch.equal(whole[V:].view(as_int), guard.view(as_int))):
+            raise AssertionError(f"rows_update ({form}, width {W}, offset {offset}) differs "
+                                 "from its plain version or wrote past the array")
+        nbytes = 4 + 4 * n + n * W * (2 * es + des + (es if masks else 0))
+        out[form] = dict(wide=wide, bytes=nbytes, bound_ms=bound(nbytes, 0)[0])
+        if timed:
+            out[form]["ms"] = device_ms(run)
+            # the replay above updates the same rows with the same deltas, so
+            # whatever of them fits the 50 MB L2 stays there; four disjoint
+            # sets of ids, deltas and masks taken in turn find the cache cold
+            turn = itertools.cycle([
+                (c_ids, fresh(K, d_dtype, 0), masks and (masks[0].roll(i + 1, 0),))
+                for i, c_ids in enumerate(cold_ids)])
+
+            def run_cold():
+                c_ids, c_delta, c_masks = next(turn)
+                return S.rows_update((array,), c_ids, (c_delta,), modes=(mode,), masks=c_masks,
+                                     n_real=n_real)
+
+            out[form]["cold_ms"] = device_ms(run_cold)
+        del whole, array, plain, delta, masks
+    path = "a lane's run of elements per access" if expect_wide else "one element a lane"
+    times = "".join(f"; {k} {v['ms'] * 1e3:.2f} us, cold {v['cold_ms'] * 1e3:.2f} us (bound "
+                    f"{v['bound_ms'] * 1e3:.2f})" for k, v in out.items() if "ms" in v)
+    if times:
+        times += "; cold: four disjoint sets of ids, deltas and masks in turn, beyond the L2"
+    log(f"[6] rows_update on [{V},{W}] arrays {offset} elements into their buffers, ids[{K}] "
+        f"window [0, {n}): {', '.join(out)} all on the path of {path}, bitwise equal to the "
+        f"plain version with NaN, infinities, denormals and ties, guard rows intact{times} "
+        f"[{card}]")
+    return out
 
 
 def check_row_kernels(torch, card):
@@ -585,6 +744,7 @@ def check_row_kernels(torch, card):
     from mmlrec_tpu_torch.ops import cuda_build
     from mmlrec_tpu_torch.ops import row_gather as G
     from mmlrec_tpu_torch.ops import row_scatter as S
+    from mmlrec_tpu_torch.tools.timing import device_ms
     from mmlrec_tpu_torch.train.sparse_embedding import device_step_metadata
 
     dev = torch.device(DEV)
@@ -727,7 +887,7 @@ def check_row_kernels(torch, card):
                         n_real=nuniq)
     equal_and_guarded("rows_update (add, set)")
     add_set_bytes = 4 + 4 * n + (3 + 4) * 4 * W * n
-    add_set_ms = device_ms(torch, lambda: S.rows_update(
+    add_set_ms = device_ms(lambda: S.rows_update(
         arrays_k, pids, (d_t, d_m), modes=("add", "set"), masks=(None, mask), n_real=nuniq))
     plain_out.copy_(kernel_out)  # the timing replayed the update on one side only
     # (b) all-"add" on three arrays (the JAX package's rows-add benchmark form)
@@ -756,41 +916,31 @@ def check_row_kernels(torch, card):
         plain_capturable=False, library=index_add_each,
         bytes=4 + 4 * n + 3 * 3 * 4 * W * n,
         shapes=f"all-add, 3 x [{V},{W}] ids[{K}] window [0, {n})")
-    # (c) "add" of f32 deltas into a bf16 array: NaN, infinities, denormals,
-    # ties and the largest finite value as rows and as deltas
-    special = torch.tensor(
-        [0x00000000, 0x80000000, 0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001, 0x7F800001,
-         0x00000001, 0x80000001, 0x007FFFFF, 0x00010000, 0x00018000, 0x3F808000, 0x3F818000,
-         0x3F807FFF, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F7F8000],
-        dtype=torch.int64, device=dev).to(torch.int32).view(torch.float32)
-    ns = special.numel()
-    half = torch.empty((V + guard_rows, W), dtype=torch.bfloat16, device=dev)
-    half.normal_(generator=g)
-    d_h = d_t.clone()
-    half[pids_n64[0], :ns], d_h[0, :ns] = special.to(torch.bfloat16), 0.0
-    half[pids_n64[1], :ns], d_h[1, :ns] = 0.0, special
-    half[pids_n64[2], :ns], d_h[2, :ns] = special.to(torch.bfloat16), special.flip(0)
-    half_guard, half_plain = half[V:].clone(), half[:V].clone()
-    S.rows_add((half[:V],), pids, (d_h,), n_real=nuniq)
-    S.rows_update_plain((half_plain,), pids, (d_h,), n_real=nuniq)
-    torch.cuda.synchronize()
-    if not (torch.equal(half[:V].view(torch.int16), half_plain.view(torch.int16))
-            and torch.equal(half[V:].view(torch.int16), half_guard.view(torch.int16))):
-        raise AssertionError("rows_add (f32 into bf16) differs from its plain version")
-    bf16_ms = device_ms(torch, lambda: S.rows_add((half[:V],), pids, (d_h,), n_real=nuniq))
-    bf16_bytes = 4 + 4 * n + (2 * 2 + 4) * W * n
+    # (c) every pair of element types, on the wide path at the step shape
+    # (the same unique-row window), on the path of one element a lane at a
+    # width and at an address that allow no wide access, and on the wide path
+    # of narrow rows (4 or 8 lanes a slot, several slots a warp)
+    forms = _check_update_pairs(torch, S, g, card, V, W, pids, nuniq, n, offset=0,
+                                expect_wide=True, timed=True)
+    small_v, small_k, small_n = 50_000, 4096, 4000
+    small_ids = torch.randperm(small_v - 1, generator=g, device=dev)[:small_k].to(torch.int32)
+    small_ids[small_n:] = small_v  # tail pads one past the last row
+    small_real = torch.tensor([small_n], dtype=torch.int32, device=dev)
+    for width, offset, wide in ((126, 0, False), (W, 1, False), (32, 0, True)):
+        _check_update_pairs(torch, S, g, card, small_v, width, small_ids, small_real, small_n,
+                            offset=offset, expect_wide=wide, timed=False)
+    bf16 = forms["f32_into_bf16"]
     log(f"[6] rows_update forms, all bitwise equal to the plain version: (add, set) on "
         f"(table, monu) {add_set_ms * 1e3:.2f} us for {add_set_bytes / 1e6:.2f} MB (bound "
         f"{bound(add_set_bytes, 0)[0] * 1e3:.2f} us); f32 deltas into a bf16 [{V},{W}] array, "
-        f"special values included, {bf16_ms * 1e3:.2f} us for {bf16_bytes / 1e6:.2f} MB (bound "
-        f"{bound(bf16_bytes, 0)[0] * 1e3:.2f} us) [{card}]")
-    del half, half_plain, d_h
+        f"special values included, {bf16['ms'] * 1e3:.2f} us for {bf16['bytes'] / 1e6:.2f} MB "
+        f"(bound {bf16['bound_ms'] * 1e3:.2f} us) [{card}]")
 
     out = {}
     for name, c in results.items():
-        ms = device_ms(torch, c["run"])
+        ms = device_ms(c["run"])
         plain_ms = _time(torch, c["plain"], c["plain_capturable"])
-        lib_ms = device_ms(torch, c["library"])
+        lib_ms = device_ms(c["library"])
         bound_ms, bound_by = bound(c["bytes"], 0)
         out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms, bytes=c["bytes"],
@@ -802,7 +952,7 @@ def check_row_kernels(torch, card):
             f"({bound_by}) [{card}]")
     out["rows_update"]["forms"] = {
         "add_set": dict(ms=add_set_ms, bytes=add_set_bytes, bound_ms=bound(add_set_bytes, 0)[0]),
-        "f32_into_bf16": dict(ms=bf16_ms, bytes=bf16_bytes, bound_ms=bound(bf16_bytes, 0)[0])}
+        **forms}
 
     # ---- the library functions as a caller uses them: a row update of the
     # table built from the public ops, two ways.  Gather the touched rows
@@ -958,38 +1108,11 @@ def _full_width_trainer(torch, container):
     return Trainer(model, seed=0, device=DEV).compile()
 
 
-def _step_device_ms(torch, step, reps: int = 5):
-    """Device time of one step: the card first spins for ~100 ms
-    (torch.cuda._sleep) while the host queues the whole step behind it, so
-    the events from the end of the spin to the end of the step time the
-    step's kernels back to back.  None if queueing took longer than the
-    spin (the step would then include idle time)."""
-    probe = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-    probe[0].record()
-    torch.cuda._sleep(10_000_000)
-    probe[1].record()
-    probe[1].synchronize()
-    cycles = int(10_000_000 * 100.0 / probe[0].elapsed_time(probe[1]))
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        e0.record()
-        t0 = time.perf_counter()
-        step()
-        queued_ms = (time.perf_counter() - t0) * 1e3
-        e1.record()
-        e1.synchronize()
-        if queued_ms > 80.0:
-            return None
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
 def _timed_steps(torch, tr, batches):
     """(CUDA-event ms of each step on batches already on the card, device
     ms of one step queued behind a spin or None)."""
+    from mmlrec_tpu_torch.tools.timing import queued_ms
+
     step_ms = []
     for b in batches:
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -999,7 +1122,7 @@ def _timed_steps(torch, tr, batches):
         e1.synchronize()
         step_ms.append(e0.elapsed_time(e1))
     it = iter(batches)
-    return step_ms, _step_device_ms(torch, lambda: tr.train_step(*next(it)))
+    return step_ms, queued_ms(lambda: tr.train_step(*next(it)))
 
 
 def full_width(torch, K, card):
@@ -1075,12 +1198,13 @@ def full_width(torch, K, card):
     if touched == 0 or n_steps != n_stacked or out["stacked"]["loss"] != out["split"]["loss"]:
         raise AssertionError("phase 8: no rows trained, or the two containers' losses differ")
     # the cost of the deterministic gradient dedup at this shape
+    from mmlrec_tpu_torch.tools.timing import eager_ms
     from mmlrec_tpu_torch.train.sparse_embedding import _segment_sum
 
     g_rows = torch.randn(FLAGSHIP_BATCH * FULL_FEATURES, FULL_EMB, device=DEV)
     inv = torch.randint(0, g_rows.shape[0], (g_rows.shape[0],), device=DEV, dtype=torch.int32)
-    det_ms = eager_ms(torch, lambda: _segment_sum(g_rows, inv))
-    atomic_ms = eager_ms(torch, lambda: torch.zeros_like(g_rows).index_add_(0, inv, g_rows))
+    det_ms = eager_ms(lambda: _segment_sum(g_rows, inv))
+    atomic_ms = eager_ms(lambda: torch.zeros_like(g_rows).index_add_(0, inv, g_rows))
     log(f"[8] gradient dedup [{g_rows.shape[0]}, {FULL_EMB}] (issued eagerly): deterministic "
         f"index_put_ (sorted) {det_ms * 1e3:.1f} us vs float-atomic index_add_ "
         f"{atomic_ms * 1e3:.1f} us [{card}]")

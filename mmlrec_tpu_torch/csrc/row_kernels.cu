@@ -34,6 +34,20 @@
 // legal in the gathers (reads do not race); the writes rely on the
 // caller's contract that ids are unique inside the window.
 //
+// rows_update is bound by bytes too (old row and delta read, new row written).
+// A group of lanes takes a slot (a whole warp for a 128-wide f32 row, half a
+// warp for a 128-wide bf16 row), with one wide access per operand and lane
+// on every pair of element types: a lane owns 4 consecutive elements of a
+// 4-byte pair (16 bytes per operand) and kLaneElems elements where a bf16
+// operand takes part (16 bytes of the bf16 operand, 2 x 16 of an f32 one,
+// at 8); the N sums of a lane are rounded to bf16 in integer arithmetic and
+// packed into one store, a bf16 "set" is a select on packed 16-bit lanes.
+// The wide path needs the row width to be a multiple of the lane's run and
+// every row address (array, deltas, mask: base and row stride) to be aligned
+// to the access, min(16, run x element size) bytes; the wrapper decides that
+// per array from the shapes and addresses.  Every other array takes the path
+// of one element a lane.  Both give the same bits.
+//
 // Windows: the gathers and writes take the window [lo, hi) from DEVICE
 // memory (lo_p / hi_p; a null pointer means 0 / K), so the host never waits
 // for the step's unique-row count.  A gather writes the poison pattern
@@ -61,6 +75,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSlotsPerBlock = kThreads / 32;  // one warp per slot
 constexpr int kMaxArrays = 8;
+
+// Elements a lane owns on the wide path of rows_update where a bf16 operand
+// takes part (4, 8 or 16); ops/row_scatter.py mirrors it as _LANE_ELEMS.
+#ifndef MMLREC_UPDATE_LANE_ELEMS
+#define MMLREC_UPDATE_LANE_ELEMS 8
+#endif
+constexpr int kLaneElems = MMLREC_UPDATE_LANE_ELEMS;
+static_assert(kLaneElems == 4 || kLaneElems == 8 || kLaneElems == 16,
+              "a lane owns 4, 8 or 16 elements");
 
 // One array of a write, as the wrapper lays it out: every field a 64-bit
 // integer so that the host side is a flat array of long longs.
@@ -359,7 +382,7 @@ struct UpdateArray {
   long long mode;        // 0 = "add", 1 = "set"
   long long kind;        // element type of the array (and of the mask)
   long long delta_kind;  // element type of the deltas
-  long long vec;         // 1: every row address allows 16-byte accesses
+  long long vec;         // 1: width and every address allow the wide path
 };
 
 struct UpdateArgs {
@@ -377,31 +400,196 @@ __device__ __forceinline__ uint32_t bf16_bits_rne(float x) {
   return ((b + 0x7FFFu + ((b >> 16) & 1u)) >> 16) & 0xFFFFu;
 }
 
-__device__ __forceinline__ float load_as_f32(const char* p, long long e,
-                                             long long kind) {
-  if (kind == 0) return reinterpret_cast<const float*>(p)[e];
-  return __uint_as_float(
-      static_cast<uint32_t>(reinterpret_cast<const unsigned short*>(p)[e]) << 16);
+// ---- one element a lane: the path of rows whose width or addresses allow
+// no wide access.  The element types are template parameters, so no loop
+// below branches on a type.
+template <bool kBf16>
+__device__ __forceinline__ float load_one(const char* p, int e) {
+  if constexpr (kBf16) {
+    return __uint_as_float(
+        static_cast<uint32_t>(reinterpret_cast<const unsigned short*>(p)[e]) << 16);
+  } else {
+    return reinterpret_cast<const float*>(p)[e];
+  }
 }
 
-__device__ __forceinline__ uint32_t select_bits(uint32_t m, uint32_t abs_mask,
-                                                uint32_t d, uint32_t o) {
-  return (m & abs_mask) ? d : o;
+template <bool kRowBf16, bool kDeltaBf16>
+__device__ __forceinline__ void add_scalar(char* row, const char* d, int width,
+                                           int lane, int lanes) {
+  for (int e = lane; e < width; e += lanes) {
+    const float sum = load_one<kRowBf16>(row, e) + load_one<kDeltaBf16>(d, e);
+    if constexpr (kRowBf16) {
+      reinterpret_cast<unsigned short*>(row)[e] =
+          static_cast<unsigned short>(bf16_bits_rne(sum));
+    } else {
+      reinterpret_cast<float*>(row)[e] = sum;
+    }
+  }
+}
+
+// T = unsigned short or uint32_t; abs_mask drops the sign bit of a float
+// mask so that -0.0 compares as zero.
+template <typename T>
+__device__ __forceinline__ void set_scalar(char* row, const char* d,
+                                           const char* m, T abs_mask, int width,
+                                           int lane, int lanes) {
+  T* o = reinterpret_cast<T*>(row);
+  const T* dv = reinterpret_cast<const T*>(d);
+  const T* mv = reinterpret_cast<const T*>(m);
+  for (int e = lane; e < width; e += lanes)
+    if (mv[e] & abs_mask) o[e] = dv[e];
+}
+
+// ---- N consecutive elements a lane, one access of up to 16 bytes per
+// operand.  WORDS 32-bit words at p (aligned to 4 * WORDS bytes, at most 16
+// per access).
+template <int WORDS>
+__device__ __forceinline__ void load_words(const char* p, uint32_t (&w)[WORDS]) {
+  static_assert(WORDS == 2 || WORDS % 4 == 0, "8 bytes, or a multiple of 16");
+  if constexpr (WORDS == 2) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x, w[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i) {
+      const uint4 t = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = t.x, w[4 * i + 1] = t.y, w[4 * i + 2] = t.z, w[4 * i + 3] = t.w;
+    }
+  }
+}
+
+template <int WORDS>
+__device__ __forceinline__ void store_words(char* p, const uint32_t (&w)[WORDS]) {
+  if constexpr (WORDS == 2) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < WORDS / 4; ++i)
+      reinterpret_cast<uint4*>(p)[i] =
+          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  }
+}
+
+// Elements [e, e + N) of a row as f32.  A bf16 pair shares one word in
+// little-endian order: element 2i is the low half of word i, element 2i + 1
+// the high half.
+template <int N, bool kBf16>
+__device__ __forceinline__ void load_lane(const char* p, int e, float (&v)[N]) {
+  if constexpr (kBf16) {
+    uint32_t w[N / 2];
+    load_words<N / 2>(p + 2 * e, w);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  } else {
+    uint32_t w[N];
+    load_words<N>(p + 4 * e, w);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __uint_as_float(w[i]);
+  }
+}
+
+template <int N, bool kBf16>
+__device__ __forceinline__ void store_lane(char* p, int e, const float (&v)[N]) {
+  if constexpr (kBf16) {
+    uint32_t w[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      w[i] = bf16_bits_rne(v[2 * i]) | (bf16_bits_rne(v[2 * i + 1]) << 16);
+    store_words<N / 2>(p + 2 * e, w);
+  } else {
+    uint32_t w[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) w[i] = __float_as_uint(v[i]);
+    store_words<N>(p + 4 * e, w);
+  }
+}
+
+// row[e] = row[e] + d[e], N elements a lane: both operands are loaded
+// before the first add, the sums run in f32, and the N results are rounded
+// and packed into one store.
+template <int N, bool kRowBf16, bool kDeltaBf16>
+__device__ __forceinline__ void add_wide(char* __restrict__ row,
+                                         const char* __restrict__ d, int width,
+                                         int lane, int lanes) {
+  for (int e = lane * N; e < width; e += lanes * N) {
+    float o[N], dv[N];
+    load_lane<N, kRowBf16>(row, e, o);
+    load_lane<N, kDeltaBf16>(d, e, dv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = o[i] + dv[i];
+    store_lane<N, kRowBf16>(row, e, o);
+  }
+}
+
+// where(mask != 0, d, row) on 32-bit payloads, 4 a lane.
+__device__ __forceinline__ void set_wide32(char* __restrict__ row,
+                                           const char* __restrict__ d,
+                                           const char* __restrict__ m,
+                                           uint32_t abs_mask, int width, int lane,
+                                           int lanes) {
+  for (int e = lane * 4; e < width; e += lanes * 4) {
+    uint32_t o[4], dv[4], mv[4];
+    load_words<4>(row + 4 * e, o);
+    load_words<4>(d + 4 * e, dv);
+    load_words<4>(m + 4 * e, mv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = (mv[i] & abs_mask) ? dv[i] : o[i];
+    store_words<4>(row + 4 * e, o);
+  }
+}
+
+// The same select on bf16 payloads, N a lane, two 16-bit lanes per word;
+// each half of the mask is compared as a value (& 0x7FFF).
+template <int N>
+__device__ __forceinline__ void set_wide16(char* __restrict__ row,
+                                           const char* __restrict__ d,
+                                           const char* __restrict__ m, int width,
+                                           int lane, int lanes) {
+  for (int e = lane * N; e < width; e += lanes * N) {
+    uint32_t o[N / 2], dv[N / 2], mv[N / 2];
+    load_words<N / 2>(row + 2 * e, o);
+    load_words<N / 2>(d + 2 * e, dv);
+    load_words<N / 2>(m + 2 * e, mv);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const uint32_t take = ((mv[i] & 0x00007FFFu) ? 0x0000FFFFu : 0u) |
+                            ((mv[i] & 0x7FFF0000u) ? 0xFFFF0000u : 0u);
+      o[i] = (dv[i] & take) | (o[i] & ~take);
+    }
+    store_words<N / 2>(row + 2 * e, o);
+  }
 }
 
 // arrays[a][clamp(ids[k])] = f(old row, deltas[a][k]) for every array a and
 // slot k < n_real, in one pass: "add" is old + delta in f32, stored in the
 // array's type; "set" is where(mask != 0, delta, old) on the bits of the
-// payload (the mask compared as a value: -0.0 is zero, a NaN is not).  One
-// warp per slot walks the arrays, 16 bytes a lane where the addresses allow
-// it.  Slots >= n_real are left alone EXACTLY: -0.0 + 0.0 is +0.0, so a pad
-// slot that were processed with a zero delta could change bits.  Ids must be
-// unique below n_real.
+// payload (the mask compared as a value: -0.0 is zero, a NaN is not).
+//
+// A group of `1 << lane_shift` neighbouring lanes takes one slot and walks
+// the arrays; the wrapper picks the smallest group that covers the widest
+// row in one pass, so a warp holds 32 >> lane_shift slots.  A slot's work is
+// a chain of dependent loads (n_real and the id, then the rows, then the
+// store), so what a warp moves per chain decides the kernel's time: at 8
+// elements a lane a 128-wide bf16 row is one 16-byte access of 16 lanes,
+// and a warp carries two slots through each chain.  Per array the wrapper
+// says whether every address allows the wide path (`vec`); the pair of
+// element types is dispatched once per array, outside the element loops.  On
+// the wide path a lane owns a run of consecutive elements: 4 for 4-byte
+// pairs (16 bytes per operand), kLaneElems where a bf16 operand takes part.
+// A wide "set" rewrites the whole word (old bits where the mask is zero):
+// the row is this slot's alone.  Slots >= n_real are left alone EXACTLY:
+// -0.0 + 0.0 is +0.0, so a pad slot that were processed with a zero delta
+// could change bits.  Ids must be unique below n_real.
 __global__ void __launch_bounds__(kThreads)
 rows_update_kernel(const UpdateArgs u, const int* __restrict__ ids, int n_slots,
-                   const int* n_real_p) {
-  const int slot = blockIdx.x * kSlotsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+                   const int* n_real_p, int lane_shift) {
+  const long long thread = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long slot = thread >> lane_shift;
+  const int lanes = 1 << lane_shift;
+  const int lane = threadIdx.x & (lanes - 1);
   if (slot >= n_slots) return;
   const int n_real = n_real_p ? *n_real_p : n_slots;
   if (slot >= n_real) return;
@@ -409,55 +597,33 @@ rows_update_kernel(const UpdateArgs u, const int* __restrict__ ids, int n_slots,
   for (int i = 0; i < u.n; ++i) {
     const UpdateArray& a = u.a[i];
     const long long r = id < 0 ? 0 : (id >= a.rows ? a.rows - 1 : id);
-    const long long esize = a.kind == 1 ? 2 : 4;
-    char* row = reinterpret_cast<char*>(a.dst) + r * a.width * esize;
+    const bool row16 = a.kind == 1, delta16 = a.delta_kind == 1;
+    const int width = static_cast<int>(a.width);
+    const bool wide = a.vec != 0;
+    char* row = reinterpret_cast<char*>(a.dst) + r * a.width * (row16 ? 2 : 4);
     const char* d = reinterpret_cast<const char*>(a.delta) + slot * a.delta_row;
     if (a.mode == 1) {  // "set": a select on bits, no arithmetic
       const char* m = reinterpret_cast<const char*>(a.mask) + slot * a.mask_row;
-      if (a.kind == 1) {
-        unsigned short* o16 = reinterpret_cast<unsigned short*>(row);
-        const unsigned short* d16 = reinterpret_cast<const unsigned short*>(d);
-        const unsigned short* m16 = reinterpret_cast<const unsigned short*>(m);
-        for (long long e = lane; e < a.width; e += 32)
-          if (m16[e] & 0x7FFFu) o16[e] = d16[e];
+      if (row16) {
+        if (wide) set_wide16<kLaneElems>(row, d, m, width, lane, lanes);
+        else set_scalar<unsigned short>(row, d, m, 0x7FFFu, width, lane, lanes);
       } else {
         const uint32_t abs_mask = a.kind == 0 ? 0x7FFFFFFFu : 0xFFFFFFFFu;
-        if (a.vec) {
-          uint4* o4 = reinterpret_cast<uint4*>(row);
-          const uint4* d4 = reinterpret_cast<const uint4*>(d);
-          const uint4* m4 = reinterpret_cast<const uint4*>(m);
-          for (long long e = lane; e < (a.width >> 2); e += 32) {
-            const uint4 o = o4[e], dv = d4[e], mv = m4[e];
-            o4[e] = make_uint4(select_bits(mv.x, abs_mask, dv.x, o.x),
-                               select_bits(mv.y, abs_mask, dv.y, o.y),
-                               select_bits(mv.z, abs_mask, dv.z, o.z),
-                               select_bits(mv.w, abs_mask, dv.w, o.w));
-          }
-        } else {
-          uint32_t* o32 = reinterpret_cast<uint32_t*>(row);
-          const uint32_t* d32 = reinterpret_cast<const uint32_t*>(d);
-          const uint32_t* m32 = reinterpret_cast<const uint32_t*>(m);
-          for (long long e = lane; e < a.width; e += 32)
-            if (m32[e] & abs_mask) o32[e] = d32[e];
-        }
+        if (wide) set_wide32(row, d, m, abs_mask, width, lane, lanes);
+        else set_scalar<uint32_t>(row, d, m, abs_mask, width, lane, lanes);
       }
-    } else if (a.kind == 0 && a.delta_kind == 0 && a.vec) {  // f32 += f32
-      float4* o4 = reinterpret_cast<float4*>(row);
-      const float4* d4 = reinterpret_cast<const float4*>(d);
-      for (long long e = lane; e < (a.width >> 2); e += 32) {
-        const float4 o = o4[e], dv = d4[e];
-        o4[e] = make_float4(o.x + dv.x, o.y + dv.y, o.z + dv.z, o.w + dv.w);
-      }
-    } else {  // any pair of f32 / bf16: the sum in f32, stored in the array's type
-      for (long long e = lane; e < a.width; e += 32) {
-        const float sum = load_as_f32(row, e, a.kind) + load_as_f32(d, e, a.delta_kind);
-        if (a.kind == 0) {
-          reinterpret_cast<float*>(row)[e] = sum;
-        } else {
-          reinterpret_cast<unsigned short*>(row)[e] =
-              static_cast<unsigned short>(bf16_bits_rne(sum));
-        }
-      }
+    } else if (!row16 && !delta16) {  // f32 += f32
+      if (wide) add_wide<4, false, false>(row, d, width, lane, lanes);
+      else add_scalar<false, false>(row, d, width, lane, lanes);
+    } else if (!row16) {  // f32 += bf16
+      if (wide) add_wide<kLaneElems, false, true>(row, d, width, lane, lanes);
+      else add_scalar<false, true>(row, d, width, lane, lanes);
+    } else if (!delta16) {  // bf16 += f32: the sum in f32, rounded once
+      if (wide) add_wide<kLaneElems, true, false>(row, d, width, lane, lanes);
+      else add_scalar<true, false>(row, d, width, lane, lanes);
+    } else {  // bf16 += bf16
+      if (wide) add_wide<kLaneElems, true, true>(row, d, width, lane, lanes);
+      else add_scalar<true, true>(row, d, width, lane, lanes);
     }
   }
 }
@@ -540,17 +706,22 @@ int mmlrec_rows_write_pipelined(const long long* args, const int* ids,
 }
 
 // `args` is a host array of 11 * kMaxArrays + 1 long longs laid out as
-// UpdateArgs.
+// UpdateArgs; `lanes_per_slot` (a power of two up to 32) lanes take one slot.
 int mmlrec_rows_update(const long long* args, const int* ids, int n_slots,
-                       const int* n_real_p, void* stream) {
+                       const int* n_real_p, int lanes_per_slot, void* stream) {
   UpdateArgs u;
   static_assert(sizeof(UpdateArgs) == sizeof(long long) * (11 * kMaxArrays + 1),
                 "UpdateArgs must be a flat array of long longs");
   memcpy(&u, args, sizeof(UpdateArgs));
   if (u.n < 1 || u.n > kMaxArrays) return static_cast<int>(cudaErrorInvalidValue);
-  rows_update_kernel<<<blocks_for(n_slots), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(u, ids, n_slots,
-                                                            n_real_p);
+  int lane_shift = 0;
+  while ((1 << lane_shift) < lanes_per_slot) ++lane_shift;
+  if (lanes_per_slot < 1 || lanes_per_slot > 32 || (1 << lane_shift) != lanes_per_slot)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = static_cast<long long>(n_slots) << lane_shift;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  rows_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      u, ids, n_slots, n_real_p, lane_shift);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,15 +59,21 @@ class CudaLibrary:
 
     ``signatures`` maps each exported C function to its ctypes argument
     types; every one returns an ``int`` CUDA error code (0 = launched).
+    ``defines`` are extra ``-DNAME=value`` flags: a variant of the source
+    with another tuning constant, built beside the default one
+    (``tools/tune_kernels.py``).
     """
 
-    def __init__(self, source: str, signatures: Dict[str, List]):
+    def __init__(self, source: str, signatures: Dict[str, List],
+                 defines: Sequence[str] = ()):
         self.source = CSRC / source
         self.signatures = signatures
+        self.defines = tuple(defines)
         self._lib: Optional[ctypes.CDLL] = None
 
     def path(self) -> Path:
-        key = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        content = self.source.read_bytes() + " ".join(self.defines).encode()
+        key = hashlib.sha256(content).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}_{key}.so"
 
     def _start(self) -> Optional[subprocess.Popen]:
@@ -78,7 +84,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *NVCC_FLAGS, *self.defines, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         proc.tmp = tmp  # type: ignore[attr-defined]

@@ -43,14 +43,15 @@ from .cuda_build import (  # noqa: F401  (re-exported)
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = cuda_build.CudaLibrary("recsys_kernels.cu", {
-    "mmlrec_embed_concat": [_p, _ll, _i, _p, _i, _i, _p, _i, _p, _p],
+    "mmlrec_embed_concat": [_p, _ll, _i, _p, _i, _i, _p, _i, _p, _i, _p],
     "mmlrec_gated_expert_mix": [_p, _p, _i, _i, _i, _i, _p, _p],
     "mmlrec_multihead_score": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
+    "mmlrec_empty_launch": [_i, _i, _p],
 })
 launch_counts.update(embed_concat=0, gated_expert_mix=0, multihead_score=0)
 backward_counts.update(embed_concat=0)
 
-_EMBED_ROWS_PER_BLOCK = 16  # kEmbedRowsPerBlock in the CUDA source
+_EMBED_ROWS_PER_BLOCK = 8  # kEmbedRowsPerBlock (MMLREC_EMBED_TILE_ROWS) in the CUDA source
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
 
 
@@ -79,6 +80,16 @@ def _launch(name: str, fn, *args, device: torch.device) -> None:
 def _check_dtype(name: str, t: torch.Tensor, dtype: torch.dtype, what: str):
     if t.dtype != dtype:
         raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+
+
+def empty_launch(blocks: int = 1, threads: int = 32) -> None:
+    """Launch a kernel that does nothing, through the same ctypes route as
+    the real ones, on the current device's current stream: the probe that
+    times what a launch alone costs on this card.  It is no
+    kernel of any path and has no launch count."""
+    code = _lib().mmlrec_empty_launch(blocks, threads, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"empty_launch: kernel launch failed ({code})")
 
 
 # ----------------------------------------------------------------------
@@ -158,6 +169,32 @@ def embed_concat_backward(grad_out, ids, n_rows: int, dim: int, matmul_grad=None
     return d_table, d_dense
 
 
+def embed_concat_vector_rows(batch: int, dim: int, width: int, table_addr: int,
+                             dense_addr: int, out_addr: int) -> int:
+    """How many leading batch rows the kernel's vector body handles (0: the
+    scalar body takes all), from shapes and addresses alone.
+
+    The vector body moves 16 bytes per access, so it needs whole ``float4``s
+    of a table row (``dim % 4 == 0``), 16-byte-aligned starts of the table,
+    the dense block and the output, and a tile image (``rows per tile x
+    width`` f32) inside the static shared memory.  Tiles are
+    ``_EMBED_ROWS_PER_BLOCK`` (a multiple of 4) batch rows; a last tile whose
+    row count is no multiple of 4 takes the scalar body, every other tile
+    starts and ends on a 16-byte boundary whatever ``width`` is."""
+    if dim % 4 or any(a % 16 for a in (table_addr, dense_addr, out_addr)):
+        return 0
+    if 4 * _EMBED_ROWS_PER_BLOCK * width > _SMEM_LIMIT:
+        return 0
+    tail = batch % _EMBED_ROWS_PER_BLOCK
+    return batch - (tail if tail % 4 else 0)
+
+
+def embed_concat_grid(batch: int) -> Tuple[int, int]:
+    """(blocks, threads per block) of the embed_concat launch at ``batch``
+    rows, as the C entry computes them."""
+    return (-(-batch // _EMBED_ROWS_PER_BLOCK), 256 if _EMBED_ROWS_PER_BLOCK >= 8 else 128)
+
+
 class _EmbedConcat(torch.autograd.Function):
     """The embed-concat kernel forward (its plain version on the CPU),
     ``embed_concat_backward`` backward."""
@@ -194,11 +231,18 @@ def embed_concat(table: torch.Tensor, ids: torch.Tensor, dense: torch.Tensor,
     ``matmul_grad`` gives the features' ``(vocab_sizes, offsets [F] int32)``.
     Bound on the H100 by bytes: the gathered rows, the ids and the dense
     block are read once and the output written once (4.4 MB at the flagship
-    batch, 1.3 us at 3.35 TB/s), so at serving batch sizes the launch itself
-    dominates.  Design: one block per 16-row tile resolves its ids into
-    shared memory once, then writes the tile's output row-major, so stores
-    are contiguous and each D-float table row is read by D neighbouring
-    threads.  Pure data movement: bit-identical to the plain version.
+    batch, 1.3 us at 3.35 TB/s), which is less than a launch alone takes, so
+    the design is about latency.  One block per 8-row tile; every access to
+    device memory is 16 bytes and a tile's loads are in flight together: a
+    thread loads one ``float4`` of the dense block, its id and one ``float4``
+    of that id's table row, writes them into a shared-memory image of the
+    tile's output, and after one barrier the image is stored as one
+    contiguous run of ``float4``.  That body needs ``D % 4 == 0`` and
+    16-byte-aligned table, dense block and output
+    (``embed_concat_vector_rows``); any other shape, and a last tile whose
+    row count is no multiple of 4, takes the scalar body (ids resolved into
+    shared memory, one float a thread).  Pure data movement: bit-identical
+    to the plain version on either body.
     """
     name = "embed_concat"
     _check_dtype(name, table, torch.float32, "table")
@@ -230,9 +274,11 @@ def _embed_concat_cuda(table, ids, dense):
     out = torch.empty((B, F * D + Nd), dtype=torch.float32, device=table.device)
     if B == 0 or out.shape[1] == 0:
         return out
+    vec = embed_concat_vector_rows(B, D, out.shape[1], table.data_ptr(),
+                                   dense.data_ptr() if Nd else 0, out.data_ptr()) > 0
     lib = _lib()
     _launch("embed_concat", lib.mmlrec_embed_concat, table.data_ptr(), V, D,
-            ids.data_ptr(), B, F, dense.data_ptr(), Nd, out.data_ptr(),
+            ids.data_ptr(), B, F, dense.data_ptr(), Nd, out.data_ptr(), int(vec),
             device=table.device)
     return out
 

@@ -44,7 +44,7 @@ LIBRARY = cuda_build.CudaLibrary("row_kernels.cu", {
     "mmlrec_rows_write": [_p, _p, _i, _p, _p, _p],
     "mmlrec_row_gather_staged": [_p, _p, _ll, _ll, _ll, _u, _p, _i, _i, _p],
     "mmlrec_rows_write_pipelined": [_p, _p, _i, _i, _i, _p, _p, _p],
-    "mmlrec_rows_update": [_p, _p, _i, _p, _p],
+    "mmlrec_rows_update": [_p, _p, _i, _p, _i, _p],
 })
 launch_counts.update(rows_gather_dual=0, rows_gather_hbm=0, row_gather=0)
 

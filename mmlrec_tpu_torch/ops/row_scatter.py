@@ -52,6 +52,7 @@ _UPDATE_FIELDS = 11  # long longs per array in UpdateArgs
 _PIPELINE_BYTES = 20 * 1024  # shared memory of one of the two value buffers
 _BLOCKS_PER_SM = 4  # persistent blocks of the pipelined write
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_LANE_ELEMS = 8  # kLaneElems (MMLREC_UPDATE_LANE_ELEMS) in the CUDA source
 
 
 def _kept_slots(ids: torch.Tensor, V: int, n_real=None, bounds=None):
@@ -317,6 +318,46 @@ def rows_update_plain(arrays, ids, deltas, *, modes=None, masks=None, n_real=Non
     return tuple(arrays)
 
 
+def update_lane_run(width: int, elem_size: int, delta_elem_size: int, array_addr: int,
+                    delta_addr: int, delta_row_bytes: int, mask_addr: int = 0,
+                    mask_row_bytes: int = 0) -> int:
+    """How many consecutive elements a lane owns per access for one array of
+    a ``rows_update``, from its shape and addresses alone: 1 on the path of
+    one element a lane, more on the kernel's wide path.
+
+    On the wide path a lane makes one access per operand: 4 elements of a
+    4-byte pair, ``_LANE_ELEMS`` where a 2-byte (bfloat16) operand takes
+    part.  So the row width must be a multiple of that run, and every row
+    address of an operand (its base and its row stride; the array's rows are
+    ``width`` elements apart) a multiple of that operand's access,
+    ``min(16, run x element size)`` bytes.  The mask of a "set" array has the
+    array's element size."""
+    run = _LANE_ELEMS if 2 in (elem_size, delta_elem_size) else 4
+    if width % run:
+        return 1
+
+    def aligned(size: int, *addresses: int) -> bool:
+        access = min(16, run * size)
+        return all(a % access == 0 for a in addresses)
+
+    wide = (aligned(elem_size, array_addr, mask_addr, mask_row_bytes)
+            and aligned(delta_elem_size, delta_addr, delta_row_bytes))
+    return run if wide else 1
+
+
+def update_lanes_per_slot(widths: Sequence[int], runs: Sequence[int]) -> int:
+    """How many neighbouring lanes take one slot of a ``rows_update``: the
+    smallest power of two that covers the widest row in one pass (``width /
+    run`` lanes per array), at most a warp.  Fewer lanes per slot mean more
+    slots per warp, each warp carrying more bytes through its chain of
+    dependent loads (the id, then the rows)."""
+    need = max(-(-w // r) for w, r in zip(widths, runs))
+    lanes = 1
+    while lanes < min(need, 32):
+        lanes *= 2
+    return lanes
+
+
 def rows_update(
     arrays: Sequence[torch.Tensor],
     ids: torch.Tensor,
@@ -347,7 +388,17 @@ def rows_update(
 
     Bound by bytes: per slot and array the old row and the delta (and the
     mask) are read and the row is written, 3 or 4 times the row's bytes.
-    Design: one warp per slot walks the arrays, 16 bytes a lane."""
+    Design: a group of lanes takes one slot and walks the arrays, the
+    smallest power of two that covers the widest row in one pass
+    (``update_lanes_per_slot``: a warp for a 128-wide float32 row).  A lane
+    owns a run of consecutive elements and makes one wide access per
+    operand, for every pair of element types: 16 bytes of each operand of a
+    4-byte pair; where a bfloat16 operand takes part, ``_LANE_ELEMS``
+    elements, the sums in f32, rounded and packed into one store; a bfloat16
+    "set" is a select on packed 16-bit lanes.  An array takes that path when
+    its width is a multiple of the run and every row address is aligned to
+    its access (``update_lane_run``); any other array takes the path of one
+    element a lane.  Both give the same bits."""
     name = "rows_update"
     arrays, deltas = tuple(arrays), tuple(deltas)
     n = len(arrays)
@@ -389,6 +440,7 @@ def rows_update(
     if K == 0 or V == 0:
         return arrays
     args = (ctypes.c_longlong * (_UPDATE_FIELDS * MAX_ARRAYS + 1))()
+    runs = []
     for i, (a, d, mode, m) in enumerate(zip(arrays, deltas, modes, masks)):
         if not a.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel needs contiguous arrays")
@@ -399,15 +451,16 @@ def rows_update(
         if mode == "set":
             _row_major(name, m)
             m_ptr, m_row = m.data_ptr(), m.stride(0) * m.element_size()
-        vec = int(es == 4 and d.element_size() == 4
-                  and _unit(width * es, a.data_ptr(), d.data_ptr(), d_row, m_ptr, m_row) == 16)
+        runs.append(update_lane_run(width, es, d.element_size(), a.data_ptr(), d.data_ptr(),
+                                    d_row, m_ptr, m_row))
         args[_UPDATE_FIELDS * i:_UPDATE_FIELDS * (i + 1)] = [
             a.data_ptr(), d.data_ptr(), m_ptr, V, width, d_row, m_row,
-            int(mode == "set"), _KINDS[a.dtype], _KINDS[d.dtype], vec]
+            int(mode == "set"), _KINDS[a.dtype], _KINDS[d.dtype], int(runs[-1] > 1)]
     args[_UPDATE_FIELDS * MAX_ARRAYS] = n
     ids = ids.contiguous()
+    lanes = update_lanes_per_slot([a.shape[1] for a in arrays], runs)
     cuda_build.launch(LIBRARY, name, LIBRARY.load().mmlrec_rows_update, ctypes.addressof(args),
-                      ids.data_ptr(), K, n_real.data_ptr() if n_real is not None else 0,
+                      ids.data_ptr(), K, n_real.data_ptr() if n_real is not None else 0, lanes,
                       device=arrays[0].device)
     return arrays
 

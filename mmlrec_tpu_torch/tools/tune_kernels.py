@@ -1,0 +1,198 @@
+"""Time the variants of the two tuning constants of the hand-written kernels.
+
+``embed_concat`` (``csrc/recsys_kernels.cu``) works on tiles of
+``MMLREC_EMBED_TILE_ROWS`` batch rows, and the wide path of ``rows_update``
+(``csrc/row_kernels.cu``) gives a lane ``MMLREC_UPDATE_LANE_ELEMS``
+consecutive elements where a bfloat16 operand takes part.  Both are
+constants of the sources (``-D`` overrides them), mirrored in
+``ops/kernels.py`` and ``ops/row_scatter.py``.  This tool builds one library
+per candidate value (one nvcc each, all started together), holds each
+variant bitwise against the plain version, and times the variants in turns
+inside one process, on one card (CUDA-graph replay, median device time):
+
+* ``embed_concat`` at the flagship serving batch (table ``[1664, 8]``, ids
+  ``[4096, 16]``, dense ``[4096, 61]``) and on the lane-packed ``[65536,
+  128]`` table seen as ``[2^20, 8]``, beside an empty kernel on the same
+  grid (what a launch alone costs); then, with the constant the source
+  has, at batch sizes from 256 to 32,768: the time against the bytes
+  moved separates what a launch and its chain of loads cost from what the
+  transfer costs;
+* ``rows_update`` on a ``[10,000,000, 128]`` array with K = 65,536 ids, 222
+  of them tail pads: f32 and bf16 deltas into a bf16 array, bf16 deltas into
+  an f32 array, and the bf16 "set"; each lane run with as many lanes per
+  slot as the row needs, and 8 elements a lane also with a whole warp per
+  slot (half of its lanes idle at this width).
+
+    python -m mmlrec_tpu_torch.tools.tune_kernels
+
+Prints one line per variant and one JSON line last; the constants in the
+sources are the values this tool found fastest.  Needs one CUDA device;
+exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import torch
+
+from ..ops import cuda_build
+from ..ops import kernels as K
+from ..ops import row_gather as G
+from ..ops import row_scatter as S
+from .timing import device_ms
+
+EMBED_TILE_ROWS = (4, 8, 16)
+UPDATE_VARIANTS = (  # name, elements a lane, a whole warp per slot whatever the row needs
+    ("4 elements a lane, a warp per slot", 4, False),
+    ("8 elements a lane, a warp per slot", 8, True),
+    ("8 elements a lane, half a warp per slot", 8, False),
+    ("16 elements a lane, a quarter of a warp per slot", 16, False),
+)
+BATCH_SWEEP = (256, 1024, 4096, 16384, 32768)
+UPDATE_FORMS = (  # name, array dtype, delta dtype, mode
+    ("f32_into_bf16", torch.bfloat16, torch.float32, "add"),
+    ("bf16_into_bf16", torch.bfloat16, torch.bfloat16, "add"),
+    ("bf16_into_f32", torch.float32, torch.bfloat16, "add"),
+    ("bf16_set", torch.bfloat16, torch.bfloat16, "set"),
+)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    as_int = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int))
+
+
+def _in_turns(variants):
+    """The variants there and back again (a, b, c, c, b, a): each is timed
+    twice, and a drift of the card shows as a difference of the two."""
+    return list(variants) + list(reversed(variants))
+
+
+def tune_embed_concat(libraries, g):
+    dev = torch.device("cuda")
+    B, F, Nd = 4096, 16, 61
+    tables = {"flagship [1664, 8]": torch.randn(1664, 8, generator=g, device=dev),
+              "lane-packed [2^20, 8]": torch.randn(1 << 16, 128, generator=g,
+                                                   device=dev).view(-1, 8)}
+    dense = torch.rand(B, Nd, generator=g, device=dev)
+    default = (K.LIBRARY, K._EMBED_ROWS_PER_BLOCK)
+    out = {}
+    for rows in _in_turns(EMBED_TILE_ROWS):
+        K.LIBRARY, K._EMBED_ROWS_PER_BLOCK = libraries[rows], rows
+        entry = out.setdefault(rows, {"embed_concat_us": {}, "empty_kernel_us": []})
+        for what, table in tables.items():
+            ids = torch.randint(0, table.shape[0], (B, F), generator=g, device=dev,
+                                dtype=torch.int32)
+            ids[0, 0], ids[1, 1] = table.shape[0] + 5, -1  # a NaN row, a wrapped id
+            with torch.inference_mode():
+                for n in (B, B - 6):  # whole tiles, and a last tile of 2 rows
+                    got = K.embed_concat(table, ids[:n], dense[:n])
+                    if not _same_bits(got, K.embed_concat_plain(table, ids[:n], dense[:n])):
+                        raise AssertionError(f"embed_concat, {rows} rows a tile, {what}, batch "
+                                             f"{n}: differs from the plain version")
+                ms = device_ms(lambda: K.embed_concat(table, ids, dense))
+            entry["embed_concat_us"].setdefault(what, []).append(ms * 1e3)
+        grid = K.embed_concat_grid(B)
+        entry["empty_kernel_us"].append(device_ms(lambda: K.empty_launch(*grid)) * 1e3)
+    K.LIBRARY, K._EMBED_ROWS_PER_BLOCK = default
+    return out
+
+
+def sweep_embed_concat(g):
+    """The kernel as the source has it, at growing batch sizes."""
+    dev = torch.device("cuda")
+    F, Nd = 16, 61
+    table = torch.randn(1664, 8, generator=g, device=dev)
+    out = {}
+    for B in BATCH_SWEEP:
+        ids = torch.randint(0, 1664, (B, F), generator=g, device=dev, dtype=torch.int32)
+        dense = torch.rand(B, Nd, generator=g, device=dev)
+        grid = K.embed_concat_grid(B)
+        with torch.inference_mode():
+            out[B] = {"bytes": 4 * (B * F + 1664 * 8 + B * Nd + B * (F * 8 + Nd)),
+                      "embed_concat_us": device_ms(lambda: K.embed_concat(table, ids, dense)) * 1e3,
+                      "empty_kernel_us": device_ms(lambda: K.empty_launch(*grid)) * 1e3}
+    return out
+
+
+def tune_rows_update(libraries, g):
+    dev = torch.device("cuda")
+    V, W, n_ids, n = 10_000_000, 128, 65_536, 65_536 - 222
+    ids = torch.randperm(V - 1, generator=g, device=dev)[:n_ids].to(torch.int32)
+    ids[n:] = V  # tail pads one past the last row
+    n_real = torch.tensor([n], dtype=torch.int32, device=dev)
+    default = (S.LIBRARY, S._LANE_ELEMS, S.update_lanes_per_slot)
+    out = {}
+    for form, a_dtype, d_dtype, mode in UPDATE_FORMS:
+        array = torch.empty((V, W), dtype=a_dtype, device=dev).normal_(generator=g)
+        delta = torch.empty((n_ids, W), dtype=d_dtype, device=dev).normal_(generator=g)
+        masks = None
+        if mode == "set":
+            masks = ((torch.rand((n_ids, W), generator=g, device=dev) > 0.5).to(a_dtype),)
+        es, des = array.element_size(), delta.element_size()
+        nbytes = 4 + 4 * n + n * W * (2 * es + des + (es if masks else 0))
+
+        def run(target=array):
+            return S.rows_update((target,), ids, (delta,), modes=(mode,), masks=masks,
+                                 n_real=n_real)
+
+        for name, elems, whole_warp in _in_turns(UPDATE_VARIANTS):
+            S.LIBRARY, S._LANE_ELEMS = libraries[elems], elems
+            S.update_lanes_per_slot = (lambda widths, runs: 32) if whole_warp else default[2]
+            plain = array.clone()
+            run()
+            S.rows_update_plain((plain,), ids, (delta,), modes=(mode,), masks=masks,
+                                n_real=n_real)
+            if not _same_bits(array, plain):
+                raise AssertionError(f"rows_update, {form}, {name}: differs from the plain "
+                                     "version")
+            del plain
+            entry = out.setdefault(name, {}).setdefault(form, {"us": [], "bytes": nbytes})
+            entry["us"].append(device_ms(run) * 1e3)
+        del array, delta, masks
+    S.LIBRARY, S._LANE_ELEMS, S.update_lanes_per_slot = default
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("tune_kernels: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    embed = {r: cuda_build.CudaLibrary("recsys_kernels.cu", K.LIBRARY.signatures,
+                                       defines=(f"-DMMLREC_EMBED_TILE_ROWS={r}",))
+             for r in EMBED_TILE_ROWS}
+    update = {n: cuda_build.CudaLibrary("row_kernels.cu", G.LIBRARY.signatures,
+                                        defines=(f"-DMMLREC_UPDATE_LANE_ELEMS={n}",))
+              for n in sorted({elems for _, elems, _ in UPDATE_VARIANTS})}
+    paths = cuda_build.build_all([*embed.values(), *update.values()])
+    for lib, path in zip([*embed.values(), *update.values()], paths):
+        entry = ""  # ptxas names the entry function, then its registers and spills
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif "registers" in line and ("embed_concat_kernel" in entry
+                                          or "rows_update_kernel" in entry):
+                kernel = "embed_concat" if "embed_concat" in entry else "rows_update"
+                print(f"{' '.join(lib.defines)}: {kernel}_kernel: {line.strip()}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    result = {"card": card, "embed_concat": tune_embed_concat(embed, g),
+              "embed_concat_by_batch": sweep_embed_concat(g),
+              "rows_update": tune_rows_update(update, g)}
+    for rows, entry in result["embed_concat"].items():
+        print(f"embed_concat, {rows} rows a tile: {entry} [{card}]", flush=True)
+    for batch, entry in result["embed_concat_by_batch"].items():
+        print(f"embed_concat, batch {batch}: {entry} [{card}]", flush=True)
+    for name, entry in result["rows_update"].items():
+        print(f"rows_update, {name}: {entry} [{card}]", flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

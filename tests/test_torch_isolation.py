@@ -81,7 +81,7 @@ def test_ctypes_signatures_match_the_c_sources():
             assert [kinds[t] for t in argtypes] == want, (name, params)
             assert params[-1] == "void* stream"
             seen += 1
-    assert seen == 8
+    assert seen == 9
 
 
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):

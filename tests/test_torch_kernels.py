@@ -206,3 +206,47 @@ def test_wrappers_reject_bad_inputs():
     meta = torch.empty(2, 2, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         K.gated_expert_mix(meta, torch.empty(2, 4, 8, device="meta"))
+
+
+# ----------------------------------------------------------------------
+# embed_concat: the choice between the CUDA kernel's two bodies
+# ----------------------------------------------------------------------
+_ADDR = 0x7F0000000000  # a made-up device address, 16-byte aligned
+
+
+@pytest.mark.parametrize("what,kwargs,vector_rows", [
+    ("flagship batch", {}, 4096),
+    ("the last request of the serving round", dict(batch=1000), 1000),
+    ("B % 4 != 0: the last tile of 2 rows is scalar", dict(batch=4090), 4088),
+    ("B % 8 == 4: a last tile of 4 rows is still vector", dict(batch=4092), 4092),
+    ("fewer rows than 4", dict(batch=3), 0),
+    ("D % 4 != 0", dict(dim=6, width=16 * 6 + 61), 0),
+    ("D = 4", dict(dim=4, width=16 * 4 + 61), 4096),
+    ("table view off by 4 bytes", dict(table_addr=_ADDR + 4), 0),
+    ("table view off by 8 bytes", dict(table_addr=_ADDR + 8), 0),
+    ("dense view off by 4 bytes", dict(dense_addr=_ADDR + 0x10004), 0),
+    ("output off by 8 bytes", dict(out_addr=_ADDR + 0x20008), 0),
+    ("no dense block (address 0)", dict(width=128, dense_addr=0), 4096),
+    ("a tile image beyond the static shared memory", dict(width=2000), 0),
+])
+def test_embed_concat_vector_rows_on_made_up_addresses(what, kwargs, vector_rows):
+    """Which batch rows the kernel's 16-byte body takes is a pure function of
+    shapes and addresses: D % 4 == 0, aligned table, dense block and output,
+    a tile image within 48 KB, and every tile but a last one whose row count
+    is no multiple of 4."""
+    assert K._EMBED_ROWS_PER_BLOCK == 8  # the cases above are written for 8-row tiles
+    args = dict(batch=4096, dim=8, width=16 * 8 + 61, table_addr=_ADDR,
+                dense_addr=_ADDR + 0x10000, out_addr=_ADDR + 0x20000)
+    args.update(kwargs)
+    assert K.embed_concat_vector_rows(**args) == vector_rows, what
+
+
+def test_embed_tile_rows_match_the_cuda_source():
+    import re
+
+    source = K.LIBRARY.source.read_text()
+    (default,) = re.findall(r"#define MMLREC_EMBED_TILE_ROWS (\d+)", source)
+    assert int(default) == K._EMBED_ROWS_PER_BLOCK and K._EMBED_ROWS_PER_BLOCK % 4 == 0
+    assert "kEmbedRowsPerBlock = MMLREC_EMBED_TILE_ROWS" in source
+    # the wrapper hands the choice to the kernel: one int before the stream
+    assert K.LIBRARY.signatures["mmlrec_embed_concat"][-2:] == [K._i, K._p]

@@ -470,3 +470,168 @@ def test_rows_update_checks_its_inputs_and_routes_cpu_tensors(monkeypatch):
         S.rows_update((arr,), ids, (d,), modes=("mul",), chunk=4)
     with pytest.raises(ValueError, match="one CUDA device"):
         S.rows_add((torch.empty(8, 4, device="meta"),), ids, (d,), chunk=4)
+
+
+# ----------------------------------------------------------------------
+# B8: the wide path of the CUDA kernel (what the card's check relies on)
+# ----------------------------------------------------------------------
+_BASE = 0x7F0000000000  # a made-up device address, 16-byte aligned
+
+
+@pytest.mark.parametrize("what,es,des,kwargs,run", [
+    # 128-wide rows at aligned addresses: every pair takes the wide path
+    ("f32 += f32", 4, 4, {}, 4),
+    ("bf16 += f32", 2, 4, {}, 8),
+    ("bf16 += bf16", 2, 2, {}, 8),
+    ("f32 += bf16", 4, 2, {}, 8),
+    ("bf16 set", 2, 2, dict(mask_addr=_BASE + 0x4000, mask_row_bytes=256), 8),
+    ("f32 set", 4, 4, dict(mask_addr=_BASE + 0x4000, mask_row_bytes=512), 4),
+    # a width that is no multiple of the lane's run
+    ("odd width, f32 += f32", 4, 4, dict(width=127), 1),
+    ("odd width, bf16 += f32", 2, 4, dict(width=127), 1),
+    ("width 126, bf16 += bf16", 2, 2, dict(width=126), 1),
+    ("width 132: whole runs of 4", 4, 4, dict(width=132, delta_row_bytes=132 * 4), 4),
+    ("width 132: no whole runs of 8", 2, 4, dict(width=132, delta_row_bytes=132 * 4), 1),
+    ("width 136", 2, 4, dict(width=136, delta_row_bytes=136 * 4), 8),
+    # an address off its access: 8 bf16 are 16 bytes, 8 f32 two accesses of 16
+    ("bf16 array off by 2 bytes", 2, 4, dict(array_addr=_BASE + 2), 1),
+    ("bf16 array off by 4 bytes", 2, 4, dict(array_addr=_BASE + 4), 1),
+    ("bf16 array off by 8 bytes", 2, 4, dict(array_addr=_BASE + 8), 1),
+    ("f32 array off by 4 bytes", 4, 4, dict(array_addr=_BASE + 4), 1),
+    ("f32 array off by 8 bytes", 4, 2, dict(array_addr=_BASE + 8), 1),
+    ("f32 delta off by 4 bytes", 2, 4, dict(delta_addr=_BASE + 0x2000 + 4), 1),
+    ("f32 delta off by 8 bytes", 2, 4, dict(delta_addr=_BASE + 0x2000 + 8), 1),
+    ("bf16 delta off by 2 bytes", 4, 2, dict(delta_addr=_BASE + 0x2000 + 2), 1),
+    ("bf16 delta off by 8 bytes", 4, 2, dict(delta_addr=_BASE + 0x2000 + 8), 1),
+    # a strided delta: rows further apart than their width
+    ("strided f32 delta", 2, 4, dict(delta_row_bytes=128 * 4 + 4), 1),
+    ("strided f32 delta, a 16-byte multiple", 2, 4, dict(delta_row_bytes=128 * 4 + 16), 8),
+    ("strided bf16 delta", 2, 2, dict(delta_row_bytes=128 * 2 + 2), 1),
+    ("strided bf16 delta, 8 bytes", 2, 2, dict(delta_row_bytes=128 * 2 + 8), 1),
+    ("bf16 mask off by 2 bytes", 2, 2, dict(mask_addr=_BASE + 0x4002, mask_row_bytes=256), 1),
+    ("bf16 mask rows 258 bytes apart", 2, 2,
+     dict(mask_addr=_BASE + 0x4000, mask_row_bytes=258), 1),
+])
+def test_update_lane_run_on_made_up_addresses(what, es, des, kwargs, run):
+    """The choice of the kernel's path is a pure function of width, element
+    sizes, addresses and strides: a lane's run is 4 elements of a 4-byte
+    pair and ``_LANE_ELEMS`` where a bf16 operand takes part, each operand's
+    rows must be aligned to min(16, run x element size) bytes, and anything
+    else takes one element a lane."""
+    assert S._LANE_ELEMS == 8  # the cases above are written for a run of 8
+    args = dict(width=128, array_addr=_BASE, delta_addr=_BASE + 0x2000,
+                delta_row_bytes=128 * des)
+    args.update(kwargs)
+    assert S.update_lane_run(elem_size=es, delta_elem_size=des, **args) == run, what
+
+
+@pytest.mark.parametrize("widths,runs,lanes", [
+    ((128,), (4,), 32),  # a 128-wide f32 row: a warp per slot
+    ((128,), (8,), 16),  # a 128-wide bf16 row: two slots a warp
+    ((128, 128), (8, 4), 32),  # the widest row decides
+    ((32,), (8,), 4),
+    ((8,), (4,), 2),
+    ((4,), (4,), 1),
+    ((126,), (1,), 32),  # one element a lane
+    ((20,), (1,), 32),
+    ((16,), (1,), 16),
+    ((1024,), (4,), 32),  # more than one pass of a warp
+])
+def test_update_lanes_per_slot(widths, runs, lanes):
+    assert S.update_lanes_per_slot(widths, runs) == lanes
+
+
+def test_update_lane_run_matches_the_cuda_source():
+    import re
+
+    source = G.LIBRARY.source.read_text()
+    (default,) = re.findall(r"#define MMLREC_UPDATE_LANE_ELEMS (\d+)", source)
+    assert int(default) == S._LANE_ELEMS
+    assert "kLaneElems = MMLREC_UPDATE_LANE_ELEMS" in source
+
+
+def test_rows_add_bf16_deltas_into_f32_matches_jax_bitwise():
+    """bf16 deltas into an f32 array: the delta widened exactly (bits << 16),
+    one f32 add, no rounding."""
+    rng = np.random.default_rng(15)
+    V, D, K = 32, 128, 8
+    ids = rng.permutation(V)[:K].astype(np.int32)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    d = rng.normal(size=(K, D)).astype(np.float32)
+    ns = len(_SPECIAL_F32)
+    table[ids[0], :ns], d[0, :ns] = _SPECIAL_F32, 0.0
+    table[ids[1], :ns], d[1, :ns] = 0.0, _SPECIAL_F32
+    d_bits = np.asarray(jnp.asarray(d).astype(jnp.bfloat16).view(jnp.uint16))
+    nr = np.asarray([6], np.int32)
+    for n_real_j, n_real_t in ((None, None), (jnp.asarray(nr), _t(nr))):
+        (want,) = pallas_rows_add((jnp.asarray(table),), jnp.asarray(ids), (_jnp_bf16(d_bits),),
+                                  n_real=n_real_j, chunk=8, interpret=True)
+        (got,) = S.rows_add((_t(table.copy()),), _t(ids), (_torch_bf16(d_bits),),
+                            n_real=n_real_t, chunk=8)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_rows_update_set_on_bf16_lanes_matches_jax_bitwise():
+    """"set" on a bf16 array: the payload is opaque 16-bit lanes (NaN
+    patterns and denormals kept), the mask is compared as a value (-0.0 is a
+    zero, a NaN is not)."""
+    rng = np.random.default_rng(16)
+    V, D, K, n = 64, 128, 16, 12
+    ids = _unique_ids(rng, V, K, n, V)
+    def payload(shape):
+        # any bits, but every NaN the quiet NaN of its sign: XLA's CPU backend
+        # widens a bf16 select to f32 and back, which turns every other NaN
+        # into that one (no part of the contract; the second half of this
+        # test holds NaN payloads against numpy)
+        bits = rng.integers(0, 2**16, shape).astype(np.uint16)
+        nan = ((bits & 0x7F80) == 0x7F80) & ((bits & 0x007F) != 0)
+        return np.where(nan, (bits & 0x8000) | 0x7FC0, bits).astype(np.uint16)
+
+    arr, vals = payload((V, D)), payload((K, D))
+    mask = np.where(rng.random((K, D)) > 0.5, 0x3F80, 0).astype(np.uint16)  # 1.0 or 0.0
+    mask[0, :4] = [0x8000, 0x7FC0, 0x0000, 0xBF80]  # -0.0, NaN, 0.0, -1.0
+    nr = np.asarray([n], np.int32)
+    (want,) = pallas_rows_update((_jnp_bf16(arr),), jnp.asarray(ids), (_jnp_bf16(vals),),
+                                 modes=("set",), masks=(_jnp_bf16(mask),),
+                                 n_real=jnp.asarray(nr), chunk=8, interpret=True)
+    (got,) = S.rows_update((_torch_bf16(arr),), _t(ids), (_torch_bf16(vals),), modes=("set",),
+                           masks=(_torch_bf16(mask),), n_real=_t(nr), chunk=8)
+    np.testing.assert_array_equal(_bf16_bits(got), np.asarray(want.view(jnp.uint16)))
+    row = ids[0]  # the mask's first four lanes: keep, take, keep, take
+    np.testing.assert_array_equal(_bf16_bits(got)[row, :4],
+                                  [arr[row, 0], vals[0, 1], arr[row, 2], vals[0, 3]])
+    # NaN payloads, denormals and an infinity, against a select in numpy
+    arr[:, :8] = vals[:, :8] = [0x7F81, 0xFF81, 0x7FBF, 0x0001, 0x8001, 0x7F80, 0x7FC1, 0xFFFF]
+    vals[:, :8] ^= 0x0002
+    (got,) = S.rows_update((_torch_bf16(arr),), _t(ids), (_torch_bf16(vals),), modes=("set",),
+                           masks=(_torch_bf16(mask),), n_real=_t(nr), chunk=8)
+    take = (mask[:n] & 0x7FFF) != 0
+    want = arr.copy()
+    want[ids[:n]] = np.where(take, vals[:n], arr[ids[:n]])
+    np.testing.assert_array_equal(_bf16_bits(got), want)
+
+
+@pytest.mark.parametrize("run", [4, 8])
+def test_lane_of_rounded_sums_packs_little_endian(run):
+    """A numpy model of the kernel's wide store: a lane rounds its ``run``
+    f32 sums to bf16 in integer arithmetic and packs them two to a 32-bit
+    word, element 2i in the low half and element 2i + 1 in the high half, so
+    that the words' bytes in memory are the ``run`` bf16 values in element
+    order.  The rounding and the order of the halves are those of
+    ``pack_monu_rounded`` (mu low, nu high), held here on its 22 special
+    values."""
+    from mmlrec_tpu_torch.train import sparse_embedding as T
+    from tests.test_torch_sparse_embedding import SPECIAL
+
+    values = np.resize(SPECIAL, -(-len(SPECIAL) // run) * run).reshape(-1, run)  # lanes of `run` sums
+    rounded = S.bf16_bits_rne(_t(values)).numpy().astype(np.uint32)  # [lanes, run], 16 bits each
+    words = rounded[:, 0::2] | (rounded[:, 1::2] << 16)  # [lanes, run / 2]
+    # in memory (little-endian) the words read back as the bf16 values in order
+    np.testing.assert_array_equal(words.astype("<u4").view("<u2"), rounded.astype(np.uint16))
+    # word i is pack_monu_rounded(mu = element 2i, nu = element 2i + 1)
+    packed = T.pack_monu_rounded(_t(values[:, 0::2].copy()), _t(values[:, 1::2].copy()))
+    np.testing.assert_array_equal(_bits(packed.numpy()), words)
+    # and the 16 bits are XLA's convert: the JAX package's own rounding
+    want = np.asarray(jnp.asarray(values).astype(jnp.bfloat16).view(jnp.uint16))
+    np.testing.assert_array_equal(rounded.astype(np.uint16), want)
