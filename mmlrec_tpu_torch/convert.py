@@ -29,31 +29,41 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
-    """Copy a flax ``{"params": ...}`` tree into ``model`` in place.
+    """Copy a flax ``{"params": ..., "batch_stats": ...}`` tree into ``model``
+    in place: ``params`` into the parameters, ``batch_stats`` (BatchNorm's
+    running ``mean`` and ``var``; absent or empty for a model without
+    BatchNorm) into the persistent buffers.
 
     Raises ValueError on any other collection, any missing or extra leaf,
-    and any leaf whose shape or dtype differs from the module's parameter.
+    and any leaf whose shape or dtype differs from the module's parameter or
+    buffer.
     """
-    others = sorted(set(variables) - {"params"})
+    others = sorted(set(variables) - {"params", "batch_stats"})
     if others:
         raise ValueError(f"unsupported variable collections {others}")
-    leaves = {k.replace("/", "."): v for k, v in _flatten(variables["params"]).items()}
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(leaves))
-    extra = sorted(set(leaves) - set(params))
-    if missing or extra:
-        raise ValueError(f"parameter mismatch: missing {missing}, extra {extra}")
+    persistent = set(model.state_dict())
+    targets = {
+        "params": dict(model.named_parameters()),
+        "batch_stats": {k: b for k, b in model.named_buffers() if k in persistent},
+    }
     arrays = {}
-    for key, p in params.items():
-        a = np.asarray(leaves[key])
-        if a.shape != tuple(p.shape) or a.dtype != np.float32:
-            raise ValueError(
-                f"{key}: got {a.dtype}{list(a.shape)}, expected "
-                f"float32{list(p.shape)}")
-        arrays[key] = a
+    for collection, wanted in targets.items():
+        leaves = {k.replace("/", "."): v
+                  for k, v in _flatten(variables.get(collection, {})).items()}
+        missing = sorted(set(wanted) - set(leaves))
+        extra = sorted(set(leaves) - set(wanted))
+        if missing or extra:
+            raise ValueError(f"{collection} mismatch: missing {missing}, extra {extra}")
+        for key, t in wanted.items():
+            a = np.asarray(leaves[key])
+            if a.shape != tuple(t.shape) or a.dtype != np.float32:
+                raise ValueError(
+                    f"{key}: got {a.dtype}{list(a.shape)}, expected "
+                    f"float32{list(t.shape)}")
+            arrays[key] = (t, a)
     with torch.no_grad():
-        for key, p in params.items():
-            p.copy_(torch.as_tensor(np.array(arrays[key])))
+        for t, a in arrays.values():
+            t.copy_(torch.as_tensor(np.array(a)))
     return model
 
 
@@ -62,7 +72,7 @@ def _flat_names(tree: Mapping) -> Dict[str, np.ndarray]:
 
 
 def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
-                         opt_state: Mapping):
+                         opt_state: Mapping, batch_stats: Optional[Mapping] = None):
     """Carry a JAX Trainer's state into a port ``Trainer`` (compiled with the
     same optimizer).
 
@@ -75,12 +85,14 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
       parameters the optimizer covers (all of them for the dense fit, all
       but the table for the two-phase step; an ``optax.flatten`` state
       unravelled): ``{"count", "mu", "nu"}`` for adam, ``{"sum_of_squares"}``
-      for adagrad, ``{"nu"}`` for rmsprop, ``{}`` for sgd.
+      for adagrad, ``{"nu"}`` for rmsprop, ``{}`` for sgd;
+    * ``batch_stats``: the flax ``batch_stats`` tree of a model with
+      BatchNorm (its running means and variances), else None.
 
     Returns the trainer, ready to continue training from that state."""
     from .train.sparse_embedding import SparseAdamPackedState
 
-    load_jax_variables(trainer.model, {"params": params})
+    load_jax_variables(trainer.model, {"params": params, "batch_stats": batch_stats or {}})
     trainer.init_state()
     dev = trainer.device
 

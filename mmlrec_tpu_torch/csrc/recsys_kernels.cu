@@ -16,6 +16,9 @@
 // together in shared memory and stored as one run (it needs D % 4 == 0 and
 // 16-byte-aligned table, dense block and output; every other shape, and a
 // last tile whose row count is no multiple of 4, takes a scalar body).
+// multihead_score is below the floor too: a group of H / 4 lanes per row,
+// every load asked for before any arithmetic (H % 4 == 0 and 16-byte-aligned
+// tower and w; a scalar body otherwise).
 // mmlrec_empty_launch launches a kernel that does nothing, to time that floor.
 //
 // Interface: plain C, one entry per kernel, called through ctypes from
@@ -42,7 +45,12 @@ constexpr int kEmbedRowsPerBlock = MMLREC_EMBED_TILE_ROWS;
 static_assert(kEmbedRowsPerBlock > 0 && kEmbedRowsPerBlock % 4 == 0,
               "a tile is a multiple of 4 batch rows");
 constexpr int kEmbedThreads = kEmbedRowsPerBlock >= 8 ? 256 : 128;
-constexpr int kScoreThreads = 256;
+#ifndef MMLREC_SCORE_THREADS
+#define MMLREC_SCORE_THREADS 256
+#endif
+constexpr int kScoreThreads = MMLREC_SCORE_THREADS;  // _SCORE_THREADS in ops/kernels.py
+static_assert(kScoreThreads % 32 == 0 && kScoreThreads >= 32 && kScoreThreads <= 1024,
+              "a block is whole warps");
 constexpr int kStaticSmem = 48 * 1024;  // launch limit without an opt-in
 
 // Wrap a negative id once; -1 for an id that is then outside [0, rows), as
@@ -225,21 +233,108 @@ __global__ void gated_mix_kernel(const float* __restrict__ logits,
 // multihead_score: z = sum_h tower[b, t, h] * w[t, h] + bias[t]
 //                  out[b, t] = binary[t] * sigmoid(z) + (1 - binary[t]) * z
 //
-// One warp per (b, t) row: lanes stride over H (coalesced), then a shuffle
-// reduction; lane 0 applies the head's epilogue.  binary[t] is 1 for a
-// binary head and 0 for a regression head (PredictionHeads).
+// binary[t] is 1 for a binary head and 0 for a regression head
+// (PredictionHeads).  2 MB at the flagship batch: its byte bound lies below
+// what a launch alone takes, so the design is about the chain of dependent
+// steps a row goes through, in one of two bodies.
+//
+// Vector body (the wrapper passes vec = 1 when H % 4 == 0 and tower and w
+// start on 16-byte boundaries, and B * T fits 31 bits): a group of lanes no
+// wider than the row needs takes R rows of one head.  With 16-byte loads a row
+// of H floats is H / 4 float4, so the group is the next power of two (16 lanes
+// at H = 64, 32 at H >= 128, 4 at H = 16) and a warp carries 32 / group
+// groups.  R is 1 while a group is narrower than a warp and 2 once a row
+// takes a whole warp, so a warp always carries two rows or more: the time
+// follows the number of blocks more than the bytes (-D
+// MMLREC_SCORE_ROWS_PER_GROUP=n forces R = n).  A lane asks for its float4 of
+// w[t], its float4 of every row of the group, bias[t] and binary[t] before any
+// arithmetic, so the chain has one memory round trip; log2(group) shuffle
+// steps follow, and lane j of the group applies the epilogue of row j and
+// stores it.  Groups are numbered head fastest, so with one row a group a
+// row's address needs no division and a warp's results leave as one run.
+//
+// Scalar body (any other H, or a misaligned view): one warp per (b, t) row,
+// lanes striding over H 4 bytes at a time, bias and mask asked for up front.
 // ---------------------------------------------------------------------------
+#ifndef MMLREC_SCORE_ROWS_PER_GROUP
+#define MMLREC_SCORE_ROWS_PER_GROUP 0  // 0: by the rule above
+#endif
+#ifndef MMLREC_SCORE_MIN_LANES
+#define MMLREC_SCORE_MIN_LANES 1
+#endif
+constexpr int kScoreRowsPerGroup = MMLREC_SCORE_ROWS_PER_GROUP;
+constexpr int kScoreMinLanes = MMLREC_SCORE_MIN_LANES;
+static_assert(kScoreRowsPerGroup >= 0 && kScoreRowsPerGroup <= 8, "rows of one group");
+static_assert(kScoreMinLanes >= 1 && kScoreMinLanes <= 32 &&
+                  (kScoreMinLanes & (kScoreMinLanes - 1)) == 0,
+              "a group is a power of two of lanes within a warp");
+
+__device__ __forceinline__ float head_epilogue(float z, float m) {
+  const float s = 1.f / (1.f + expf(-z));
+  return m * s + (1.f - m) * z;
+}
+
+template <int kLanes, int R>
 __global__ void __launch_bounds__(kScoreThreads)
-multihead_score_kernel(const float* __restrict__ tower,
-                       const float* __restrict__ w,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ binary, long long n_rows,
-                       int n_tasks, int hidden, float* __restrict__ out) {
+multihead_score_vector_kernel(const float4* __restrict__ tower4,
+                              const float4* __restrict__ w4,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ binary, int batch,
+                              int n_tasks, int parts, float* __restrict__ out) {
+  // 32-bit group arithmetic: the entry checked that B * T fits
+  const unsigned group = (blockIdx.x * kScoreThreads + threadIdx.x) / kLanes;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const unsigned n_groups = static_cast<unsigned>((batch + R - 1) / R) * n_tasks;
+  // a group past the end keeps its lanes for the shuffles and has no rows
+  const bool live = group < n_groups;
+  const int t = live ? static_cast<int>(group % n_tasks) : 0;
+  const int b0 = live ? static_cast<int>(group / n_tasks) * R : batch;
+  const float bs = bias[t], m = binary[t];
+  float acc[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) acc[j] = 0.f;
+  float4 xv[R];
+  // with one row a group the row is the group: its address waits for no division
+  const long long row0 = R == 1 ? group : static_cast<long long>(b0) * n_tasks + t;
+  for (int q = lane; q < parts; q += kLanes) {  // once for H <= 4 * kLanes
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      xv[j] = (R == 1 ? live : b0 + j < batch)
+                  ? tower4[(row0 + static_cast<long long>(j) * n_tasks) * parts + q]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 wv = w4[static_cast<long long>(t) * parts + q];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      acc[j] = fmaf(xv[j].x, wv.x, acc[j]);
+      acc[j] = fmaf(xv[j].y, wv.y, acc[j]);
+      acc[j] = fmaf(xv[j].z, wv.z, acc[j]);
+      acc[j] = fmaf(xv[j].w, wv.w, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {  // every lane holds every sum: lane j takes row j
+    if ((j & (kLanes - 1)) == lane && b0 + j < batch)
+      out[row0 + static_cast<long long>(j) * n_tasks] = head_epilogue(acc[j] + bs, m);
+  }
+}
+
+__global__ void __launch_bounds__(kScoreThreads)
+multihead_score_scalar_kernel(const float* __restrict__ tower,
+                              const float* __restrict__ w,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ binary, long long n_rows,
+                              int n_tasks, int hidden, float* __restrict__ out) {
   const long long row =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= n_rows) return;  // whole warps leave together
   const int t = static_cast<int>(row % n_tasks);
+  const float bs = bias[t], m = binary[t];
   const float* x = tower + row * hidden;
   const float* wt = w + static_cast<long long>(t) * hidden;
   float acc = 0.f;
@@ -247,12 +342,28 @@ multihead_score_kernel(const float* __restrict__ tower,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const float z = acc + bias[t];
-    const float m = binary[t];
-    const float s = 1.f / (1.f + expf(-z));
-    out[row] = m * s + (1.f - m) * z;
-  }
+  if (lane == 0) out[row] = head_epilogue(acc + bs, m);
+}
+
+template <int kLanes, int R>
+void launch_score_vector(const float* tower, const float* w, const float* bias,
+                         const float* binary, int batch, int n_tasks, int hidden,
+                         float* out, cudaStream_t stream) {
+  const long long groups = static_cast<long long>((batch + R - 1) / R) * n_tasks;
+  const long long blocks = (groups * kLanes + kScoreThreads - 1) / kScoreThreads;
+  multihead_score_vector_kernel<kLanes, R>
+      <<<static_cast<unsigned>(blocks), kScoreThreads, 0, stream>>>(
+          reinterpret_cast<const float4*>(tower), reinterpret_cast<const float4*>(w), bias,
+          binary, batch, n_tasks, hidden / 4, out);
+}
+
+template <int kLanes>
+void launch_score_lanes(const float* tower, const float* w, const float* bias,
+                        const float* binary, int batch, int n_tasks, int hidden,
+                        float* out, cudaStream_t stream) {
+  constexpr int kRows = kScoreRowsPerGroup > 0 ? kScoreRowsPerGroup : (kLanes == 32 ? 2 : 1);
+  launch_score_vector<kLanes, kRows>(tower, w, bias, binary, batch, n_tasks, hidden, out,
+                                     stream);
 }
 
 }  // namespace
@@ -298,14 +409,32 @@ int mmlrec_gated_expert_mix(const float* logits, const float* experts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `vec` = 1 asks for the vector body (see multihead_score_vector_kernel for
+// what the caller must have checked); the lanes of a group follow from H.
 int mmlrec_multihead_score(const float* tower, const float* w,
                            const float* bias, const float* binary, int batch,
-                           int n_tasks, int hidden, float* out, void* stream) {
+                           int n_tasks, int hidden, float* out, int vec,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    if (hidden % 4 || static_cast<long long>(batch) * n_tasks * 32 >= (1ll << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    int lanes = kScoreMinLanes;
+    while (lanes < 32 && lanes * 4 < hidden) lanes *= 2;
+    switch (lanes) {
+      case 1: launch_score_lanes<1>(tower, w, bias, binary, batch, n_tasks, hidden, out, s); break;
+      case 2: launch_score_lanes<2>(tower, w, bias, binary, batch, n_tasks, hidden, out, s); break;
+      case 4: launch_score_lanes<4>(tower, w, bias, binary, batch, n_tasks, hidden, out, s); break;
+      case 8: launch_score_lanes<8>(tower, w, bias, binary, batch, n_tasks, hidden, out, s); break;
+      case 16: launch_score_lanes<16>(tower, w, bias, binary, batch, n_tasks, hidden, out, s); break;
+      default: launch_score_lanes<32>(tower, w, bias, binary, batch, n_tasks, hidden, out, s);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long n_rows = static_cast<long long>(batch) * n_tasks;
   const long long warps_per_block = kScoreThreads / 32;
   const long long blocks = (n_rows + warps_per_block - 1) / warps_per_block;
-  multihead_score_kernel<<<static_cast<unsigned>(blocks), kScoreThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  multihead_score_scalar_kernel<<<static_cast<unsigned>(blocks), kScoreThreads, 0, s>>>(
       tower, w, bias, binary, n_rows, n_tasks, hidden, out);
   return static_cast<int>(cudaGetLastError());
 }

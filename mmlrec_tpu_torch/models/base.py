@@ -12,7 +12,7 @@ probabilities (reference forward contract, e.g. model/mmoe.py:65-119).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,7 +20,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..features import FeatureLayout
 from ..ops.embedding import EmbeddingCollection
-from ..ops.layers import PredictionHeads
+from ..ops.layers import PredictionHeads, StackedDense, StackedMLP
 
 
 class RecModel(nn.Module):
@@ -135,6 +135,40 @@ class RecModel(nn.Module):
 
     def make_heads(self) -> PredictionHeads:
         return PredictionHeads(self.task_types)
+
+    def mlp_kwargs(self, generator: torch.Generator) -> Dict:
+        """What every DNN of a family takes from the config."""
+        mc = self.mc
+        return dict(generator=generator, activation=mc.dnn_activation,
+                    dropout_rate=mc.dnn_dropout, use_bn=mc.dnn_use_bn,
+                    init_std=self.init_std)
+
+    def make_towers(self, in_dim: int, generator: torch.Generator) -> None:
+        """The per-task tail most families share: ``tower_dnn`` (None when
+        ``tower_dnn_hidden_units`` is empty), the 1-unit ``tower_final``
+        without a bias, and the heads ``out``."""
+        T, units = self.num_tasks, self.mc.tower_dnn_hidden_units
+        self.tower_dnn: Optional[StackedMLP] = None
+        if len(units) > 0:
+            self.tower_dnn = StackedMLP(T, in_dim, units, **self.mlp_kwargs(generator))
+            in_dim = units[-1]
+        self.tower_final = StackedDense(T, in_dim, 1, generator=generator, use_bias=False)
+        self.out = self.make_heads()
+
+    def tower_scores(self, x: torch.Tensor, domain_mask, inter: Optional[Dict] = None):
+        """``x`` [B, T, H] (or [B, H], the same input for every task) through
+        the towers and the fused head (the multihead-score kernel: the
+        towers' final layer, the bias and the sigmoid), then the domain
+        mask.  ``inter`` collects ``tower_outputs`` when there are towers."""
+        tower = x
+        if self.tower_dnn is not None:
+            tower = self.tower_dnn(x)
+            if inter is not None:
+                inter["tower_outputs"] = tower
+        elif tower.dim() == 2:  # the kernel reads one row per (example, task)
+            tower = tower[:, None, :].expand(-1, self.num_tasks, -1)
+        probs = self.out(tower.contiguous(), self.tower_final.kernel[..., 0])
+        return self.apply_domain_mask(probs, domain_mask)
 
     def apply_domain_mask(self, probs: torch.Tensor, domain_mask) -> torch.Tensor:
         """Per-head domain gating (reference epilogue, e.g. model/mmoe.py:

@@ -26,10 +26,7 @@ class MMOE(RecModel):
     def __init__(self, layout, cfg, *, generator: torch.Generator, init_std: float = 1e-4):
         super().__init__(layout, cfg, generator=generator, init_std=init_std)
         mc, T = self.mc, self.num_tasks
-        mlp = dict(
-            generator=generator, activation=mc.dnn_activation,
-            dropout_rate=mc.dnn_dropout, use_bn=mc.dnn_use_bn, init_std=init_std,
-        )
+        mlp = self.mlp_kwargs(generator)
         self.embeddings = self._make_embeddings(generator)
         d_in = self.input_dim
         self.expert_dnn = StackedMLP(mc.num_experts, d_in, mc.expert_dnn_hidden_units, **mlp)
@@ -41,14 +38,7 @@ class MMOE(RecModel):
             gate_in = mc.gate_dnn_hidden_units[-1]
         self.gate_final = StackedDense(
             T, gate_in, mc.num_experts, generator=generator, use_bias=False)
-        tower_in = expert_dim
-        self.tower_dnn = None
-        if len(mc.tower_dnn_hidden_units) > 0:
-            self.tower_dnn = StackedMLP(T, expert_dim, mc.tower_dnn_hidden_units, **mlp)
-            tower_in = mc.tower_dnn_hidden_units[-1]
-        self.tower_final = StackedDense(
-            T, tower_in, 1, generator=generator, use_bias=False)
-        self.out = self.make_heads()
+        self.make_towers(expert_dim, generator)
 
     def forward(self, ids, dense, domain_mask=None, *, rows=None,
                 return_intermediates: bool = False):
@@ -59,16 +49,11 @@ class MMOE(RecModel):
         gate_hidden = self.gate_dnn(dnn_input) if self.gate_dnn is not None else dnn_input
         gate_logits = self.gate_final(gate_hidden).contiguous()  # [B, T, E]
         mmoe_outs = gated_expert_mix(gate_logits, expert_outs)  # [B, T, dim]
-        tower = self.tower_dnn(mmoe_outs) if self.tower_dnn is not None else mmoe_outs
-        probs = self.out(tower.contiguous(), self.tower_final.kernel[..., 0])
-        probs = self.apply_domain_mask(probs, domain_mask)
-        if not return_intermediates:
-            return probs
         inter = {
             "dnn_input": dnn_input,
             "expert_outputs": expert_outs,
+            "gate_outputs": torch.softmax(gate_logits, dim=-1),
             "mmoe_outputs": mmoe_outs,
-        }
-        if self.tower_dnn is not None:
-            inter["tower_outputs"] = tower
-        return probs, inter
+        } if return_intermediates else None
+        probs = self.tower_scores(mmoe_outs, domain_mask, inter)
+        return (probs, inter) if return_intermediates else probs

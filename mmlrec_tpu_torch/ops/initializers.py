@@ -5,6 +5,9 @@
   (reference model/utils.py:140-142, 485-486).
 * Plain ``nn.Linear`` layers keep PyTorch's default
   U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for kernel and bias.
+* The layers that the JAX package leaves to flax's ``nn.Dense`` defaults keep
+  them: a LeCun-normal kernel (``lecun_normal_init``) and a zero bias.
+* Cross-stitch matrices start as the identity (``eye_init``).
 
 Kernels keep the JAX layout ``[..., in, out]``; fan_in is ``shape[-2]``.
 Each init draws from an explicit ``torch.Generator``, on its device (the
@@ -47,5 +50,41 @@ def torch_linear_bias_init(fan_in: int):
     def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
         bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
         return _uniform(gen, shape, bound)
+
+    return init
+
+
+def lecun_normal_init():
+    """flax's default ``nn.Dense`` kernel init: a normal truncated at two
+    standard deviations, scaled so that the draws have variance
+    ``1 / fan_in`` (``jax.nn.initializers.lecun_normal``)."""
+    lo, hi = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0))), 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+    truncated_std = 0.87962566103423978  # of a standard normal cut at +-2
+
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        fan_in = shape[-2]
+        u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32, device=gen.device)
+        x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + (hi - lo) * u) - 1.0)
+        return x.clamp_(-2.0, 2.0) * (math.sqrt(1.0 / max(fan_in, 1)) / truncated_std)
+
+    return init
+
+
+def zeros_init():
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=torch.float32, device=gen.device)
+
+    return init
+
+
+def eye_init():
+    """The identity, broadcast over any leading axes
+    (mmlrec_tpu/ops/initializers.py:71)."""
+
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        if len(shape) < 2 or shape[-1] != shape[-2]:
+            raise ValueError(f"eye_init needs a square trailing shape, got {tuple(shape)}")
+        eye = torch.eye(shape[-1], dtype=torch.float32, device=gen.device)
+        return eye.expand(tuple(shape)).clone()
 
     return init

@@ -45,7 +45,7 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = cuda_build.CudaLibrary("recsys_kernels.cu", {
     "mmlrec_embed_concat": [_p, _ll, _i, _p, _i, _i, _p, _i, _p, _i, _p],
     "mmlrec_gated_expert_mix": [_p, _p, _i, _i, _i, _i, _p, _p],
-    "mmlrec_multihead_score": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
+    "mmlrec_multihead_score": [_p, _p, _p, _p, _i, _i, _i, _p, _i, _p],
     "mmlrec_empty_launch": [_i, _i, _p],
 })
 launch_counts.update(embed_concat=0, gated_expert_mix=0, multihead_score=0)
@@ -53,6 +53,9 @@ backward_counts.update(embed_concat=0)
 
 _EMBED_ROWS_PER_BLOCK = 8  # kEmbedRowsPerBlock (MMLREC_EMBED_TILE_ROWS) in the CUDA source
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
+_SCORE_THREADS = 256  # kScoreThreads (MMLREC_SCORE_THREADS) in the CUDA source
+_SCORE_ROWS_PER_GROUP = 0  # kScoreRowsPerGroup (MMLREC_SCORE_ROWS_PER_GROUP); 0: by the rule
+_SCORE_MIN_LANES = 1  # kScoreMinLanes (MMLREC_SCORE_MIN_LANES)
 
 
 # ----------------------------------------------------------------------
@@ -366,6 +369,48 @@ def multihead_score_plain(tower, weights, bias, binary):
     return binary * torch.sigmoid(z) + (1.0 - binary) * z
 
 
+def multihead_score_vector_body(rows: int, hidden: int, tower_addr: int,
+                                weights_addr: int) -> bool:
+    """Whether the kernel's 16-byte body takes the call, from the shape and
+    the addresses alone: whole ``float4``s of a row (``hidden % 4 == 0``),
+    16-byte-aligned starts of ``tower`` and ``weights`` (every row then
+    starts on a 16-byte boundary too), and ``rows = B * T`` small enough for
+    the body's 32-bit thread arithmetic.  Anything else takes the scalar
+    body."""
+    return (hidden % 4 == 0 and tower_addr % 16 == 0 and weights_addr % 16 == 0
+            and rows * 32 < 2**31)
+
+
+def multihead_score_lanes(hidden: int) -> int:
+    """Lanes of the group that takes a row on the vector body: the power of
+    two that covers the row's ``hidden / 4`` ``float4``s, at most a warp, as
+    the C entry computes it."""
+    lanes = _SCORE_MIN_LANES
+    while lanes < 32 and lanes * 4 < hidden:
+        lanes *= 2
+    return lanes
+
+
+def multihead_score_rows_per_group(hidden: int) -> int:
+    """Rows of one head that a group takes on the vector body: 1 while a
+    group is narrower than a warp, 2 once a row takes a whole warp, so that
+    a warp always carries two rows or more."""
+    if _SCORE_ROWS_PER_GROUP:
+        return _SCORE_ROWS_PER_GROUP
+    return 2 if multihead_score_lanes(hidden) == 32 else 1
+
+
+def multihead_score_grid(batch: int, tasks: int, hidden: int, vector: bool) -> Tuple[int, int]:
+    """(blocks, threads per block) of the multihead_score launch, as the C
+    entry computes them."""
+    if vector:
+        threads = (-(-batch // multihead_score_rows_per_group(hidden)) * tasks
+                   * multihead_score_lanes(hidden))
+    else:
+        threads = batch * tasks * 32
+    return -(-threads // _SCORE_THREADS), _SCORE_THREADS
+
+
 def multihead_score(
     tower: torch.Tensor,
     weights: torch.Tensor,
@@ -379,8 +424,16 @@ def multihead_score(
     (``PredictionHeads``); None means all binary, which is exactly
     ``mmlrec_tpu/ops/pallas_kernels.py::multihead_score`` (:164), the kernel
     this replaces.  Bound on the H100 by bytes (2.1 MB at the flagship
-    batch).  Design: one warp per (b, t) row, lanes striding over H with a
-    shuffle reduction; lane 0 applies the head epilogue.
+    batch, 0.64 us), which is less than a launch alone takes, so the design
+    is about the chain of dependent steps.  A group of ``H / 4`` lanes takes
+    a row (16 at H = 64: a warp carries two rows; at H >= 128 a warp takes
+    two rows of one head); a lane asks for one ``float4`` of each row, the
+    matching one of ``w[t]``, ``bias[t]`` and ``binary[t]`` before any
+    arithmetic, log2(group) shuffle steps follow and the group's first lanes
+    apply the head epilogue; a warp's results leave as one run.  That body needs ``H % 4 == 0`` and 16-byte-aligned
+    ``tower`` and ``weights`` (``multihead_score_vector_body``); any other
+    call takes the scalar body, a warp per row.  The sum runs in another
+    order than the plain version's: equal to f32 rounding.
     """
     name = "multihead_score"
     for t, what in ((tower, "tower"), (weights, "weights"), (bias, "bias")):
@@ -408,10 +461,11 @@ def _multihead_score_cuda(tower, weights, bias, binary):
     out = torch.empty((B, T), dtype=torch.float32, device=tower.device)
     if out.numel() == 0:
         return out
+    vec = multihead_score_vector_body(B * T, H, tower.data_ptr(), weights.data_ptr())
     lib = _lib()
     _launch("multihead_score", lib.mmlrec_multihead_score, tower.data_ptr(),
             weights.data_ptr(), bias.data_ptr(), binary.data_ptr(), B, T, H,
-            out.data_ptr(), device=tower.device)
+            out.data_ptr(), int(vec), device=tower.device)
     return out
 
 

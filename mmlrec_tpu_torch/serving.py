@@ -5,7 +5,8 @@ A bundle is a directory of two files:
     <dir>/meta.json   the JAX bundle's schema (feature packing, batch and
                       mask contract) plus the experiment config and the
                       feature columns the model is rebuilt from
-    <dir>/params.pt   ``torch.save`` of the model's state dict
+    <dir>/params.pt   ``torch.save`` of the model's state dict: parameters
+                      and BatchNorm running statistics
 
 The JAX bundle ships the traced program (``predict.jaxexport``, StableHLO)
 and loads without model code.  PyTorch runs eagerly, so ``load`` rebuilds
@@ -148,12 +149,13 @@ def save_serving_bundle(model, path: str) -> Dict:
     cfg, layout = model.cfg, model.layout
     mc, dc = cfg.model_config, cfg.data_config
     needs_mask = bool(mc.masked_loss) and mc.task_name in ("msl", "mtmsl")
+    escm = mc.model_name in ("escm", "escm_dr")
     meta = {
         "format": 1,
         "model_name": mc.model_name,
         "task_name": mc.task_name,
         "num_domains": int(dc.num_domains),
-        "num_heads": int(cfg.num_tasks),
+        "num_heads": 2 if escm else int(cfg.num_tasks),
         "batch_mode": "symbolic",
         "batch_size": None,
         "needs_mask": needs_mask,
@@ -209,6 +211,8 @@ class ServingBundle:
                 mask = torch.from_numpy(dmask).to(dev)
             probs = self.model(
                 torch.from_numpy(ids).to(dev), torch.from_numpy(dense).to(dev), mask)
+            if self.meta["model_name"] in ("escm", "escm_dr"):
+                probs = probs[:, [0, 2]]  # [pCTR, pCTCVR] (reference basemodel.py:438-441)
             return probs.cpu().numpy()
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:

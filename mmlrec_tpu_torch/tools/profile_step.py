@@ -9,14 +9,19 @@ warms it up, and traces ``--steps`` steps with torch.profiler:
   packed moments, in-step metadata), with ``--container`` stacked or split;
 * ``--fit dense``: the dense-table step of the flagship (MMoE on the
   AliExpress-MSL shapes: 16 sparse x 100 ids x emb 8, 61 dense, 2 domains,
-  the same towers, batch 4096, the masked loss, Adam over every parameter).
+  the same towers, batch 4096, the masked loss, Adam over every parameter);
+* ``--family <name>``: the dense-table step of another family at the same
+  widths (mlp, sharedbottom, esmm, escm, escm_dr, hmoe, cross_stitch, aitm,
+  ple, pcg; msl with 2 domains, or mtl with two tasks for esmm, escm,
+  escm_dr and aitm), with BatchNorm when ``--bn`` is given.
 
 Prints, per step: the device time by kernel (the largest first), the number
 of kernel launches, the device time in all, the wall time and the host's
 largest self CPU times, and the device numbers as one JSON line last.
 
     python -m mmlrec_tpu_torch.tools.profile_step [--fit two-phase|dense]
-        [--container stacked|split] [--steps 10] [--trace step_trace.json]
+        [--family NAME [--bn]] [--container stacked|split] [--steps 10]
+        [--trace step_trace.json]
 
 Needs one CUDA device; exits 1 without one.
 """
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 VOCAB, FEATURES, EMB, DENSE, BATCH = 2_500_000, 16, 32, 4, 4096
+MTL_FAMILIES = ("esmm", "escm", "escm_dr", "aitm")  # two tasks, no domains
 
 
 def build_trainer(container: str):
@@ -54,22 +60,23 @@ def build_trainer(container: str):
     return Trainer(model, seed=0, device="cuda").compile()
 
 
-def build_dense_trainer():
+def build_dense_trainer(family: str = "mmoe", use_bn: bool = False):
     from ..models import get_model
     from ..synthetic import aliexpress_like_config, make_data
     from ..train import Trainer
     from ..utils.seeding import make_generator
 
-    cfg = aliexpress_like_config("mmoe", masked_loss=True)
+    task = "mtl" if family in MTL_FAMILIES else "msl"
+    cfg = aliexpress_like_config(family, task_name=task, masked_loss=True, dnn_use_bn=use_bn)
     layout, *_ = make_data(cfg, n=8, vocab=100)
     # the reference's init (std 1e-4) leaves every relu dead-flat; a wider
     # draw gives the backward its usual work
-    model = get_model("mmoe", layout, cfg, init_std=0.05, generator=make_generator(0, "cuda"),
+    model = get_model(family, layout, cfg, init_std=0.05, generator=make_generator(0, "cuda"),
                       device="cuda")
     return Trainer(model, seed=0, device="cuda").compile(metrics=[])
 
 
-def _batches(n: int, dense_fit: bool):
+def _batches(n: int, dense_fit: bool, domains: bool = True):
     """``n`` random batches on the card, as ``Trainer.train_step`` takes them."""
     rng = np.random.default_rng(40)
     vocab, n_dense = (100, 61) if dense_fit else (VOCAB, DENSE)
@@ -78,7 +85,8 @@ def _batches(n: int, dense_fit: bool):
         ids = rng.integers(0, vocab, (BATCH, FEATURES)).astype(np.int32)
         dense = rng.random((BATCH, n_dense)).astype(np.float32)
         y = (rng.random((BATCH, 2)) < 0.3).astype(np.float32)
-        dmask = np.eye(2, dtype=np.float32)[rng.integers(0, 2, BATCH)] if dense_fit else None
+        dmask = (np.eye(2, dtype=np.float32)[rng.integers(0, 2, BATCH)]
+                 if dense_fit and domains else None)
         out.append([None if a is None else torch.from_numpy(a).cuda()
                     for a in (ids, dense, y, dmask)] + [torch.ones(BATCH, device="cuda")])
     return out
@@ -87,6 +95,8 @@ def _batches(n: int, dense_fit: bool):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fit", default="two-phase", choices=("two-phase", "dense"))
+    ap.add_argument("--family", default=None, help="a family's dense step at the AE widths")
+    ap.add_argument("--bn", action="store_true", help="with --family: dnn_use_bn on")
     ap.add_argument("--container", default="stacked", choices=("stacked", "split"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", default=None)
@@ -97,10 +107,11 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    dense_fit = args.fit == "dense"
-    tr = build_dense_trainer() if dense_fit else build_trainer(args.container)
-    what = "dense" if dense_fit else args.container
-    batches = _batches(args.steps + 5, dense_fit)
+    dense_fit = args.fit == "dense" or args.family is not None
+    family = args.family or "mmoe"
+    tr = build_dense_trainer(family, args.bn) if dense_fit else build_trainer(args.container)
+    what = f"dense {family}{'+bn' if args.bn else ''}" if dense_fit else args.container
+    batches = _batches(args.steps + 5, dense_fit, domains=family not in MTL_FAMILIES)
     for b in batches[:5]:
         tr.train_step(*b)
     torch.cuda.synchronize()
@@ -134,7 +145,8 @@ def main(argv=None) -> int:
     for e in host[:15]:
         print(f"  {e.self_cpu_time_total / steps:9.1f} us  {e.count / steps:5.1f}x  {e.key[:110]}")
     print(json.dumps({
-        "fit": args.fit, "container": None if dense_fit else args.container,
+        "fit": "dense" if dense_fit else args.fit, "family": family, "bn": args.bn,
+        "container": None if dense_fit else args.container,
         "steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
         "device_ms_per_step": busy_us / 1e3, "launches_per_step": launches,
         "kernels": [{"name": name, "us_per_step": us / steps, "per_step": n / steps}

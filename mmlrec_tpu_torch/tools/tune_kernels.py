@@ -1,9 +1,13 @@
-"""Time the variants of the two tuning constants of the hand-written kernels.
+"""Time the variants of the tuning constants of the hand-written kernels.
 
 ``embed_concat`` (``csrc/recsys_kernels.cu``) works on tiles of
 ``MMLREC_EMBED_TILE_ROWS`` batch rows, and the wide path of ``rows_update``
 (``csrc/row_kernels.cu``) gives a lane ``MMLREC_UPDATE_LANE_ELEMS``
-consecutive elements where a bfloat16 operand takes part.  Both are
+consecutive elements where a bfloat16 operand takes part; the vector body of
+``multihead_score`` gives a row a group of at least
+``MMLREC_SCORE_MIN_LANES`` lanes, a group ``MMLREC_SCORE_ROWS_PER_GROUP``
+rows of one head (0: one row, two once a row takes a whole warp), in blocks
+of ``MMLREC_SCORE_THREADS`` threads.  All are
 constants of the sources (``-D`` overrides them), mirrored in
 ``ops/kernels.py`` and ``ops/row_scatter.py``.  This tool builds one library
 per candidate value (one nvcc each, all started together), holds each
@@ -17,13 +21,20 @@ inside one process, on one card (CUDA-graph replay, median device time):
   has, at batch sizes from 256 to 32,768: the time against the bytes
   moved separates what a launch and its chain of loads cost from what the
   transfer costs;
+* ``multihead_score`` at the flagship shape ``[4096, 2, 64]`` and at H =
+  128, at batch 1000 and at one task, within atol 1e-6 / rtol 1e-5 of the
+  plain version (the sum runs in another order): as many lanes a row as it
+  needs (16 at H = 64) or a whole warp, with 1, 2 or 4 rows a group or the
+  source's rule, in blocks of 128, 256 or 512 threads, and the scalar body
+  (a warp per row, 4-byte loads), each beside an empty kernel on its own
+  grid;
 * ``rows_update`` on a ``[10,000,000, 128]`` array with K = 65,536 ids, 222
   of them tail pads: f32 and bf16 deltas into a bf16 array, bf16 deltas into
   an f32 array, and the bf16 "set"; each lane run with as many lanes per
   slot as the row needs, and 8 elements a lane also with a whole warp per
   slot (half of its lanes idle at this width).
 
-    python -m mmlrec_tpu_torch.tools.tune_kernels
+    python -m mmlrec_tpu_torch.tools.tune_kernels [--only embed|score|update]
 
 Prints one line per variant and one JSON line last; the constants in the
 sources are the values this tool found fastest.  Needs one CUDA device;
@@ -32,6 +43,7 @@ exits 1 without one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -52,6 +64,17 @@ UPDATE_VARIANTS = (  # name, elements a lane, a whole warp per slot whatever the
     ("16 elements a lane, a quarter of a warp per slot", 16, False),
 )
 BATCH_SWEEP = (256, 1024, 4096, 16384, 32768)
+SCORE_VARIANTS = (  # name, least lanes a row, rows a group (0: the rule), threads, vector body
+    ("the row's lanes, rows a group by the rule", 1, 0, 256, True),
+    ("the row's lanes, 1 row a group", 1, 1, 256, True),
+    ("the row's lanes, 2 rows a group", 1, 2, 256, True),
+    ("the row's lanes, 4 rows a group", 1, 4, 256, True),
+    ("a warp per row, 1 row a group", 32, 1, 256, True),
+    ("the rule, blocks of 128 threads", 1, 0, 128, True),
+    ("the rule, blocks of 512 threads", 1, 0, 512, True),
+    ("scalar body (a warp per row, 4-byte loads)", 1, 0, 256, False),
+)
+SCORE_SHAPES = ((4096, 2, 64), (4096, 2, 128), (1000, 2, 64), (8192, 1, 64))
 UPDATE_FORMS = (  # name, array dtype, delta dtype, mode
     ("f32_into_bf16", torch.bfloat16, torch.float32, "add"),
     ("bf16_into_bf16", torch.bfloat16, torch.bfloat16, "add"),
@@ -118,6 +141,36 @@ def sweep_embed_concat(g):
     return out
 
 
+def tune_multihead_score(libraries, g):
+    dev = torch.device("cuda")
+    default = (K.LIBRARY, K._SCORE_MIN_LANES, K._SCORE_ROWS_PER_GROUP, K._SCORE_THREADS,
+               K.multihead_score_vector_body)
+    out = {}
+    for B, T, H in SCORE_SHAPES:
+        tower = torch.randn(B, T, H, generator=g, device=dev)
+        w = 0.2 * torch.randn(T, H, generator=g, device=dev)
+        b = 0.5 * torch.randn(T, generator=g, device=dev)
+        binary = torch.tensor([1.0, 0.0], device=dev)[:T].contiguous()
+        for name, lanes, rows, threads, vector in _in_turns(SCORE_VARIANTS):
+            K.LIBRARY, K._SCORE_MIN_LANES, K._SCORE_ROWS_PER_GROUP, K._SCORE_THREADS = (
+                libraries[lanes, rows, threads], lanes, rows, threads)
+            K.multihead_score_vector_body = default[4] if vector else (lambda *a: False)
+            with torch.inference_mode():
+                for n in (B, B - 3, 3):  # whole groups, a ragged last group, fewer rows than one
+                    torch.testing.assert_close(
+                        K.multihead_score(tower[:n], w, b, binary),
+                        K.multihead_score_plain(tower[:n], w, b, binary), atol=1e-6, rtol=1e-5)
+                ms = device_ms(lambda: K.multihead_score(tower, w, b, binary))
+            grid = K.multihead_score_grid(B, T, H, vector)
+            entry = out.setdefault(f"[{B}, {T}, {H}]", {}).setdefault(
+                name, {"us": [], "empty_kernel_us": [], "grid": grid})
+            entry["us"].append(ms * 1e3)
+            entry["empty_kernel_us"].append(device_ms(lambda: K.empty_launch(*grid)) * 1e3)
+    (K.LIBRARY, K._SCORE_MIN_LANES, K._SCORE_ROWS_PER_GROUP, K._SCORE_THREADS,
+     K.multihead_score_vector_body) = default
+    return out
+
+
 def tune_rows_update(libraries, g):
     dev = torch.device("cuda")
     V, W, n_ids, n = 10_000_000, 128, 65_536, 65_536 - 222
@@ -157,38 +210,61 @@ def tune_rows_update(libraries, g):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("embed", "score", "update"), default=None)
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device is available", file=sys.stderr)
         return 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    embed = {r: cuda_build.CudaLibrary("recsys_kernels.cu", K.LIBRARY.signatures,
-                                       defines=(f"-DMMLREC_EMBED_TILE_ROWS={r}",))
-             for r in EMBED_TILE_ROWS}
-    update = {n: cuda_build.CudaLibrary("row_kernels.cu", G.LIBRARY.signatures,
-                                        defines=(f"-DMMLREC_UPDATE_LANE_ELEMS={n}",))
-              for n in sorted({elems for _, elems, _ in UPDATE_VARIANTS})}
-    paths = cuda_build.build_all([*embed.values(), *update.values()])
-    for lib, path in zip([*embed.values(), *update.values()], paths):
+    embed, score, update = {}, {}, {}
+    if only in (None, "embed"):
+        embed = {r: cuda_build.CudaLibrary("recsys_kernels.cu", K.LIBRARY.signatures,
+                                           defines=(f"-DMMLREC_EMBED_TILE_ROWS={r}",))
+                 for r in EMBED_TILE_ROWS}
+    if only in (None, "score"):
+        score = {(lanes, rows, threads): cuda_build.CudaLibrary(
+            "recsys_kernels.cu", K.LIBRARY.signatures,
+            defines=(f"-DMMLREC_SCORE_MIN_LANES={lanes}", f"-DMMLREC_SCORE_ROWS_PER_GROUP={rows}",
+                     f"-DMMLREC_SCORE_THREADS={threads}"))
+            for lanes, rows, threads in sorted({v[1:4] for v in SCORE_VARIANTS})}
+    if only in (None, "update"):
+        update = {n: cuda_build.CudaLibrary("row_kernels.cu", G.LIBRARY.signatures,
+                                            defines=(f"-DMMLREC_UPDATE_LANE_ELEMS={n}",))
+                  for n in sorted({elems for _, elems, _ in UPDATE_VARIANTS})}
+    libraries = [*embed.values(), *score.values(), *update.values()]
+    paths = cuda_build.build_all(libraries)
+    kernels = ("embed_concat_kernel", "multihead_score_vector_kernel",
+               "multihead_score_scalar_kernel", "rows_update_kernel")
+    for lib, path in zip(libraries, paths):
         entry = ""  # ptxas names the entry function, then its registers and spills
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            elif "registers" in line and ("embed_concat_kernel" in entry
-                                          or "rows_update_kernel" in entry):
-                kernel = "embed_concat" if "embed_concat" in entry else "rows_update"
-                print(f"{' '.join(lib.defines)}: {kernel}_kernel: {line.strip()}", flush=True)
+            elif "registers" in line:
+                for kernel in kernels:
+                    if kernel in entry:
+                        print(f"{' '.join(lib.defines)}: {kernel}: {line.strip()}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
-    result = {"card": card, "embed_concat": tune_embed_concat(embed, g),
-              "embed_concat_by_batch": sweep_embed_concat(g),
-              "rows_update": tune_rows_update(update, g)}
-    for rows, entry in result["embed_concat"].items():
+    result = {"card": card}
+    if embed:
+        result["embed_concat"] = tune_embed_concat(embed, g)
+        result["embed_concat_by_batch"] = sweep_embed_concat(g)
+    if score:
+        result["multihead_score"] = tune_multihead_score(score, g)
+    if update:
+        result["rows_update"] = tune_rows_update(update, g)
+    for rows, entry in result.get("embed_concat", {}).items():
         print(f"embed_concat, {rows} rows a tile: {entry} [{card}]", flush=True)
-    for batch, entry in result["embed_concat_by_batch"].items():
+    for batch, entry in result.get("embed_concat_by_batch", {}).items():
         print(f"embed_concat, batch {batch}: {entry} [{card}]", flush=True)
-    for name, entry in result["rows_update"].items():
+    for shape, variants in result.get("multihead_score", {}).items():
+        for name, entry in variants.items():
+            print(f"multihead_score {shape}, {name}: {entry} [{card}]", flush=True)
+    for name, entry in result.get("rows_update", {}).items():
         print(f"rows_update, {name}: {entry} [{card}]", flush=True)
     print(json.dumps(result), flush=True)
     return 0

@@ -4,7 +4,6 @@
 Sum-reduced per-head losses summed over heads (reference
 model/basemodel.py:270-298); ``sample_weight`` [B] zero-weights the padded
 rows of a last partial batch and carries the intended domain masking.
-ESCM's entire-space objective is ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -45,6 +44,42 @@ def get_loss_fn(name: str):
     return _LOSS_FNS[name]
 
 
+def escm_loss(
+    probs: torch.Tensor,
+    y: torch.Tensor,
+    weight: torch.Tensor,
+    loss_names: Sequence[str],
+    counterfactual_w: float = 0.1,
+    global_w: float = 1.0,
+) -> torch.Tensor:
+    """ESCM^2 objective (reference basemodel.py:284-292, escm.py:99-111;
+    losses.py:52-89).
+
+    probs columns: [pCTR, pCVR, pCTCVR(, pIMP)]; y columns: [ctr_label,
+    cvr_label].  loss = L(ctr) + 0.1 * IPW(L(cvr)) + 1.0 * L(ctcvr vs
+    cvr_label).
+
+    As in the reference, loss_1 is the *scalar* sum-reduced CVR loss
+    multiplied by the per-sample inverse propensity, and gradients DO flow
+    through the propensity (pCTR).  The reference multiplies the propensity
+    by the batch length and then takes a mean over the same length, so the
+    length cancels and padded rows (weight 0) add nothing: exact for any
+    last-batch size.
+    """
+    fns = [get_loss_fn(n) for n in list(loss_names)[:2]]
+    w = weight
+    loss_0 = torch.sum(fns[0](probs[:, 0], y[:, 0]) * w)
+    loss_1 = torch.sum(fns[1](probs[:, 1], y[:, 1]) * w)
+    loss_2 = torch.sum(fns[1](probs[:, 2], y[:, 1]) * w)
+
+    o = y[:, 0] * w
+    ctr_num = torch.sum(o)
+    ps = torch.clamp(probs[:, 0] * ctr_num, min=1e-6)
+    ips = torch.clamp(1.0 / ps, -15.0, 15.0) * float(o.shape[0])
+    loss_1 = torch.mean(loss_1 * ips * o)
+    return loss_0 + counterfactual_w * loss_1 + global_w * loss_2
+
+
 def multitask_loss(
     probs: torch.Tensor,
     y: torch.Tensor,
@@ -59,9 +94,10 @@ def multitask_loss(
     """Total training loss for one batch (losses.py:92-132): per head
     ``sum_b loss(pred_i, y_i) * w``, with ``w`` the sample weight times the
     domain mask of head i (msl: domain i, mtmsl: domain i % D) when one is
-    given, and the optional per-head ``loss_weights``."""
+    given, and the optional per-head ``loss_weights``.  ESCM takes its
+    entire-space objective (``escm_loss``) over its two label columns."""
     if model_name in ("escm", "escm_dr"):
-        raise NotImplementedError("ESCM's entire-space loss is not ported yet (ROADMAP A5)")
+        return escm_loss(probs, y, sample_weight, loss_names)
     num_tasks = probs.shape[-1]
     fns = [get_loss_fn(n) for n in list(loss_names)[:num_tasks]]
     if len(fns) < num_tasks:

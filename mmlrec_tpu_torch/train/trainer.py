@@ -100,10 +100,10 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self.opt_state = None
         self.table_opt = None
-        #: the parameters of the last fit's best epoch by ``val_auc`` (owned
-        #: copies, by state-dict key), or None: then the model's current
-        #: parameters are the best there is.  ``predict`` and ``evaluate``
-        #: read them.
+        #: the parameters and BatchNorm statistics of the last fit's best
+        #: epoch by ``val_auc`` (owned copies, by state-dict key), or None:
+        #: then the model's current state is the best there is.  ``predict``
+        #: and ``evaluate`` read them.
         self.best_variables: Optional[Dict[str, torch.Tensor]] = None
         self.throughput_examples_per_s: Optional[float] = None
         # the seed of each step's dropout masks is drawn from this CPU
@@ -118,6 +118,10 @@ class Trainer:
         self.num_tasks = self.cfg.num_tasks
         self.num_domains = self.cfg.data_config.num_domains
         self.model_name = mc.model_name
+        # ESCM emits [pCTR, pCVR, pCTCVR(, pIMP)] against two label columns:
+        # metrics and predictions keep [pCTR, pCTCVR] (reference
+        # basemodel.py:438-441)
+        self._escm = self.model_name in ("escm", "escm_dr")
         self._reg_dnn_prefixes = (
             None if mc.extra.get("l2_reg_inclusion") == "all_kernels"
             else model.REG_DNN_PREFIXES
@@ -135,8 +139,6 @@ class Trainer:
                 "per-task gradient methods are not ported yet (ROADMAP A6)")
         if mc.use_cka_loss and self.task_name in ("msl", "mtmsl"):
             raise NotImplementedError("the CKA domain loss is not ported yet (ROADMAP A6)")
-        if mc.dnn_use_bn:
-            raise NotImplementedError("dnn_use_bn is not ported yet (ROADMAP A5)")
         if extra.get("scan_steps"):
             raise NotImplementedError(
                 "scanned steps (scan_steps) are not ported yet (ROADMAP A3); the "
@@ -279,6 +281,8 @@ class Trainer:
         if y.ndim == 1:
             y = y.reshape(-1, 1)
         T = self.num_tasks
+        if self._escm:
+            return y  # [N, 2]: the ctr and the cvr label
         if y.shape[1] != T and T % y.shape[1] == 0:
             # each label column replicated across its domains (the
             # reference's duplicated label_columns layout)
@@ -367,7 +371,10 @@ class Trainer:
     def train_step(self, ids, dense, y, dmask, weight):
         """One training step on a padded batch of device tensors; returns
         (total_loss, data_loss, probs) as device tensors, without a sync.
-        The model is in training mode for the step only (dropout)."""
+        The model is in training mode for the step only: dropout draws its
+        masks, and BatchNorm normalises by the batch's statistics (pad rows of
+        a last partial batch included, as in the JAX step) and moves its
+        running ones."""
         if self.opt_state is None:
             self.init_state()
         if self._has_dropout:
@@ -537,7 +544,7 @@ class Trainer:
             train_time += epoch_time
             logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
             if self.metric_fns:
-                probs_all = torch.cat(probs).cpu().numpy()[:take]
+                probs_all = self._selected(torch.cat(probs)).cpu().numpy()[:take]
                 logs.update(regime_eval(self.metric_fns, y[order[:take]], probs_all,
                                         self.task_name, self.num_domains))
             if val is not None:
@@ -550,9 +557,10 @@ class Trainer:
                 auc = val_result.get("auc", 0.0)
                 if auc > best_auc:
                     best_auc, early_stop_count = auc, 0
-                    # the steps update the parameters in place: the snapshot owns its copy
-                    best_snapshot = {k: p_.detach().clone()
-                                     for k, p_ in self.model.named_parameters()}
+                    # the steps update parameters and BatchNorm statistics in
+                    # place: the snapshot owns its copy
+                    best_snapshot = {k: v.detach().clone()
+                                     for k, v in self.model.state_dict().items()}
                 else:
                     early_stop_count += 1
             self.history.append(logs)
@@ -601,9 +609,15 @@ class Trainer:
                             self._to_device(dmask[sl]) if dmask is not None else None))
         return batches
 
+    def _selected(self, probs: torch.Tensor) -> torch.Tensor:
+        """The columns that metrics and predictions keep: all, or ESCM's
+        [pCTR, pCTCVR]."""
+        return probs[:, [0, 2]] if self._escm else probs
+
     def _predict_batches(self, batches, n: int, use_best: bool = True) -> np.ndarray:
         """[n, num_heads] float64 probabilities of the staged batches, with
-        the best snapshot's parameters when there is one and ``use_best``."""
+        the best snapshot's state when there is one and ``use_best``; the
+        model is in eval mode, so BatchNorm reads its running statistics."""
         self.model.eval()
         best = self.best_variables if use_best else None
         outs = []
@@ -612,7 +626,7 @@ class Trainer:
                 out = (self.model(*args) if best is None
                        else torch.func.functional_call(self.model, best, args))
                 outs.append(out)
-            probs = torch.cat(outs).cpu().numpy()
+            probs = self._selected(torch.cat(outs)).cpu().numpy()
         return probs[:n].astype(np.float64)
 
     def _predict_packed(self, ids, dense, dmask, batch_size: int) -> np.ndarray:

@@ -390,7 +390,7 @@ def test_dropout_in_the_fit_follows_the_trainers_generator():
     (dict(scan_steps=16), "A3"),
     (dict(batch_metric_curves=True), "A3"),
     (dict(use_cagrad=True), "A6"),
-    (dict(dnn_use_bn=True), "A5"),
+    (dict(dnn_activation="prelu"), "A5"),
 ])
 def test_dense_fit_unported_knobs_name_their_roadmap_item(override, item):
     cfg = tsyn.make_config(**{**KW, "vocab": 400, **override})

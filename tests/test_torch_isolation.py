@@ -36,7 +36,9 @@ def test_import_pulls_in_no_jax():
     assert "mmlrec_tpu_torch.serving" in out and "mmlrec_tpu_torch.convert" in out
     for m in ("train.trainer", "train.sparse_embedding", "train.losses", "train.optimizers",
               "train.metrics", "ops.row_gather", "ops.row_scatter", "ops.cuda_build",
-              "ops.kernels", "ops.embedding", "ops.layers", "tools.profile_step"):
+              "ops.kernels", "ops.embedding", "ops.layers", "tools.profile_step",
+              "tools.tune_kernels", "models.mlp", "models.sharedbottom", "models.esmm",
+              "models.hmoe", "models.cross_stitch", "models.aitm", "models.ple"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}

@@ -148,7 +148,11 @@ def test_embed_concat_gradient_ignores_out_of_range_ids():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("B,T,E,D", [(24, 3, 4, 16), (33, 2, 4, 128)])
+@pytest.mark.parametrize("B,T,E,D", [
+    (24, 3, 4, 16), (33, 2, 4, 128),
+    (32 * 2, 1, 3 + 2, 128),  # PLE's per-task gates: batch B * T, one task, spec + shared experts
+    (32, 1, 2 * 3 + 2, 128),  # PLE's shared gate: one task over T * spec + shared experts
+])
 def test_gated_expert_mix_plain_matches_pallas(B, T, E, D):
     rng = np.random.default_rng(B)
     logits = rng.normal(0, 2, (B, T, E)).astype(np.float32)
@@ -159,7 +163,11 @@ def test_gated_expert_mix_plain_matches_pallas(B, T, E, D):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("B,T,H", [(32, 4, 8), (37, 2, 64)])
+@pytest.mark.parametrize("B,T,H", [
+    (32, 4, 8), (37, 2, 64),
+    (40, 2, 128),  # a family without a tower MLP: the expert width
+    (24, 1, 16), (19, 6, 64), (3, 2, 64), (21, 2, 62),  # T = 1, T = 6, batch 3, H % 4 != 0
+])
 def test_multihead_score_plain_matches_pallas(B, T, H):
     rng = np.random.default_rng(H)
     tower = rng.normal(0, 1, (B, T, H)).astype(np.float32)
@@ -250,3 +258,87 @@ def test_embed_tile_rows_match_the_cuda_source():
     assert "kEmbedRowsPerBlock = MMLREC_EMBED_TILE_ROWS" in source
     # the wrapper hands the choice to the kernel: one int before the stream
     assert K.LIBRARY.signatures["mmlrec_embed_concat"][-2:] == [K._i, K._p]
+
+
+# ----------------------------------------------------------------------
+# multihead_score: the choice between the CUDA kernel's two bodies
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("what,kwargs,vector", [
+    ("flagship [4096, 2, 64]", {}, True),
+    ("H = 128", dict(hidden=128), True),
+    ("H = 16", dict(hidden=16), True),
+    ("H = 4: one lane a row", dict(hidden=4), True),
+    ("H = 200: more float4 than a warp has lanes", dict(hidden=200), True),
+    ("H % 4 != 0", dict(hidden=62), False),
+    ("H = 1", dict(hidden=1), False),
+    ("tower view off by 4 bytes", dict(tower_addr=_ADDR + 4), False),
+    ("tower view off by 8 bytes", dict(tower_addr=_ADDR + 8), False),
+    ("weights view off by 4 bytes", dict(weights_addr=_ADDR + 0x10004), False),
+    ("more rows than the body's 32-bit thread arithmetic holds", dict(rows=2**26), False),
+    ("the most rows it holds", dict(rows=2**26 - 1), True),
+])
+def test_multihead_score_vector_body_on_made_up_addresses(what, kwargs, vector):
+    """Which body the kernel takes is a pure function of the shape and the
+    addresses: H % 4 == 0, tower and weights on 16-byte boundaries."""
+    args = dict(rows=4096 * 2, hidden=64, tower_addr=_ADDR, weights_addr=_ADDR + 0x10000)
+    args.update(kwargs)
+    assert K.multihead_score_vector_body(**args) is vector, what
+
+
+@pytest.mark.parametrize("hidden,lanes,rows,grid", [
+    (64, 16, 1, (512, 256)),  # a warp carries two rows
+    (128, 32, 2, (512, 256)),  # a row takes a warp: a group takes two rows of one head
+    (256, 32, 2, (512, 256)),  # more than a warp of float4: a lane loops
+    (16, 4, 1, (128, 256)),
+    (4, 1, 1, (32, 256)),
+    (8, 2, 1, (64, 256)),
+    (36, 16, 1, (512, 256)),  # 9 float4: the next power of two
+])
+def test_multihead_score_lanes_rows_and_grid(hidden, lanes, rows, grid):
+    assert K.multihead_score_lanes(hidden) == lanes
+    assert K.multihead_score_rows_per_group(hidden) == rows
+    assert K.multihead_score_grid(4096, 2, hidden, True) == grid
+    assert K.multihead_score_grid(4096, 2, hidden, False) == (1024, 256)  # a warp per row
+    # a ragged last group still gets its lanes
+    assert K.multihead_score_grid(3, 2, hidden, True) == (1, 256)
+
+
+def test_multihead_score_constants_match_the_cuda_source():
+    import re
+
+    source = K.LIBRARY.source.read_text()
+    for macro, mirror in (("MMLREC_SCORE_THREADS", K._SCORE_THREADS),
+                          ("MMLREC_SCORE_ROWS_PER_GROUP", K._SCORE_ROWS_PER_GROUP),
+                          ("MMLREC_SCORE_MIN_LANES", K._SCORE_MIN_LANES)):
+        (default,) = re.findall(r"#define " + macro + r" (\d+)", source)
+        assert int(default) == mirror, macro
+    assert "kScoreThreads = MMLREC_SCORE_THREADS" in source
+    # the rule of the rows a group takes, as the Python mirror has it
+    assert "kScoreRowsPerGroup > 0 ? kScoreRowsPerGroup : (kLanes == 32 ? 2 : 1)" in source
+    # the lanes of a group, as multihead_score_lanes computes them
+    assert "while (lanes < 32 && lanes * 4 < hidden) lanes *= 2;" in source
+    for lanes in (1, 2, 4, 8, 16, 32):  # one instance per group width
+        assert f"launch_score_lanes<{lanes}>(" in source
+    # one __global__ per body, one launch site each
+    for kernel in ("multihead_score_vector_kernel", "multihead_score_scalar_kernel"):
+        assert len(re.findall(r"\n" + kernel + r"\(", source)) == 1
+        assert len(re.findall(kernel + r"(<[^>]*>)?\s*<<<", source)) == 1
+    # the wrapper hands the choice to the kernel: one int before the stream
+    assert K.LIBRARY.signatures["mmlrec_multihead_score"][-2:] == [K._i, K._p]
+
+
+def test_multihead_score_on_views_and_odd_widths_takes_the_plain_version_on_the_cpu():
+    """What the scalar body serves on the card (H = 62, a view off by 4
+    bytes, a regression head) is the same plain function on the CPU."""
+    rng = np.random.default_rng(1)
+    for H in (62, 64):
+        flat = torch.from_numpy(rng.normal(0, 1, 10 * 2 * H + 1).astype(np.float32))
+        tower = flat[1:].view(10, 2, H)  # off by 4 bytes
+        w = torch.from_numpy(rng.normal(0, 0.3, (2, H)).astype(np.float32))
+        b = torch.from_numpy(rng.normal(0, 0.5, (2,)).astype(np.float32))
+        binary = torch.tensor([0.0, 1.0])
+        got = K.multihead_score(tower, w, b, binary)
+        z = np.einsum("bth,th->bt", tower.numpy(), w.numpy()) + b.numpy()
+        want = np.stack([z[:, 0], 1 / (1 + np.exp(-z[:, 1]))], 1)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+        assert not K.multihead_score_vector_body(20, H, tower.data_ptr(), w.data_ptr())

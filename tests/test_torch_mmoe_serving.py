@@ -217,11 +217,11 @@ def test_serving_bundle_matches_jax_bundle(tmp_path, task_name, kw):
 
 def test_unported_options_are_refused():
     tl, *_ = tsyn.make_data(tsyn.make_config(**SMALL), n=8)
-    for kw in ({"dnn_use_bn": True}, {"dnn_activation": "prelu"},
+    for kw in ({"dnn_activation": "prelu"},
                {"dnn_activation": "dice"}, {"use_wide_linear": True},
                {"table_container": "stacked", "stacked_shards": 2}):
         cfg = tsyn.make_config(**SMALL, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             get_model("mmoe", tl, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        get_model("ple", tl, tsyn.make_config(**SMALL), device="cpu")
+        get_model("star", tl, tsyn.make_config(**SMALL), device="cpu")
