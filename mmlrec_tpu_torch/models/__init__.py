@@ -1,8 +1,7 @@
 """Model registry of the port (mmlrec_tpu/models/__init__.py).
 
-Eleven of the JAX registry's sixteen names are ported; STAR, APG, PepNet,
-SNR-Trans and MSSM are ROADMAP A5.  ``pcg`` is MMoE, as in the JAX registry:
-the PCGrad method itself is the trainer's (ROADMAP A6).
+All sixteen names of the JAX registry are ported.  ``pcg`` is MMoE, as in
+the JAX registry: the PCGrad method itself is the trainer's (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -15,30 +14,39 @@ from ..config import ExperimentConfig
 from ..features import FeatureLayout
 from ..utils.seeding import make_generator
 from .aitm import AITM
+from .apg import APG
 from .base import RecModel
 from .cross_stitch import CrossStitch
 from .esmm import ESCM, ESMM
 from .hmoe import HMOE
 from .mlp import MLP
 from .mmoe import MMOE
+from .pepnet import PepNet
 from .ple import PLE
 from .sharedbottom import SharedBottom
+from .snr import MSSM, SNRTrans
+from .star import STAR
 
 MODEL_REGISTRY = {
     "mmoe": MMOE,
     "esmm": ESMM,
     "sharedbottom": SharedBottom,
     "ple": PLE,
+    "snr_trans": SNRTrans,
+    "mssm": MSSM,
+    "star": STAR,
     "pcg": MMOE,
+    "apg": APG,
     "mlp": MLP,
     "cross_stitch": CrossStitch,
     "aitm": AITM,
     "escm": ESCM,
     "escm_dr": ESCM,
     "hmoe": HMOE,
+    "pepnet": PepNet,
 }
-#: names of the JAX registry that the port does not build yet
-UNPORTED = ("snr_trans", "mssm", "star", "apg", "pepnet")
+#: names of the JAX registry that the port does not build: none
+UNPORTED = ()
 
 
 def get_model(
@@ -56,10 +64,6 @@ def get_model(
     training for its steps).  ``device=None`` means the card, and raises
     when there is none rather than run on the CPU quietly."""
     name = model_name.lower()
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet (ROADMAP A5); "
-            f"ported: {sorted(MODEL_REGISTRY)}")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {model_name!r}; available: {sorted(MODEL_REGISTRY)}")
     if device is None:
@@ -73,5 +77,6 @@ def get_model(
     return model.to(device).eval()
 
 
-__all__ = ["AITM", "CrossStitch", "ESCM", "ESMM", "HMOE", "MLP", "MMOE", "MODEL_REGISTRY",
-           "PLE", "RecModel", "SharedBottom", "UNPORTED", "get_model"]
+__all__ = ["AITM", "APG", "CrossStitch", "ESCM", "ESMM", "HMOE", "MLP", "MMOE", "MODEL_REGISTRY",
+           "MSSM", "PLE", "PepNet", "RecModel", "STAR", "SNRTrans", "SharedBottom", "UNPORTED",
+           "get_model"]

@@ -42,5 +42,6 @@ class AITM(RecModel):
         for i in range(1, T):
             p = getattr(self, f"g_{i - 1}")(feat_list[i - 1])
             feat_list[i] = self.attention(p, feat_list[i])
-        probs = self.tower_scores(torch.stack(feat_list, dim=1), domain_mask)
+        probs = self.tower_scores(torch.stack(feat_list, dim=1), domain_mask,
+                                  wide=self.wide_logit(ids, dense))
         return (probs, {"dnn_input": dnn_input}) if return_intermediates else probs

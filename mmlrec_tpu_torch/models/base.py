@@ -20,7 +20,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..features import FeatureLayout
 from ..ops.embedding import EmbeddingCollection
-from ..ops.layers import PredictionHeads, StackedDense, StackedMLP
+from ..ops.layers import PredictionHeads, StackedDense, StackedMLP, WideLinear
 
 
 class RecModel(nn.Module):
@@ -44,13 +44,13 @@ class RecModel(nn.Module):
         self.cfg = cfg
         self.init_std = init_std
         extra = self.mc.extra
-        if extra.get("use_wide_linear"):
-            raise NotImplementedError(
-                "use_wide_linear is not ported yet (ROADMAP A5)")
         if int(extra.get("stacked_shards", 1) or 1) > 1:
             raise NotImplementedError(
                 "the shard-major stacked container (stacked_shards > 1) is "
                 "not ported yet (ROADMAP A9)")
+        self.wide_linear: Optional[WideLinear] = None
+        if extra.get("use_wide_linear"):
+            self.wide_linear = self._make_wide_linear(generator)
 
     # ---- config shortcuts -------------------------------------------------
     @property
@@ -126,12 +126,40 @@ class RecModel(nn.Module):
         return dnn_input, sparse_emb
 
     def set_dropout_generator(self, generator: torch.Generator) -> None:
-        """Hand every dropout layer the generator its training masks are
-        drawn from (on the model's device).  The trainer owns it and reseeds
-        it once per step."""
+        """Hand every module that draws in training (dropout, stochastic
+        gates) the generator it draws from (on the model's device).  The
+        trainer owns it and reseeds it once per step."""
         for module in self.modules():
             if hasattr(module, "dropout_generator"):
                 module.dropout_generator = generator
+
+    def set_gate_noise_off(self, off: bool) -> None:
+        """Switch every stochastic gate to its midpoint in training too (the
+        trainer's ``snr_gate_noise_warmup_epochs``; mmlrec_tpu/ops/layers.py:
+        115-130 is the JAX package's trace-time counterpart)."""
+        for module in self.modules():
+            if hasattr(module, "noise_off"):
+                module.noise_off = bool(off)
+
+    def _make_wide_linear(self, generator: torch.Generator) -> WideLinear:
+        """The opt-in wide logit (mmlrec_tpu/models/base.py:140-168): one
+        1-dim table per ``embedding_name`` (features sharing a name share
+        it), each slot read from its own column of the packed ids."""
+        names, slot_tables = [], []
+        for s in self.layout.sparse_slots:
+            n = s.feature.embedding_name
+            if n not in names:
+                names.append(n)
+            slot_tables.append(names.index(n))
+        return WideLinear(
+            [self.layout.embedding_specs[n][0] for n in names], self.layout.num_dense_dims,
+            generator=generator, init_std=self.init_std, slot_tables=slot_tables,
+            slot_cols=[s.start for s in self.layout.sparse_slots])
+
+    def wide_logit(self, ids: torch.Tensor, dense: torch.Tensor) -> Optional[torch.Tensor]:
+        """[B, 1], added to every head before its sigmoid, with
+        ``use_wide_linear``; else None."""
+        return None if self.wide_linear is None else self.wide_linear(ids, dense)
 
     def make_heads(self) -> PredictionHeads:
         return PredictionHeads(self.task_types)
@@ -155,19 +183,37 @@ class RecModel(nn.Module):
         self.tower_final = StackedDense(T, in_dim, 1, generator=generator, use_bias=False)
         self.out = self.make_heads()
 
-    def tower_scores(self, x: torch.Tensor, domain_mask, inter: Optional[Dict] = None):
+    def head_scores(self, tower: torch.Tensor, weights: torch.Tensor,
+                    wide: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The heads over a per-task product: ``tower`` [B, T, H] (or
+        [B, H], the same input for every task) . ``weights`` [T, H], plus
+        the final layer's own ``bias`` [T] if it has one, plus the heads'
+        bias, then the sigmoid -> [B, T]: one multihead-score launch.  With
+        the ``wide`` logit [B, 1] the heads take ``(tower . w + bias) +
+        wide`` in plain tensor ops (``from_logits``), as the JAX package
+        adds it."""
+        if tower.dim() == 2:  # the kernel reads one row per (example, task)
+            tower = tower[:, None, :].expand(-1, self.num_tasks, -1)
+        if wide is None:
+            return self.out(tower.contiguous(), weights, bias)
+        logits = torch.einsum("bth,th->bt", tower, weights)
+        if bias is not None:
+            logits = logits + bias
+        return self.out.from_logits(logits + wide)
+
+    def tower_scores(self, x: torch.Tensor, domain_mask, inter: Optional[Dict] = None,
+                     wide: Optional[torch.Tensor] = None):
         """``x`` [B, T, H] (or [B, H], the same input for every task) through
-        the towers and the fused head (the multihead-score kernel: the
-        towers' final layer, the bias and the sigmoid), then the domain
-        mask.  ``inter`` collects ``tower_outputs`` when there are towers."""
+        the towers and the heads (``head_scores``: the towers' final layer,
+        the bias and the sigmoid), then the domain mask.  ``inter`` collects
+        ``tower_outputs`` when there are towers."""
         tower = x
         if self.tower_dnn is not None:
             tower = self.tower_dnn(x)
             if inter is not None:
                 inter["tower_outputs"] = tower
-        elif tower.dim() == 2:  # the kernel reads one row per (example, task)
-            tower = tower[:, None, :].expand(-1, self.num_tasks, -1)
-        probs = self.out(tower.contiguous(), self.tower_final.kernel[..., 0])
+        probs = self.head_scores(tower, self.tower_final.kernel[..., 0], wide)
         return self.apply_domain_mask(probs, domain_mask)
 
     def apply_domain_mask(self, probs: torch.Tensor, domain_mask) -> torch.Tensor:

@@ -41,5 +41,5 @@ class CrossStitch(RecModel):
             x = getattr(self, f"task_layer_{i}")(x)  # [B, T, units]
             x = getattr(self, f"gate_{i}")(x)
         inter = {"dnn_input": dnn_input, "cross_stitch_outputs": x}
-        probs = self.tower_scores(x, domain_mask, inter)
+        probs = self.tower_scores(x, domain_mask, inter, wide=self.wide_logit(ids, dense))
         return (probs, inter) if return_intermediates else probs

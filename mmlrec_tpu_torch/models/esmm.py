@@ -37,11 +37,12 @@ class _EntireSpace(RecModel):
                                                    use_bias=False))
         self.out_bias = nn.Parameter(torch.zeros(1))
 
-    def _tower(self, name: str, dnn_input: torch.Tensor):
-        """(hidden [B, H], probability [B]) of one tower."""
+    def _tower(self, name: str, dnn_input: torch.Tensor, wide=None):
+        """(hidden [B, H], probability [B]) of one tower; ``wide`` [B, 1] is
+        the opt-in wide logit."""
         h = getattr(self, f"{name}_dnn")(dnn_input)
-        logit = getattr(self, f"{name}_final")(h)[:, 0]
-        return h, torch.sigmoid(logit + self.out_bias[0])
+        z = getattr(self, f"{name}_final")(h)[:, 0] + self.out_bias[0]
+        return h, torch.sigmoid(z if wide is None else z + wide[:, 0])
 
 
 class ESMM(_EntireSpace):
@@ -51,8 +52,9 @@ class ESMM(_EntireSpace):
     def forward(self, ids, dense, domain_mask=None, *, rows=None,
                 return_intermediates: bool = False):
         dnn_input, _ = self.embed_inputs(ids, dense, rows)
-        ctr_h, ctr = self._tower("ctr", dnn_input)
-        cvr_h, cvr = self._tower("cvr", dnn_input)
+        wide = self.wide_logit(ids, dense)
+        ctr_h, ctr = self._tower("ctr", dnn_input, wide)
+        cvr_h, cvr = self._tower("cvr", dnn_input, wide)
         probs = torch.stack([ctr, ctr * cvr], dim=-1)
         if not return_intermediates:
             return probs
@@ -71,7 +73,8 @@ class ESCM(_EntireSpace):
     def forward(self, ids, dense, domain_mask=None, *, rows=None,
                 return_intermediates: bool = False):
         dnn_input, _ = self.embed_inputs(ids, dense, rows)
-        preds = {name: self._tower(name, dnn_input)[1] for name in self.towers}
+        wide = self.wide_logit(ids, dense)
+        preds = {name: self._tower(name, dnn_input, wide)[1] for name in self.towers}
         outs = [preds["ctr"], preds["cvr"], preds["ctr"] * preds["cvr"]]
         if "imp" in preds:
             outs.append(preds["imp"])

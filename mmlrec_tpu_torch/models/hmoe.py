@@ -63,7 +63,8 @@ class HMOE(RecModel):
         own = torch.einsum("btj,tj->bt", task_weights, eye)[..., None] * towers
         others = torch.einsum("btj,bjd->btd", task_weights * (1.0 - eye)[None], towers.detach())
         task_inputs = (own + others).contiguous()  # [B, T, d]
-        probs = self.out(task_inputs, self.tower_final.kernel[..., 0])
+        probs = self.head_scores(task_inputs, self.tower_final.kernel[..., 0],
+                                 self.wide_logit(ids, dense))
         probs = self.apply_domain_mask(probs, domain_mask)
         if not return_intermediates:
             return probs

@@ -42,6 +42,8 @@ class MLP(RecModel):
             x = getattr(self, f"mlp_layer_{i}")(x)
             inter[f"mlp_output_{i}"] = x
         inter["last_layer"] = x
-        probs = self.out.from_logits(self.final_layer(x))  # [B, 1] -> [B, T]
+        logit = self.final_layer(x)  # [B, 1], broadcast to the T heads
+        wide = self.wide_logit(ids, dense)
+        probs = self.out.from_logits(logit if wide is None else logit + wide)
         probs = self.apply_domain_mask(probs, domain_mask)
         return (probs, inter) if return_intermediates else probs

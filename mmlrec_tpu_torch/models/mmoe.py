@@ -55,5 +55,5 @@ class MMOE(RecModel):
             "gate_outputs": torch.softmax(gate_logits, dim=-1),
             "mmoe_outputs": mmoe_outs,
         } if return_intermediates else None
-        probs = self.tower_scores(mmoe_outs, domain_mask, inter)
+        probs = self.tower_scores(mmoe_outs, domain_mask, inter, wide=self.wide_logit(ids, dense))
         return (probs, inter) if return_intermediates else probs

@@ -95,5 +95,6 @@ class PLE(RecModel):
 
             inputs = torch.cat([task_outs, shared_mix], dim=1)
             inter[f"ple_output_{level}"] = inputs
-        probs = self.tower_scores(inputs[:, :T], domain_mask, inter)
+        probs = self.tower_scores(inputs[:, :T], domain_mask, inter,
+                                  wide=self.wide_logit(ids, dense))
         return (probs, inter) if return_intermediates else probs

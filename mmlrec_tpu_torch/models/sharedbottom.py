@@ -30,5 +30,5 @@ class SharedBottom(RecModel):
         dnn_input, _ = self.embed_inputs(ids, dense, rows)
         bottom = self.bottom_dnn(dnn_input)  # [B, H], the same for every task
         inter = {"dnn_input": dnn_input, "shared_bottom_outputs": bottom}
-        probs = self.tower_scores(bottom, domain_mask, inter)
+        probs = self.tower_scores(bottom, domain_mask, inter, wide=self.wide_logit(ids, dense))
         return (probs, inter) if return_intermediates else probs

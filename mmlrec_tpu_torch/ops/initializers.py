@@ -8,6 +8,9 @@
 * The layers that the JAX package leaves to flax's ``nn.Dense`` defaults keep
   them: a LeCun-normal kernel (``lecun_normal_init``) and a zero bias.
 * Cross-stitch matrices start as the identity (``eye_init``).
+* The SNR gates' transforms and APG's shared matrices are Xavier draws
+  (``xavier_normal_init``, ``xavier_uniform_init``), a gate's ``u`` and
+  ``alpha`` uniform in a range, an open gate's ``alpha`` a constant.
 
 Kernels keep the JAX layout ``[..., in, out]``; fan_in is ``shape[-2]``.
 Each init draws from an explicit ``torch.Generator``, on its device (the
@@ -86,5 +89,42 @@ def eye_init():
             raise ValueError(f"eye_init needs a square trailing shape, got {tuple(shape)}")
         eye = torch.eye(shape[-1], dtype=torch.float32, device=gen.device)
         return eye.expand(tuple(shape)).clone()
+
+    return init
+
+
+def xavier_uniform_init():
+    """U(+-sqrt(6 / (fan_in + fan_out))) with the fans ``shape[-2]`` and
+    ``shape[-1]`` alone, as mmlrec_tpu/ops/initializers.py:44 has them (not
+    flax's receptive-field fans)."""
+
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        return _uniform(gen, shape, math.sqrt(6.0 / (shape[-2] + shape[-1])))
+
+    return init
+
+
+def xavier_normal_init():
+    """normal(0, sqrt(2 / (fan_in + fan_out))), fans as ``xavier_uniform_init``."""
+
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        return normal_init(math.sqrt(2.0 / (shape[-2] + shape[-1])))(gen, shape)
+
+    return init
+
+
+def uniform_range_init(low: float, high: float):
+    """U(low, high)."""
+
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32, device=gen.device)
+        return low + (high - low) * u
+
+    return init
+
+
+def constant_init(value: float):
+    def init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+        return torch.full(tuple(shape), float(value), dtype=torch.float32, device=gen.device)
 
     return init

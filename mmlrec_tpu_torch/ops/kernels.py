@@ -98,18 +98,23 @@ def empty_launch(blocks: int = 1, threads: int = 32) -> None:
 # ----------------------------------------------------------------------
 # fused embedding gather + flatten + dense concat
 # ----------------------------------------------------------------------
-def embed_concat_plain(table, ids, dense):
-    """concat(take(table, ids).reshape(B, F*D), dense), with jnp.take's fill
-    mode: an id in [-V, 0) wraps once, any other id outside [0, V) gives a
-    NaN row."""
-    V, D = table.shape
-    B, F = ids.shape
+def take_fill(table, ids):
+    """``jnp.take(table, ids, axis=0)`` with its fill mode: [V, D] rows at
+    ids of any shape -> [*ids.shape, D]; an id in [-V, 0) wraps once, any
+    other id outside [0, V) gives a NaN row."""
+    V = table.shape[0]
     idx = ids.long()
     idx = torch.where(idx < 0, idx + V, idx)
     valid = (idx >= 0) & (idx < V)
-    rows = table[idx.clamp(0, max(V - 1, 0))]  # [B, F, D]
-    rows = torch.where(valid[..., None], rows, rows.new_full((), float("nan")))
-    return torch.cat([rows.reshape(B, F * D), dense], dim=1)
+    rows = table[idx.clamp(0, max(V - 1, 0))]
+    return torch.where(valid[..., None], rows, rows.new_full((), float("nan")))
+
+
+def embed_concat_plain(table, ids, dense):
+    """concat(take(table, ids).reshape(B, F*D), dense), with jnp.take's fill
+    mode (``take_fill``)."""
+    B, F = ids.shape
+    return torch.cat([take_fill(table, ids).reshape(B, F * table.shape[1]), dense], dim=1)
 
 
 def scatter_add_rows(values: torch.Tensor, index: torch.Tensor, n_rows: int) -> torch.Tensor:

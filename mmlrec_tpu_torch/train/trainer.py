@@ -66,6 +66,14 @@ def get_mask(domain_values, mask_values, num_domains) -> np.ndarray:
     return (dv == mv).astype(np.float32)
 
 
+def _grads(total: torch.Tensor, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d total / d tensors, zeros for a tensor the loss does not reach (a
+    parameter that a reference-faithful freeze detaches, a DomainBatchNorm
+    that no mask reaches), as jax.grad gives them."""
+    grads = torch.autograd.grad(total, tensors, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for g, t in zip(grads, tensors)]
+
+
 def _choice(mc, key: str, default: str, allowed: Tuple[str, ...]) -> str:
     value = str(mc.extra.get(key, default))
     if value not in allowed:
@@ -79,6 +87,7 @@ class Trainer:
         model: RecModel,
         seed: int = 0,
         mesh=None,
+        debug: bool = False,
         *,
         device: Union[str, torch.device, None] = None,
     ):
@@ -86,6 +95,9 @@ class Trainer:
         ``device="cpu"`` runs every kernel's plain version."""
         if mesh is not None:
             raise NotImplementedError("meshes are not ported yet (ROADMAP A9)")
+        if debug:
+            raise NotImplementedError(
+                "debug (NaN checking, jax_debug_nans) is not ported yet (ROADMAP A3)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -106,9 +118,10 @@ class Trainer:
         #: and ``evaluate`` read them.
         self.best_variables: Optional[Dict[str, torch.Tensor]] = None
         self.throughput_examples_per_s: Optional[float] = None
-        # the seed of each step's dropout masks is drawn from this CPU
-        # generator, once per step, so the masks are a function of (seed,
-        # step) and the state carries over from one fit() to the next
+        # the seed of each step's draws (dropout masks, stochastic gates) is
+        # drawn from this CPU generator, once per step, so the draws are a
+        # function of (seed, step) and the state carries over from one fit()
+        # to the next
         self._dropout_master = torch.Generator().manual_seed(seed + 1)
         self._dropout_gen = torch.Generator(device=self.device)
         self.model.set_dropout_generator(self._dropout_gen)
@@ -154,7 +167,20 @@ class Trainer:
                 "device_eval (metrics on the device) is not ported yet (ROADMAP A6)")
         if self.cfg.save_config.save:
             raise NotImplementedError("checkpoints are not ported yet (ROADMAP A7)")
-        self._has_dropout = float(mc.dnn_dropout or 0.0) > 0.0
+        # the JAX trainer's host-loop knobs that the port would otherwise
+        # ignore: the fused optimizer vector (bit-exact either way there) and
+        # the prefetch thread's depth
+        if extra.get("flat_optimizer", True) is not True:
+            raise NotImplementedError(
+                "flat_optimizer is not ported yet (ROADMAP A3); the port keeps "
+                "one tensor per parameter")
+        if int(extra.get("prefetch_batches", 2)) != 2:
+            raise NotImplementedError(
+                "prefetch_batches is not ported yet (ROADMAP A3); the port "
+                "builds each batch on the step's thread")
+        # the first E epochs train stochastic gates at their midpoint
+        # (mmlrec_tpu/train/trainer.py:523-533)
+        self._gate_warmup_epochs = int(extra.get("snr_gate_noise_warmup_epochs", 0) or 0)
         self.two_phase_embedding = bool(extra.get("two_phase_embedding"))
         fused = self.model.embeddings.fused
         if not self.two_phase_embedding:
@@ -346,7 +372,7 @@ class Trainer:
         params = dict(self.model.named_parameters())
         with torch.enable_grad():
             total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
-            grads = torch.autograd.grad(total, list(params.values()))
+            grads = _grads(total, list(params.values()))
         self.opt_state = self.tx.step(params, dict(zip(params, grads)), self.opt_state)
         return total.detach(), data_loss.detach(), probs.detach()
 
@@ -377,9 +403,8 @@ class Trainer:
         running ones."""
         if self.opt_state is None:
             self.init_state()
-        if self._has_dropout:
-            seed = int(torch.randint(0, 2**62, (), generator=self._dropout_master))
-            self._dropout_gen.manual_seed(seed)
+        seed = int(torch.randint(0, 2**62, (), generator=self._dropout_master))
+        self._dropout_gen.manual_seed(seed)
         self.model.train()
         try:
             step = (self._train_step_two_phase if self.two_phase_embedding
@@ -415,7 +440,7 @@ class Trainer:
         with torch.enable_grad():
             total, data_loss, probs = self._loss_terms_injected(
                 rows, rep, ids, dense, y, dmask, weight)
-            grads = torch.autograd.grad(total, [*rest.values(), rows])
+            grads = _grads(total, [*rest.values(), rows])
         with torch.no_grad():
             _, self.table_opt = two_phase_sparse_adam_unique(
                 table, grads[-1].reshape(K, D), flat_ids, inv, rep, pids, pinv,
@@ -454,6 +479,7 @@ class Trainer:
         shuffle: bool = True,
         verbose: int = 1,
         resume_from: Optional[str] = None,
+        epoch_callback=None,
     ) -> "Trainer":
         """Stream ``x`` through the training step, one batch per step
         (trainer.py:1366-1747).
@@ -474,6 +500,8 @@ class Trainer:
         shuffle, scanned steps and the thread-ahead pool are ROADMAP A3."""
         if resume_from is not None:
             raise NotImplementedError("resume_from (checkpoints) is not ported yet (ROADMAP A7)")
+        if epoch_callback is not None:
+            raise NotImplementedError("epoch_callback is not ported yet (ROADMAP A3)")
         if shuffle not in (True, False):
             raise NotImplementedError(
                 f"shuffle={shuffle!r} (staged block mode) is not ported yet (ROADMAP A3)")
@@ -514,6 +542,8 @@ class Trainer:
         val_batches = None
         for epoch in range(initial_epoch, epochs):
             t0 = time.time()
+            if self._gate_warmup_epochs:
+                self.model.set_gate_noise_off(epoch < self._gate_warmup_epochs)
             order = rng_np.permutation(n) if shuffle else np.arange(n)
             steps = steps_per_epoch
             if max_steps:

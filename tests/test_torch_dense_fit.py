@@ -390,13 +390,31 @@ def test_dropout_in_the_fit_follows_the_trainers_generator():
     (dict(scan_steps=16), "A3"),
     (dict(batch_metric_curves=True), "A3"),
     (dict(use_cagrad=True), "A6"),
-    (dict(dnn_activation="prelu"), "A5"),
+    (dict(table_container="stacked", stacked_shards=2), "A9"),
+    (dict(flat_optimizer=False), "A3"),
+    (dict(prefetch_batches=4), "A3"),
 ])
 def test_dense_fit_unported_knobs_name_their_roadmap_item(override, item):
     cfg = tsyn.make_config(**{**KW, "vocab": 400, **override})
     layout, *_ = tsyn.make_data(cfg, n=8, seed=0, vocab=400)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(get_model("mmoe", layout, cfg, device="cpu"), device="cpu")
+
+
+@pytest.mark.parametrize("call", ["Trainer(debug=True)", "fit(epoch_callback=...)"])
+def test_trainer_arguments_not_ported_name_their_roadmap_item(call):
+    cfg = tsyn.make_config(vocab=400, **KW)
+    layout, x, y, _ = tsyn.make_data(cfg, n=64, seed=0, vocab=400)
+    model = get_model("mmoe", layout, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A3"):
+        if call.startswith("Trainer"):
+            Trainer(model, debug=True, device="cpu")
+        else:
+            Trainer(model, device="cpu").compile().fit(
+                x, y, batch_size=32, verbose=0, epoch_callback=lambda epoch, tr: None)
+    # the defaults of the knobs are accepted
+    cfg.model_config.extra.update(flat_optimizer=True, prefetch_batches=2)
+    Trainer(model, debug=False, device="cpu")
 
 
 def test_dense_fit_refusals_and_default_device(monkeypatch):

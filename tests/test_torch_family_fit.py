@@ -45,6 +45,7 @@ from mmlrec_tpu_torch.serving import ServingBundle, save_serving_bundle
 from mmlrec_tpu_torch.train import Trainer
 from mmlrec_tpu_torch.train.losses import escm_loss, multitask_loss
 from mmlrec_tpu_torch.train.sparse_embedding import split_stacked_planes, unpack_monu_f32
+from tests.test_torch_models import numpy_variables
 
 KW = dict(n_sparse=4, n_dense=2, hidden=(16, 8), tower=(8,), gate=(8,), batch_size=64,
           lr=1e-3, vocab=400)
@@ -64,27 +65,16 @@ def _rows(x, a, b):
 
 
 def _numpy_variables(shapes, seed, fat=False):
-    """Weights from numpy: kernels and mixing matrices 1.5 / sqrt(fan_in),
-    the table 0.3, biases 0.1, BatchNorm scales around 1, running variances
-    positive; a stacked container's moment half zero."""
-    rng = np.random.default_rng(seed)
-
-    def draw(path, a):
-        leaf = path[-1].key
-        if leaf == "var":
-            return rng.uniform(0.5, 2.0, a.shape).astype(np.float32)
-        if leaf == "scale":
-            return rng.normal(1.0, 0.2, a.shape).astype(np.float32)
-        std = 0.3 if leaf == "table" else 0.1
-        if leaf in ("kernel", "cross_stitch_weight"):
-            std = 1.5 / np.sqrt(a.shape[-2])
-        x = rng.normal(0.0, std, a.shape).astype(np.float32)
-        if fat and leaf == "table":
-            x[a.shape[0] // 2:] = 0.0
-        return x
-
-    tree = {k: v for k, v in dict(shapes).items() if k in ("params", "batch_stats")}
-    return jax.tree_util.tree_map_with_path(draw, tree)
+    """Weights from numpy, as tests/test_torch_models.py draws them
+    (kernels and mixing matrices 1.5 / sqrt(fan_in), the table 0.3, biases
+    0.1, BatchNorm scales around 1, running variances positive, gate
+    parameters inside their clip bounds); a stacked container's moment half
+    zero."""
+    tree = numpy_variables(shapes, seed)
+    if fat:
+        table = tree["params"]["embeddings"]["fused"]["table"]
+        table[table.shape[0] // 2:] = 0.0
+    return tree
 
 
 def _flat(tree):

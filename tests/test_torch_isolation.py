@@ -38,7 +38,8 @@ def test_import_pulls_in_no_jax():
               "train.metrics", "ops.row_gather", "ops.row_scatter", "ops.cuda_build",
               "ops.kernels", "ops.embedding", "ops.layers", "tools.profile_step",
               "tools.tune_kernels", "models.mlp", "models.sharedbottom", "models.esmm",
-              "models.hmoe", "models.cross_stitch", "models.aitm", "models.ple"):
+              "models.hmoe", "models.cross_stitch", "models.aitm", "models.ple", "models.snr",
+              "models.star", "models.apg", "models.pepnet", "ops.domain_norm"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}
@@ -115,6 +116,10 @@ def test_default_device_is_the_card(monkeypatch, tmp_path):
     layout, *_ = make_data(cfg, n=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model("mmoe", layout, cfg)
+    for name in ("snr_trans", "mssm", "star", "apg", "pepnet"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(name, layout, make_config(model_name=name, emb=4, n_sparse=3, n_dense=2,
+                                                hidden=(8,), tower=(4,)))
     save_serving_bundle(get_model("mmoe", layout, cfg, device="cpu"), str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingBundle.load(str(tmp_path))

@@ -216,12 +216,19 @@ def test_serving_bundle_matches_jax_bundle(tmp_path, task_name, kw):
 
 
 def test_unported_options_are_refused():
+    """What stays refused names its ROADMAP item: varlen features and
+    tables of non-uniform dims (A5), the shard-major stacked container (A9).
+    The parameterised activations and the wide logit build."""
+    from mmlrec_tpu_torch.features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
+
     tl, *_ = tsyn.make_data(tsyn.make_config(**SMALL), n=8)
-    for kw in ({"dnn_activation": "prelu"},
-               {"dnn_activation": "dice"}, {"use_wide_linear": True},
-               {"table_container": "stacked", "stacked_shards": 2}):
-        cfg = tsyn.make_config(**SMALL, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            get_model("mmoe", tl, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        get_model("star", tl, tsyn.make_config(**SMALL), device="cpu")
+    cfg = tsyn.make_config(**SMALL, table_container="stacked", stacked_shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        get_model("mmoe", tl, cfg, device="cpu")
+    for cols in ([SparseFeat("s0", 50, 4), VarLenSparseFeat(SparseFeat("h", 50, 4), maxlen=3)],
+                 [SparseFeat("s0", 50, 4), SparseFeat("s1", 50, 6), DenseFeat("d0", 1)]):
+        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+            get_model("star", FeatureLayout(cols), tsyn.make_config(**SMALL), device="cpu")
+    for kw in ({"dnn_activation": "prelu"}, {"dnn_activation": "dice"},
+               {"use_wide_linear": True}):
+        get_model("mmoe", tl, tsyn.make_config(**SMALL, **kw), device="cpu")
