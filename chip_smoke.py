@@ -112,8 +112,29 @@ failure and carries on):
    device time, busy share and examples/s; the same fit for snr_trans with
    stochastic gates and one warmup epoch (the second epoch draws u on the
    card: the gates switched on, the alphas moved);
-11. one JSON line with every kernel's numbers, one with the dense fit, one
-   with the families; the last line is the device line.
+11. the shipped configurations as shipped, through the CLI
+   (``mmlrec_tpu_torch.main``): (1) each of the 13 ``configs/**/*.json``,
+   cut to 2 epochs of 512-row batches over 4096 synthetic rows, each in a
+   temporary working directory, at the CLI's default vocabulary 100 (the
+   two-phase configs take the scatter update, its (inv, rep) from numpy)
+   and at 65,536 (they take the write kernel, B3 on (table, mu, nu), with
+   host metadata from the native pass of ``native/step_metadata.cpp``,
+   which must load); each run's row in the JAX schema, its CSV, its
+   checkpoint where ``save`` is set and the layer-output pickles of
+   ``msl/config_movielens.json``; (2) ``configs/msl/config_AE.json`` at
+   vocab 131,072 (139,264 physical rows > Kp = 69,632: split container, f32
+   moments, host metadata), batch 4096: 3 steps card vs CPU with sigmoid
+   DNNs (phase 9's rule for the dense weights and the table, the table's
+   moments within 1e-5 of each tensor's largest), B3's three-array f32
+   write bitwise against its plain version at this shape with its times,
+   and 16 steps as shipped timed with their host metadata; (3) checkpoints
+   on the card: save and restore predict bitwise, a resumed fit equals the
+   uninterrupted one bitwise, a stacked bf16 state restores into a split
+   trainer bitwise; (4) validation metrics on the device against the host
+   on the same predictions within 1e-5;
+12. one JSON line with every kernel's numbers, one with the dense fit, one
+   with the families, one with the shipped configurations; the last line
+   is the device line.
 
 TF32 is switched off for matrix products and cuDNN, so the card computes
 in full f32 like the CPU reference.
@@ -127,6 +148,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1711,6 +1733,416 @@ def family_sweep(torch, K, card, workdir):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 11: the shipped configurations through the CLI
+# ----------------------------------------------------------------------
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the CLI's default vocabulary (the scatter update) and one that takes the
+# write kernel at a batch of 512 (lane-packed, physical rows > Kp)
+CLI_VOCABS = (100, 1 << 16)
+CLI_ROWS, CLI_BATCH, CLI_EPOCHS = 4096, 512, 2
+AE_CONFIG = os.path.join("configs", "msl", "config_AE.json")
+AE_VOCAB = 1 << 17  # 17 features x 2^17 ids: 139,264 physical rows > Kp = 69,632
+AE_STEPS, AE_TIMED = 3, 16
+
+
+def _shipped_configs():
+    found = []
+    for base, _, files in os.walk(os.path.join(ROOT, "configs")):
+        found += [os.path.relpath(os.path.join(base, f), ROOT) for f in files if f.endswith(".json")]
+    return sorted(found)
+
+
+def _cut_config(rel, out_dir, epochs, batch):
+    """A copy of a shipped config with its epochs and batches cut, all else
+    (paths included) as shipped."""
+    with open(os.path.join(ROOT, rel)) as f:
+        raw = json.load(f)
+    tc = raw["training_config"]
+    tc["epochs"] = epochs
+    for k in ("train_batch_size", "val_batch_size", "test_batch_size"):
+        if k in tc:
+            tc[k] = batch
+    path = os.path.join(out_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return raw, path
+
+
+def _check_outputs(rel, raw, row, work):
+    """The row in the JAX schema, the CSV, the checkpoint where ``save`` is
+    set and the layer-output pickles where asked for; returns what was
+    written."""
+    dc, mc, sc = raw["data_config"], raw["model_config"], raw.get("save_config", {})
+    n_heads = len(dc["label_columns"])
+    want = ["type"] + [f"{m}_{i}" for i in range(n_heads) for m in ("log_loss", "auc")]
+    want += ["total_auc"] if mc["task_name"] in ("msl", "mtmsl") else []
+    want += ["examples_per_s"]
+    if list(row) != want or not all(np.isfinite(row[k]) for k in want[1:]):
+        raise AssertionError(f"phase 11, {rel}: row {row}, expected the keys {want}")
+    written = []
+    if dc.get("test_result_path"):
+        with open(os.path.join(work, dc["test_result_path"])) as f:
+            header = f.readline().strip().split(",")
+        if header != want:
+            raise AssertionError(f"phase 11, {rel}: CSV header {header}")
+        written.append(dc["test_result_path"])
+    ckpt = os.path.join(work, sc.get("save_path", "./checkpoint/"),
+                        f"{mc['model_name']}_{mc['task_name']}_seed0", "variables.pt")
+    if os.path.exists(ckpt) != bool(sc.get("save")):
+        raise AssertionError(f"phase 11, {rel}: checkpoint {'missing' if sc.get('save') else 'written'}")
+    if sc.get("save"):
+        written.append(os.path.relpath(ckpt, work))
+    if sc.get("save_layer_output"):
+        prefix = os.path.join(work, dc["layer_output_path"])
+        pkls = sorted(p for p in (os.path.join(os.path.dirname(prefix), f)
+                                  for f in os.listdir(os.path.dirname(prefix)))
+                      if p.startswith(prefix) and p.endswith(".pkl"))
+        if not pkls:
+            raise AssertionError(f"phase 11, {rel}: no layer-output pickles")
+        written += [os.path.relpath(p, work) for p in pkls]
+    return written
+
+
+def shipped_cli(torch, K, card):
+    """Phase 11 (1): every shipped config through the CLI on the card, at the
+    CLI's default vocabulary and at one that takes the write kernel."""
+    from mmlrec_tpu_torch.main import parse_args, run
+    from mmlrec_tpu_torch.train import sparse_embedding as SE
+
+    out, cwd, total = {}, os.getcwd(), {}
+    steps_per_epoch = CLI_ROWS // CLI_BATCH
+    for rel in _shipped_configs():
+        for vocab in CLI_VOCABS:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+                raw, cfg = _cut_config(rel, work, CLI_EPOCHS, CLI_BATCH)
+                os.chdir(work)
+                try:
+                    K.reset_launch_counts()
+                    SE.reset_metadata_calls()
+                    t0 = time.perf_counter()
+                    (row, tr), = run(parse_args([
+                        "--config", cfg, "--seed", "0", "--synthetic", "--synthetic_rows",
+                        str(CLI_ROWS), "--synthetic_vocab", str(vocab)]))
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                    written = _check_outputs(rel, raw, row, work)
+                finally:
+                    os.chdir(cwd)
+            launches = {k: v for k, v in K.launch_counts.items() if v}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            calls = dict(SE.metadata_calls)
+            steps = steps_per_epoch * len(tr.history)
+            if not tr.two_phase_embedding:
+                route, source = "dense", "none"
+            else:
+                route = "pallas-unique" if tr.table_update == "pallas" else "scatter"
+                source = "device" if tr.device_metadata else (
+                    "native" if calls["native"] else "numpy")
+                # the JAX rule: the write-kernel update's metadata comes from
+                # the native pass when it loads; the scatter update's (inv,
+                # rep) always from numpy.  Here the native pass must load.
+                want = ("pallas-unique", "native", {"native": steps, "numpy": 0}) if vocab > 100 \
+                    else ("scatter", "numpy", {"native": 0, "numpy": steps})
+                if (route, source, calls) != want:
+                    raise AssertionError(f"phase 11, {rel} vocab {vocab}: route {route}, metadata "
+                                         f"{calls}, expected {want}")
+                if launches.get("rows_write", 0) != (steps if route == "pallas-unique" else 0):
+                    raise AssertionError(f"phase 11, {rel}: rows_write launched "
+                                         f"{launches.get('rows_write')} times in {steps} steps")
+            # the dense step runs B7 every step; the two-phase step injects
+            # the gathered rows (as in JAX), and B7 runs in validation
+            if launches.get("embed_concat", 0) < (steps if route == "dense" else 1):
+                raise AssertionError(f"phase 11, {rel}: embed_concat launched {launches}")
+            step_ms = tr.history[-1]["epoch_s"] * 1e3 / steps_per_epoch
+            key = f"{rel} vocab {vocab}"
+            out[key] = dict(model=tr.model_name, task=tr.task_name, route=route, metadata=source,
+                            metadata_calls=calls, steps=steps, step_ms_last_epoch=step_ms,
+                            wall_s=wall_s, row=row, files=written, launches=launches,
+                            val_auc=[h.get("val_auc") for h in tr.history],
+                            table=list(tr.table.shape) if tr.two_phase_embedding else None)
+            log(f"[11] {key}: {tr.model_name} {tr.task_name}, route {route}, metadata {source}, "
+                f"{steps} steps of {CLI_BATCH}, {step_ms:.2f} ms a step (host clock, last epoch), "
+                f"{wall_s:.1f} s in all; val_auc {out[key]['val_auc']}; row {row}; wrote "
+                f"{written}; launches {launches} [{card}]")
+            del tr
+    return out, total
+
+
+def _held_card_vs_cpu(gpu, cpu, lr):
+    """Phase 11 (2)'s rule: dense weights and the table at phase 9's count
+    (at most 1e-4 of the entries over 1e-6, none over 3 x lr), the table's
+    f32 moments within 1e-5 of each tensor's largest."""
+    worst = dict(dense_over=0, dense_n=0, dense_max=0.0, table_over=0, table_n=0,
+                 table_max=0.0, mu=0.0, nu=0.0)
+    state_c = dict(cpu.model.named_parameters())
+    for k, p in gpu.model.named_parameters():
+        diff = (p.detach().cpu() - state_c[k].detach()).abs()
+        which = "table" if k == "embeddings.fused.table" else "dense"
+        worst[f"{which}_over"] += int((diff > 1e-6).sum())
+        worst[f"{which}_n"] += diff.numel()
+        worst[f"{which}_max"] = max(worst[f"{which}_max"], float(diff.max()))
+    for m in ("mu", "nu"):
+        a, b = getattr(gpu.table_opt, m).cpu(), getattr(cpu.table_opt, m)
+        worst[m] = float((a - b).abs().max()) / float(b.abs().max())
+    worst["failed"] = bool(
+        any(worst[f"{w}_over"] > 1e-4 * worst[f"{w}_n"] or worst[f"{w}_max"] > 3 * lr
+            for w in ("dense", "table")) or worst["mu"] > 1e-5 or worst["nu"] > 1e-5)
+    return worst
+
+
+def _same_state(torch, a, b):
+    """Every tensor of two trainers' states bitwise equal."""
+    def bits(t):
+        return t.detach().contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    pairs = [(sa[k], sb[k]) for k in sa]
+    pairs += list(zip(a.table_opt, b.table_opt)) if a.table_opt is not None else []
+    for field in a.opt_state._fields:
+        x, y = getattr(a.opt_state, field), getattr(b.opt_state, field)
+        pairs += [(x[k], y[k]) for k in x] if isinstance(x, dict) else [(x, y)]
+    return all(torch.equal(bits(x), bits(y)) for x, y in pairs)
+
+
+def shipped_full_width(torch, K, card, workdir):
+    """Phase 11 (2)-(4): configs/msl/config_AE.json at production vocabulary
+    on the card: B3 on (table, mu, nu), 3 steps against the CPU, 16 timed
+    steps, checkpoints and validation on the device."""
+    from mmlrec_tpu_torch.config import ExperimentConfig
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.main import load_dataset, parse_args
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.ops import row_scatter as S
+    from mmlrec_tpu_torch.tools.timing import device_ms, eager_ms, queued_ms
+    from mmlrec_tpu_torch.train import Trainer, resolve_table_container
+    from mmlrec_tpu_torch.train import device_metrics as DM
+    from mmlrec_tpu_torch.train import sparse_embedding as SE
+    from mmlrec_tpu_torch.train.metrics import regime_eval
+    from mmlrec_tpu_torch.utils import set_seed
+
+    path = os.path.join(ROOT, AE_CONFIG)
+    out = {}
+
+    def config(**model_extra):
+        cfg = ExperimentConfig.from_file(path)
+        cfg.save_config.save = False
+        cfg.model_config.extra.update(model_extra)
+        return cfg
+
+    def data(cfg, rows):
+        return load_dataset(cfg, parse_args(["--config", path, "--synthetic", "--synthetic_rows",
+                                             str(rows), "--synthetic_vocab", str(AE_VOCAB)]))
+
+    def trainer(cfg, ds, dev, seed=None, numpy_seed=None):
+        resolve_table_container(cfg, ds.layout, device=dev)
+        mc, oc = cfg.model_config, cfg.optim_config
+        if numpy_seed is None:
+            model = get_model(mc.model_name, ds.layout, cfg, generator=set_seed(seed, dev),
+                              device=dev)
+        else:
+            model = get_model(mc.model_name, ds.layout, cfg, device="cpu")
+            load_jax_variables(model, _numpy_train_state(model, seed=numpy_seed))
+        return Trainer(model, seed=0, device=dev).compile(
+            optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
+
+    batch = config().training_config.train_batch_size
+    # ---- (2) 3 steps, the last partial, card against CPU, sigmoid DNNs
+    # (phase 9's rule is stated for them: _card_vs_cpu_state)
+    n = AE_STEPS * batch - 1000
+    cfg = config(dnn_activation="sigmoid")
+    ds = data(cfg, n)
+    gpu, cpu = trainer(cfg, ds, DEV, numpy_seed=12), trainer(config(dnn_activation="sigmoid"),
+                                                             ds, "cpu", numpy_seed=12)
+    K.reset_launch_counts()
+    SE.reset_metadata_calls()
+    gpu.fit(ds.train_input, ds.y_train, batch_size=batch, epochs=1, shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    launches = _per_step(K, AE_STEPS)
+    calls = dict(SE.metadata_calls)
+    cpu.fit(ds.train_input, ds.y_train, batch_size=batch, epochs=1, shuffle=False, verbose=0)
+    lg, lc = gpu.history[-1]["loss"], cpu.history[-1]["loss"]
+    worst = _held_card_vs_cpu(gpu, cpu, cfg.optim_config.lr)
+    fused = gpu.model.embeddings.fused
+    route = (gpu.table_update, type(gpu.table_opt).__name__, gpu.table_container)
+    log(f"[11] {AE_CONFIG} at vocab {AE_VOCAB}: table {list(fused.table.shape)} (P="
+        f"{fused.pack_factor}), route {route}, host metadata {calls}; 3 steps of {batch} ({n} "
+        f"rows), sigmoid DNNs: epoch loss card {lg:.9g} cpu {lc:.9g}; {worst} (tol: at most 1e-4 "
+        f"of the dense and of the table entries over 1e-6, none over 3 x lr; mu, nu 1e-5 of the "
+        f"largest); launches per step {launches} [{card}]")
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    if route != ("pallas", "SparseAdamState", "split") or calls != {"native": AE_STEPS, "numpy": 0}:
+        raise AssertionError(f"phase 11: AE took {route} with metadata {calls}")
+    # the step runs B3 and B6 once each; B7 not (the gathered rows are
+    # injected, as in the JAX step)
+    if worst["failed"] or launches != {"rows_write": 1.0, "multihead_score": 1.0}:
+        raise AssertionError("phase 11: the card's AE steps left the CPU's tolerance, or B3 "
+                             "and B6 did not run once a step")
+    out["card_vs_cpu"] = dict(loss_card=lg, loss_cpu=lc, **worst, launches_per_step=launches,
+                              route=list(route), table=list(fused.table.shape),
+                              metadata_calls=calls)
+
+    # ---- B3 on three f32 arrays at this shape, bitwise against its plain version
+    ids_np, _ = gpu.pack_inputs(ds.train_input)
+    flat = (ids_np[:batch].astype(np.int64) + gpu._host_offsets[None, :]).reshape(1, -1)
+    meta = SE.batch_step_metadata(flat, gpu._emb_pack_factor, gpu._emb_phys_rows)
+    pids, nuniq = (torch.from_numpy(meta[i][0]).to(DEV) for i in (2, 4))
+    u = int(meta[4][0, 0])
+    Kp, W = pids.shape[0], gpu.table.shape[1]
+    g = torch.Generator(device=DEV).manual_seed(13)
+    acc3 = torch.randn((Kp, 3 * W), generator=g, device=DEV)
+    vals = (acc3[:, :W], acc3[:, W:2 * W], acc3[:, 2 * W:])
+    arrays = [t.detach().clone() for t in (gpu.table, gpu.table_opt.mu, gpu.table_opt.nu)]
+    plain = [t.clone() for t in arrays]
+    S.rows_write(arrays, pids, vals, n_real=nuniq)
+    S.rows_write_plain(plain, pids, vals, n_real=nuniq)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(arrays, plain)):
+        raise AssertionError("phase 11: rows_write on (table, mu, nu) differs from its plain version")
+    rows_n = pids[:u].long()
+
+    def index_copy_each():
+        for a, v in zip(arrays, vals):
+            a.index_copy_(0, rows_n, v[:u])
+
+    ms = device_ms(lambda: S.rows_write(arrays, pids, vals, n_real=nuniq))
+    plain_ms = eager_ms(lambda: S.rows_write_plain(plain, pids, vals, n_real=nuniq), reps=11,
+                        inner=5)
+    lib_ms = device_ms(index_copy_each)
+    nbytes = 8 + 4 * u + 3 * 2 * 4 * W * u
+    bound_ms, bound_by = bound(nbytes, 0)
+    shapes = f"(table, mu, nu) 3 x [{arrays[0].shape[0]},{W}] f32, ids[{Kp}] window [0, {u})"
+    out["rows_write_f32_three_arrays"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, shapes=shapes, launches_per_step=launches["rows_write"])
+    log(f"[11] rows_write, {shapes}: bitwise equal to the plain version; kernel "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us (eager: it synchronises), index_copy_ "
+        f"x 3 {lib_ms * 1e3:.2f} us; {nbytes / 1e6:.2f} MB, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}) [{card}]")
+    del gpu, cpu, arrays, plain, acc3, vals
+
+    # ---- 16 timed steps as shipped (relu), host metadata built before each
+    cfg = config()
+    ds = data(cfg, AE_TIMED * batch)
+    tr = trainer(cfg, ds, DEV, seed=0)
+    ids_np, dense_np = tr.pack_inputs(ds.train_input)
+    y_np, dmask_np = tr._prepare_y(ds.y_train), tr._domain_mask_from(ds.train_input)
+    batches, host_ids = [], []
+    for s in range(AE_TIMED):
+        sl = slice(s * batch, (s + 1) * batch)
+        host_ids.append(ids_np[sl])
+        batches.append([torch.from_numpy(np.ascontiguousarray(a[sl])).to(DEV)
+                        for a in (ids_np, dense_np, y_np, dmask_np)]
+                       + [torch.ones(batch, device=DEV)])
+    tr.train_step(*batches[0], meta=tr.host_metadata(host_ids[0]))  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for b, h in zip(batches, host_ids):
+        tr.train_step(*b, meta=tr.host_metadata(h))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / AE_TIMED
+    timed_launches = _per_step(K, AE_TIMED)
+    if timed_launches != {"rows_write": 1.0, "multihead_score": 1.0}:
+        raise AssertionError(f"phase 11: timed steps launched {timed_launches} per step")
+    metas = [tr.host_metadata(h) for h in host_ids]
+    it = iter(zip(batches, metas))
+    dev_ms = queued_ms(lambda: (lambda b, m: tr.train_step(*b, meta=m))(*next(it)))
+    busy = None if dev_ms is None else dev_ms / wall_ms
+    meta_ms = {}
+    for source, use_native in (("native", True), ("numpy", False)):
+        times = []
+        for h in host_ids:
+            fl = (h.astype(np.int64) + tr._host_offsets[None, :]).reshape(1, -1)
+            t1 = time.perf_counter()
+            SE.batch_step_metadata(fl, tr._emb_pack_factor, tr._emb_phys_rows,
+                                   use_native=use_native)
+            times.append((time.perf_counter() - t1) * 1e3)
+        meta_ms[source] = statistics.median(times)
+    log(f"[11] {AE_CONFIG} as shipped, {AE_TIMED} steps of {batch} on batches on the card, host "
+        f"metadata built before each step: {wall_ms:.3f} ms a step (host clock) = "
+        f"{batch / wall_ms * 1e3:.0f} examples/s; step device time "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, device busy "
+        f"{'not measured' if busy is None else f'{busy:.1%}'}; launches per step {timed_launches}; "
+        f"host metadata per batch of {batch * len(tr.layout.sparse_slots)} ids: native "
+        f"{meta_ms['native']:.2f} ms, numpy {meta_ms['numpy']:.2f} ms [{card}]")
+    out["timed"] = dict(step_ms_wall=wall_ms, examples_per_s=batch / wall_ms * 1e3,
+                        step_device_ms=dev_ms, device_busy_share=busy,
+                        launches_per_step=timed_launches, host_metadata_ms=meta_ms)
+
+    # ---- (4) validation on the device against the host, same predictions
+    val = tr._eval_batches(*tr.pack_inputs(ds.test_input), tr._domain_mask_from(ds.test_input),
+                           batch)
+    n_val = len(ds.y_test)
+    probs = tr._device_probs(val, use_best=False)
+    y_val = tr._prepare_y(ds.y_test)
+    y_dev, w_dev = tr._metric_tensors(y_val, len(val) * batch)
+    dev_metrics = {k: float(v) for k, v in DM.regime_metrics(
+        tr.metric_fns, y_dev, probs, w_dev, tr.task_name, tr.num_domains).items()}
+    host_metrics = regime_eval(tr.metric_fns, y_val,
+                               probs.cpu().numpy()[:n_val].astype(np.float64), tr.task_name,
+                               tr.num_domains)
+    gap = max(abs(dev_metrics[k] - host_metrics[k]) for k in host_metrics)
+    log(f"[11] validation of {n_val} rows: device {dev_metrics} vs host {host_metrics}: max "
+        f"|device - host| {gap:.3g} (tol 1e-5) [{card}]")
+    if set(dev_metrics) != set(host_metrics) or gap > 1e-5:
+        raise AssertionError("phase 11: device validation metrics differ from the host's")
+    out["validation"] = dict(device=dev_metrics, host=host_metrics, max_abs_diff=gap)
+
+    # ---- (3) checkpoints on the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=workdir) as ck:
+        x_test = ds.test_input
+        want = tr.predict(x_test, batch)
+        saved = tr.save_checkpoint(ck)
+        fresh = trainer(config(), ds, DEV, seed=1)
+        fresh.restore_checkpoint(saved)
+        restore_ok = np.array_equal(fresh.predict(x_test, batch), want)
+        del fresh, tr
+        # resume after epoch 1 == an uninterrupted 2-epoch fit
+        ds2 = data(config(), 2 * batch)
+        runs = {}
+        for name in ("full", "first", "resumed"):
+            runs[name] = trainer(config(), ds2, DEV, seed=2)
+        fit = dict(batch_size=batch, shuffle=False, verbose=0)
+        runs["full"].fit(ds2.train_input, ds2.y_train, epochs=2, **fit)
+        runs["first"].fit(ds2.train_input, ds2.y_train, epochs=1, **fit)
+        state = runs["first"].save_training_state(ck)
+        runs["resumed"].fit(ds2.train_input, ds2.y_train, epochs=2, resume_from=state, **fit)
+        resume_ok = _same_state(torch, runs["full"], runs["resumed"])
+        del runs
+        # a stacked bf16 state restored into a split trainer: bitwise after unpack
+        from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+
+        st_ok = []
+        for container in ("stacked", "split"):
+            c = aliexpress_like_config("mmoe", table_container=container, **TWO_PHASE)
+            layout, x, y, _ = make_data(c, n=2 * 4000, vocab=1 << 16, seed=14)
+            m = get_model("mmoe", layout, c, generator=set_seed(3, DEV), device=DEV)
+            t = Trainer(m, seed=0, device=DEV).compile()
+            if container == "stacked":
+                t.fit(x, y, batch_size=4000, epochs=1, verbose=0)
+                stacked_state = t.save_training_state(os.path.join(ck, "stacked"))
+                top, bottom = _container_views(t)
+            else:
+                t.fit(x, y, batch_size=4000, epochs=1, verbose=0, resume_from=stacked_state)
+                table, monu = _container_views(t)
+                st_ok = [torch.equal(top.view(torch.int32), table.view(torch.int32)),
+                         torch.equal(bottom.view(torch.int32), monu.view(torch.int32))]
+            del t, m
+    log(f"[11] checkpoints on the card: save -> restore into a fresh trainer predicts "
+        f"{'bitwise equal' if restore_ok else 'DIFFERENTLY'}; resume after epoch 1 == the "
+        f"uninterrupted 2-epoch fit {'bitwise' if resume_ok else 'NOT bitwise'}; a stacked bf16 "
+        f"state restored into a split trainer: table {st_ok[0]}, packed moments {st_ok[1]} "
+        f"bitwise [{card}]")
+    if not (restore_ok and resume_ok and all(st_ok)):
+        raise AssertionError("phase 11: a checkpoint did not round-trip bitwise on the card")
+    out["checkpoints"] = dict(restore_predicts_bitwise=restore_ok, resume_bitwise=resume_ok,
+                              stacked_to_split_bitwise=all(st_ok))
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1756,6 +2188,9 @@ def main() -> int:
     full = full_width(torch, K, card)
     dense = dense_fit(torch, K, card)
     families = family_sweep(torch, K, card, workdir)
+    shipped, shipped_launches = shipped_cli(torch, K, card)
+    K.reset_launch_counts()
+    shipped_ae = shipped_full_width(torch, K, card, workdir)
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS}
@@ -1768,9 +2203,11 @@ def main() -> int:
         kernels[name]["launches_per_forward_by_family"] = {
             tag: f["serving"]["launches_per_forward"][name] for tag, f in families.items()
             if "serving" in f}
+    kernels["rows_write"]["f32_three_arrays"] = shipped_ae["rows_write_f32_three_arrays"]
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-             launches=launches[name], status="ok", **kernels[name])
+             launches=launches[name], launches_phase11_cli=shipped_launches.get(name, 0),
+             status="ok", **kernels[name])
         for name in REPLACES
     ], "serving": {"flagship_vocab_100": flagship, "production_vocab_65536": production},
         "embed_concat_backward": embed_backward,
@@ -1784,6 +2221,8 @@ def main() -> int:
     print(json.dumps(line), flush=True)
     print(json.dumps({"dense_fit": dense, "card": card}), flush=True)
     print(json.dumps({"families": families, "card": card}), flush=True)
+    print(json.dumps({"shipped": {"cli": shipped, "launches_in_cli": shipped_launches,
+                                  "config_AE_full_width": shipped_ae}, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

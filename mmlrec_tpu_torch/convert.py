@@ -79,8 +79,10 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
     * ``params``: the flax params tree (the fused table included; fat for
       the stacked container, whose bottom half holds the moments);
     * ``table_opt``: for a two-phase trainer ``{"count": ...}``, plus
-      ``"monu"`` ([Vp, W] f32 packed moments) for the split container; None
-      for a dense-fit trainer, whose table is a parameter like any other;
+      ``"monu"`` ([Vp, W] f32 packed moments) for the split container with
+      packed moments, or ``"mu"`` and ``"nu"`` ([Vp, W] f32 each, a JAX
+      ``SparseAdamState``) for one with f32 moments; None for a dense-fit
+      trainer, whose table is a parameter like any other;
     * ``opt_state``: the optax state by field name, each tree shaped as the
       parameters the optimizer covers (all of them for the dense fit, all
       but the table for the two-phase step; an ``optax.flatten`` state
@@ -90,7 +92,7 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
       BatchNorm (its running means and variances), else None.
 
     Returns the trainer, ready to continue training from that state."""
-    from .train.sparse_embedding import SparseAdamPackedState
+    from .train.sparse_embedding import SparseAdamPackedState, SparseAdamState
 
     load_jax_variables(trainer.model, {"params": params, "batch_stats": batch_stats or {}})
     trainer.init_state()
@@ -110,11 +112,20 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
         if trainer.table_container == "stacked":
             trainer.table_opt = trainer.table_opt._replace(count=count)
         else:
-            monu = np.asarray(table_opt["monu"])
-            if monu.shape != tuple(trainer.table.shape) or monu.dtype != np.float32:
-                raise ValueError(f"monu: got {monu.dtype}{list(monu.shape)}, expected "
-                                 f"float32{list(trainer.table.shape)}")
-            trainer.table_opt = SparseAdamPackedState(monu=tensor(monu), count=count)
+            names = ("monu",) if trainer._packed_moments else ("mu", "nu")
+            if set(table_opt) != {"count", *names}:
+                raise ValueError(f"table_opt has {sorted(table_opt)}, the trainer's "
+                                 f"{'packed' if trainer._packed_moments else 'f32'} moments "
+                                 f"need {sorted(('count', *names))}")
+            moments = {}
+            for name in names:
+                a = np.asarray(table_opt[name])
+                if a.shape != tuple(trainer.table.shape) or a.dtype != np.float32:
+                    raise ValueError(f"{name}: got {a.dtype}{list(a.shape)}, expected "
+                                     f"float32{list(trainer.table.shape)}")
+                moments[name] = tensor(a)
+            state = SparseAdamPackedState if trainer._packed_moments else SparseAdamState
+            trainer.table_opt = state(**moments, count=count)
 
     fields = trainer.opt_state._asdict()
     if set(opt_state) != set(fields):

@@ -1,0 +1,179 @@
+"""The experiment driver of the port: the sequential seed loop of the JAX
+package's ``main.py`` (reference main.py:71-181) on PyTorch, on the card.
+
+    python -m mmlrec_tpu_torch.main --config configs/msl/config_AE.json \
+        --synthetic [--seed S | --seeds 0,2,4,8] [--device cuda|cpu]
+
+For each seed: build the config's model on synthetic data of the config's
+schema, fit it with the config's batch and epochs while validating on the
+test split (on the device where ``training_config.device_eval`` asks for
+it), save the best variables where ``save_config.save`` is set, dump the
+named layer outputs as pickled float64 numpy arrays where
+``save_config.save_layer_output`` is set, and append the row
+``{"type", log_loss_i, auc_i, [total_auc], "examples_per_s"}`` to the
+config's ``test_result_path``, every path relative to the working
+directory as the config gives it.  ``--device`` (the reference's flag)
+defaults to the card and raises without one; ``--device cpu`` runs the
+plain versions of the kernels.
+
+Not ported: the CSV data pipeline without ``--synthetic`` (ROADMAP A10b),
+meshes (``--data_parallel``, A9) and the vmapped seed suite and lr sweep
+(``--vmap_seeds``, ``--sweep_lrs``, A8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .config import ExperimentConfig
+from .data import CTRDataset, get_test_mask
+from .models import get_model
+from .train import Trainer, resolve_table_container
+from .train.metrics import masked_test_metrics
+from .utils import append_result_row, set_seed
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="python -m mmlrec_tpu_torch.main")
+    p.add_argument("--seed", type=int, default=None,
+                   help="single seed; default runs the reference seed suite")
+    p.add_argument("--seeds", type=str, default="0,2,4,8",
+                   help="comma-separated seed list (reference main.py:85)")
+    p.add_argument("--run", type=bool, default=False)
+    p.add_argument("--model_name", type=str, default="")
+    p.add_argument("--config", type=str, required=True)
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="data mesh axis size (0 = no mesh; meshes are ROADMAP A9)")
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--synthetic", action="store_true",
+                   help="use synthetic data with the config's schema")
+    p.add_argument("--synthetic_rows", type=int, default=20000)
+    p.add_argument("--synthetic_vocab", type=int, default=100,
+                   help="per-feature vocabulary for --synthetic data")
+    p.add_argument("--vmap_seeds", action="store_true", help="ROADMAP A8")
+    p.add_argument("--sweep_lrs", type=str, default="", help="ROADMAP A8")
+    p.add_argument("--device_eval", action="store_true",
+                   help="validation and the final test metrics on the device "
+                        "(train/device_metrics.py): only scalars reach the host")
+    p.add_argument("--export_bundle", type=str, default="",
+                   help="after training, export a serving bundle to "
+                        "<dir>/<data>_<task>_<model>_<seed>/")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default: the card, raises without one) or cpu")
+    return p.parse_args(argv)
+
+
+def load_dataset(cfg: ExperimentConfig, args) -> CTRDataset:
+    """Synthetic train and test splits of the config's schema (main.py:88-110):
+    ``--synthetic_rows`` training rows and a quarter as many test rows (at
+    least 1000), from seeds 0 and 1."""
+    if not args.synthetic:
+        raise NotImplementedError(
+            "the CSV data pipeline is not ported yet (ROADMAP A10b); pass --synthetic")
+    from .synthetic import make_data
+
+    n_train, n_test = args.synthetic_rows, max(args.synthetic_rows // 4, 1000)
+    v = args.synthetic_vocab
+    layout, x_tr, y_tr, _ = make_data(cfg, n=n_train, seed=0, vocab=v)
+    _, x_te, y_te, _ = make_data(cfg, n=n_test, seed=1, vocab=v)
+    dc = cfg.data_config
+    test_mask = None
+    if cfg.model_config.task_name in ("msl", "mtmsl") and dc.mask_column:
+        test_mask = get_test_mask(x_te[dc.mask_column], dc.mask_values, dc.num_domains)
+    return CTRDataset(train_input=x_tr, test_input=x_te, y_train=y_tr, y_test=y_te,
+                      test_mask=test_mask, feature_columns=layout.feature_columns,
+                      layout=layout)
+
+
+def _refuse_unported(args) -> None:
+    if args.data_parallel:
+        raise NotImplementedError("meshes (--data_parallel) are not ported yet (ROADMAP A9)")
+    if args.vmap_seeds or args.sweep_lrs:
+        raise NotImplementedError(
+            "the vmapped seed suite and lr sweep (--vmap_seeds, --sweep_lrs) are not "
+            "ported yet (ROADMAP A8)")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
+                           "plain versions of the kernels on the CPU")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
+    """Run the CLI; returns the result rows it appended, one per seed."""
+    return [row for row, _ in run(parse_args(argv))]
+
+
+def run(args: argparse.Namespace) -> List[Tuple[Dict, Trainer]]:
+    """The seed loop of ``main`` on parsed arguments: (row, trained Trainer)
+    per seed."""
+    _refuse_unported(args)
+    seeds = [args.seed] if args.seed is not None else [int(s) for s in args.seeds.split(",")]
+    out = []
+    for seed in seeds:
+        print("seed:", seed)
+        generator = set_seed(seed, args.device)
+        cfg = ExperimentConfig.from_file(args.config)
+        if args.run and args.model_name:
+            cfg.model_config.model_name = args.model_name
+        if args.device_eval:
+            cfg.training_config.extra["device_eval"] = True
+        mc, dc, oc, tc, sc = (cfg.model_config, cfg.data_config, cfg.optim_config,
+                              cfg.training_config, cfg.save_config)
+        print(cfg.to_dict())
+
+        ds = load_dataset(cfg, args)
+        resolve_table_container(cfg, ds.layout, device=args.device)
+        if mc.extra.get("table_container") == "stacked":
+            print("table_container: stacked (auto: the packed-moment write path)")
+        model = get_model(mc.model_name, ds.layout, cfg, generator=generator,
+                          device=args.device)
+        trainer = Trainer(model, seed=seed, device=args.device).compile(
+            optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
+        shuffle = tc.extra.get("shuffle_mode", "full")
+        trainer.fit(ds.train_input, ds.y_train, batch_size=tc.train_batch_size,
+                    epochs=tc.epochs, validation_data=(ds.test_input, ds.y_test),
+                    shuffle="block" if shuffle == "block" else True)
+
+        if sc.save_layer_output:
+            trainer.update_save()
+            pred_ans, layer_output_dict = trainer.predict(ds.test_input, tc.test_batch_size)
+            for key, value in layer_output_dict.items():
+                file_name = dc.layer_output_path + f"{mc.model_name}_l2{mc.l2_reg_dnn}_{key}.pkl"
+                os.makedirs(os.path.dirname(os.path.abspath(file_name)), exist_ok=True)
+                with open(file_name, "wb") as f:
+                    pickle.dump(value, f)
+        elif args.device_eval:
+            pred_ans = None  # the final metrics on the device, no download
+        else:
+            pred_ans = trainer.predict(ds.test_input, tc.test_batch_size)
+
+        if pred_ans is None:
+            results = trainer.masked_test_metrics_device(
+                ds.test_input, ds.y_test, ds.test_mask, tc.test_batch_size)
+        else:
+            results = masked_test_metrics(
+                trainer._prepare_y(ds.y_test), pred_ans, mc.task_name, dc.num_domains,
+                ds.test_mask, trainer.model.task_types)
+        model_type = f"{dc.data_name}_{mc.task_name}_{mc.model_name}_{seed}"
+        row = {"type": model_type, **results}
+        if trainer.throughput_examples_per_s:
+            row["examples_per_s"] = round(trainer.throughput_examples_per_s, 1)
+        print(row)
+        append_result_row(dc.test_result_path, row)
+        out.append((row, trainer))
+
+        if args.export_bundle:
+            from .serving import save_serving_bundle
+
+            bundle_dir = os.path.join(args.export_bundle, model_type)
+            meta = save_serving_bundle(trainer, bundle_dir)
+            print(f"serving bundle -> {bundle_dir} (batch_mode={meta['batch_mode']})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

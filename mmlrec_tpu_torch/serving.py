@@ -16,6 +16,7 @@ the batch dimension is free, as in the JAX bundle's symbolic mode.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from typing import Dict, List, Optional
@@ -140,13 +141,18 @@ def save_serving_bundle(model, path: str) -> Dict:
     best = None
     if hasattr(model, "best_variables"):  # a Trainer
         model, best = model.model, model.best_variables
+    cfg, layout = model.cfg, model.layout
+    state = {k: v.detach().cpu() for k, v in {**model.state_dict(), **(best or {})}.items()}
     fused = model.embeddings.fused
     if fused is not None and fused.dual_container:
-        raise NotImplementedError(
-            "a stacked-container model holds its Adam moments in the bottom "
-            "half of the table; exporting it needs the moment half stripped "
-            "(ROADMAP A7)")
-    cfg, layout = model.cfg, model.layout
+        # the stacked training container carries the optimizer's moments in
+        # the bottom half of the table: the bundle is the split model with
+        # the table half only (serving.py:125-150 of the JAX package)
+        cfg = copy.deepcopy(cfg)
+        cfg.model_config.extra["table_container"] = "split"
+        cfg.model_config.extra.pop("stacked_shards", None)
+        key = "embeddings.fused.table"
+        state[key] = state[key][: state[key].shape[0] // 2].clone()
     mc, dc = cfg.model_config, cfg.data_config
     needs_mask = bool(mc.masked_loss) and mc.task_name in ("msl", "mtmsl")
     escm = mc.model_name in ("escm", "escm_dr")
@@ -167,7 +173,6 @@ def save_serving_bundle(model, path: str) -> Dict:
         "config": cfg.to_dict(),
     }
     os.makedirs(path, exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in {**model.state_dict(), **(best or {})}.items()}
     torch.save(state, os.path.join(path, _PARAMS_FILE))
     with open(os.path.join(path, _META_FILE), "w") as f:
         json.dump(meta, f, indent=1)

@@ -1,40 +1,52 @@
 """Trainer of the port (``mmlrec_tpu/train/trainer.py``): the dense-table fit
-of the flagship and the two-phase SparseAdam step of production
-vocabularies, inside one streaming ``fit`` with validation, host metrics,
-best snapshot and early stop, plus ``evaluate`` and ``predict``.
+and the two-phase SparseAdam step of production vocabularies, inside one
+streaming ``fit`` with validation (on the host, or on the device with
+``training_config.device_eval``), best snapshot, early stop, checkpoints
+and resume, plus ``evaluate``, ``predict`` (with the named layer outputs
+after ``update_save``) and the final test metrics on the device.
 
 **The dense step** (``two_phase_embedding`` off; trainer.py:996-1107 without
 the per-task loop): forward and loss, one ``torch.autograd.grad`` over all
 parameters, the fused table included (through the embed-concat kernel's
 plain backward), then the compiled optimizer over all of them.
 
-**The two-phase step** (trainer.py:745-962, device-metadata branch), all on
-the model's device:
+**The two-phase step** (trainer.py:797-962), on the model's device but for
+host metadata:
 
-1. dedup metadata of the batch's ids from one stable sort
-   (``device_step_metadata``);
+1. dedup metadata of the batch's ids from one stable sort: in the step
+   (``device_metadata``: ``device_step_metadata``) or on the host before
+   it (``staging.step_metadata``: numpy or ``native/step_metadata.cpp``);
 2. phase 1: the touched rows are gathered once, NOT differentiated: with
    the stacked container each (table, moment) row pair comes from one
    launch of the dual gather (``rows_gather_dual``);
 3. phase 2: the loss forward and backward w.r.t. the dense parameters and
    the gathered rows, injected into the model (``rows=``);
-4. SparseAdam of the touched rows (``two_phase_sparse_adam_unique``: one
-   write launch per step, ``rows_write_dual`` or ``rows_write``) and Adam
-   of the dense parameters.
+4. SparseAdam of the touched rows and Adam of the dense parameters.  The
+   table update is ``table_update``: "scatter" (``two_phase_sparse_adam``,
+   rep-masked row adds into split f32 moments) or "pallas"
+   (``two_phase_sparse_adam_unique``: one write launch per step, of
+   (table, mu, nu) for f32 moments, of (table, monu) or the stacked pair
+   for packed bf16 ones).  "auto" takes "pallas" on the card where the
+   physical rows are 128 lanes wide, else "scatter"; at fit time an auto
+   "pallas" whose table is not above the batch's padded id count falls back
+   to "scatter" (``staging.resolve_table_update``).
 
 No ``[V, D]`` gradient or moment exists there.  Neither step reads a device
-value on the host: a fit synchronises once per epoch, for the loss and the
-collected probabilities.
+value on the host (host metadata is built from the host's copy of the
+ids): a fit synchronises once per epoch, for the loss and the collected
+probabilities.
 
-Of the two-phase configurations the production recipe and its split twin are
-ported: ``table_update: "pallas"``, ``table_opt_dtype: "bfloat16"``,
-``device_metadata: true``, ``table_container`` "stacked" or "split"
-(``monu_gather`` "xla" or "pallas").  Every knob that is not ported raises
-NotImplementedError naming its ROADMAP item.
+Every knob that is not ported raises NotImplementedError naming its
+ROADMAP item: the unique update, split bf16 and f16 moments, the gather
+dedup route and slot space (A4), per-task gradient methods and the CKA
+loss (A6), meshes (A9), scanned steps, the flat optimizer and the staged
+dataset (A3).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -43,8 +55,9 @@ import torch
 
 from ..config import ExperimentConfig
 from ..models.base import RecModel
-from ..ops.embedding import pack_factor_for
+from ..ops.embedding import fused_table_geometry, pack_factor_for
 from ..ops.row_gather import rows_gather_dual
+from . import checkpointing, device_metrics, staging
 from .losses import l2_regularization, multitask_loss
 from .metrics import get_metric_fns, regime_eval
 from .optimizers import get_optimizer
@@ -52,10 +65,49 @@ from .sparse_embedding import (
     SparseAdamFoldedState,
     device_step_metadata,
     init_sparse_adam,
+    two_phase_sparse_adam,
     two_phase_sparse_adam_unique,
 )
 
 _TABLE = "embeddings.fused.table"
+
+
+def stacked_auto_conditions(cfg, layout, batch_size, device="cuda") -> bool:
+    """True iff the automatic stacked container applies at ``batch_size``
+    (trainer.py:46-86, without meshes: ROADMAP A9): the two-phase step, the
+    pallas update (auto or explicit) with packed bf16 moments, 128-lane
+    physical rows, the unique-metadata headroom and a card to run on."""
+    mc = cfg.model_config
+    if not (mc.extra.get("two_phase_embedding")
+            and str(mc.extra.get("table_update", "auto")) in ("auto", "pallas")
+            and str(mc.extra.get("table_opt_dtype") or "") == "bfloat16"):
+        return False
+    if mc.extra.get("explicit_collective_embedding"):
+        return False
+    geo = fused_table_geometry(layout)
+    if geo is None:
+        return False
+    dim, P, phys_rows = geo
+    if dim * P != 128:
+        return False
+    K = batch_size * len(layout.sparse_slots)
+    if phys_rows <= -(-K // 256) * 256:
+        return False
+    return torch.device(device).type != "cpu"
+
+
+def resolve_table_container(cfg, layout, device="cuda") -> None:
+    """Opt into ``table_container="stacked"`` when the pallas update with
+    packed moments will engage, BEFORE the model is built (trainer.py:89-130):
+    the container fixes the table's shape.  Decided at the config's
+    ``train_batch_size`` on ``device``; a ``table_container`` the config sets
+    always wins.  Every shipped config keeps f32 moments and so the split
+    container."""
+    mc = cfg.model_config
+    if mc.extra.get("table_container") is not None:
+        return
+    if stacked_auto_conditions(cfg, layout, cfg.training_config.train_batch_size, device):
+        mc.extra["table_container"] = "stacked"
 
 
 def get_mask(domain_values, mask_values, num_domains) -> np.ndarray:
@@ -118,6 +170,10 @@ class Trainer:
         #: and ``evaluate`` read them.
         self.best_variables: Optional[Dict[str, torch.Tensor]] = None
         self.throughput_examples_per_s: Optional[float] = None
+        # (epochs done, best val_auc, epochs without a new best, best
+        # snapshot) of the last fit, which save_training_state records
+        self._progress = None
+        self._save_layer_output = False
         # the seed of each step's draws (dropout masks, stochastic gates) is
         # drawn from this CPU generator, once per step, so the draws are a
         # function of (seed, step) and the state carries over from one fit()
@@ -162,11 +218,6 @@ class Trainer:
         if extra.get("batch_metric_curves"):
             raise NotImplementedError(
                 "batch_metric_curves is not ported yet (ROADMAP A3)")
-        if self.cfg.training_config.extra.get("device_eval"):
-            raise NotImplementedError(
-                "device_eval (metrics on the device) is not ported yet (ROADMAP A6)")
-        if self.cfg.save_config.save:
-            raise NotImplementedError("checkpoints are not ported yet (ROADMAP A7)")
         # the JAX trainer's host-loop knobs that the port would otherwise
         # ignore: the fused optimizer vector (bit-exact either way there) and
         # the prefetch thread's depth
@@ -198,55 +249,76 @@ class Trainer:
         vocabs = [s.feature.vocabulary_size for s in self.layout.sparse_slots]
         self._emb_dim = sparse_dims.pop()
         self._emb_pack_factor = pack_factor_for(int(sum(vocabs)), self._emb_dim)
-        self._fused_offsets = torch.as_tensor(
-            np.concatenate([[0], np.cumsum(vocabs)[:-1]]).astype(np.int32),
-            device=self.device)
+        self._host_offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]]).astype(np.int64)
+        self._fused_offsets = torch.as_tensor(self._host_offsets.astype(np.int32),
+                                              device=self.device)
         mdt = str(extra.get("table_opt_dtype") or "float32")
-
+        if mdt not in ("float32", "bfloat16"):
+            raise NotImplementedError(
+                f"table_opt_dtype={mdt!r} moments are not ported yet (ROADMAP A4); the "
+                "port keeps float32 moments or packed bfloat16 ones")
         self.table_update = _choice(mc, "table_update", "auto",
                                     ("auto", "scatter", "unique", "pallas"))
-        if self.table_update == "auto":
+        self._table_update_auto = self.table_update == "auto"
+        if self._table_update_auto:
             self.table_update = (
                 "pallas"
-                if (self._emb_dim * self._emb_pack_factor == 128
-                    and mdt in ("float32", "bfloat16")
-                    and self.device.type == "cuda")
+                if self._emb_dim * self._emb_pack_factor == 128 and self.device.type == "cuda"
                 else "scatter"
             )
-        if self.table_update != "pallas":
+        if self.table_update == "unique":
             raise NotImplementedError(
-                f"table_update={self.table_update!r} is not ported yet (ROADMAP "
-                "A4); the port runs table_update='pallas'")
-        if mdt != "bfloat16":
-            raise NotImplementedError(
-                f"table_opt_dtype={mdt!r} moments are not ported yet (ROADMAP A4); "
-                "the port keeps packed bfloat16 moments")
+                "table_update='unique' (XLA's unique-indices scatter) is not ported yet "
+                "(ROADMAP A4); the port runs 'scatter' or 'pallas'")
+        # bf16 moments ride the write kernel packed as (mu, nu) pairs in f32
+        # lanes (trainer.py:302-312); split bf16 moments are not ported
+        self._moment_dtype = mdt
+        self._packed_moments = self.table_update == "pallas" and mdt == "bfloat16"
+        self._check_moment_layout()
         self.monu_gather = _choice(mc, "monu_gather", "auto", ("auto", "xla", "pallas"))
         if self.monu_gather == "auto":
             self.monu_gather = "xla"
-        if not extra.get("device_metadata"):
+        # in-step metadata on the device, or per batch on the host
+        # (staging.step_metadata: numpy or native/step_metadata.cpp)
+        self.device_metadata = bool(extra.get("device_metadata"))
+        self.dedup_route = _choice(mc, "dedup_route", "auto", ("auto", "scatter", "gather"))
+        if self.dedup_route == "auto" and self._packed_moments and not self.device_metadata:
+            # the JAX trainer resolves the host-metadata packed update to the
+            # gather route (trainer.py:341-352)
+            self.dedup_route = "gather"
+        if self.dedup_route == "gather":
             raise NotImplementedError(
-                "host step metadata (batch_step_metadata, native/libstepmeta.so) "
-                "is not ported yet (ROADMAP A4); set device_metadata")
-        if _choice(mc, "dedup_route", "auto", ("auto", "scatter", "gather")) == "gather":
-            raise NotImplementedError(
-                "dedup_route='gather' is not ported yet (ROADMAP A4)")
+                "dedup_route='gather' is not ported yet (ROADMAP A4); packed bf16 moments "
+                "with host metadata resolve to it: set device_metadata, or "
+                "dedup_route='scatter'")
         self.dedup_route = "scatter"
         if _choice(mc, "update_space", "auto", ("auto", "position", "slot")) == "slot":
             raise NotImplementedError("update_space='slot' is not ported yet (ROADMAP A4)")
-        self.update_space = "position"
+        # resolved from the first host metadata batch (staging.resolve_update_space)
+        self.update_space = "position" if self.device_metadata else "auto"
         self.table_container = _choice(mc, "table_container", "split", ("split", "stacked"))
         if fused.dual_container != (self.table_container == "stacked"):
             raise ValueError(
                 f"the model was built with table_container="
                 f"{'stacked' if fused.dual_container else 'split'}, the config "
                 f"says {self.table_container!r}")
+        if self.table_container == "stacked" and not self._packed_moments:
+            raise ValueError(
+                "table_container='stacked' requires table_update='pallas' with packed bf16 "
+                f"moments (resolved: {self.table_update!r}, table_opt_dtype={mdt!r})")
         self.pair_gather = _choice(mc, "pair_gather", "auto", ("auto", "split", "dual"))
         if self.pair_gather == "auto":
             self.pair_gather = "dual" if self.table_container == "stacked" else "split"
         elif self.pair_gather == "dual" and self.table_container != "stacked":
             raise ValueError("pair_gather='dual' requires table_container='stacked'")
         self._emb_phys_rows = self._emb_phys_rows_static()
+
+    def _check_moment_layout(self) -> None:
+        if self._moment_dtype == "bfloat16" and not self._packed_moments:
+            raise NotImplementedError(
+                f"split bfloat16 moments (table_update={self.table_update!r} with "
+                "table_opt_dtype='bfloat16') are not ported yet (ROADMAP A4); bf16 moments "
+                "ride the pallas update packed, float32 ones either update")
 
     def _emb_phys_rows_static(self) -> int:
         """Physical rows of the fused table (staging.py:119-129)."""
@@ -341,8 +413,10 @@ class Trainer:
         if self.table_container == "stacked":
             self.table_opt = SparseAdamFoldedState(
                 count=torch.zeros((), dtype=torch.int32, device=self.device))
-        else:
+        elif self._packed_moments:
             self.table_opt = init_sparse_adam(self.table, packed=True)
+        else:
+            self.table_opt = init_sparse_adam(self.table, dtype=torch.float32)
 
     # ------------------------------------------------------------------
     # the dense step (trainer.py:668-715, 996-1107)
@@ -394,35 +468,49 @@ class Trainer:
             reg = reg + mc.l2_reg_embedding * torch.sum(rep[:, None] * torch.square(flat_rows))
         return data_loss + reg, data_loss, probs
 
-    def train_step(self, ids, dense, y, dmask, weight):
+    def train_step(self, ids, dense, y, dmask, weight, meta=None):
         """One training step on a padded batch of device tensors; returns
         (total_loss, data_loss, probs) as device tensors, without a sync.
         The model is in training mode for the step only: dropout draws its
         masks, and BatchNorm normalises by the batch's statistics (pad rows of
         a last partial batch included, as in the JAX step) and moves its
-        running ones."""
+        running ones.  ``meta``: the batch's host dedup metadata on the
+        device (``host_metadata``) when the two-phase step reads host
+        metadata; built here from ``ids`` when not given."""
         if self.opt_state is None:
             self.init_state()
         seed = int(torch.randint(0, 2**62, (), generator=self._dropout_master))
         self._dropout_gen.manual_seed(seed)
         self.model.train()
         try:
-            step = (self._train_step_two_phase if self.two_phase_embedding
-                    else self._train_step_dense)
-            return step(ids, dense, y, dmask, weight)
+            if self.two_phase_embedding:
+                return self._train_step_two_phase(ids, dense, y, dmask, weight, meta)
+            return self._train_step_dense(ids, dense, y, dmask, weight)
         finally:
             self.model.eval()
 
-    def _train_step_two_phase(self, ids, dense, y, dmask, weight):
+    def host_metadata(self, ids: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """The dedup metadata of one batch of host ids [B, S], built on the
+        host (``staging.step_metadata``) and moved to the device: (inv, rep)
+        for the scatter update, plus (pids, pinv, nuniq, prep) for the
+        write-kernel one (staging.py:720-725)."""
+        F = len(self.layout.sparse_slots)
+        flat = (np.asarray(ids)[:, :F].astype(np.int64) + self._host_offsets).reshape(1, -1)
+        return tuple(self._to_device(a[0]) for a in staging.step_metadata(self, flat))
+
+    def _train_step_two_phase(self, ids, dense, y, dmask, weight, meta=None):
         table = self.table
         B, F = ids.shape[0], len(self.layout.sparse_slots)
         P, D, W = self._emb_pack_factor, self._emb_dim, table.shape[1]
         K = B * F
         Kp = -(-K // 256) * 256
+        if not self.device_metadata and meta is None:
+            meta = self.host_metadata(ids.cpu().numpy())
         with torch.no_grad():
             flat_ids = (ids[:, :F] + self._fused_offsets[None, :]).reshape(-1)
-            inv, rep, pids, pinv, nuniq, prep = device_step_metadata(
-                flat_ids, P, Kp, self._emb_phys_rows)
+            if self.device_metadata:
+                meta = device_step_metadata(flat_ids, P, Kp, self._emb_phys_rows)
+            inv, rep = meta[0], meta[1]
             phys = torch.div(flat_ids, P, rounding_mode="floor") if P > 1 else flat_ids
             if self.pair_gather == "dual":
                 pair = rows_gather_dual(table.view(2, table.shape[0] // 2, W), phys)
@@ -441,29 +529,24 @@ class Trainer:
             total, data_loss, probs = self._loss_terms_injected(
                 rows, rep, ids, dense, y, dmask, weight)
             grads = _grads(total, [*rest.values(), rows])
+        lr = self.cfg.optim_config.lr
         with torch.no_grad():
-            _, self.table_opt = two_phase_sparse_adam_unique(
-                table, grads[-1].reshape(K, D), flat_ids, inv, rep, pids, pinv,
-                self.table_opt, lr=self.cfg.optim_config.lr, pack_factor=P,
-                use_pallas=True, n_real=nuniq, sup=sup, sup_c=sup_c, prep=prep,
-                monu_gather=self.monu_gather)
+            if self.table_update == "scatter":
+                _, self.table_opt = two_phase_sparse_adam(
+                    table, grads[-1].reshape(K, D), flat_ids, inv, rep, self.table_opt,
+                    lr=lr, pack_factor=P)
+            else:
+                pids, pinv, nuniq, prep = meta[2:6]
+                _, self.table_opt = two_phase_sparse_adam_unique(
+                    table, grads[-1].reshape(K, D), flat_ids, inv, rep, pids, pinv,
+                    self.table_opt, lr=lr, pack_factor=P, use_pallas=True, n_real=nuniq,
+                    sup=sup, sup_c=sup_c, prep=prep, monu_gather=self.monu_gather)
             self.opt_state = self.tx.step(rest, dict(zip(rest, grads[:-1])), self.opt_state)
         return total.detach(), data_loss.detach(), probs.detach()
 
     # ------------------------------------------------------------------
     # fit (streaming, one step per batch; trainer.py:1366-1538)
     # ------------------------------------------------------------------
-    def _check_headroom(self, batch_size: int) -> None:
-        """staging.py:132-186: the unique-row list of a batch must fit below
-        the physical row count."""
-        K = batch_size * len(self.layout.sparse_slots)
-        Kp = -(-K // 256) * 256
-        if self._emb_phys_rows <= Kp:
-            raise ValueError(
-                f"table_update='pallas' needs the physical table "
-                f"({self._emb_phys_rows} rows) to exceed the padded per-batch id "
-                f"count Kp={Kp}; use a larger vocabulary or a smaller batch")
-
     def _to_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
         return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -492,14 +575,22 @@ class Trainer:
         ``(x, y)``.  With validation, the epoch with the best ``val_auc``
         (strictly above every earlier one, from 0.0) is kept as
         ``best_variables``, and the fit stops after ``optim_config.early_stop``
-        epochs in a row without a new best.  With compiled metrics each
+        epochs in a row without a new best.  Validation metrics come from the
+        device (``train/device_metrics.py``) when
+        ``training_config.device_eval`` is set and every compiled metric has
+        a device form, else from the host.  With compiled metrics each
         epoch also logs them over its own training predictions (pad rows
         left out).  ``training_config.max_steps`` caps the steps of the call.
+        With the two-phase step and host metadata, each batch's metadata is
+        built on the host before its step.
+
+        ``resume_from`` (a ``save_training_state`` directory) restores the
+        whole training state and continues at its epoch; ``save_config.save``
+        writes the best variables at the end (``save_checkpoint``; a failed
+        save prints and the fit returns, as in the JAX trainer).
 
         The dataset stays on the host: staging it on the device, block
         shuffle, scanned steps and the thread-ahead pool are ROADMAP A3."""
-        if resume_from is not None:
-            raise NotImplementedError("resume_from (checkpoints) is not ported yet (ROADMAP A7)")
         if epoch_callback is not None:
             raise NotImplementedError("epoch_callback is not ported yet (ROADMAP A3)")
         if shuffle not in (True, False):
@@ -510,7 +601,7 @@ class Trainer:
         oc = self.cfg.optim_config
         batch_size = batch_size or 256
         if self.two_phase_embedding:
-            self._check_headroom(batch_size)
+            staging.resolve_table_update(self, batch_size)
         ids, dense = self.pack_inputs(x)
         y = self._prepare_y(y)
         dmask = self._domain_mask_from(x)
@@ -530,16 +621,22 @@ class Trainer:
 
         if self.opt_state is None:
             self.init_state()
+        best_auc, early_stop_count, best_snapshot = 0.0, 0, None
+        if resume_from is not None:
+            self._progress = checkpointing.restore_training_state(self, resume_from)
+            initial_epoch, best_auc, early_stop_count, best_snapshot = self._progress
+            if verbose:
+                print(f"resumed from {resume_from} at epoch {initial_epoch}")
+        host_meta = self.two_phase_embedding and not self.device_metadata
         steps_per_epoch = (n - 1) // batch_size + 1
         max_steps = self.cfg.training_config.max_steps or 0
         if verbose:
             print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
                   f"{steps_per_epoch} steps per epoch")
         rng_np = np.random.default_rng(self.seed)
-        best_auc, early_stop_count, best_snapshot = 0.0, 0, None
         total_steps = examples_seen = 0
         train_time = 0.0
-        val_batches = None
+        val_batches = val_metric = None
         for epoch in range(initial_epoch, epochs):
             t0 = time.time()
             if self._gate_warmup_epochs:
@@ -559,11 +656,12 @@ class Trainer:
                 if pad:
                     weight[len(idx):] = 0.0
                     idx = np.concatenate([idx, np.zeros(pad, np.int64)])
+                meta = self.host_metadata(ids[idx]) if host_meta else None
                 total, _, p = self.train_step(
                     self._to_device(ids[idx]), self._to_device(dense[idx]),
                     self._to_device(y[idx]),
                     self._to_device(dmask[idx]) if dmask is not None else None,
-                    self._to_device(weight))
+                    self._to_device(weight), meta=meta)
                 losses.append(total)
                 if self.metric_fns:
                     probs.append(p)
@@ -580,9 +678,17 @@ class Trainer:
             if val is not None:
                 if val_batches is None:  # the validation set goes to the device once
                     val_batches = self._eval_batches(val[0], val[1], val[3], batch_size)
-                preds = self._predict_batches(val_batches, len(val[0]), use_best=False)
-                val_result = regime_eval(self.metric_fns, val[2], preds,
-                                         self.task_name, self.num_domains)
+                    if self._use_device_eval():
+                        val_metric = self._metric_tensors(val[2], len(val_batches) * batch_size)
+                if val_metric is not None:
+                    probs_dev = self._device_probs(val_batches, use_best=False)
+                    val_result = {k: float(v) for k, v in device_metrics.regime_metrics(
+                        self.metric_fns, val_metric[0], probs_dev, val_metric[1],
+                        self.task_name, self.num_domains).items()}
+                else:
+                    preds = self._predict_batches(val_batches, len(val[0]), use_best=False)
+                    val_result = regime_eval(self.metric_fns, val[2], preds,
+                                             self.task_name, self.num_domains)
                 logs.update({f"val_{k}": v for k, v in val_result.items()})
                 auc = val_result.get("auc", 0.0)
                 if auc > best_auc:
@@ -594,6 +700,7 @@ class Trainer:
                 else:
                     early_stop_count += 1
             self.history.append(logs)
+            self._progress = (epoch + 1, best_auc, early_stop_count, best_snapshot)
             if verbose:
                 print(f"Epoch {epoch + 1}/{epochs} - {epoch_time:.1f}s - " + " - ".join(
                     f"{k}: {v:.4f}" for k, v in logs.items() if k != "epoch_s"))
@@ -612,6 +719,11 @@ class Trainer:
             else:
                 self.throughput_examples_per_s = examples_seen / train_time
         self.best_variables = best_snapshot
+        if self.cfg.save_config.save:
+            try:
+                self.save_checkpoint(self.cfg.save_config.save_path)
+            except Exception as e:  # a file-system failure ends no fit (trainer.py:1742-1746)
+                print(f"checkpoint save failed: {e}")
         return self
 
     # ------------------------------------------------------------------
@@ -644,50 +756,140 @@ class Trainer:
         [pCTR, pCTCVR]."""
         return probs[:, [0, 2]] if self._escm else probs
 
-    def _predict_batches(self, batches, n: int, use_best: bool = True) -> np.ndarray:
-        """[n, num_heads] float64 probabilities of the staged batches, with
-        the best snapshot's state when there is one and ``use_best``; the
-        model is in eval mode, so BatchNorm reads its running statistics."""
+    def _device_probs(self, batches, use_best: bool = True, intermediates=None) -> torch.Tensor:
+        """[steps * batch, heads] selected probabilities of the staged
+        batches on the device, with the best snapshot's state when there is
+        one and ``use_best``; the model is in eval mode, so BatchNorm reads
+        its running statistics.  ``intermediates``: a dict that collects
+        each named intermediate's per-batch device tensors."""
         self.model.eval()
         best = self.best_variables if use_best else None
+        kw = {"return_intermediates": True} if intermediates is not None else {}
         outs = []
         with torch.inference_mode():
             for args in batches:
-                out = (self.model(*args) if best is None
-                       else torch.func.functional_call(self.model, best, args))
+                out = (self.model(*args, **kw) if best is None
+                       else torch.func.functional_call(self.model, best, args, kw))
+                if intermediates is not None:
+                    out, inter = out
+                    for k, v in inter.items():
+                        intermediates.setdefault(k, []).append(v)
                 outs.append(out)
-            probs = self._selected(torch.cat(outs)).cpu().numpy()
-        return probs[:n].astype(np.float64)
+            return self._selected(torch.cat(outs))
+
+    def _predict_batches(self, batches, n: int, use_best: bool = True) -> np.ndarray:
+        """[n, num_heads] float64 probabilities of the staged batches."""
+        return self._device_probs(batches, use_best).cpu().numpy()[:n].astype(np.float64)
 
     def _predict_packed(self, ids, dense, dmask, batch_size: int) -> np.ndarray:
         return self._predict_batches(self._eval_batches(ids, dense, dmask, batch_size), len(ids))
 
-    def predict(self, x, batch_size: int = 256) -> np.ndarray:
+    def update_save(self, value: bool = True) -> None:
+        """Make ``predict`` also return the model's named intermediates
+        (reference basemodel.py:458)."""
+        self._save_layer_output = value
+
+    def predict(self, x, batch_size: int = 256):
         """[N, num_heads] float64 probabilities from ``best_variables`` (the
-        current parameters when there is no snapshot)."""
+        current parameters when there is no snapshot); after
+        ``update_save()`` the pair (probabilities, {name: [N, ...] float64
+        array of each intermediate}) (trainer.py:1879-1895)."""
         ids, dense = self.pack_inputs(x)
-        return self._predict_packed(ids, dense, self._domain_mask_from(x), batch_size)
+        batches = self._eval_batches(ids, dense, self._domain_mask_from(x), batch_size)
+        if not getattr(self, "_save_layer_output", False):
+            return self._predict_batches(batches, len(ids))
+        inters: Dict[str, List[torch.Tensor]] = {}
+        probs = self._device_probs(batches, intermediates=inters)
+        n = len(ids)
+        return probs.cpu().numpy()[:n].astype(np.float64), {
+            k: torch.cat(v).cpu().numpy()[:n].astype(np.float64) for k, v in inters.items()}
 
     def evaluate(self, x, y, batch_size: int = 256) -> Dict[str, float]:
-        """The compiled metrics of ``predict(x)`` against ``y``, aggregated
-        per regime (``metrics.regime_eval``)."""
+        """The compiled metrics of the predictions of ``x`` against ``y``,
+        aggregated per regime (``metrics.regime_eval``)."""
         ids, dense = self.pack_inputs(x)
         preds = self._predict_packed(ids, dense, self._domain_mask_from(x), batch_size)
         return regime_eval(self.metric_fns, self._prepare_y(y), preds,
                            self.task_name, self.num_domains)
 
     # ------------------------------------------------------------------
-    # not ported yet
+    # metrics on the device (trainer.py:1818-1860, 1909-1974)
     # ------------------------------------------------------------------
-    def masked_test_metrics_device(self, *args, **kwargs):
-        raise NotImplementedError(
-            "metrics on the device are not ported yet (ROADMAP A6); use predict() and "
-            "train.metrics.masked_test_metrics")
+    def _use_device_eval(self) -> bool:
+        """``training_config.device_eval`` is honoured only when every
+        compiled metric has a device form (``device_metrics.SUPPORTED``);
+        any other falls the whole validation back to the host."""
+        return (bool(self.cfg.training_config.extra.get("device_eval"))
+                and device_metrics.supports(self.metric_fns.keys()))
 
-    def save_checkpoint(self, path: str):
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP A7)")
+    def _metric_tensors(self, y: np.ndarray, total: int):
+        """(labels, weights) on the device for ``total`` staged rows: labels
+        padded with their last row, weight 1 on the real rows and 0 on the
+        pads (staging.py:563-573)."""
+        y2 = np.asarray(y, np.float32)
+        n = len(y2)
+        if total > n:
+            y2 = np.concatenate([y2, np.repeat(y2[-1:], total - n, axis=0)])
+        return self._to_device(y2), self._to_device((np.arange(total) < n).astype(np.float32))
+
+    def masked_test_metrics_device(self, x, y, test_mask, batch_size: int = 256) -> Dict[str, float]:
+        """Per-head masked LogLoss and AUC (and the total AUC of msl and
+        mtmsl) of the predictions of ``x``, computed on the device
+        (``device_metrics.masked_test_metrics_device``), rounded to 4
+        decimals in the reference's row order; raises on a value that is
+        not finite, as scikit-learn would on a single-class head."""
+        ids, dense = self.pack_inputs(x)
+        batches = self._eval_batches(ids, dense, self._domain_mask_from(x), batch_size)
+        total = len(batches) * batch_size
+        y_dev, w_dev = self._metric_tensors(self._prepare_y(y), total)
+        tm_dev = None
+        if test_mask is not None:
+            tm = np.asarray(test_mask, np.float32)
+            tm = np.concatenate([tm, np.zeros((total - len(tm),) + tm.shape[1:], np.float32)])
+            tm_dev = self._to_device(tm)
+        out = device_metrics.masked_test_metrics_device(
+            y_dev, self._device_probs(batches), w_dev, tm_dev, self.task_name, self.num_domains)
+        return _order_masked_row({k: float(v) for k, v in out.items()})
+
+    # ------------------------------------------------------------------
+    # checkpoints (train/checkpointing.py) and history
+    # ------------------------------------------------------------------
+    def save_training_state(self, path: str, epoch: Optional[int] = None) -> str:
+        return checkpointing.save_training_state(self, path, epoch)
+
+    def save_checkpoint(self, path: str) -> str:
+        return checkpointing.save_checkpoint(self, path)
+
+    def restore_checkpoint(self, path: str) -> "Trainer":
+        return checkpointing.restore_checkpoint(self, path)
+
+    def dump_history(self, path: str) -> None:
+        """Write the per-epoch history as JSON lines."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            for epoch, logs in enumerate(self.history):
+                f.write(json.dumps({"epoch": epoch, **logs}) + "\n")
 
     def profile(self, *args, **kwargs):
         raise NotImplementedError(
             "Trainer.profile is not ported yet (ROADMAP A3); "
             "python -m mmlrec_tpu_torch.tools.profile_step traces the step")
+
+
+def _order_masked_row(vals: Dict[str, float]) -> Dict[str, float]:
+    """Round to the reference's 4 decimals in its row order: log_loss_i and
+    auc_i per head, then total_auc (trainer.py:1941-1961)."""
+    vals = {k: round(v, 4) for k, v in vals.items()}
+    bad = [k for k, v in vals.items() if not np.isfinite(v)]
+    if bad:
+        raise ValueError(
+            f"non-finite device test metrics {bad}: a head's masked rows are "
+            "single-class (scikit-learn would raise here too)")
+    n_heads = sum(1 for k in vals if k.startswith("auc_"))
+    ordered = {}
+    for i in range(n_heads):
+        ordered[f"log_loss_{i}"] = vals[f"log_loss_{i}"]
+        ordered[f"auc_{i}"] = vals[f"auc_{i}"]
+    if "total_auc" in vals:
+        ordered["total_auc"] = vals["total_auc"]
+    return ordered

@@ -1,0 +1,99 @@
+"""The port's CLI (``python -m mmlrec_tpu_torch.main``) on the CPU: the
+shipped mtl configs as shipped, epochs and batches cut only
+(tests/_torch_cli_common.py), the result row's schema against the JAX
+package's main.py, and the flags that stay unported.  The msl and mtmsl
+configs are in tests/test_torch_cli_configs.py."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from _torch_cli_common import CONFIGS, check_shipped_run, cut_config, read_csv, run_jax, \
+    run_port
+from mmlrec_tpu_torch.main import main
+
+MTL = [c for c in CONFIGS if c.startswith(os.path.join("configs", "mtl"))]
+
+
+def test_every_shipped_config_is_covered():
+    from _torch_cli_common import ROOT
+
+    assert len(CONFIGS) == 13 and len(MTL) == 5
+    others = [c for c in CONFIGS if c not in MTL]
+    with open(os.path.join(ROOT, "tests", "test_torch_cli_configs.py")) as f:
+        src = f.read()
+    assert "OTHERS" in src and len(others) == 8
+
+
+@pytest.mark.parametrize("rel", MTL)
+def test_shipped_mtl_config_runs(rel, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rows = run_port(cut_config(rel, tmp_path))
+    assert len(rows) == 1
+    check_shipped_run(rel, rows[0], tmp_path)
+
+
+@pytest.mark.parametrize("rel", ["configs/example_synthetic_msl.json",
+                                 "configs/msl/config_AE.json",
+                                 "configs/mtl/config_census.json"])
+def test_row_schema_matches_jax_main(rel, tmp_path, monkeypatch):
+    rows = {}
+    for side, run in (("jax", run_jax), ("port", run_port)):
+        work = tmp_path / side
+        work.mkdir()
+        monkeypatch.chdir(work)
+        cfg = cut_config(rel, work)
+        with open(cfg) as f:
+            raw = json.load(f)
+        raw["data_config"]["test_result_path"] = "results/rows.csv"
+        with open(cfg, "w") as f:
+            json.dump(raw, f)
+        run(cfg)
+        rows[side] = read_csv(str(work / "results" / "rows.csv"))
+        ckpts = sorted(os.listdir(work / "checkpoint")) if (work / "checkpoint").exists() else []
+        rows[side + "_ckpt"] = ckpts
+    assert len(rows["jax"]) == len(rows["port"]) == 1
+    assert list(rows["port"][0]) == list(rows["jax"][0])
+    assert rows["port"][0]["type"] == rows["jax"][0]["type"]
+    assert rows["port_ckpt"] == rows["jax_ckpt"]  # the same checkpoint directory names
+
+
+def test_device_eval_flag_and_bundle_export(tmp_path, monkeypatch):
+    """--device_eval takes the final metrics from the device; --export_bundle
+    writes a serving bundle of the best variables."""
+    monkeypatch.chdir(tmp_path)
+    rel = "configs/mtl/config_ijcai.json"
+    cfg = cut_config(rel, tmp_path)
+    dev = run_port(cfg, "--device_eval", "--export_bundle", "bundles")[0]
+    host = run_port(cfg)[0]
+    assert list(dev) == list(host)
+    for k in dev:
+        if k.startswith(("auc", "log_loss")):
+            assert dev[k] == pytest.approx(host[k], abs=2e-4), k
+    from mmlrec_tpu_torch.serving import ServingBundle
+
+    assert ServingBundle.load(str(tmp_path / "bundles" / dev["type"]), device="cpu")
+
+
+@pytest.mark.parametrize("flags,err,item", [
+    (["--data_parallel", "2"], NotImplementedError, "A9"),
+    (["--vmap_seeds"], NotImplementedError, "A8"),
+    (["--sweep_lrs", "0.1,0.01"], NotImplementedError, "A8"),
+    (["--device", "cuda"], RuntimeError, "no CUDA device"),
+])
+def test_unported_flags_raise(flags, err, item, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = cut_config("configs/example_synthetic_msl.json", tmp_path)
+    with pytest.raises(err, match=item):
+        main(["--config", cfg, "--seed", "0", "--synthetic", "--device", "cpu", *flags])
+    assert not (tmp_path / "results").exists()
+
+
+def test_csv_data_pipeline_is_not_ported(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    cfg = cut_config("configs/example_synthetic_msl.json", tmp_path)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        main(["--config", cfg, "--seed", "0", "--device", "cpu"])

@@ -39,7 +39,9 @@ def test_import_pulls_in_no_jax():
               "ops.kernels", "ops.embedding", "ops.layers", "tools.profile_step",
               "tools.tune_kernels", "models.mlp", "models.sharedbottom", "models.esmm",
               "models.hmoe", "models.cross_stitch", "models.aitm", "models.ple", "models.snr",
-              "models.star", "models.apg", "models.pepnet", "ops.domain_norm"):
+              "models.star", "models.apg", "models.pepnet", "ops.domain_norm", "main",
+              "native", "data", "train.checkpointing", "train.device_metrics",
+              "train.staging", "utils.results", "utils.seeding"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}
@@ -158,3 +160,43 @@ def test_row_kernel_source_builds_for_hopper():
                    "rows_write_pipelined_kernel", "rows_update_kernel"):  # one __global__ each
         assert len(re.findall(r"\n" + kernel + r"\(", source)) == 1
         assert source.count(kernel + "<<<") == 1
+
+
+def test_native_ctypes_signatures_match_the_c_source():
+    """The host metadata's loader declares each function of
+    native/step_metadata.cpp it calls with one ctypes entry per C parameter: int64_t
+    as c_int64, int32_t as c_int32, pointers as pointers of their type."""
+    from mmlrec_tpu_torch import native
+
+    kinds = {ctypes.c_int64: "int64_t", ctypes.c_int32: "int32_t",
+             ctypes.POINTER(ctypes.c_int64): "int64_t*", ctypes.POINTER(ctypes.c_int32): "int32_t*",
+             ctypes.POINTER(ctypes.c_float): "float*"}
+    source = native.SOURCE.read_text()
+    assert set(native.SIGNATURES) <= set(re.findall(r"\nvoid (\w+)\(", source))
+    assert "sm_fill" in native.SIGNATURES
+    for name, argtypes in native.SIGNATURES.items():
+        found = re.search(r"\nvoid " + name + r"\(([^)]*)\)", source)
+        params = [" ".join(p.split()).replace("const ", "") for p in found.group(1).split(",")]
+        want = [p.rsplit(" ", 1)[0].replace(" *", "*") for p in params]
+        want = [w + "*" if p.rsplit(" ", 1)[1].startswith("*") else w
+                for w, p in zip(want, params)]
+        assert [kinds[t] for t in argtypes] == want, (name, params)
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The CLI, checkpoint loading and set_seed's generator run on the card
+    unless asked for the CPU, and raise without one."""
+    from mmlrec_tpu_torch.main import main
+    from mmlrec_tpu_torch.train import checkpointing
+    from mmlrec_tpu_torch.utils import set_seed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = str(ROOT / "configs" / "example_synthetic_msl.json")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config", config, "--seed", "0", "--synthetic"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpointing.load_tensors(str(tmp_path), checkpointing.VARIABLES_FILE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        set_seed(0)
+    assert set_seed(0, "cpu").device.type == "cpu"
+    assert main.__module__ == "mmlrec_tpu_torch.main"

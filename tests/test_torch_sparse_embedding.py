@@ -183,10 +183,20 @@ def test_two_phase_sparse_adam_unique_matches_jax(container, P, monu_gather):
 def test_two_phase_sparse_adam_unique_refuses_unported_paths():
     table = torch.zeros(8, 4)
     args = [table, torch.zeros(2, 4), torch.zeros(2, dtype=torch.int32)] + [None] * 4
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(TypeError, match="state"):
         T.two_phase_sparse_adam_unique(*args, object(), lr=0.1)
+    for st in (T.init_sparse_adam(table, packed=True), T.init_sparse_adam(table)):
+        with pytest.raises(NotImplementedError, match="A4"):  # XLA's unique-indices scatter
+            T.two_phase_sparse_adam_unique(*args, st, lr=0.1, use_pallas=False)
+    # split moments run as float32; split bf16 ones are ROADMAP A4
+    assert T.init_sparse_adam(table).mu.dtype == torch.float32
+    bf16 = T.init_sparse_adam(table, dtype=torch.bfloat16)
+    assert bf16.nu.dtype == torch.bfloat16
+    ids, g = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4)
     with pytest.raises(NotImplementedError, match="A4"):
-        T.init_sparse_adam(table, packed=False)
-    st = T.init_sparse_adam(table, packed=True)
+        T.two_phase_sparse_adam(table, g, ids, ids, torch.ones(2), bf16, lr=0.1)
     with pytest.raises(NotImplementedError, match="A4"):
-        T.two_phase_sparse_adam_unique(*args, st, lr=0.1, use_pallas=False)
+        T.two_phase_sparse_adam_unique(table, g, ids, ids, torch.ones(2),
+                                       torch.arange(256, dtype=torch.int32), ids, bf16,
+                                       lr=0.1, n_real=torch.ones(1, dtype=torch.int32),
+                                       prep=torch.ones(2))

@@ -32,7 +32,7 @@ from mmlrec_tpu_torch import synthetic as tsyn
 from mmlrec_tpu_torch.convert import load_jax_train_state
 from mmlrec_tpu_torch.models import get_model
 from mmlrec_tpu_torch.ops import kernels as K
-from mmlrec_tpu_torch.serving import save_serving_bundle
+from mmlrec_tpu_torch.serving import ServingBundle, save_serving_bundle
 from mmlrec_tpu_torch.train import Trainer
 from mmlrec_tpu_torch.train.sparse_embedding import (
     fold_stacked_planes,
@@ -229,9 +229,12 @@ def test_stacked_container_init_and_serving_view(tmp_path):
     with torch.inference_mode():
         c = split(ids, dense, rows=rows)
     assert torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="A7"):
-        save_serving_bundle(stacked, str(tmp_path))
-    assert not any(tmp_path.iterdir())
+    # the bundle of a stacked model is the split model: the moment half stays behind
+    save_serving_bundle(stacked, str(tmp_path))
+    bundle = ServingBundle.load(str(tmp_path), device="cpu")
+    assert bundle.meta["config"]["model_config"]["table_container"] == "split"
+    assert torch.equal(bundle.model.embeddings.fused.table, table)
+    np.testing.assert_array_equal(bundle.predict(x), a.numpy().astype(np.float64))
 
 
 def test_injected_rows_are_differentiable():
@@ -277,7 +280,7 @@ def test_multihead_score_backward_matches_autograd():
     (dict(table_update="scatter"), "A4"),
     (dict(table_update="unique"), "A4"),
     (dict(table_update="auto"), "A4"),  # the CPU resolves auto to scatter
-    (dict(table_opt_dtype="float32"), "A4"),
+    (dict(table_opt_dtype="float16"), "A4"),
     (dict(device_metadata=False), "A4"),
     (dict(dedup_route="gather"), "A4"),
     (dict(update_space="slot"), "A4"),
@@ -293,7 +296,7 @@ def test_unported_knobs_raise_naming_their_roadmap_item(override, item):
         Trainer(model, device="cpu")
 
 
-def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch):
+def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch, tmp_path):
     cfg = tsyn.make_config(vocab=400, **KW)
     layout, x, y, _ = tsyn.make_data(cfg, n=64, seed=0, vocab=400)
     model = get_model("mmoe", layout, cfg, device="cpu")
@@ -305,7 +308,7 @@ def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch):
     tr = Trainer(model, device="cpu").compile()
     with pytest.raises(NotImplementedError, match="A3"):
         tr.fit(x, y, batch_size=64, shuffle="block", verbose=0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tr.fit(x, y, batch_size=64, resume_from="ckpt", verbose=0)
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        tr.fit(x, y, batch_size=64, resume_from=str(tmp_path / "ckpt"), verbose=0)
     with pytest.raises(ValueError, match="Kp"):
         tr.fit(x, y, batch_size=512, verbose=0)
