@@ -132,9 +132,35 @@ failure and carries on):
    uninterrupted one bitwise, a stacked bf16 state restores into a split
    trainer bitwise; (4) validation metrics on the device against the host
    on the same predictions within 1e-5;
-12. one JSON line with every kernel's numbers, one with the dense fit, one
-   with the families, one with the shipped configurations; the last line
-   is the device line.
+12. the JAX fit's default path (the staged dataset, ``scan_steps`` as
+   CUDA-graph replay, the flat optimizer, host metadata built an epoch
+   ahead on a worker): phase 9's flagship dense fit with dropout 0.2,
+   ``snr_trans`` with stochastic gates (the second epoch drawing), phase
+   8's 40 M-row stacked fit and ``configs/msl/config_AE.json`` at vocab
+   131,072 with host metadata, each fitted twice from one init for 2
+   epochs, staged with graph replay (``scan_steps`` 16) and staged eager
+   (0), and held bitwise (parameters, buffers, optimizer states, losses);
+   the dense and the AE fit also on the streaming path (the dataset over
+   a cap of 0 bytes: pinned uploads on a side stream, host metadata on
+   the prefetch worker) at ``prefetch_batches`` 2 and 1, each held bitwise
+   against the staged eager fit; one eager step of each kind under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no step may synchronise:
+   a graph cannot capture one); wall ms a step of the last epoch, the
+   device time of a replayed step (a further graph fit whose last epoch's
+   replays queue behind a spin, timed by the fit's events around them)
+   and of an eager step (queued behind a spin), each fit's busy share
+   from its own kind's device time, examples/s, graph replays, the host's
+   ms by epoch and kernel launches per step; the eval program over 1-32
+   batches with a fresh capture against eager (bitwise; what a capture
+   costs ``predict``);
+13. one JSON line with every kernel's numbers, one with the dense fit, one
+   with the families, one with the shipped configurations, one with the
+   staged fits; the card's name and power limit; the last line is the
+   device line.
+
+Launches of a replayed CUDA graph are counted once per replay (the
+wrappers count at capture, ``cuda_build.captured_launches``), so every
+phase's launches per step read as they did eagerly.
 
 TF32 is switched off for matrix products and cuDNN, so the card computes
 in full f32 like the CPU reference.
@@ -201,6 +227,9 @@ FAMILY_REQUESTS = (4096, 4096, 1000)
 FAMILY_ROUNDS = 7
 FAMILY_BATCHES, FAMILY_EPOCHS = 16, 2
 DEV = "cuda"  # the card every phase runs on
+SCAN_GRAPH, STAGED_EPOCHS = 16, 2  # phase 12: the JAX default chunk, 2 epochs a fit
+STEADY_EPOCHS = 6  # phase 12 (c): the AE graph fit once more, to its steady state
+REPLAY_SPIN_MS = 300.0  # phase 12: the spin the timed epoch's replays queue behind
 TWO_PHASE = dict(two_phase_embedding=True, table_update="pallas",
                  table_opt_dtype="bfloat16", device_metadata=True)
 
@@ -1834,6 +1863,7 @@ def shipped_cli(torch, K, card):
                 total[k] = total.get(k, 0) + v
             calls = dict(SE.metadata_calls)
             steps = steps_per_epoch * len(tr.history)
+            epochs_run = len(tr.history)
             if not tr.two_phase_embedding:
                 route, source = "dense", "none"
             else:
@@ -1843,8 +1873,9 @@ def shipped_cli(torch, K, card):
                 # the JAX rule: the write-kernel update's metadata comes from
                 # the native pass when it loads; the scatter update's (inv,
                 # rep) always from numpy.  Here the native pass must load.
-                want = ("pallas-unique", "native", {"native": steps, "numpy": 0}) if vocab > 100 \
-                    else ("scatter", "numpy", {"native": 0, "numpy": steps})
+                # One call builds an epoch's batches (staging.fs_host_prep).
+                want = ("pallas-unique", "native", {"native": epochs_run, "numpy": 0}) \
+                    if vocab > 100 else ("scatter", "numpy", {"native": 0, "numpy": epochs_run})
                 if (route, source, calls) != want:
                     raise AssertionError(f"phase 11, {rel} vocab {vocab}: route {route}, metadata "
                                          f"{calls}, expected {want}")
@@ -1919,6 +1950,7 @@ def shipped_full_width(torch, K, card, workdir):
     from mmlrec_tpu_torch.train import Trainer, resolve_table_container
     from mmlrec_tpu_torch.train import device_metrics as DM
     from mmlrec_tpu_torch.train import sparse_embedding as SE
+    from mmlrec_tpu_torch.train import staging
     from mmlrec_tpu_torch.train.metrics import regime_eval
     from mmlrec_tpu_torch.utils import set_seed
 
@@ -1972,7 +2004,8 @@ def shipped_full_width(torch, K, card, workdir):
         f"of the dense and of the table entries over 1e-6, none over 3 x lr; mu, nu 1e-5 of the "
         f"largest); launches per step {launches} [{card}]")
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
-    if route != ("pallas", "SparseAdamState", "split") or calls != {"native": AE_STEPS, "numpy": 0}:
+    # one call builds the epoch's batches (staging.fs_host_prep)
+    if route != ("pallas", "SparseAdamState", "split") or calls != {"native": 1, "numpy": 0}:
         raise AssertionError(f"phase 11: AE took {route} with metadata {calls}")
     # the step runs B3 and B6 once each; B7 not (the gathered rows are
     # injected, as in the JAX step)
@@ -2072,12 +2105,12 @@ def shipped_full_width(torch, K, card, workdir):
                         launches_per_step=timed_launches, host_metadata_ms=meta_ms)
 
     # ---- (4) validation on the device against the host, same predictions
-    val = tr._eval_batches(*tr.pack_inputs(ds.test_input), tr._domain_mask_from(ds.test_input),
-                           batch)
+    val = staging.prepare_eval_tensors(tr, *tr.pack_inputs(ds.test_input),
+                                       tr._domain_mask_from(ds.test_input), batch)
     n_val = len(ds.y_test)
-    probs = tr._device_probs(val, use_best=False)
+    probs = tr._scanned_probs(val, use_best=False)
     y_val = tr._prepare_y(ds.y_test)
-    y_dev, w_dev = tr._metric_tensors(y_val, len(val) * batch)
+    y_dev, w_dev = staging.prepare_metric_tensors(tr, y_val, val.ids.shape[0] * batch)
     dev_metrics = {k: float(v) for k, v in DM.regime_metrics(
         tr.metric_fns, y_dev, probs, w_dev, tr.task_name, tr.num_domains).items()}
     host_metrics = regime_eval(tr.metric_fns, y_val,
@@ -2143,6 +2176,339 @@ def shipped_full_width(torch, K, card, workdir):
     return out
 
 
+def _sync_free_step(torch, tr, batch, meta=None) -> None:
+    """One eager step under torch.cuda.set_sync_debug_mode("error"): the
+    trainer's claim that no step reads a device value on the host, which a
+    captured step needs."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_step(*batch, meta=meta)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _held_bitwise(torch, a, b) -> list:
+    """Names of the parameters, buffers and optimizer tensors where two
+    trainers differ in any bit."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    other = b.model.state_dict()
+    bad = [k for k, v in a.model.state_dict().items() if not torch.equal(bits(v), bits(other[k]))]
+    for field in a.opt_state._fields:
+        x, y = getattr(a.opt_state, field), getattr(b.opt_state, field)
+        pairs = x.items() if isinstance(x, dict) else [(field, x)]
+        for k, t in pairs:
+            u = y[k] if isinstance(y, dict) else y
+            if not torch.equal(bits(t), bits(u)):
+                bad.append(f"opt_state/{field}/{k}")
+    if a.table_opt is not None:
+        for field, t in a.table_opt._asdict().items():
+            if not torch.equal(bits(t), bits(getattr(b.table_opt, field))):
+                bad.append(f"table_opt/{field}")
+    if [h["loss"] for h in a.history] != [h["loss"] for h in b.history]:
+        bad.append("history")
+    return bad
+
+
+def _fit_once(torch, K, tr, x, y, batch, epochs, **fit_kw) -> dict:
+    """One timed fit on the card: its wall time, its last epoch's wall ms a
+    step (host clock, the epoch's sync included), examples/s, graph
+    replays, kernel launches a step and the host's ms by epoch."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit(x, y, batch_size=batch, epochs=epochs, verbose=0, **fit_kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    per_epoch = (len(next(iter(x.values()))) - 1) // batch + 1
+    steps = epochs * per_epoch
+    return dict(fit_s=fit_s, step_ms_wall_last_epoch=tr.history[-1]["epoch_s"] * 1e3 / per_epoch,
+                fit_examples_per_s=tr.throughput_examples_per_s,
+                graph_replays=tr.graph_replays,
+                launches_per_step={k: v / steps for k, v in K.launch_counts.items() if v},
+                losses=[h["loss"] for h in tr.history],
+                host_ms_by_epoch=[{k: v * 1e3 for k, v in t.items()} for t in tr.fit_timing])
+
+
+def _replayed_step_device_ms(torch, tr, x, y, batch, **fit_kw):
+    """The device time of a replayed step: a further 3-epoch graph fit of
+    ``tr`` whose epoch callback spins the card after epoch 2 (its graphs
+    captured by then), so the host queues the last epoch's replays behind
+    the spin and the fit's events around them (``fit_timing``'s
+    ``steps_device_s``) time them back to back.  None if the host took
+    longer than 80% of the spin to queue them."""
+    from mmlrec_tpu_torch.tools.timing import spin_cycles
+
+    cycles = spin_cycles(REPLAY_SPIN_MS)
+    tr.fit(x, y, batch_size=batch, epochs=3, verbose=0,
+           epoch_callback=lambda e, _: e == 1 and torch.cuda._sleep(cycles), **fit_kw)
+    last = tr.fit_timing[-1]
+    queued_ms = (last["prep_s"] + last["issue_s"]) * 1e3
+    per_epoch = (len(next(iter(x.values()))) - 1) // batch + 1
+    if queued_ms > 0.8 * REPLAY_SPIN_MS:
+        return None, queued_ms
+    return last["steps_device_s"] * 1e3 / per_epoch, queued_ms
+
+
+def _staged_pair(torch, K, card, tag, make, x, y, batch, epochs, timed_batches, meta_fn=None,
+                 streaming=False, **fit_kw):
+    """Fit ``make(scan_steps)`` twice, staged with graph replay (scan_steps
+    16) and staged eager (0), each on a fresh trainer from one init, and
+    with ``streaming`` also on the streaming path (the dataset over a cap
+    of 0 bytes) at ``prefetch_batches`` 2 and 1; hold each bitwise against
+    the staged eager fit.  Then time a replayed step on the card (a further
+    graph fit, ``_replayed_step_device_ms``) and an eager step (queued
+    behind a spin), and set each fit's busy share from its own kind's
+    device time."""
+    from mmlrec_tpu_torch.tools.timing import queued_ms
+
+    out, kept = {}, {}
+    for scan in (SCAN_GRAPH, 0):
+        kept[scan] = make(scan)
+        out[scan] = _fit_once(torch, K, kept[scan], x, y, batch, epochs, **fit_kw)
+    graph, eager = kept[SCAN_GRAPH], kept[0]
+    bad = {"graph replay": _held_bitwise(torch, graph, eager)}
+    streamed = {}
+    for depth in (2, 1) if streaming else ():
+        tr = make(0)
+        tr._device_data_bytes_cap = 0  # the dataset over the cap: the streaming loop
+        tr._prefetch_batches = depth
+        name = f"streaming, prefetch_batches {depth}"
+        streamed[name] = _fit_once(torch, K, tr, x, y, batch, epochs, **fit_kw)
+        bad[name] = _held_bitwise(torch, tr, eager)
+        del tr
+    # the step's device time on batches already on the card
+    ids, dense = graph.pack_inputs(x)
+    yy, dmask = graph._prepare_y(y), graph._domain_mask_from(x)
+    batches, metas = [], []
+    for s in range(timed_batches):
+        sl = slice(s * batch, (s + 1) * batch)
+        batches.append([torch.from_numpy(np.ascontiguousarray(a[sl])).to(DEV) if a is not None
+                        else None for a in (ids, dense, yy, dmask)]
+                       + [torch.ones(batch, device=DEV)])
+        metas.append(meta_fn(graph, ids[sl]) if meta_fn else None)
+    del eager, kept
+    _sync_free_step(torch, graph, batches[0], metas[0])
+    it = iter(zip(batches, metas))
+    eager_dev_ms = queued_ms(lambda: (lambda b, m: graph.train_step(*b, meta=m))(*next(it)),
+                             reps=min(5, timed_batches))
+    replay_dev_ms, replay_queued_ms = _replayed_step_device_ms(torch, graph, x, y, batch,
+                                                              **fit_kw)
+    differs = {k: v[:8] for k, v in bad.items() if v}
+    res = dict(graph=out[SCAN_GRAPH], eager=out[0], **streamed, bitwise_equal=not differs,
+               differs=differs, replayed_step_device_ms=replay_dev_ms,
+               replayed_epoch_queued_host_ms=replay_queued_ms, replay_spin_ms=REPLAY_SPIN_MS,
+               eager_step_device_ms=eager_dev_ms, sync_free_eager_step=True)
+    rows = [("graph", out[SCAN_GRAPH], replay_dev_ms, f"scan_steps {SCAN_GRAPH}"),
+            ("eager", out[0], eager_dev_ms, "scan_steps 0")]
+    rows += [(name, r, eager_dev_ms, "eager steps") for name, r in streamed.items()]
+    for name, r, dev_ms, how in rows:
+        busy = None if dev_ms is None else dev_ms / r["step_ms_wall_last_epoch"]
+        r["device_busy_share"] = busy
+        log(f"[12] {tag}, {'staged ' if name in ('graph', 'eager') else ''}{name} ({how}): "
+            f"fit {r['fit_s']:.2f} s, {r['fit_examples_per_s']:.0f} examples/s (first epoch "
+            f"left out); last epoch {r['step_ms_wall_last_epoch']:.3f} ms a step (host clock, "
+            f"the epoch's sync included); step device time "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'} "
+            f"({'replayed, a spun epoch' if name == 'graph' else 'eager, queued behind a spin'}), "
+            f"busy {'not measured' if busy is None else f'{busy:.1%}'}; graph replays "
+            f"{r['graph_replays']}; host ms by epoch (prep, issue, sync, steps' device span) "
+            f"{[tuple(round(v, 2) for v in t.values()) for t in r['host_ms_by_epoch']]}; "
+            f"launches per step "
+            f"{ {k: round(v, 3) for k, v in r['launches_per_step'].items()} } [{card}]")
+    log(f"[12] {tag}: a replayed step's device time from {REPLAY_SPIN_MS:.0f} ms spun epoch "
+        f"(its replays queued in {replay_queued_ms:.1f} ms): "
+        f"{'not measured' if replay_dev_ms is None else f'{replay_dev_ms:.3f} ms'} [{card}]")
+    for name in bad:
+        log(f"[12] {tag}: {name} vs staged eager "
+            f"{'bitwise equal' if not bad[name] else 'DIFFER in ' + str(bad[name][:8])} "
+            f"(parameters, buffers, optimizer states, losses) [{card}]")
+    log(f"[12] {tag}: one eager step ran under set_sync_debug_mode('error') [{card}]")
+    if differs:
+        raise AssertionError(f"phase 12, {tag}: fits differ from staged eager: {differs}")
+    if not out[SCAN_GRAPH]["graph_replays"]["train"] or out[0]["graph_replays"]["train"] or any(
+            r["graph_replays"]["train"] for r in streamed.values()):
+        raise AssertionError(f"phase 12, {tag}: the graph fit replayed nothing, or an eager one did")
+    del graph
+    torch.cuda.empty_cache()
+    return res
+
+
+def staged_fits(torch, K, card):
+    """Phase 12: the JAX fit's default path on the card (the staged dataset,
+    scan_steps as CUDA-graph replay, the flat optimizer, thread-ahead host
+    metadata): three fits, each staged with graph replay and staged eager,
+    held bitwise, plus stochastic gates."""
+    from mmlrec_tpu_torch.config import ExperimentConfig
+    from mmlrec_tpu_torch.main import load_dataset, parse_args
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.train import Trainer, resolve_table_container
+    from mmlrec_tpu_torch.utils import set_seed
+    from mmlrec_tpu_torch.utils.seeding import make_generator
+
+    out = {}
+    # ---- (a) the flagship dense fit of phase 9, dropout 0.2
+    batch = FLAGSHIP_BATCH
+    layout, x, y, _ = make_data(aliexpress_like_config("mmoe", masked_loss=True),
+                                n=DENSE_BATCHES * batch, vocab=100, seed=11)
+
+    def dense(scan):
+        cfg = aliexpress_like_config("mmoe", masked_loss=True, dnn_dropout=0.2, scan_steps=scan)
+        model = get_model("mmoe", layout, cfg, generator=make_generator(5, DEV), device=DEV)
+        return Trainer(model, seed=0, device=DEV).compile(metrics=["auc", "logloss"])
+
+    out["dense_flagship"] = _staged_pair(torch, K, card, "flagship dense fit (phase 9's config, "
+                                         "dnn_dropout 0.2)", dense, x, y, batch, STAGED_EPOCHS,
+                                         timed_batches=8, streaming=True)
+    # ---- stochastic gates: snr_trans, one warmup epoch, the second drawing
+    layout, x, y, _ = make_data(aliexpress_like_config("snr_trans"), n=FAMILY_BATCHES * batch,
+                                vocab=100, seed=15)
+
+    def gates(scan):
+        cfg = aliexpress_like_config("snr_trans", snr_stochastic_gates=True,
+                                     snr_gate_noise_warmup_epochs=1, scan_steps=scan)
+        model = get_model("snr_trans", layout, cfg, generator=make_generator(6, DEV), device=DEV)
+        return Trainer(model, seed=0, device=DEV).compile(metrics=["auc"])
+
+    out["snr_trans_stochastic_gates"] = _staged_pair(
+        torch, K, card, "snr_trans with stochastic gates (epoch 2 draws)", gates, x, y, batch,
+        STAGED_EPOCHS, timed_batches=4)
+    # ---- (b) phase 8's 40 M-row stacked fit
+    rng = np.random.default_rng(40)
+    n = FULL_STEPS * FLAGSHIP_BATCH
+    x = {f"s{i}": rng.integers(0, FULL_VOCAB, n) for i in range(FULL_FEATURES)}
+    x.update({f"d{i}": rng.random(n).astype(np.float32) for i in range(FULL_DENSE)})
+    y = (rng.random((n, 2)) < 0.3).astype(np.float32)
+
+    def stacked(scan):
+        tr = _full_width_trainer(torch, "stacked")
+        tr._scan_steps = scan  # the config's scan_steps, as the trainer resolves it
+        return tr
+
+    out["stacked_40m"] = _staged_pair(torch, K, card, "40 M-row stacked two-phase fit "
+                                      "(phase 8's, device metadata)", stacked, x, y,
+                                      FLAGSHIP_BATCH, STAGED_EPOCHS, timed_batches=5)
+    # ---- (c) the shipped config_AE.json at 139,264 physical rows, host metadata
+    path = os.path.join(ROOT, AE_CONFIG)
+    cfg0 = ExperimentConfig.from_file(path)
+    batch = cfg0.training_config.train_batch_size
+    ds = load_dataset(cfg0, parse_args(["--config", path, "--synthetic", "--synthetic_rows",
+                                        str(AE_TIMED * batch), "--synthetic_vocab",
+                                        str(AE_VOCAB)]))
+
+    def shipped(scan):
+        cfg = ExperimentConfig.from_file(path)
+        cfg.save_config.save = False
+        cfg.model_config.extra["scan_steps"] = scan
+        resolve_table_container(cfg, ds.layout, device=DEV)
+        mc, oc = cfg.model_config, cfg.optim_config
+        model = get_model(mc.model_name, ds.layout, cfg, generator=set_seed(0, DEV), device=DEV)
+        return Trainer(model, seed=0, device=DEV).compile(
+            optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
+
+    out["shipped_ae"] = _staged_pair(
+        torch, K, card, f"{AE_CONFIG} at vocab {AE_VOCAB} (host metadata, thread-ahead)",
+        shipped, ds.train_input, ds.y_train, batch, STAGED_EPOCHS, timed_batches=5,
+        meta_fn=lambda tr, h: tr.host_metadata(h), streaming=True)
+    # what the worker does for one epoch of AE_TIMED batches, the card idle
+    from mmlrec_tpu_torch.train import staging
+
+    # the same graph fit over STEADY_EPOCHS epochs: from the third on, the
+    # worker's metadata of epoch e+1 has a whole epoch to be ready
+    tr = shipped(SCAN_GRAPH)
+    tr.fit(ds.train_input, ds.y_train, batch_size=batch, epochs=STEADY_EPOCHS, verbose=0)
+    torch.cuda.synchronize()
+    per_step = (len(ds.y_train) - 1) // batch + 1
+    later = tr.history[2:]
+    steady_ms = statistics.median(h["epoch_s"] * 1e3 / per_step for h in later)
+    steady_wait = statistics.median(t["prep_s"] * 1e3 for t in tr.fit_timing[2:])
+    log(f"[12] {AE_CONFIG}, staged graph over {STEADY_EPOCHS} epochs: epochs 3-"
+        f"{STEADY_EPOCHS} {steady_ms:.3f} ms a step (median, host clock), waiting "
+        f"{steady_wait:.2f} ms an epoch for the worker's metadata; "
+        f"{tr.throughput_examples_per_s:.0f} examples/s (first epoch left out) [{card}]")
+    out["shipped_ae"]["steady"] = dict(epochs=STEADY_EPOCHS, step_ms_wall=steady_ms,
+                                       prep_wait_ms=steady_wait,
+                                       fit_examples_per_s=tr.throughput_examples_per_s)
+    tr._meta_codec = "unset"
+    ids = tr.pack_inputs(ds.train_input)[0]
+    n = len(ids)
+    steps = (n - 1) // batch + 1
+    flat = staging.flat_ids(tr, ids[np.arange(steps * batch) % n], steps)
+    order = np.random.default_rng(0).permutation(n)
+    prep_ms = {}
+    for name, fn in (("metadata", lambda: staging.step_metadata(tr, flat)),
+                     ("fs_host_prep (+ encode, pinned upload)",
+                      lambda: staging.claim(staging.fs_host_prep(
+                          tr, ids, n, batch, order, steps)[2]))):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prep_ms[name] = statistics.median(times)
+    log(f"[12] {AE_CONFIG}: one epoch's host prep of {steps} batches x "
+        f"{flat.shape[1]} ids, the card idle (median of 3, ms): "
+        f"{ {k: round(v, 2) for k, v in prep_ms.items()} } [{card}]")
+    out["shipped_ae"]["epoch_host_prep_ms"] = prep_ms
+    del tr
+    out["eval_capture"] = eval_capture_cost(torch, card)
+    return out
+
+
+def eval_capture_cost(torch, card):
+    """What a capture costs ``predict`` and ``evaluate``: the eval program
+    over 1-32 batches of 4096 rows (the shipped ``test_batch_size``) with
+    a fresh capture and eagerly, host clock to the result on the card
+    (median of 3), the two held bitwise; sets where the trainer's
+    ``EVAL_GRAPH_MIN_BATCHES`` should lie."""
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.train import Trainer, staging
+    from mmlrec_tpu_torch.train.graphs import StepGraphs
+    from mmlrec_tpu_torch.train.trainer import EVAL_GRAPH_MIN_BATCHES, _EvalProgram
+    from mmlrec_tpu_torch.utils.seeding import make_generator
+
+    batch, most = FLAGSHIP_BATCH, 32
+    cfg = aliexpress_like_config("mmoe", masked_loss=True)
+    layout, x, _, _ = make_data(cfg, n=most * batch, vocab=100, seed=17)
+    model = get_model("mmoe", layout, cfg, generator=make_generator(7, DEV), device=DEV)
+    tr = Trainer(model, seed=0, device=DEV).compile(metrics=["auc"])
+    ids, dense = tr.pack_inputs(x)
+    dmask = tr._domain_mask_from(x)
+    out = {}
+    for nb in (1, 2, 4, 8, 16, 32):
+        rows = nb * batch
+        ev = staging.prepare_eval_tensors(tr, ids[:rows], dense[:rows],
+                                          None if dmask is None else dmask[:rows], batch)
+        ms, probs = {}, {}
+        for name in ("graph", "eager"):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graphs = StepGraphs(DEV) if name == "graph" else None
+                probs[name] = _EvalProgram(tr, ev, None, graphs).run().clone()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = statistics.median(times)
+        if not torch.equal(probs["graph"], probs["eager"]):
+            raise AssertionError(f"phase 12: the captured eval forward differs from the eager "
+                                 f"one at {nb} batches")
+        out[nb] = ms
+    log(f"[12] eval program, flagship MMoE, batches of {batch}: ms to the result (median of 3; "
+        f"a fresh capture, eager): { {nb: (round(m['graph'], 2), round(m['eager'], 2)) for nb, m in out.items()} }; "
+        f"captured and eager bitwise equal; the trainer captures from "
+        f"{EVAL_GRAPH_MIN_BATCHES} batches on [{card}]")
+    del tr
+    return dict(ms_by_batches=out, batch=batch, graph_min_batches=EVAL_GRAPH_MIN_BATCHES)
+
+
 def main() -> int:
     import torch
 
@@ -2191,6 +2557,7 @@ def main() -> int:
     shipped, shipped_launches = shipped_cli(torch, K, card)
     K.reset_launch_counts()
     shipped_ae = shipped_full_width(torch, K, card, workdir)
+    staged = staged_fits(torch, K, card)
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS}
@@ -2223,6 +2590,7 @@ def main() -> int:
     print(json.dumps({"families": families, "card": card}), flush=True)
     print(json.dumps({"shipped": {"cli": shipped, "launches_in_cli": shipped_launches,
                                   "config_AE_full_width": shipped_ae}, "card": card}), flush=True)
+    print(json.dumps({"staged_fit": staged, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,7 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
       BatchNorm (its running means and variances), else None.
 
     Returns the trainer, ready to continue training from that state."""
+    from .train.optimizers import load_state_
     from .train.sparse_embedding import SparseAdamPackedState, SparseAdamState
 
     load_jax_variables(trainer.model, {"params": params, "batch_stats": batch_stats or {}})
@@ -144,5 +145,5 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
             if flat[k].shape != tuple(p.shape):
                 raise ValueError(f"opt_state[{field!r}][{k}]: shape {flat[k].shape}")
         loaded[field] = {k: tensor(flat[k]) for k in covered}
-    trainer.opt_state = type(trainer.opt_state)(**loaded)
+    load_state_(trainer.opt_state, loaded)  # in place: a flat state keeps its buffer
     return trainer

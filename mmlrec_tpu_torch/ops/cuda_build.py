@@ -13,11 +13,15 @@ Every wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else, so a run can show which kernels its path went
 through.  ``backward_counts[name]`` counts the calls of a kernel's plain
 backward (the JAX package's backwards are plain too): no kernel is launched
-there, so they are kept apart.
+there, so they are kept apart.  A CUDA graph launches its kernels when it
+is replayed, not when it is captured: ``captured_launches`` takes what the
+wrappers counted during a capture out of the counts and keeps it, and
+``add_launches`` adds it back on every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,6 +49,31 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, backward_counts):
         for k in counts:
             counts[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a dict that receives the
+    launches and plain backwards the wrappers counted inside, which are
+    taken out of the counts again (the capture ran nothing)."""
+    before = (dict(launch_counts), dict(backward_counts))
+    recorded: Dict[str, Dict[str, int]] = {}
+    try:
+        yield recorded
+    finally:
+        for key, counts, old in (("launch", launch_counts, before[0]),
+                                 ("backward", backward_counts, before[1])):
+            recorded[key] = {k: v - old.get(k, 0) for k, v in counts.items()
+                             if v != old.get(k, 0)}
+            for k in counts:
+                counts[k] = old.get(k, 0)
+
+
+def add_launches(recorded: Dict[str, Dict[str, int]]) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    for key, counts in (("launch", launch_counts), ("backward", backward_counts)):
+        for k, v in recorded.get(key, {}).items():
+            counts[k] = counts.get(k, 0) + v
 
 
 def _nvcc() -> str:

@@ -15,13 +15,16 @@ warms it up, and traces ``--steps`` steps with torch.profiler:
   ple, pcg; msl with 2 domains, or mtl with two tasks for esmm, escm,
   escm_dr and aitm), with BatchNorm when ``--bn`` is given.
 
-Prints, per step: the device time by kernel (the largest first), the number
-of kernel launches, the device time in all, the wall time and the host's
-largest self CPU times, and the device numbers as one JSON line last.
+The steps run eagerly (``Trainer.train_step``: the path of ``scan_steps``
+0), with the flat optimizer unless ``--per-tensor-optimizer`` asks for
+``flat_optimizer: false``.  Prints, per step: the device time by kernel
+(the largest first), the number of kernel launches, the device time in all,
+the wall time and the host's largest self CPU times, and the device numbers
+as one JSON line last.
 
     python -m mmlrec_tpu_torch.tools.profile_step [--fit two-phase|dense]
         [--family NAME [--bn]] [--container stacked|split] [--steps 10]
-        [--trace step_trace.json]
+        [--per-tensor-optimizer] [--trace step_trace.json]
 
 Needs one CUDA device; exits 1 without one.
 """
@@ -41,7 +44,7 @@ VOCAB, FEATURES, EMB, DENSE, BATCH = 2_500_000, 16, 32, 4, 4096
 MTL_FAMILIES = ("esmm", "escm", "escm_dr", "aitm")  # two tasks, no domains
 
 
-def build_trainer(container: str):
+def build_trainer(container: str, flat: bool = True):
     from ..features import DenseFeat, FeatureLayout, SparseFeat
     from ..models import get_model
     from ..synthetic import make_config
@@ -52,7 +55,7 @@ def build_trainer(container: str):
                       n_dense=DENSE, hidden=(256, 128), tower=(64,), gate=(64,),
                       batch_size=BATCH, two_phase_embedding=True, table_update="pallas",
                       table_opt_dtype="bfloat16", device_metadata=True,
-                      table_container=container,
+                      table_container=container, flat_optimizer=flat,
                       monu_gather="pallas" if container == "split" else "xla")
     layout = FeatureLayout([SparseFeat(f"s{i}", VOCAB, EMB) for i in range(FEATURES)]
                            + [DenseFeat(f"d{i}", 1) for i in range(DENSE)])
@@ -60,14 +63,15 @@ def build_trainer(container: str):
     return Trainer(model, seed=0, device="cuda").compile()
 
 
-def build_dense_trainer(family: str = "mmoe", use_bn: bool = False):
+def build_dense_trainer(family: str = "mmoe", use_bn: bool = False, flat: bool = True):
     from ..models import get_model
     from ..synthetic import aliexpress_like_config, make_data
     from ..train import Trainer
     from ..utils.seeding import make_generator
 
     task = "mtl" if family in MTL_FAMILIES else "msl"
-    cfg = aliexpress_like_config(family, task_name=task, masked_loss=True, dnn_use_bn=use_bn)
+    cfg = aliexpress_like_config(family, task_name=task, masked_loss=True, dnn_use_bn=use_bn,
+                                 flat_optimizer=flat)
     layout, *_ = make_data(cfg, n=8, vocab=100)
     # the reference's init (std 1e-4) leaves every relu dead-flat; a wider
     # draw gives the backward its usual work
@@ -99,6 +103,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bn", action="store_true", help="with --family: dnn_use_bn on")
     ap.add_argument("--container", default="stacked", choices=("stacked", "split"))
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--per-tensor-optimizer", action="store_true",
+                    help="flat_optimizer: false (one optimizer chain per tensor)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -109,8 +115,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dense_fit = args.fit == "dense" or args.family is not None
     family = args.family or "mmoe"
-    tr = build_dense_trainer(family, args.bn) if dense_fit else build_trainer(args.container)
-    what = f"dense {family}{'+bn' if args.bn else ''}" if dense_fit else args.container
+    flat = not args.per_tensor_optimizer
+    tr = (build_dense_trainer(family, args.bn, flat) if dense_fit
+          else build_trainer(args.container, flat))
+    what = (f"dense {family}{'+bn' if args.bn else ''}" if dense_fit else args.container) + (
+        "" if flat else ", per-tensor optimizer")
     batches = _batches(args.steps + 5, dense_fit, domains=family not in MTL_FAMILIES)
     for b in batches[:5]:
         tr.train_step(*b)
@@ -146,6 +155,7 @@ def main(argv=None) -> int:
         print(f"  {e.self_cpu_time_total / steps:9.1f} us  {e.count / steps:5.1f}x  {e.key[:110]}")
     print(json.dumps({
         "fit": "dense" if dense_fit else args.fit, "family": family, "bn": args.bn,
+        "flat_optimizer": flat,
         "container": None if dense_fit else args.container,
         "steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
         "device_ms_per_step": busy_us / 1e3, "launches_per_step": launches,

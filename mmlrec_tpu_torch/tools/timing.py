@@ -72,6 +72,16 @@ def device_ms(fn: Callable[[], object], reps: int = 31, inner: int = 20) -> floa
     return _event_ms(graph.replay, reps, inner)
 
 
+def spin_cycles(spin_ms: float) -> int:
+    """The ``torch.cuda._sleep`` argument that spins the card ``spin_ms``."""
+    probe = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    probe[0].record()
+    torch.cuda._sleep(10_000_000)
+    probe[1].record()
+    probe[1].synchronize()
+    return int(10_000_000 * spin_ms / probe[0].elapsed_time(probe[1]))
+
+
 def queued_ms(fn: Callable[[], object], reps: int = 5, inner: int = 1,
               spin_ms: float = 100.0) -> Optional[float]:
     """Device time per call of ``fn``: the card first spins for ``spin_ms``
@@ -79,12 +89,7 @@ def queued_ms(fn: Callable[[], object], reps: int = 5, inner: int = 1,
     so the events from the end of the spin to the end of the last call time
     the calls' kernels back to back.  None if queueing took longer than 80%
     of the spin (the window would then include idle time)."""
-    probe = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-    probe[0].record()
-    torch.cuda._sleep(10_000_000)
-    probe[1].record()
-    probe[1].synchronize()
-    cycles = int(10_000_000 * spin_ms / probe[0].elapsed_time(probe[1]))
+    cycles = spin_cycles(spin_ms)
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .optimizers import load_state_
 from .sparse_embedding import (
     SparseAdamFoldedState,
     SparseAdamState,
@@ -203,7 +204,7 @@ def restore_training_state(trainer, path: str):
     for field, value in trainer.opt_state._asdict().items():
         fields[field] = (_section(payload, f"opt_state/{field}/") if isinstance(value, dict)
                          else payload[f"opt_state/{field}"])
-    trainer.opt_state = type(trainer.opt_state)(**fields)
+    load_state_(trainer.opt_state, fields)  # in place: a flat state keeps its buffer
     trainer._dropout_master.set_state(payload["rng"].cpu())
     best = _section(payload, "best/")
     best = _runtime_variables(trainer, best) if best else None

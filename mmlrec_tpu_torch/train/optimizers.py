@@ -1,11 +1,11 @@
 """Optimizers of the port's trainer (the port of
 ``mmlrec_tpu/train/optimizers.py``): adam, adagrad, rmsprop and sgd, each
-written as optax's update.
+written as optax's update, and ``Flat``, the port of ``optax.flatten``.
 
-Functional over a dict of tensors, in optax's order (the ``scale_by_*``
-transform, then ``scale_by_learning_rate``, then ``apply_updates``), so
-that a state moves across from the JAX package and both sides take the same
-f32 steps.  With ``g`` the gradient and ``p`` the parameter:
+Over a dict of tensors, in optax's order (the ``scale_by_*`` transform,
+then ``scale_by_learning_rate``, then ``apply_updates``), so that a state
+moves across from the JAX package and both sides take the same f32 steps.
+With ``g`` the gradient and ``p`` the parameter:
 
     adam     mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g**2 + b2 * nu
              p += ((mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps)) * -lr
@@ -19,12 +19,23 @@ eps 1e-10; rmsprop decay 0.99, eps 1e-8 (inside the root, as optax has it).
 
 Every state is a NamedTuple whose tensor-dict fields carry optax's names
 (``mu``, ``nu``, ``sum_of_squares``), so ``convert.load_jax_train_state``
-fills any of them from an optax state by name.
+fills any of them from an optax state by name.  A step updates the
+parameters AND the state in place and returns the same state object: a
+CUDA graph that captured the step reads the tensors it captured, so no
+step may hand back new ones.  (``mu * b1 + (1 - b1) * g`` in place rounds
+as optax's ``(1 - b1) * g + b1 * mu``: an f32 sum of two rounded products
+is the same in either order.)
+
+``Flat`` runs the same elementwise chain once over all the parameters:
+its state fields are ``FlatTensors``, named views into one flat buffer,
+the gradients are concatenated into one vector, and the update is added to
+every parameter by one multi-tensor add.  Elementwise, so it is bitwise
+equal to the per-tensor path, on the CPU and on the card.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -49,91 +60,161 @@ class SgdState(NamedTuple):
     pass
 
 
-class Adam:
+class FlatTensors(dict):
+    """Named views (a state field, by parameter name) into ONE flat f32
+    buffer ``flat``: saved, loaded and compared by name like any dict of
+    tensors, updated in one piece by ``Flat``."""
+
+    def __init__(self, flat: torch.Tensor = None, views=()):
+        super().__init__(views)
+        self.flat = flat
+
+
+def flat_like(params: Tensors, value: float) -> FlatTensors:
+    """A ``FlatTensors`` shaped as ``params`` (in their order), filled with
+    ``value``."""
+    first = next(iter(params.values()))
+    flat = torch.full((sum(p.numel() for p in params.values()),), float(value),
+                      dtype=torch.float32, device=first.device)
+    views, off = {}, 0
+    for k, p in params.items():
+        views[k] = flat[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    return FlatTensors(flat, views)
+
+
+def _field(params: Tensors, value: float, flat: bool) -> Tensors:
+    if flat:
+        return flat_like(params, value)
+    return {k: torch.full_like(p, value) for k, p in params.items()}
+
+
+class _Elementwise:
+    """An optimizer as one elementwise chain: ``_shared`` once per step
+    (the step count's terms), ``_apply`` per tensor (or once over the flat
+    vectors), which moves the state tensors in place and returns the
+    parameter delta."""
+
+    def fields(self, state) -> Tuple[Tensors, ...]:
+        return tuple(v for v in state if isinstance(v, dict))
+
+    def _shared(self, state) -> tuple:
+        return ()
+
+    @torch.no_grad()
+    def step(self, params: Tensors, grads: Tensors, state):
+        """Update ``params`` and ``state`` in place from ``grads``; returns
+        ``state``."""
+        shared = self._shared(state)
+        fields = self.fields(state)
+        for k, p in params.items():
+            p.add_(self._apply(grads[k], *(f[k] for f in fields), *shared))
+        return state
+
+
+class Adam(_Elementwise):
     """``optax.adam(lr, b1, b2, eps)`` over a dict of tensors."""
 
     def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = float(lr), float(b1), float(b2), float(eps)
 
-    def init(self, params: Tensors) -> AdamState:
+    def init(self, params: Tensors, flat: bool = False) -> AdamState:
         device = next(iter(params.values())).device
-        return AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=device),
-            mu={k: torch.zeros_like(p) for k, p in params.items()},
-            nu={k: torch.zeros_like(p) for k, p in params.items()},
-        )
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=device),
+                         mu=_field(params, 0.0, flat), nu=_field(params, 0.0, flat))
 
-    @torch.no_grad()
-    def step(self, params: Tensors, grads: Tensors, state: AdamState) -> AdamState:
-        """Update ``params`` in place from ``grads``; returns the new state."""
-        b1, b2, eps, lr = self.b1, self.b2, self.eps, self.lr
-        count = state.count + 1
-        t = count.to(torch.float32)
-        c1 = 1.0 - b1 ** t
-        c2 = 1.0 - b2 ** t
-        mu, nu = {}, {}
-        for k, p in params.items():
-            g = grads[k]
-            mu[k] = (1.0 - b1) * g + b1 * state.mu[k]
-            nu[k] = (1.0 - b2) * (g * g) + b2 * state.nu[k]
-            update = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
-            p.add_(update * -lr)
-        return AdamState(count=count, mu=mu, nu=nu)
+    def _shared(self, state):
+        state.count.add_(1)
+        t = state.count.to(torch.float32)
+        return 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+
+    def _apply(self, g, mu, nu, c1, c2):
+        b1, b2 = self.b1, self.b2
+        mu.mul_(b1).add_((1.0 - b1) * g)
+        nu.mul_(b2).add_((1.0 - b2) * (g * g))
+        return ((mu / c1) / (torch.sqrt(nu / c2) + self.eps)) * -self.lr
 
 
-class Adagrad:
+class Adagrad(_Elementwise):
     """``optax.adagrad(lr, initial_accumulator_value, eps)``."""
 
     def __init__(self, lr: float, initial_accumulator_value: float = 0.0, eps: float = 1e-10):
         self.lr, self.initial, self.eps = float(lr), float(initial_accumulator_value), float(eps)
 
-    def init(self, params: Tensors) -> AdagradState:
-        return AdagradState({k: torch.full_like(p, self.initial) for k, p in params.items()})
+    def init(self, params: Tensors, flat: bool = False) -> AdagradState:
+        return AdagradState(_field(params, self.initial, flat))
 
-    @torch.no_grad()
-    def step(self, params: Tensors, grads: Tensors, state: AdagradState) -> AdagradState:
-        sums = {}
-        for k, p in params.items():
-            g = grads[k]
-            sums[k] = g * g + state.sum_of_squares[k]
-            scale = torch.where(sums[k] > 0, torch.rsqrt(sums[k] + self.eps), 0.0)
-            p.add_((scale * g) * -self.lr)
-        return AdagradState(sums)
+    def _apply(self, g, s):
+        s.add_(g * g)
+        scale = torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0)
+        return (scale * g) * -self.lr
 
 
-class RmsProp:
+class RmsProp(_Elementwise):
     """``optax.rmsprop(lr, decay, eps)`` (eps inside the root, no momentum)."""
 
     def __init__(self, lr: float, decay: float = 0.99, eps: float = 1e-8):
         self.lr, self.decay, self.eps = float(lr), float(decay), float(eps)
 
-    def init(self, params: Tensors) -> RmsPropState:
-        return RmsPropState({k: torch.zeros_like(p) for k, p in params.items()})
+    def init(self, params: Tensors, flat: bool = False) -> RmsPropState:
+        return RmsPropState(_field(params, 0.0, flat))
 
-    @torch.no_grad()
-    def step(self, params: Tensors, grads: Tensors, state: RmsPropState) -> RmsPropState:
-        nu = {}
-        for k, p in params.items():
-            g = grads[k]
-            nu[k] = (1.0 - self.decay) * (g * g) + self.decay * state.nu[k]
-            p.add_((torch.rsqrt(nu[k] + self.eps) * g) * -self.lr)
-        return RmsPropState(nu)
+    def _apply(self, g, nu):
+        nu.mul_(self.decay).add_((1.0 - self.decay) * (g * g))
+        return (torch.rsqrt(nu + self.eps) * g) * -self.lr
 
 
-class Sgd:
+class Sgd(_Elementwise):
     """``optax.sgd(lr)``: no momentum, no state."""
 
     def __init__(self, lr: float):
         self.lr = float(lr)
 
-    def init(self, params: Tensors) -> SgdState:
+    def init(self, params: Tensors, flat: bool = False) -> SgdState:
         return SgdState()
 
+    def _apply(self, g):
+        return g * -self.lr
+
+
+class Flat:
+    """``optax.flatten(inner)``: ``inner``'s chain once over the
+    concatenation of every tensor (trainer.py:547-580), on ``FlatTensors``
+    state; the state keeps ``inner``'s type and field names."""
+
+    def __init__(self, inner: _Elementwise):
+        self.inner = inner
+
+    def init(self, params: Tensors, flat: bool = True):
+        return self.inner.init(params, flat=True)
+
     @torch.no_grad()
-    def step(self, params: Tensors, grads: Tensors, state: SgdState) -> SgdState:
-        for k, p in params.items():
-            p.add_(grads[k] * -self.lr)
+    def step(self, params: Tensors, grads: Tensors, state):
+        """Update ``params`` and ``state`` in place; returns ``state``."""
+        fields = self.inner.fields(state)
+        if not all(isinstance(f, FlatTensors) for f in fields):
+            raise TypeError("Flat steps a state made by Flat.init (FlatTensors fields)")
+        names = list(fields[0]) if fields else list(params)  # the flat buffers' order
+        tensors: List[torch.Tensor] = [params[k] for k in names]
+        g = torch.cat([grads[k].reshape(-1) for k in names])
+        delta = self.inner._apply(g, *(f.flat for f in fields), *self.inner._shared(state))
+        parts = delta.split([p.numel() for p in tensors])
+        torch._foreach_add_(tensors, [d.view(p.shape) for d, p in zip(parts, tensors)])
         return state
+
+
+def load_state_(state, loaded) -> None:
+    """Copy a state of the same type, by field and name, INTO ``state``
+    (whose tensors a captured step may read)."""
+    for field, dst in state._asdict().items():
+        src = getattr(loaded, field) if not isinstance(loaded, dict) else loaded[field]
+        if isinstance(dst, dict):
+            if set(dst) != set(src):
+                raise ValueError(f"{field}: names {sorted(src)} do not match {sorted(dst)}")
+            for k, t in dst.items():
+                t.copy_(src[k])
+        else:
+            dst.copy_(src)
 
 
 def get_optimizer(name: str, lr: float):

@@ -420,13 +420,13 @@ def two_phase_sparse_adam(
     each id's first occurrence, the moments' rows are gathered, and table,
     mu and nu each receive ``old + delta`` as an ADD of the masked delta,
     so ``mu`` becomes ``mu + (new_mu - mu)``, rounded as the JAX scatter
-    rounds it.  ``table`` and the moments are updated in place and
-    returned with the new state."""
+    rounds it.  ``table``, the moments and the count are updated in place
+    and returned with the state."""
     if not isinstance(state, SparseAdamState):
         raise TypeError("the scatter update takes split moments (SparseAdamState)")
     _check_split(state)
     dim = g_rows.shape[-1]
-    count = state.count + 1
+    count = state.count.add_(1)  # in place: a captured step reads it
     t = count.to(torch.float32)
     g_sum = _segment_sum(g_rows, inv)
     mu_rows = gather_rows(state.mu, flat_ids, dim, pack_factor)
@@ -472,7 +472,8 @@ def two_phase_sparse_adam_unique(
     are written with one launch: ``rows_write_dual`` into the stacked
     container (``SparseAdamFoldedState``), or ``rows_write`` into (table,
     monu) (``SparseAdamPackedState``).  ``table`` (and the split
-    container) are updated IN PLACE and returned with the new state.
+    container) and the count are updated IN PLACE and returned with the
+    state.
     """
     folded = isinstance(state, SparseAdamFoldedState)
     split = isinstance(state, SparseAdamState)
@@ -490,7 +491,7 @@ def two_phase_sparse_adam_unique(
     P = pack_factor
     W = table.shape[1]
     Kp = pids.shape[0]
-    count = state.count + 1
+    count = state.count.add_(1)  # in place: a captured step reads it
     t = count.to(torch.float32)
     g_sum = _segment_sum(g_rows, inv)
     r = rep[:, None]

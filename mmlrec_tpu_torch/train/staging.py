@@ -1,17 +1,135 @@
-"""The two-phase step's fit-time resolution and host metadata (the port of
-the table-update part of ``mmlrec_tpu/train/staging.py``).
+"""Dataset staging, per-batch metadata and epoch execution for
+``Trainer.fit`` (the port of ``mmlrec_tpu/train/staging.py``, single
+device).
 
-Functions take the Trainer as their first argument, as there.  Staging the
-dataset on the device, the per-epoch metadata stacks, their compaction and
-the thread-ahead pool are ROADMAP A3: the port builds each batch's metadata
-on the step's thread.
+Everything between the host arrays and the step:
+
+* the dataset staged on the device once per fit (``stage_dataset``; ids
+  stay int32 in their own tensor, where the JAX package packs one f32
+  matrix) and batches taken from it by index on the device;
+* the two-phase step's fit-time resolution of ``table_update`` and
+  ``update_space`` and its host metadata (``step_metadata``: numpy or
+  ``native/step_metadata.cpp``), with the upload compaction codec
+  (``MetaCodec``: uint16 positions, uint8 masks, decoded on the device
+  after the per-step slice);
+* ``make_device_plan``: staged or streaming, block mode, the per-fit
+  buffers the step reads by its device step index, and the thread-ahead
+  pool that builds epoch e+1's index vector and metadata on a worker while
+  epoch e runs (``fs_host_prep``);
+* the epoch runners: ``run_gather_epoch`` (full shuffle), ``run_block_epoch``
+  (fixed batches in a new order each epoch), both through ``drive_steps``,
+  and ``run_streaming_epoch`` for a dataset over the cap, whose batches a
+  prefetch worker builds in order.
+
+``drive_steps`` is where ``scan_steps`` acts.  The JAX package runs L steps
+as one ``lax.scan`` dispatch; here a step reads its batch, weights and
+metadata from per-fit device buffers at ``epoch_step``, a device counter it
+advances itself, so the same step is captured once as a CUDA graph per
+(kind, batch, gate-warmup variant) and replayed L times per chunk without
+the host reading anything (``graphs.StepGraphs``).  Losses and
+probabilities go into device buffers that the fit reads once per epoch.
+With ``scan_steps`` 0 the step runs eagerly; on the CPU every chunk runs as
+eager steps.  Either way each step does the same operations on the same
+values, so the paths are bitwise equal.
+
+Uploads on the card come from pinned memory, without a sync; the worker
+threads upload on a side stream and order the main stream after them with
+an event.
 """
 
 from __future__ import annotations
 
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, NamedTuple, Optional, Tuple
+
 import numpy as np
+import torch
 
 from .sparse_embedding import batch_step_metadata
+
+
+# ---------------------------------------------------------------------------
+# uploads
+# ---------------------------------------------------------------------------
+
+
+def to_device(trainer, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+    """A host array on the trainer's device; on the card through pinned
+    memory and a copy that does not make the host wait."""
+    if a is None:
+        return None
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if trainer.device.type != "cuda":
+        return t
+    return t.pin_memory().to(trainer.device, non_blocking=True)
+
+
+class Upload(NamedTuple):
+    """Tensors uploaded on a side stream, and the event after their copies."""
+
+    tensors: tuple
+    event: Optional[torch.cuda.Event]
+
+
+def upload_async(trainer, arrays) -> Upload:
+    """Upload ``arrays`` (None entries stay None) from the calling thread:
+    on the card on the trainer's side stream, recorded by an event that
+    ``claim`` orders the main stream after."""
+    if trainer.device.type != "cuda":
+        return Upload(tuple(to_device(trainer, a) for a in arrays), None)
+    stream = trainer._upload_stream
+    with torch.cuda.stream(stream):
+        out = tuple(to_device(trainer, a) for a in arrays)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return Upload(out, event)
+
+
+def claim(up: Upload) -> tuple:
+    """The uploaded tensors, usable on the current stream."""
+    if up.event is not None:
+        current = torch.cuda.current_stream()
+        current.wait_event(up.event)
+        for t in up.tensors:
+            if t is not None:
+                t.record_stream(current)  # the side stream must not reuse them early
+    return up.tensors
+
+
+# ---------------------------------------------------------------------------
+# dataset staging
+# ---------------------------------------------------------------------------
+
+
+class Staged(NamedTuple):
+    """The dataset on the device: ids [N, S] int32, dense [N, Dd], labels
+    [N, T] and the domain mask [N, D] (or None), f32."""
+
+    ids: torch.Tensor
+    dense: torch.Tensor
+    y: torch.Tensor
+    dmask: Optional[torch.Tensor]
+
+
+def stage_dataset(trainer, ids, dense, y, dmask) -> Staged:
+    """Upload the dataset once (staging.py:48-77, single device)."""
+    return Staged(*(to_device(trainer, a) for a in (ids, dense, y, dmask)))
+
+
+def fetch_staged_rows(trainer, staged: Staged, idx: torch.Tensor) -> Staged:
+    """Rows ``idx`` [B] of the staged dataset, taken on the device."""
+    return Staged(*(None if a is None else a.index_select(0, idx) for a in staged))
+
+
+def split_staged(trainer, rows: Staged, weight: torch.Tensor) -> tuple:
+    """(ids, dense, y, dmask, weight): the step's batch."""
+    return (*rows, weight)
+
+
+# ---------------------------------------------------------------------------
+# table-update resolution + per-batch metadata
+# ---------------------------------------------------------------------------
 
 
 def resolve_table_update(trainer, batch_size: int) -> None:
@@ -59,3 +177,395 @@ def step_metadata(trainer, flat: np.ndarray) -> tuple:
         return batch_step_metadata(flat)
     return batch_step_metadata(flat, trainer._emb_pack_factor, trainer._emb_phys_rows,
                                want_route=trainer.dedup_route == "gather")
+
+
+def flat_ids(trainer, ids: np.ndarray, steps: int) -> np.ndarray:
+    """[steps * B, S] host ids -> [steps, B * F] fused logical ids."""
+    F = len(trainer.layout.sparse_slots)
+    return (np.asarray(ids)[:, :F].astype(np.int64) + trainer._host_offsets).reshape(steps, -1)
+
+
+# ---------------------------------------------------------------------------
+# metadata upload compaction (staging.py:253-399)
+# ---------------------------------------------------------------------------
+#
+# While K <= 65536 every position fits uint16 and the 0/1 masks fit uint8,
+# so the stacks upload at a half or a quarter of their width and decode on
+# the device right after the per-step slice.  A drop value that may equal
+# 65536 (slot16) is stored as 65535 and remapped on decode: a real 65535
+# never reaches it (see the JAX module).  uint16 travels as the int16 of
+# the same bits and decodes as ``& 0xFFFF``.
+
+_U16_MAX = 65535
+
+
+class MetaCodec:
+    """Per-fit encoder/decoder of the metadata tuple: ``encode`` maps the
+    host [steps, X] stacks to their upload form (numpy, as the JAX codec
+    makes them); ``decode`` maps one sliced device row back to the exact
+    int32 / f32 arrays the step reads."""
+
+    def __init__(self, kinds: Tuple[Tuple[str, int], ...]):
+        # kinds[i] = (kind, sentinel remap), kind in
+        # {"idx16", "mask8", "slot16", "raw", "dead"}
+        self.kinds = kinds
+
+    def encode(self, meta: tuple) -> tuple:
+        out = []
+        for (kind, sent), a in zip(self.kinds, meta):
+            if kind == "idx16":
+                out.append(a.astype(np.uint16))
+            elif kind == "slot16":
+                out.append(np.where(a >= sent, _U16_MAX, a).astype(np.uint16))
+            elif kind == "mask8":
+                out.append(a.astype(np.uint8))
+            elif kind == "dead":
+                out.append(np.zeros((a.shape[0], 1), np.uint8))
+            else:
+                out.append(a)
+        return tuple(out)
+
+    def decode(self, sliced: tuple) -> tuple:
+        out = []
+        for (kind, sent), a in zip(self.kinds, sliced):
+            if kind in ("idx16", "slot16"):
+                a = a.to(torch.int32) & 0xFFFF
+                out.append(torch.where(a == _U16_MAX, sent, a) if kind == "slot16" else a)
+            elif kind == "mask8":
+                out.append(a.to(torch.float32))
+            elif kind == "dead":
+                out.append(a.to(torch.int32))
+            else:
+                out.append(a)
+        return tuple(out)
+
+
+def meta_codec(trainer, meta: tuple) -> Optional[MetaCodec]:
+    """The compaction codec of this fit's metadata layout (staging.py:
+    329-371), or None when it cannot apply (K or Kp above 65,536) or
+    ``model_config.extra['meta_compact']`` is false.  The gather route's
+    kinds (``dead``, ``slot16``) come with its eleven-entry tuple (ROADMAP
+    A4); the position route uses ``idx16``, ``mask8`` and ``raw``."""
+    if not trainer.cfg.model_config.extra.get("meta_compact", True):
+        return None
+    K = meta[0].shape[1]
+    if K > _U16_MAX + 1:
+        return None
+    n = len(meta)
+    route = n > 6
+    slot_mode = trainer.update_space == "slot"
+    unique_update = trainer.table_update != "scatter"
+    Kp = meta[2].shape[1] if unique_update else 0
+    if unique_update and Kp > _U16_MAX + 1:
+        return None
+    kinds: List[Tuple[str, int]] = [("dead", 0) if route else ("idx16", 0), ("mask8", 0)]
+    if unique_update:
+        kinds += [("raw", 0), ("idx16", 0) if (slot_mode or not route) else ("dead", 0),
+                  ("raw", 0), ("mask8", 0)]
+        if route:
+            kinds += [("idx16", 0), ("idx16", 0), ("slot16", Kp), ("idx16", 0), ("slot16", K)]
+    assert len(kinds) == n, (len(kinds), n)
+    return MetaCodec(tuple(kinds))
+
+
+def encode_meta(trainer, meta: tuple) -> tuple:
+    """The upload form of ``meta`` under the fit's codec (made from the
+    first stacks, then kept: the step reads one encoded layout)."""
+    if trainer._meta_codec == "unset":
+        trainer._meta_codec = meta_codec(trainer, meta)
+    return meta if trainer._meta_codec is None else trainer._meta_codec.encode(meta)
+
+
+def upload_form(a: np.ndarray) -> np.ndarray:
+    """uint16 travels as the int16 of the same bits."""
+    return a.view(np.int16) if a.dtype == np.uint16 else a
+
+
+def slice_dedup(trainer, dedup2d, s: torch.Tensor) -> Optional[tuple]:
+    """Row ``s`` ([1] device index) of the per-epoch metadata stacks,
+    decoded to the step's dtypes; None without stacks."""
+    if dedup2d is None:
+        return None
+    sliced = tuple(a.index_select(0, s)[0] for a in dedup2d)
+    codec = trainer._meta_codec
+    return sliced if codec in (None, "unset") else codec.decode(sliced)
+
+
+# ---------------------------------------------------------------------------
+# the fit plan (staging.py:407-518, single device)
+# ---------------------------------------------------------------------------
+
+
+class Plan:
+    """What ``make_device_plan`` decided and staged for one fit.
+
+    On the staged path the step reads, at ``epoch_step``: ``arg`` (the
+    epoch's [steps, B] row indices, or its [steps] batch starts in block
+    mode), ``w2d`` [steps, B] and ``dedup`` (the encoded metadata stacks);
+    it writes ``loss`` [steps] and ``probs`` [steps, B, H].  These buffers
+    live as long as the fit: a captured step reads their addresses."""
+
+    use_device_data = block_mode = False
+    staged: Optional[Staged] = None
+    block_w = block_w_dev = block_dedup = fs_pool = None
+    arg = w2d = loss = probs = epoch_step = arange_b = arange_all = None
+    dedup: Optional[tuple] = None
+    steps = 0
+
+
+def _buffer_like(trainer, rows: int, a: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((rows,) + tuple(a.shape[1:]), dtype=a.dtype, device=trainer.device)
+
+
+def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch,
+                     n, rng_np, epochs, initial_epoch, max_steps):
+    """Decide the fit path and stage what it needs; returns (plan, ids,
+    dense, y, dmask), the arrays pre-shuffled in block mode.
+
+    The dataset is staged when its bytes x 2 are under
+    ``trainer._device_data_bytes_cap`` (4 GB).  Block mode (``shuffle=
+    "block"``) permutes the rows once, pads the tail with row 0 at weight
+    0, stages the weights once and, with host metadata, builds every
+    batch's metadata once per fit: the batches are fixed and only their
+    order changes.  The port's streaming path runs block mode the same way
+    (pre-shuffled rows, the batch order drawn each epoch), where the JAX
+    streaming loop keeps the data order; so both paths give one fit.  The
+    thread-ahead pool serves full-shuffle two-phase fits with host metadata
+    over more than one epoch (staging.py:489-515)."""
+    plan = Plan()
+    plan.steps = steps_per_epoch
+    dataset_bytes = ids.nbytes + dense.nbytes + y.nbytes
+    plan.use_device_data = dataset_bytes * 2 < trainer._device_data_bytes_cap
+    plan.block_mode = shuffle == "block"
+    host_meta = trainer.two_phase_embedding and not trainer.device_metadata
+    if plan.block_mode:
+        pre = rng_np.permutation(n)
+        ids, dense, y = ids[pre], dense[pre], y[pre]
+        dmask = dmask[pre] if dmask is not None else None
+        plan.block_w = np.ones((steps_per_epoch, batch_size), np.float32)
+        pad_tail = steps_per_epoch * batch_size - n
+        if pad_tail:
+            plan.block_w[-1, batch_size - pad_tail:] = 0.0
+    if not plan.use_device_data:
+        return plan, ids, dense, y, dmask
+    dev = trainer.device
+    plan.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
+    plan.loss = torch.zeros(steps_per_epoch, dtype=torch.float32, device=dev)
+    plan.w2d = torch.zeros(steps_per_epoch, batch_size, dtype=torch.float32, device=dev)
+    if plan.block_mode:
+        pad_tail = steps_per_epoch * batch_size - n
+
+        def padded(a):
+            return np.concatenate([a, np.repeat(a[:1], pad_tail, 0)]) if pad_tail else a
+
+        plan.staged = stage_dataset(trainer, padded(ids), padded(dense), padded(y),
+                                    padded(dmask) if dmask is not None else None)
+        plan.block_w_dev = to_device(trainer, plan.block_w)
+        plan.arg = torch.zeros(steps_per_epoch, dtype=torch.int64, device=dev)
+        plan.arange_b = torch.arange(batch_size, dtype=torch.int64, device=dev)
+        if host_meta:
+            meta = encode_meta(trainer, step_metadata(
+                trainer, flat_ids(trainer, padded(ids), steps_per_epoch)))
+            plan.block_dedup = tuple(to_device(trainer, upload_form(a)) for a in meta)
+            plan.dedup = tuple(_buffer_like(trainer, steps_per_epoch, a)
+                               for a in plan.block_dedup)
+    else:
+        plan.staged = stage_dataset(trainer, ids, dense, y, dmask)
+        plan.arg = torch.zeros(steps_per_epoch, batch_size, dtype=torch.int64, device=dev)
+        plan.arange_all = torch.arange(steps_per_epoch * batch_size, device=dev)
+    if (not plan.block_mode and shuffle is True and trainer.two_phase_embedding
+            and not max_steps and trainer._prefetch_batches > 0 and epochs - initial_epoch > 1):
+        plan.fs_pool = ThreadPoolExecutor(max_workers=1)
+    return plan, ids, dense, y, dmask
+
+
+def close_plan(plan: Plan) -> None:
+    if plan.fs_pool is not None:
+        plan.fs_pool.shutdown(wait=True, cancel_futures=True)
+        plan.fs_pool = None
+
+
+# ---------------------------------------------------------------------------
+# eval tensor staging (staging.py:526-586)
+# ---------------------------------------------------------------------------
+
+
+class EvalTensors(NamedTuple):
+    """[steps, B, ...] device tensors of a fixed eval set and its row count."""
+
+    ids: torch.Tensor
+    dense: torch.Tensor
+    dmask: Optional[torch.Tensor]
+    n: int
+
+
+def prepare_eval_tensors(trainer, ids, dense, dmask, batch_size: int) -> EvalTensors:
+    """Pad with the last row to whole batches and upload once; the mask only
+    when the model reads it (``masked_loss``)."""
+    n = len(ids)
+    steps = (n - 1) // batch_size + 1
+    pad = steps * batch_size - n
+    if not (trainer.cfg.model_config.masked_loss and dmask is not None):
+        dmask = None
+
+    def prep(a):
+        if a is None:
+            return None
+        if pad:
+            a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+        return to_device(trainer, a.reshape(steps, batch_size, *a.shape[1:]))
+
+    return EvalTensors(prep(ids), prep(dense), prep(dmask), n)
+
+
+def prepare_metric_tensors(trainer, y, total: int):
+    """(labels, weights) on the device for ``total`` staged rows: labels
+    padded with their last row, weight 1 on the real rows and 0 on the pads
+    (staging.py:563-573)."""
+    y2 = np.asarray(y, np.float32)
+    n = len(y2)
+    if total > n:
+        y2 = np.concatenate([y2, np.repeat(y2[-1:], total - n, axis=0)])
+    return (to_device(trainer, y2),
+            to_device(trainer, (np.arange(total) < n).astype(np.float32)))
+
+
+def prepare_mask_tensor(trainer, test_mask, total: int):
+    """The [N, D] test mask padded to the staged length with all-zero rows."""
+    if test_mask is None:
+        return None
+    tm = np.asarray(test_mask, np.float32)
+    if total > len(tm):
+        tm = np.concatenate([tm, np.zeros((total - len(tm),) + tm.shape[1:], np.float32)])
+    return to_device(trainer, tm)
+
+
+# ---------------------------------------------------------------------------
+# epoch executors (staging.py:594-780)
+# ---------------------------------------------------------------------------
+
+
+def drive_steps(trainer, kind: str, plan: Plan, batch_size: int, steps_this_epoch: int) -> None:
+    """Run one epoch's steps on the staged path: chunks of ``scan_steps``
+    graph replays (the whole epoch for ``true``), or eager steps for 0, in
+    debug mode and on the CPU."""
+    body = trainer._staged_step_body(kind, plan, batch_size)
+    key = (kind, batch_size, trainer._gate_warmup_active)
+    scan = trainer._scan_steps
+    graphs = trainer._graphs if scan and not trainer.debug else None
+    pos = 0
+    while pos < steps_this_epoch:
+        L = (steps_this_epoch - pos if scan < 0
+             else min(scan, steps_this_epoch - pos) if scan else 1)
+        for _ in range(L):
+            trainer._reseed()
+            if graphs is None:
+                body()
+            else:
+                graphs.run(key, body)
+        pos += L
+
+
+def _rows_into(buffer: torch.Tensor, steps: int, values: torch.Tensor) -> None:
+    buffer[:steps].copy_(values)
+
+
+def run_block_epoch(trainer, plan: Plan, batch_size, steps_per_epoch, steps_this_epoch,
+                    batch_order):
+    """One epoch in block mode: the batches' composition is fixed, their
+    order new; the staged weights and metadata stacks are reordered on the
+    device by one index take each (staging.py:625-655)."""
+    L = steps_this_epoch
+    order = to_device(trainer, batch_order.astype(np.int64))
+    _rows_into(plan.arg, L, order * batch_size)
+    _rows_into(plan.w2d, L, plan.block_w_dev.index_select(0, order))
+    if plan.block_dedup is not None:
+        for buf, a in zip(plan.dedup, plan.block_dedup):
+            _rows_into(buf, L, a.index_select(0, order))
+    drive_steps(trainer, "slice", plan, batch_size, L)
+    valid = plan.block_w[batch_order].reshape(-1) > 0
+    host_rows = (np.arange(steps_per_epoch * batch_size).reshape(steps_per_epoch, batch_size)
+                 [batch_order].reshape(-1)[valid])
+    spans = [(int(c), int(c)) for c in plan.block_w[batch_order].sum(axis=1)]
+    return valid, host_rows, int(valid.sum()), spans
+
+
+def fs_host_prep(trainer, ids, n, batch_size, order_e, steps_e):
+    """Full-shuffle epoch host prep (staging.py:757-780): the padded index
+    vector and, for the two-phase step with host metadata, the epoch's
+    metadata stacks, encoded and uploaded from the calling thread (the
+    worker, when threaded ahead) so the copies ride during the previous
+    epoch's steps."""
+    padded_e = steps_e * batch_size
+    idx_e = np.zeros(padded_e, np.int64)
+    take_e = min(n, padded_e)
+    idx_e[:take_e] = order_e[:take_e]
+    arrays = [idx_e.reshape(steps_e, batch_size)]
+    if trainer.two_phase_embedding and not trainer.device_metadata:
+        meta = step_metadata(trainer, flat_ids(trainer, ids[idx_e], steps_e))
+        arrays += [upload_form(a) for a in encode_meta(trainer, meta)]
+    return idx_e, take_e, upload_async(trainer, arrays)
+
+
+def run_gather_epoch(trainer, plan: Plan, prep, batch_size, steps_this_epoch):
+    """One full-shuffle epoch over the staged dataset (staging.py:658-688):
+    the step takes its rows by the epoch's shuffled indices; the weights
+    are built on the device from ``take``."""
+    idx_full, take, up = prep
+    L = steps_this_epoch
+    idx2d, *meta = claim(up)
+    _rows_into(plan.arg, L, idx2d)
+    _rows_into(plan.w2d, L, (plan.arange_all[:L * batch_size] < take).to(torch.float32)
+               .view(L, batch_size))
+    if meta:
+        if plan.dedup is None:
+            plan.dedup = tuple(_buffer_like(trainer, plan.steps, a) for a in meta)
+        for buf, a in zip(plan.dedup, meta):
+            _rows_into(buf, L, a)
+    drive_steps(trainer, "gather", plan, batch_size, L)
+    spans = [(min(batch_size, take - s * batch_size),) * 2 for s in range(L)]
+    return None, idx_full[:take], take, spans
+
+
+def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_this_epoch,
+                        block_w=None):
+    """Streaming path (staging.py:691-754), for a dataset over the cap: a
+    single prefetch worker builds each batch (host slicing, the two-phase
+    host metadata, the upload from pinned memory on a side stream) up to
+    ``prefetch_batches`` ahead; one worker keeps the batch order, so the
+    fit equals the synchronous loop's.  ``order`` holds each step's rows
+    (padded with row 0 at weight 0); ``block_w`` the block mode's weights.
+    Returns (losses, probs, weights) device tensors and the spans."""
+    host_meta = trainer.two_phase_embedding and not trainer.device_metadata
+
+    def make_batch(s):
+        idx = order[s * batch_size:(s + 1) * batch_size]
+        weight = np.ones(batch_size, np.float32) if block_w is None else block_w[s]
+        pad = batch_size - len(idx)
+        if pad:
+            weight = weight.copy()
+            weight[len(idx):] = 0.0
+            idx = np.concatenate([idx, np.zeros(pad, np.int64)])
+        arrays = [ids[idx], dense[idx], y[idx], dmask[idx] if dmask is not None else None,
+                  weight]
+        if host_meta:
+            arrays += [a[0] for a in step_metadata(trainer, flat_ids(trainer, ids[idx], 1))]
+        return weight, upload_async(trainer, arrays)
+
+    losses, probs, spans = [], [], []
+    depth = max(int(trainer._prefetch_batches), 1)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = deque(pool.submit(make_batch, s) for s in range(min(depth, steps_this_epoch)))
+        for s in range(steps_this_epoch):
+            weight, up = pending.popleft().result()
+            if s + depth < steps_this_epoch:
+                pending.append(pool.submit(make_batch, s + depth))
+            batch = claim(up)
+            trainer._reseed()
+            total, _, p = trainer._step_on_batch(*batch[:5], meta=batch[5:] or None)
+            losses.append(total)
+            if trainer.metric_fns:
+                probs.append(p)
+            spans.append((len(weight), int(weight.sum())))
+    return losses, probs, spans
+

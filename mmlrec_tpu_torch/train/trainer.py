@@ -33,20 +33,32 @@ host metadata:
 
 No ``[V, D]`` gradient or moment exists there.  Neither step reads a device
 value on the host (host metadata is built from the host's copy of the
-ids): a fit synchronises once per epoch, for the loss and the collected
-probabilities.
+ids), and every state either step carries (parameters, moments, counts,
+BatchNorm statistics) is updated in place.
+
+**The fit** takes the JAX package's default path (``train/staging.py``):
+the dataset is staged on the device once when its bytes x 2 are under
+4 GB, each step takes its batch there by a device step index, and
+``scan_steps`` (unset = 16, ``true`` = the whole epoch, 0 = off) runs the
+steps as replays of one captured CUDA graph (``train/graphs.py``); the
+optimizer steps all dense tensors as one flat vector (``flat_optimizer``);
+host metadata of the next epoch is built on a worker while the current
+one runs; a larger dataset streams with a prefetch worker
+(``prefetch_batches``).  Validation, ``predict``, ``evaluate`` and the
+test metrics replay one captured forward per batch.  A fit synchronises
+once per epoch, for the loss and the collected probabilities.
 
 Every knob that is not ported raises NotImplementedError naming its
 ROADMAP item: the unique update, split bf16 and f16 moments, the gather
 dedup route and slot space (A4), per-task gradient methods and the CKA
-loss (A6), meshes (A9), scanned steps, the flat optimizer and the staged
-dataset (A3).
+loss (A6), meshes (A9).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -58,9 +70,10 @@ from ..models.base import RecModel
 from ..ops.embedding import fused_table_geometry, pack_factor_for
 from ..ops.row_gather import rows_gather_dual
 from . import checkpointing, device_metrics, staging
+from .graphs import StepGraphs
 from .losses import l2_regularization, multitask_loss
 from .metrics import get_metric_fns, regime_eval
-from .optimizers import get_optimizer
+from .optimizers import Adam, Flat, _Elementwise, get_optimizer
 from .sparse_embedding import (
     SparseAdamFoldedState,
     device_step_metadata,
@@ -70,6 +83,11 @@ from .sparse_embedding import (
 )
 
 _TABLE = "embeddings.fused.table"
+#: ``predict``, ``evaluate`` and the test metrics capture their forward from
+#: this many batches on; fewer run eagerly, where a capture (a synchronise,
+#: a garbage collection, a private memory pool) costs more than the replays
+#: save (``chip_smoke.py`` phase 12 times both)
+EVAL_GRAPH_MIN_BATCHES = 16
 
 
 def stacked_auto_conditions(cfg, layout, batch_size, device="cuda") -> bool:
@@ -144,12 +162,16 @@ class Trainer:
         device: Union[str, torch.device, None] = None,
     ):
         """``device=None`` means the card, and raises when there is none;
-        ``device="cpu"`` runs every kernel's plain version."""
+        ``device="cpu"`` runs every kernel's plain version.  ``debug=True``
+        (trainer.py:147-154) turns on ``torch.autograd.set_detect_anomaly``
+        and checks every step's loss and probabilities on the host: either
+        raises a FloatingPointError, as jax_debug_nans does; it runs every
+        step and eval batch eagerly, as the JAX trainer turns donation off."""
         if mesh is not None:
             raise NotImplementedError("meshes are not ported yet (ROADMAP A9)")
-        if debug:
-            raise NotImplementedError(
-                "debug (NaN checking, jax_debug_nans) is not ported yet (ROADMAP A3)")
+        self.debug = bool(debug)
+        if self.debug:
+            torch.autograd.set_detect_anomaly(True)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -162,6 +184,8 @@ class Trainer:
         self.layout = model.layout
         self.seed = seed
         self.history: List[Dict[str, float]] = []
+        #: per epoch, the metrics of each training batch (``batch_metric_curves``)
+        self.batch_history: List[List[Dict[str, float]]] = []
         self.opt_state = None
         self.table_opt = None
         #: the parameters and BatchNorm statistics of the last fit's best
@@ -170,6 +194,15 @@ class Trainer:
         #: and ``evaluate`` read them.
         self.best_variables: Optional[Dict[str, torch.Tensor]] = None
         self.throughput_examples_per_s: Optional[float] = None
+        #: CUDA-graph replays of the last fit's steps and validation batches
+        self.graph_replays: Dict[str, int] = {"train": 0, "eval": 0}
+        #: per epoch of the last fit, host seconds spent on the epoch's
+        #: indices and metadata (waiting for the worker included), on issuing
+        #: its steps, and on the loss read that waits for the card; on the
+        #: card also ``steps_device_s``, the card's time between two events
+        #: around the epoch's steps (their device time when the host keeps
+        #: ahead of the card, else waits for the host included)
+        self.fit_timing: List[Dict[str, float]] = []
         # (epochs done, best val_auc, epochs without a new best, best
         # snapshot) of the last fit, which save_training_state records
         self._progress = None
@@ -181,6 +214,12 @@ class Trainer:
         self._dropout_master = torch.Generator().manual_seed(seed + 1)
         self._dropout_gen = torch.Generator(device=self.device)
         self.model.set_dropout_generator(self._dropout_gen)
+        # the fit's captured steps (staging.drive_steps); None between fits
+        self._graphs: Optional[StepGraphs] = None
+        self._meta_codec = "unset"
+        # the side stream of the worker threads' uploads
+        self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                               else None)
 
         mc = self.cfg.model_config
         self.task_name = mc.task_name
@@ -208,30 +247,22 @@ class Trainer:
                 "per-task gradient methods are not ported yet (ROADMAP A6)")
         if mc.use_cka_loss and self.task_name in ("msl", "mtmsl"):
             raise NotImplementedError("the CKA domain loss is not ported yet (ROADMAP A6)")
-        if extra.get("scan_steps"):
-            raise NotImplementedError(
-                "scanned steps (scan_steps) are not ported yet (ROADMAP A3); the "
-                "port runs one step per batch")
         if extra.get("sparse_embedding_update"):
             raise NotImplementedError(
                 "sparse_embedding_update is not ported yet (ROADMAP A4)")
-        if extra.get("batch_metric_curves"):
-            raise NotImplementedError(
-                "batch_metric_curves is not ported yet (ROADMAP A3)")
-        # the JAX trainer's host-loop knobs that the port would otherwise
-        # ignore: the fused optimizer vector (bit-exact either way there) and
-        # the prefetch thread's depth
-        if extra.get("flat_optimizer", True) is not True:
-            raise NotImplementedError(
-                "flat_optimizer is not ported yet (ROADMAP A3); the port keeps "
-                "one tensor per parameter")
-        if int(extra.get("prefetch_batches", 2)) != 2:
-            raise NotImplementedError(
-                "prefetch_batches is not ported yet (ROADMAP A3); the port "
-                "builds each batch on the step's thread")
+        # the fit's host loop (trainer.py:505-522): the streaming prefetch
+        # depth (1 = synchronous), the staging cap (datasets whose bytes x 2
+        # are below it are staged on the device), and scan_steps: unset =
+        # 16 steps a chunk, true = the whole epoch, 0 = eager steps
+        self._prefetch_batches = int(extra.get("prefetch_batches", 2))
+        self._device_data_bytes_cap = 4 * 1024**3
+        raw_scan = extra.get("scan_steps", None)
+        self._scan_steps = 16 if raw_scan is None else (
+            -1 if raw_scan is True else int(raw_scan or 0))
         # the first E epochs train stochastic gates at their midpoint
-        # (mmlrec_tpu/train/trainer.py:523-533)
+        # (mmlrec_tpu/train/trainer.py:523-533); a separate captured step
         self._gate_warmup_epochs = int(extra.get("snr_gate_noise_warmup_epochs", 0) or 0)
+        self._gate_warmup_active = False
         self.two_phase_embedding = bool(extra.get("two_phase_embedding"))
         fused = self.model.embeddings.fused
         if not self.two_phase_embedding:
@@ -333,16 +364,34 @@ class Trainer:
     # compile
     # ------------------------------------------------------------------
     def compile(self, optimizer=None, loss=None, metrics=None):
-        """Bind optimizer, loss and metrics (reference basemodel.py:557-567)."""
+        """Bind optimizer, loss and metrics (reference basemodel.py:557-567).
+        ``optimizer``: a name, or an optimizer object of
+        ``train/optimizers.py`` (trainer.py:544-546); the elementwise ones
+        step as one flat vector when ``_use_flat_optimizer`` says so."""
         oc = self.cfg.optim_config
-        name = optimizer or oc.optimizer
-        if self.two_phase_embedding and (name or "").lower() != "adam":
+        opt = optimizer or oc.optimizer
+        tx = get_optimizer(opt, oc.lr) if isinstance(opt, str) else opt
+        if self.two_phase_embedding and not isinstance(tx, Adam):
             raise ValueError("two_phase_embedding implements SparseAdam")
-        self.tx = get_optimizer(name, oc.lr)
+        if self._use_flat_optimizer() and isinstance(tx, _Elementwise):
+            tx = Flat(tx)
+        self.tx = tx
         loss = loss if loss is not None else oc.loss
         self.loss_names = [loss] if isinstance(loss, str) else list(loss)
         self.metric_fns = get_metric_fns(metrics if metrics is not None else oc.metrics)
         return self
+
+    def _use_flat_optimizer(self) -> bool:
+        """trainer.py:561-580 without meshes and the masked sparse path
+        (both refused): off with ``flat_optimizer: false``; on for the
+        two-phase step, whose table is not the dense optimizer's; else on
+        while the embedding tables hold under 2^22 elements (the flat
+        vector would copy a larger table every step)."""
+        if not self.cfg.model_config.extra.get("flat_optimizer", True):
+            return False
+        if self.two_phase_embedding:
+            return True
+        return sum(v * d for v, d in self.layout.embedding_specs.values()) < (1 << 22)
 
     # ------------------------------------------------------------------
     # input packing (trainer.py:585-636)
@@ -476,18 +525,67 @@ class Trainer:
         a last partial batch included, as in the JAX step) and moves its
         running ones.  ``meta``: the batch's host dedup metadata on the
         device (``host_metadata``) when the two-phase step reads host
-        metadata; built here from ``ids`` when not given."""
+        metadata; when it is not given it is built here from ``ids`` read
+        back to the host, the one way a step synchronises (the fit always
+        passes it, from its host copy of the ids)."""
         if self.opt_state is None:
             self.init_state()
+        self._reseed()
+        return self._step_on_batch(ids, dense, y, dmask, weight, meta)
+
+    def _reseed(self) -> None:
+        """Seed the step's draws from the host generator: one draw per step,
+        so they are a function of (seed, step) on every path, a replayed
+        step's included (the graph reads the generator at its replay)."""
         seed = int(torch.randint(0, 2**62, (), generator=self._dropout_master))
         self._dropout_gen.manual_seed(seed)
+
+    def _step_on_batch(self, ids, dense, y, dmask, weight, meta=None):
+        """The step without the reseed: what a captured graph holds."""
         self.model.train()
         try:
             if self.two_phase_embedding:
-                return self._train_step_two_phase(ids, dense, y, dmask, weight, meta)
-            return self._train_step_dense(ids, dense, y, dmask, weight)
+                out = self._train_step_two_phase(ids, dense, y, dmask, weight, meta)
+            else:
+                out = self._train_step_dense(ids, dense, y, dmask, weight)
+        except RuntimeError as e:  # anomaly detection's NaN out of a backward
+            if self.debug and "nan" in str(e):
+                raise FloatingPointError(f"debug: {e}") from e
+            raise
         finally:
             self.model.eval()
+        if self.debug:
+            for name, t in zip(("loss", "data loss", "probabilities"), out):
+                if not bool(torch.isfinite(t).all()):
+                    raise FloatingPointError(f"debug: the step's {name} is not finite")
+        return out
+
+    def _staged_step_body(self, kind: str, plan, batch_size: int):
+        """The step of the staged path (trainer.py:1209-1239): at ``s =
+        epoch_step % steps`` it takes its row indices (``"gather"``) or its
+        batch start (``"slice"``, block mode), weights and metadata from the
+        epoch's stacks, steps, writes its loss and probabilities at ``s``
+        and advances ``epoch_step``, all on the device."""
+        steps = plan.steps
+
+        def body():
+            s = torch.remainder(plan.epoch_step, steps)
+            w = plan.w2d.index_select(0, s)[0]
+            if kind == "slice":
+                idx = plan.arg.index_select(0, s) + plan.arange_b
+            else:
+                idx = plan.arg.index_select(0, s)[0]
+            batch = staging.split_staged(self, staging.fetch_staged_rows(self, plan.staged, idx), w)
+            total, _, probs = self._step_on_batch(
+                *batch, meta=staging.slice_dedup(self, plan.dedup, s))
+            plan.loss.index_copy_(0, s, total.reshape(1))
+            if self.metric_fns:
+                if plan.probs is None:  # the first call is eager: the shape is known there
+                    plan.probs = torch.zeros((steps,) + tuple(probs.shape), device=self.device)
+                plan.probs.index_copy_(0, s, probs[None])
+            plan.epoch_step.add_(1)
+
+        return body
 
     def host_metadata(self, ids: np.ndarray) -> Tuple[torch.Tensor, ...]:
         """The dedup metadata of one batch of host ids [B, S], built on the
@@ -545,10 +643,10 @@ class Trainer:
         return total.detach(), data_loss.detach(), probs.detach()
 
     # ------------------------------------------------------------------
-    # fit (streaming, one step per batch; trainer.py:1366-1538)
+    # fit (trainer.py:1366-1747)
     # ------------------------------------------------------------------
     def _to_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
-        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return staging.to_device(self, a)
 
     def fit(
         self,
@@ -559,20 +657,22 @@ class Trainer:
         initial_epoch: int = 0,
         validation_split: float = 0.0,
         validation_data=None,
-        shuffle: bool = True,
+        shuffle: Union[bool, str] = True,
         verbose: int = 1,
         resume_from: Optional[str] = None,
         epoch_callback=None,
     ) -> "Trainer":
-        """Stream ``x`` through the training step, one batch per step
-        (trainer.py:1366-1747).
+        """Train on ``x`` (trainer.py:1366-1747).
 
         Each call draws its epoch orders from ``np.random.default_rng(seed)``
-        (``permutation(n)`` per epoch, or the identity with
-        ``shuffle=False``); the last partial batch is padded with dataset
-        row 0 at weight 0, as the JAX fit does.  ``validation_split`` takes
-        the tail of the data, before any shuffling; ``validation_data`` is
-        ``(x, y)``.  With validation, the epoch with the best ``val_auc``
+        as the JAX fit does: ``permutation(n)`` per epoch, the identity with
+        ``shuffle=False``, or with ``shuffle="block"`` one permutation of
+        the rows per fit and one of the batch order per epoch; the last
+        partial batch is padded with row 0 at weight 0.  The dataset is
+        staged on the device when its bytes x 2 are under 4 GB, else it
+        streams (``train/staging.py``).  ``validation_split`` takes the tail
+        of the data, before any shuffling; ``validation_data`` is ``(x,
+        y)``.  With validation, the epoch with the best ``val_auc``
         (strictly above every earlier one, from 0.0) is kept as
         ``best_variables``, and the fit stops after ``optim_config.early_stop``
         epochs in a row without a new best.  Validation metrics come from the
@@ -580,26 +680,22 @@ class Trainer:
         ``training_config.device_eval`` is set and every compiled metric has
         a device form, else from the host.  With compiled metrics each
         epoch also logs them over its own training predictions (pad rows
-        left out).  ``training_config.max_steps`` caps the steps of the call.
-        With the two-phase step and host metadata, each batch's metadata is
-        built on the host before its step.
+        left out), and ``batch_metric_curves`` adds each batch's metrics to
+        ``batch_history`` and their means as ``batch_mean_<metric>``.
+        ``training_config.max_steps`` caps the steps of the call.
+        ``epoch_callback(epoch, trainer)`` runs after each epoch's log.
 
         ``resume_from`` (a ``save_training_state`` directory) restores the
         whole training state and continues at its epoch; ``save_config.save``
         writes the best variables at the end (``save_checkpoint``; a failed
-        save prints and the fit returns, as in the JAX trainer).
-
-        The dataset stays on the host: staging it on the device, block
-        shuffle, scanned steps and the thread-ahead pool are ROADMAP A3."""
-        if epoch_callback is not None:
-            raise NotImplementedError("epoch_callback is not ported yet (ROADMAP A3)")
-        if shuffle not in (True, False):
-            raise NotImplementedError(
-                f"shuffle={shuffle!r} (staged block mode) is not ported yet (ROADMAP A3)")
+        save prints and the fit returns, as in the JAX trainer)."""
+        if shuffle not in (True, False, "block"):
+            raise ValueError(f"shuffle must be True, False or 'block', got {shuffle!r}")
         if not hasattr(self, "tx"):
             raise RuntimeError("call compile() before fit()")
         oc = self.cfg.optim_config
         batch_size = batch_size or 256
+        self._meta_codec = "unset"  # per fit: it follows this fit's K and Kp
         if self.two_phase_embedding:
             staging.resolve_table_update(self, batch_size)
         ids, dense = self.pack_inputs(x)
@@ -627,66 +723,130 @@ class Trainer:
             initial_epoch, best_auc, early_stop_count, best_snapshot = self._progress
             if verbose:
                 print(f"resumed from {resume_from} at epoch {initial_epoch}")
-        host_meta = self.two_phase_embedding and not self.device_metadata
         steps_per_epoch = (n - 1) // batch_size + 1
         max_steps = self.cfg.training_config.max_steps or 0
         if verbose:
             print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
                   f"{steps_per_epoch} steps per epoch")
         rng_np = np.random.default_rng(self.seed)
+        plan, ids, dense, y, dmask = staging.make_device_plan(
+            self, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch, n, rng_np,
+            epochs, initial_epoch, max_steps)
+        self._graphs = StepGraphs(self.device, self._dropout_gen)
+        self.fit_timing = []
+        try:
+            self._fit_epochs(plan, ids, dense, y, dmask, val, batch_size, epochs,
+                             initial_epoch, shuffle, steps_per_epoch, n, rng_np, max_steps,
+                             verbose, epoch_callback, best_auc, early_stop_count,
+                             best_snapshot)
+        finally:
+            staging.close_plan(plan)
+            replays = self._graphs.replays
+            self.graph_replays = {
+                "train": sum(v for k, v in replays.items() if k[0] != "eval"),
+                "eval": sum(v for k, v in replays.items() if k[0] == "eval")}
+            self._graphs = None
+        if self.cfg.save_config.save:
+            try:
+                self.save_checkpoint(self.cfg.save_config.save_path)
+            except Exception as e:  # a file-system failure ends no fit (trainer.py:1742-1746)
+                print(f"checkpoint save failed: {e}")
+        return self
+
+    def _fit_epochs(self, plan, ids, dense, y, dmask, val, batch_size, epochs, initial_epoch,
+                    shuffle, steps_per_epoch, n, rng_np, max_steps, verbose, epoch_callback,
+                    best_auc, early_stop_count, best_snapshot) -> None:
+        oc = self.cfg.optim_config
         total_steps = examples_seen = 0
         train_time = 0.0
-        val_batches = val_metric = None
+        val_program = val_metric = None
+        fs_future = None
+        fs_prep = (lambda order_e, steps_e: staging.fs_host_prep(
+            self, ids, n, batch_size, order_e, steps_e))
         for epoch in range(initial_epoch, epochs):
             t0 = time.time()
             if self._gate_warmup_epochs:
-                self.model.set_gate_noise_off(epoch < self._gate_warmup_epochs)
-            order = rng_np.permutation(n) if shuffle else np.arange(n)
+                self._gate_warmup_active = epoch < self._gate_warmup_epochs
+                self.model.set_gate_noise_off(self._gate_warmup_active)
+            if plan.fs_pool is not None and fs_future is not None:
+                order = None  # drawn ahead, in the synchronous loop's order
+            else:
+                order = rng_np.permutation(n) if shuffle is True else np.arange(n)
             steps = steps_per_epoch
             if max_steps:
                 steps = min(steps_per_epoch, max_steps - total_steps)
                 if steps <= 0:
                     break
-            take = min(n, steps * batch_size)  # the epoch's real rows; the rest are pads
-            losses, probs = [], []
-            for s in range(steps):
-                idx = order[s * batch_size:(s + 1) * batch_size]
-                weight = np.ones(batch_size, np.float32)
-                pad = batch_size - len(idx)
-                if pad:
-                    weight[len(idx):] = 0.0
-                    idx = np.concatenate([idx, np.zeros(pad, np.int64)])
-                meta = self.host_metadata(ids[idx]) if host_meta else None
-                total, _, p = self.train_step(
-                    self._to_device(ids[idx]), self._to_device(dense[idx]),
-                    self._to_device(y[idx]),
-                    self._to_device(dmask[idx]) if dmask is not None else None,
-                    self._to_device(weight), meta=meta)
-                losses.append(total)
-                if self.metric_fns:
-                    probs.append(p)
+            batch_order = None
+            if plan.block_mode:
+                batch_order = rng_np.permutation(steps_per_epoch)[:steps]
+            clock = time.perf_counter()
+            prep = None
+            if plan.use_device_data and not plan.block_mode:
+                if plan.fs_pool is None:
+                    prep = fs_prep(order, steps)
+                else:
+                    prep = fs_prep(order, steps) if fs_future is None else fs_future.result()
+                    fs_future = None
+                    if epoch + 1 < epochs:
+                        fs_future = plan.fs_pool.submit(fs_prep, rng_np.permutation(n),
+                                                        steps_per_epoch)
+            timing = {"prep_s": time.perf_counter() - clock}
+            clock = time.perf_counter()
+            events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                      if self.device.type == "cuda" else None)
+            if events:
+                events[0].record()
+            if plan.use_device_data:
+                plan.epoch_step.zero_()
+                if plan.block_mode:
+                    valid, host_rows, take, spans = staging.run_block_epoch(
+                        self, plan, batch_size, steps_per_epoch, steps, batch_order)
+                else:
+                    valid, host_rows, take, spans = staging.run_gather_epoch(
+                        self, plan, prep, batch_size, steps)
+                loss_vec = plan.loss[:steps]
+                probs_dev = plan.probs[:steps] if self.metric_fns else None
+            else:
+                valid, host_rows, take, spans, loss_vec, probs_dev = self._streaming_epoch(
+                    plan, order, batch_order, ids, dense, y, dmask, batch_size, steps, n)
+            if events:
+                events[1].record()
+            timing["issue_s"] = time.perf_counter() - clock
+            clock = time.perf_counter()
             total_steps += steps
             examples_seen += take
-            epoch_loss = float(torch.stack(losses).sum())  # the epoch's first sync
+            epoch_loss = float(loss_vec.sum())  # the epoch's first sync
+            timing["sync_s"] = time.perf_counter() - clock
+            if events:
+                timing["steps_device_s"] = events[0].elapsed_time(events[1]) / 1e3
+            self.fit_timing.append(timing)
             epoch_time = time.time() - t0
             train_time += epoch_time
             logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
             if self.metric_fns:
-                probs_all = self._selected(torch.cat(probs)).cpu().numpy()[:take]
-                logs.update(regime_eval(self.metric_fns, y[order[:take]], probs_all,
-                                        self.task_name, self.num_domains))
+                probs_all = self._selected(probs_dev.reshape(-1, probs_dev.shape[-1])).cpu().numpy()
+                probs_all = probs_all[valid] if valid is not None else probs_all[:take]
+                y_all = y[host_rows]
+                logs.update(regime_eval(self.metric_fns, y_all, probs_all, self.task_name,
+                                        self.num_domains))
+                if self.cfg.model_config.extra.get("batch_metric_curves"):
+                    logs.update(self._batch_curve(probs_all, y_all, spans))
             if val is not None:
-                if val_batches is None:  # the validation set goes to the device once
-                    val_batches = self._eval_batches(val[0], val[1], val[3], batch_size)
+                if val_program is None:  # the validation set goes to the device once
+                    val_ev = staging.prepare_eval_tensors(self, val[0], val[1], val[3],
+                                                          batch_size)
+                    val_program = _EvalProgram(self, val_ev, None, self._graphs)
                     if self._use_device_eval():
-                        val_metric = self._metric_tensors(val[2], len(val_batches) * batch_size)
+                        val_metric = staging.prepare_metric_tensors(
+                            self, val[2], val_ev.ids.shape[0] * batch_size)
+                probs_val = val_program.run()
                 if val_metric is not None:
-                    probs_dev = self._device_probs(val_batches, use_best=False)
                     val_result = {k: float(v) for k, v in device_metrics.regime_metrics(
-                        self.metric_fns, val_metric[0], probs_dev, val_metric[1],
+                        self.metric_fns, val_metric[0], probs_val, val_metric[1],
                         self.task_name, self.num_domains).items()}
                 else:
-                    preds = self._predict_batches(val_batches, len(val[0]), use_best=False)
+                    preds = probs_val.cpu().numpy()[:len(val[0])].astype(np.float64)
                     val_result = regime_eval(self.metric_fns, val[2], preds,
                                              self.task_name, self.num_domains)
                 logs.update({f"val_{k}": v for k, v in val_result.items()})
@@ -701,6 +861,9 @@ class Trainer:
                     early_stop_count += 1
             self.history.append(logs)
             self._progress = (epoch + 1, best_auc, early_stop_count, best_snapshot)
+            self.best_variables = best_snapshot
+            if epoch_callback is not None:
+                epoch_callback(epoch, self)
             if verbose:
                 print(f"Epoch {epoch + 1}/{epochs} - {epoch_time:.1f}s - " + " - ".join(
                     f"{k}: {v:.4f}" for k, v in logs.items() if k != "epoch_s"))
@@ -719,70 +882,67 @@ class Trainer:
             else:
                 self.throughput_examples_per_s = examples_seen / train_time
         self.best_variables = best_snapshot
-        if self.cfg.save_config.save:
-            try:
-                self.save_checkpoint(self.cfg.save_config.save_path)
-            except Exception as e:  # a file-system failure ends no fit (trainer.py:1742-1746)
-                print(f"checkpoint save failed: {e}")
-        return self
+
+    def _streaming_epoch(self, plan, order, batch_order, ids, dense, y, dmask, batch_size,
+                         steps, n):
+        """One epoch on the streaming path; block mode takes its fixed
+        batches in ``batch_order``, as on the staged path."""
+        block_w = valid = None
+        if plan.block_mode:
+            rows = np.arange(plan.steps * batch_size).reshape(plan.steps, batch_size)
+            rows = rows[batch_order].reshape(-1)
+            block_w = plan.block_w[batch_order]
+            valid = block_w.reshape(-1) > 0
+            host_rows = rows[valid]
+            order = np.where(rows < n, rows, 0)  # a pad is row 0 at weight 0
+            take = int(valid.sum())
+        else:
+            take = min(n, steps * batch_size)
+            host_rows = order[:take]
+        losses, probs, spans = staging.run_streaming_epoch(
+            self, order, ids, dense, y, dmask, batch_size, steps, block_w)
+        probs_dev = torch.stack(probs) if probs else None
+        return valid, host_rows, take, spans, torch.stack(losses), probs_dev
+
+    def _batch_curve(self, probs_all, y_all, spans) -> Dict[str, float]:
+        """The reference's per-batch train metrics (basemodel.py:316-331,
+        trainer.py:1636-1660) from the epoch's collected probabilities:
+        appended to ``batch_history``; returns their means."""
+        curve: List[Dict[str, float]] = []
+        pos = 0
+        for full, valid_n in spans:
+            pb, yb = probs_all[pos:pos + valid_n], y_all[pos:pos + valid_n]
+            pos += full
+            if valid_n > 0:
+                curve.append(regime_eval(self.metric_fns, yb, pb, self.task_name,
+                                         self.num_domains))
+        self.batch_history.append(curve)
+        if not curve:
+            return {}
+        return {f"batch_mean_{k}": float(np.mean([c[k] for c in curve])) for k in curve[0]}
 
     # ------------------------------------------------------------------
     # predict and evaluate (trainer.py:1752-1768, 1879-1907)
     # ------------------------------------------------------------------
-    def _eval_batches(self, ids, dense, dmask, batch_size: int):
-        """(ids, dense, mask) device tensors per batch; the last batch is
-        padded with its last row, as the JAX predict does."""
-        mc = self.cfg.model_config
-        n = len(ids)
-        steps = (n - 1) // batch_size + 1
-        pad = steps * batch_size - n
-
-        def padded(a):
-            if a is None or not pad:
-                return a
-            return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
-
-        ids, dense = padded(ids), padded(dense)
-        dmask = padded(dmask) if (mc.masked_loss and dmask is not None) else None
-        batches = []
-        for s in range(steps):
-            sl = slice(s * batch_size, (s + 1) * batch_size)
-            batches.append((self._to_device(ids[sl]), self._to_device(dense[sl]),
-                            self._to_device(dmask[sl]) if dmask is not None else None))
-        return batches
-
     def _selected(self, probs: torch.Tensor) -> torch.Tensor:
         """The columns that metrics and predictions keep: all, or ESCM's
         [pCTR, pCTCVR]."""
         return probs[:, [0, 2]] if self._escm else probs
 
-    def _device_probs(self, batches, use_best: bool = True, intermediates=None) -> torch.Tensor:
-        """[steps * batch, heads] selected probabilities of the staged
-        batches on the device, with the best snapshot's state when there is
-        one and ``use_best``; the model is in eval mode, so BatchNorm reads
-        its running statistics.  ``intermediates``: a dict that collects
-        each named intermediate's per-batch device tensors."""
-        self.model.eval()
+    def _scanned_probs(self, ev: "staging.EvalTensors", use_best: bool = True) -> torch.Tensor:
+        """[steps * batch, heads] selected probabilities of the staged eval
+        batches on the device (trainer.py:1334-1350), with the best
+        snapshot's state when there is one and ``use_best``; on the card one
+        captured forward replayed per batch from ``EVAL_GRAPH_MIN_BATCHES``
+        batches on, eager forwards below."""
         best = self.best_variables if use_best else None
-        kw = {"return_intermediates": True} if intermediates is not None else {}
-        outs = []
-        with torch.inference_mode():
-            for args in batches:
-                out = (self.model(*args, **kw) if best is None
-                       else torch.func.functional_call(self.model, best, args, kw))
-                if intermediates is not None:
-                    out, inter = out
-                    for k, v in inter.items():
-                        intermediates.setdefault(k, []).append(v)
-                outs.append(out)
-            return self._selected(torch.cat(outs))
-
-    def _predict_batches(self, batches, n: int, use_best: bool = True) -> np.ndarray:
-        """[n, num_heads] float64 probabilities of the staged batches."""
-        return self._device_probs(batches, use_best).cpu().numpy()[:n].astype(np.float64)
+        graphs = StepGraphs(self.device) if ev.ids.shape[0] >= EVAL_GRAPH_MIN_BATCHES else None
+        return _EvalProgram(self, ev, best, graphs).run()
 
     def _predict_packed(self, ids, dense, dmask, batch_size: int) -> np.ndarray:
-        return self._predict_batches(self._eval_batches(ids, dense, dmask, batch_size), len(ids))
+        """[n, num_heads] float64 probabilities."""
+        ev = staging.prepare_eval_tensors(self, ids, dense, dmask, batch_size)
+        return self._scanned_probs(ev).cpu().numpy()[:ev.n].astype(np.float64)
 
     def update_save(self, value: bool = True) -> None:
         """Make ``predict`` also return the model's named intermediates
@@ -793,14 +953,27 @@ class Trainer:
         """[N, num_heads] float64 probabilities from ``best_variables`` (the
         current parameters when there is no snapshot); after
         ``update_save()`` the pair (probabilities, {name: [N, ...] float64
-        array of each intermediate}) (trainer.py:1879-1895)."""
+        array of each intermediate}), batch by batch and eagerly, as the
+        JAX trainer collects them (trainer.py:1879-1895)."""
         ids, dense = self.pack_inputs(x)
-        batches = self._eval_batches(ids, dense, self._domain_mask_from(x), batch_size)
+        dmask = self._domain_mask_from(x)
         if not getattr(self, "_save_layer_output", False):
-            return self._predict_batches(batches, len(ids))
-        inters: Dict[str, List[torch.Tensor]] = {}
-        probs = self._device_probs(batches, intermediates=inters)
-        n = len(ids)
+            return self._predict_packed(ids, dense, dmask, batch_size)
+        ev = staging.prepare_eval_tensors(self, ids, dense, dmask, batch_size)
+        best = self.best_variables
+        self.model.eval()
+        outs, inters = [], {}
+        with torch.no_grad():
+            for s in range(ev.ids.shape[0]):
+                args = (ev.ids[s], ev.dense[s], ev.dmask[s] if ev.dmask is not None else None)
+                kw = {"return_intermediates": True}
+                out, inter = (self.model(*args, **kw) if best is None
+                              else torch.func.functional_call(self.model, best, args, kw))
+                outs.append(out)
+                for k, v in inter.items():
+                    inters.setdefault(k, []).append(v)
+        n = ev.n
+        probs = self._selected(torch.cat(outs))
         return probs.cpu().numpy()[:n].astype(np.float64), {
             k: torch.cat(v).cpu().numpy()[:n].astype(np.float64) for k, v in inters.items()}
 
@@ -822,16 +995,6 @@ class Trainer:
         return (bool(self.cfg.training_config.extra.get("device_eval"))
                 and device_metrics.supports(self.metric_fns.keys()))
 
-    def _metric_tensors(self, y: np.ndarray, total: int):
-        """(labels, weights) on the device for ``total`` staged rows: labels
-        padded with their last row, weight 1 on the real rows and 0 on the
-        pads (staging.py:563-573)."""
-        y2 = np.asarray(y, np.float32)
-        n = len(y2)
-        if total > n:
-            y2 = np.concatenate([y2, np.repeat(y2[-1:], total - n, axis=0)])
-        return self._to_device(y2), self._to_device((np.arange(total) < n).astype(np.float32))
-
     def masked_test_metrics_device(self, x, y, test_mask, batch_size: int = 256) -> Dict[str, float]:
         """Per-head masked LogLoss and AUC (and the total AUC of msl and
         mtmsl) of the predictions of ``x``, computed on the device
@@ -839,17 +1002,64 @@ class Trainer:
         decimals in the reference's row order; raises on a value that is
         not finite, as scikit-learn would on a single-class head."""
         ids, dense = self.pack_inputs(x)
-        batches = self._eval_batches(ids, dense, self._domain_mask_from(x), batch_size)
-        total = len(batches) * batch_size
-        y_dev, w_dev = self._metric_tensors(self._prepare_y(y), total)
-        tm_dev = None
-        if test_mask is not None:
-            tm = np.asarray(test_mask, np.float32)
-            tm = np.concatenate([tm, np.zeros((total - len(tm),) + tm.shape[1:], np.float32)])
-            tm_dev = self._to_device(tm)
+        ev = staging.prepare_eval_tensors(self, ids, dense, self._domain_mask_from(x),
+                                          batch_size)
+        total = ev.ids.shape[0] * batch_size
+        y_dev, w_dev = staging.prepare_metric_tensors(self, self._prepare_y(y), total)
+        tm_dev = staging.prepare_mask_tensor(self, test_mask, total)
         out = device_metrics.masked_test_metrics_device(
-            y_dev, self._device_probs(batches), w_dev, tm_dev, self.task_name, self.num_domains)
+            y_dev, self._scanned_probs(ev), w_dev, tm_dev, self.task_name, self.num_domains)
         return _order_masked_row({k: float(v) for k, v in out.items()})
+
+    # ------------------------------------------------------------------
+    # seeds and profiling (trainer.py:1862-1877, 1992-2021)
+    # ------------------------------------------------------------------
+    def reset_for_seed(self, seed: int, generator: Optional[torch.Generator] = None) -> "Trainer":
+        """Start over for ``seed``: the model's weights drawn anew, in place,
+        as ``get_model`` draws them from ``generator`` (by default
+        ``make_generator(seed)`` on the CPU, as the port's CLI seeds a
+        model), the optimizer states, history, snapshots, the draws'
+        generator and the fit's metadata codec reset; compile's optimizer,
+        loss and metrics kept (trainer.py:1862-1877)."""
+        from ..models import get_model
+        from ..utils.seeding import make_generator
+
+        gen = generator if generator is not None else make_generator(seed)
+        fresh = get_model(self.model_name, self.layout, self.cfg, generator=gen, device="cpu")
+        with torch.no_grad():
+            self.model.load_state_dict(fresh.state_dict())
+        self.seed = seed
+        self.opt_state = self.table_opt = self.best_variables = None
+        self.history, self.batch_history = [], []
+        self.throughput_examples_per_s = self._progress = None
+        self._meta_codec = "unset"
+        self._dropout_master = torch.Generator().manual_seed(seed + 1)
+        return self
+
+    def profile(self, x, y, batch_size: int = 256, steps: int = 5, trace_dir: Optional[str] = None):
+        """Trace ``steps`` training steps on the first batch of ``x`` with
+        ``torch.profiler`` (CPU and CUDA activities) after one step outside
+        the trace; the trace goes to ``trace_dir`` (``mmlrec_trace`` in the
+        temporary directory by default) as a Chrome trace JSON.  The steps
+        train the model, as the JAX trainer's profiled steps train the
+        state they are given (trainer.py:1992-2021).  Returns ``trace_dir``."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        trace_dir = trace_dir or os.path.join(tempfile.gettempdir(), "mmlrec_trace")
+        ids, dense = self.pack_inputs(x)
+        yv, dmask = self._prepare_y(y), self._domain_mask_from(x)
+        b = min(batch_size, len(ids))
+        batch = [self._to_device(a[:b]) if a is not None else None
+                 for a in (ids, dense, yv, dmask)] + [torch.ones(b, device=self.device)]
+        self.train_step(*batch)
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+            for _ in range(steps):
+                self.train_step(*batch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return trace_dir
 
     # ------------------------------------------------------------------
     # checkpoints (train/checkpointing.py) and history
@@ -870,10 +1080,44 @@ class Trainer:
             for epoch, logs in enumerate(self.history):
                 f.write(json.dumps({"epoch": epoch, **logs}) + "\n")
 
-    def profile(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Trainer.profile is not ported yet (ROADMAP A3); "
-            "python -m mmlrec_tpu_torch.tools.profile_step traces the step")
+
+class _EvalProgram:
+    """The forward over a fixed set of staged eval batches (``_scanned_probs``,
+    trainer.py:1334-1350): a device counter picks the batch, the forward
+    writes its probabilities into ``out`` at it, so one captured graph is
+    replayed per batch on the card (eagerly without ``graphs``, in debug
+    mode and on the CPU).  A fit keeps one for its validation set and
+    replays it every epoch."""
+
+    def __init__(self, trainer: Trainer, ev, best, graphs: Optional[StepGraphs]):
+        self.trainer, self.ev, self.best, self.graphs = trainer, ev, best, graphs
+        self.counter = torch.zeros(1, dtype=torch.int64, device=trainer.device)
+        self.out: Optional[torch.Tensor] = None
+        self.key = ("eval", id(self))
+
+    def body(self) -> None:
+        ev, s = self.ev, self.counter
+        args = tuple(None if a is None else a.index_select(0, s)[0]
+                     for a in (ev.ids, ev.dense, ev.dmask))
+        model = self.trainer.model
+        with torch.no_grad():
+            p = (model(*args) if self.best is None
+                 else torch.func.functional_call(model, self.best, args))
+        if self.out is None:  # the first call is eager: the shape is known there
+            self.out = torch.zeros((ev.ids.shape[0],) + tuple(p.shape), device=p.device)
+        self.out.index_copy_(0, s, p[None])
+        s.add_(1)
+
+    def run(self) -> torch.Tensor:
+        """[steps * batch, heads] selected probabilities on the device."""
+        self.trainer.model.eval()
+        self.counter.zero_()
+        for _ in range(self.ev.ids.shape[0]):
+            if self.trainer.debug or self.graphs is None:
+                self.body()
+            else:
+                self.graphs.run(self.key, self.body)
+        return self.trainer._selected(self.out.reshape(-1, self.out.shape[-1]))
 
 
 def _order_masked_row(vals: Dict[str, float]) -> Dict[str, float]:

@@ -41,7 +41,7 @@ from mmlrec_tpu_torch.ops.embedding import MATMUL_GRAD_BUDGET_BYTES, FusedEmbedd
 from mmlrec_tpu_torch.ops.layers import dropout
 from mmlrec_tpu_torch.serving import ServingBundle, save_serving_bundle
 from mmlrec_tpu_torch.train import Trainer
-from mmlrec_tpu_torch.train.optimizers import get_optimizer
+from mmlrec_tpu_torch.train.optimizers import Flat, FlatTensors, get_optimizer
 from mmlrec_tpu_torch.utils.seeding import make_generator
 
 KW = dict(model_name="mmoe", n_sparse=4, n_dense=2, hidden=(16, 8), tower=(8,), gate=(8,),
@@ -387,33 +387,70 @@ def test_dropout_in_the_fit_follows_the_trainers_generator():
 # ----------------------------------------------------------------------
 # refusals
 # ----------------------------------------------------------------------
+# the host-loop knobs (scan_steps, batch_metric_curves, flat_optimizer,
+# prefetch_batches) are ported: their cases (item None) fit with the knob and
+# check that it took effect; tests/test_torch_staged_fit.py holds each
+# against the other paths bitwise
 @pytest.mark.parametrize("override,item", [
     (dict(sparse_embedding_update=True), "A4"),
-    (dict(scan_steps=16), "A3"),
-    (dict(batch_metric_curves=True), "A3"),
+    (dict(scan_steps=16), None),
+    (dict(batch_metric_curves=True), None),
     (dict(use_cagrad=True), "A6"),
     (dict(table_container="stacked", stacked_shards=2), "A9"),
-    (dict(flat_optimizer=False), "A3"),
-    (dict(prefetch_batches=4), "A3"),
+    (dict(flat_optimizer=False), None),
+    (dict(prefetch_batches=4), None),
 ])
 def test_dense_fit_unported_knobs_name_their_roadmap_item(override, item):
     cfg = tsyn.make_config(**{**KW, "vocab": 400, **override})
-    layout, *_ = tsyn.make_data(cfg, n=8, seed=0, vocab=400)
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(get_model("mmoe", layout, cfg, device="cpu"), device="cpu")
+    layout, x, y, _ = tsyn.make_data(cfg, n=150, seed=0, vocab=400)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            Trainer(get_model("mmoe", layout, cfg, device="cpu"), device="cpu")
+        return
+    tr = Trainer(get_model("mmoe", layout, cfg, device="cpu"), device="cpu").compile(
+        metrics=["auc"])
+    if "prefetch_batches" in override:
+        tr._device_data_bytes_cap = 0  # the streaming loop reads the depth
+    tr.fit(x, y, batch_size=64, epochs=2, verbose=0)
+    assert np.isfinite([h["loss"] for h in tr.history]).all()
+    assert tr._scan_steps == 16 and tr._prefetch_batches == override.get("prefetch_batches", 2)
+    assert isinstance(tr.tx, Flat) == ("flat_optimizer" not in override)
+    assert isinstance(tr.opt_state.mu, FlatTensors) == ("flat_optimizer" not in override)
+    if "batch_metric_curves" in override:
+        assert [len(c) for c in tr.batch_history] == [3, 3]  # ceil(150 / 64) batches
+        want = np.mean([c["auc"] for c in tr.batch_history[-1]])
+        assert abs(tr.history[-1]["batch_mean_auc"] - want) < 1e-12
+    else:
+        assert tr.batch_history == [] and "batch_mean_auc" not in tr.history[-1]
 
 
 @pytest.mark.parametrize("call", ["Trainer(debug=True)", "fit(epoch_callback=...)"])
 def test_trainer_arguments_not_ported_name_their_roadmap_item(call):
+    """Both arguments are ported: debug runs the eager steps with anomaly
+    detection and raises on a step whose loss is not finite; the callback
+    sees each epoch's trainer after its log."""
     cfg = tsyn.make_config(vocab=400, **KW)
     layout, x, y, _ = tsyn.make_data(cfg, n=64, seed=0, vocab=400)
     model = get_model("mmoe", layout, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        if call.startswith("Trainer"):
-            Trainer(model, debug=True, device="cpu")
-        else:
-            Trainer(model, device="cpu").compile().fit(
-                x, y, batch_size=32, verbose=0, epoch_callback=lambda epoch, tr: None)
+    if call.startswith("Trainer"):
+        was = torch.is_anomaly_enabled()
+        try:
+            tr = Trainer(model, debug=True, device="cpu").compile()
+            assert tr.debug and torch.is_anomaly_enabled()
+            tr.fit(x, y, batch_size=32, epochs=1, verbose=0)
+            assert np.isfinite(tr.history[-1]["loss"]) and tr.throughput_examples_per_s
+            with torch.no_grad():
+                tr.model.embeddings.fused.table.fill_(float("nan"))
+            with pytest.raises(FloatingPointError, match="debug: .*(nan|not finite)"):
+                tr.fit(x, y, batch_size=32, epochs=1, verbose=0)
+        finally:
+            torch.autograd.set_detect_anomaly(was)
+    else:
+        seen = []
+        tr = Trainer(model, device="cpu").compile()
+        tr.fit(x, y, batch_size=32, epochs=3, verbose=0,
+               epoch_callback=lambda epoch, t: seen.append((epoch, len(t.history))))
+        assert seen == [(0, 1), (1, 2), (2, 3)]
     # the defaults of the knobs are accepted
     cfg.model_config.extra.update(flat_optimizer=True, prefetch_batches=2)
     Trainer(model, debug=False, device="cpu")
@@ -424,8 +461,9 @@ def test_dense_fit_refusals_and_default_device(monkeypatch, tmp_path):
     layout, x, y, _ = tsyn.make_data(cfg, n=64, seed=0, vocab=400)
     model = get_model("mmoe", layout, cfg, device="cpu")
     tr = Trainer(model, device="cpu").compile()
-    with pytest.raises(NotImplementedError, match="A3"):
-        tr.profile(x, y)
+    trace = tr.profile(x, y, batch_size=32, steps=2, trace_dir=str(tmp_path / "trace"))
+    assert trace == str(tmp_path / "trace") and any(
+        f.endswith(".json") for f in os.listdir(trace))  # torch.profiler's Chrome trace
     # checkpoints, device validation and the device's test metrics are
     # ported (tests/test_torch_checkpoints.py, tests/test_torch_device_metrics.py)
     assert os.path.isdir(tr.save_checkpoint(str(tmp_path)))

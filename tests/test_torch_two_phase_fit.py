@@ -275,8 +275,10 @@ def test_multihead_score_backward_matches_autograd():
         torch.testing.assert_close(a, c, atol=1e-6, rtol=1e-5)
 
 
+# scan_steps and batch_metric_curves are ported: their cases (item None) fit
+# with the knob (tests/test_torch_staged_fit.py holds them bitwise)
 @pytest.mark.parametrize("override,item", [
-    (dict(two_phase_embedding=False, scan_steps=16), "A3"),  # the dense fit refuses it too
+    (dict(two_phase_embedding=False, scan_steps=16), None),  # the dense fit takes it too
     (dict(table_update="scatter"), "A4"),
     (dict(table_update="unique"), "A4"),
     (dict(table_update="auto"), "A4"),  # the CPU resolves auto to scatter
@@ -284,16 +286,24 @@ def test_multihead_score_backward_matches_autograd():
     (dict(device_metadata=False), "A4"),
     (dict(dedup_route="gather"), "A4"),
     (dict(update_space="slot"), "A4"),
-    (dict(scan_steps=16), "A3"),
-    (dict(batch_metric_curves=True), "A3"),
+    (dict(scan_steps=16), None),
+    (dict(batch_metric_curves=True), None),
     (dict(use_gradnorm=True), "A6"),
 ])
 def test_unported_knobs_raise_naming_their_roadmap_item(override, item):
     cfg = tsyn.make_config(**{**KW, "vocab": 400, **override})
-    layout, *_ = tsyn.make_data(cfg, n=8, seed=0, vocab=400)
+    layout, x, y, _ = tsyn.make_data(cfg, n=150, seed=0, vocab=400)
     model = get_model("mmoe", layout, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(model, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            Trainer(model, device="cpu")
+        return
+    tr = Trainer(model, device="cpu").compile(metrics=["auc"])
+    tr.fit(x, y, batch_size=64, epochs=2, verbose=0)
+    assert tr._scan_steps == 16 and np.isfinite([h["loss"] for h in tr.history]).all()
+    curves = "batch_metric_curves" in override
+    assert [len(c) for c in tr.batch_history] == ([3, 3] if curves else [])
+    assert ("batch_mean_auc" in tr.history[-1]) == curves
 
 
 def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch, tmp_path):
@@ -306,8 +316,10 @@ def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model)
     tr = Trainer(model, device="cpu").compile()
-    with pytest.raises(NotImplementedError, match="A3"):
-        tr.fit(x, y, batch_size=64, shuffle="block", verbose=0)
+    tr.fit(x, y, batch_size=64, shuffle="block", verbose=0)  # block mode is ported
+    assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
+    with pytest.raises(ValueError, match="shuffle"):
+        tr.fit(x, y, batch_size=64, shuffle="rows", verbose=0)
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         tr.fit(x, y, batch_size=64, resume_from=str(tmp_path / "ckpt"), verbose=0)
     with pytest.raises(ValueError, match="Kp"):
