@@ -71,6 +71,15 @@ def _flat_names(tree: Mapping) -> Dict[str, np.ndarray]:
     return {k.replace("/", "."): np.asarray(v) for k, v in _flatten(tree).items()}
 
 
+def _moment_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A float32, float16 or bfloat16 numpy array (JAX's ``ml_dtypes``
+    bfloat16) as a torch tensor of the same bits."""
+    a = np.array(a)  # an owned, writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
                          opt_state: Mapping, batch_stats: Optional[Mapping] = None):
     """Carry a JAX Trainer's state into a port ``Trainer`` (compiled with the
@@ -80,9 +89,10 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
       the stacked container, whose bottom half holds the moments);
     * ``table_opt``: for a two-phase trainer ``{"count": ...}``, plus
       ``"monu"`` ([Vp, W] f32 packed moments) for the split container with
-      packed moments, or ``"mu"`` and ``"nu"`` ([Vp, W] f32 each, a JAX
-      ``SparseAdamState``) for one with f32 moments; None for a dense-fit
-      trainer, whose table is a parameter like any other;
+      packed moments, or ``"mu"`` and ``"nu"`` ([Vp, W] each in the
+      trainer's ``table_opt_dtype``, a JAX ``SparseAdamState``) for split
+      moments, as for a ``sparse_embedding_update`` trainer; None for
+      another dense-fit trainer, whose table is a parameter like any other;
     * ``opt_state``: the optax state by field name, each tree shaped as the
       parameters the optimizer covers (all of them for the dense fit, all
       but the table for the two-phase step; an ``optax.flatten`` state
@@ -102,7 +112,7 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
     def tensor(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    if not trainer.two_phase_embedding:
+    if trainer.table_opt is None:
         if table_opt is not None:
             raise ValueError("a dense-fit trainer has no table_opt: its table's moments "
                              "are part of opt_state")
@@ -114,17 +124,18 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
             trainer.table_opt = trainer.table_opt._replace(count=count)
         else:
             names = ("monu",) if trainer._packed_moments else ("mu", "nu")
+            kind = "packed" if trainer._packed_moments else trainer._moment_dtype
             if set(table_opt) != {"count", *names}:
-                raise ValueError(f"table_opt has {sorted(table_opt)}, the trainer's "
-                                 f"{'packed' if trainer._packed_moments else 'f32'} moments "
-                                 f"need {sorted(('count', *names))}")
+                raise ValueError(f"table_opt has {sorted(table_opt)}, the trainer's {kind} "
+                                 f"moments need {sorted(('count', *names))}")
+            want = "float32" if trainer._packed_moments else trainer._moment_dtype
             moments = {}
             for name in names:
                 a = np.asarray(table_opt[name])
-                if a.shape != tuple(trainer.table.shape) or a.dtype != np.float32:
+                if a.shape != tuple(trainer.table.shape) or a.dtype.name != want:
                     raise ValueError(f"{name}: got {a.dtype}{list(a.shape)}, expected "
-                                     f"float32{list(trainer.table.shape)}")
-                moments[name] = tensor(a)
+                                     f"{want}{list(trainer.table.shape)}")
+                moments[name] = _moment_tensor(a, dev)
             state = SparseAdamPackedState if trainer._packed_moments else SparseAdamState
             trainer.table_opt = state(**moments, count=count)
 

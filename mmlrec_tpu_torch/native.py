@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
+
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "step_metadata.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
@@ -28,10 +30,12 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _F32P = ctypes.POINTER(ctypes.c_float)
-#: the ctypes argument list of the function the port calls, in the order of
-#: its C parameters (it returns void); the route lists' counting pass
-#: ``sm_counts`` belongs to the gather route (ROADMAP A4)
+#: the ctypes argument lists of the functions the port calls, in the order
+#: of their C parameters (both return void): ``sm_counts`` sizes the gather
+#: route's lists, ``sm_fill`` fills every array
 SIGNATURES = {
+    "sm_counts": [_I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                  _I64P, _I64P, ctypes.c_int32],
     "sm_fill": [_I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 _I32P, _F32P, _I32P, _I32P, _I32P, _F32P,
@@ -94,15 +98,35 @@ def _threads(steps: int) -> int:
     return max(1, min(steps, os.cpu_count() or 1))
 
 
-def step_metadata_fill(comp, idx_bits, pack_factor, Kp, inv, rep, pids, pinv, nuniq, prep):
+def step_metadata_counts(comp, idx_bits, pack_factor):
+    """(n_resid, n_ldup) [steps] int64 of the sorted composite ``comp``
+    [steps, K] (contiguous int64): per batch, the gather route's pruned
+    residuals (logical-first, not physical-first) and the non-first logical
+    occurrences."""
+    lib = get_meta_lib()
+    steps, K = comp.shape
+    n_resid = np.empty(steps, np.int64)
+    n_ldup = np.empty(steps, np.int64)
+    lib.sm_counts(_p(comp, _I64P), steps, K, idx_bits, pack_factor,
+                  _p(n_resid, _I64P), _p(n_ldup, _I64P), _threads(steps))
+    return n_resid, n_ldup
+
+
+def step_metadata_fill(comp, idx_bits, pack_factor, Kp, R_cap, G_cap,
+                       inv, rep, pids, pinv, nuniq, prep,
+                       accperm=None, resid_pos=None, resid_slot=None, gdup_pos=None,
+                       gdup_tgt=None):
     """Fill the caller's (inv, rep, pids, pinv, nuniq, prep) from the sorted
-    composite ``comp`` [steps, K] (contiguous int64), without the
-    gather-route lists."""
+    composite ``comp`` [steps, K] (contiguous int64), and with ``R_cap`` /
+    ``G_cap`` above 0 the gather route's lists, which the caller pre-fills
+    with their drop values (``resid_slot`` Kp, ``gdup_tgt`` K, zeros
+    elsewhere)."""
     lib = get_meta_lib()
     steps, K = comp.shape
     lib.sm_fill(
-        _p(comp, _I64P), steps, K, idx_bits, pack_factor, Kp, 0, 0,
+        _p(comp, _I64P), steps, K, idx_bits, pack_factor, Kp, R_cap, G_cap,
         _p(inv, _I32P), _p(rep, _F32P), _p(pids, _I32P), _p(pinv, _I32P),
-        _p(nuniq, _I32P), _p(prep, _F32P), None, None, None, None, None,
+        _p(nuniq, _I32P), _p(prep, _F32P), _p(accperm, _I32P), _p(resid_pos, _I32P),
+        _p(resid_slot, _I32P), _p(gdup_pos, _I32P), _p(gdup_tgt, _I32P),
         _threads(steps),
     )

@@ -147,6 +147,15 @@ class FusedEmbedding(nn.Module):
         else:
             self.table = nn.Parameter(init(generator, shape))
 
+    def to_split_container(self) -> None:
+        """Make a stacked container the split table: its table plane, the
+        same bits, as the parameter ``[Vp, W]``; the moment plane goes."""
+        if self.dual_container:
+            with torch.no_grad():
+                plane = self.table[: self.phys_rows].clone()
+            self.table = nn.Parameter(plane, requires_grad=self.table.requires_grad)
+            self.dual_container = False
+
     @property
     def phys_rows(self) -> int:
         """Physical table rows (Vp): the top half of a stacked container."""

@@ -37,6 +37,7 @@ import torch
 
 from .optimizers import load_state_
 from .sparse_embedding import (
+    MOMENT_DTYPES,
     SparseAdamFoldedState,
     SparseAdamState,
     fold_stacked_planes,
@@ -86,7 +87,7 @@ def state_to_split_layout(trainer, state: Dict) -> Dict:
 def state_to_runtime_layout(trainer, state: Dict) -> Dict:
     """Inverse of ``state_to_split_layout`` for this trainer: the table and
     moments refolded into a stacked container, packed for packed moments,
-    float32 for f32 ones."""
+    else split in the trainer's ``table_opt_dtype``."""
     out = dict(state)
     topt = state.get("table_opt")
     if topt is None:
@@ -98,7 +99,8 @@ def state_to_runtime_layout(trainer, state: Dict) -> Dict:
     elif trainer._packed_moments:
         out["table_opt"] = to_runtime_state(topt, packed=True)
     else:
-        out["table_opt"] = SparseAdamState(mu=topt.mu.float(), nu=topt.nu.float(),
+        mdt = MOMENT_DTYPES[trainer._moment_dtype]
+        out["table_opt"] = SparseAdamState(mu=topt.mu.to(mdt), nu=topt.nu.to(mdt),
                                            count=topt.count)
     return out
 
@@ -193,7 +195,7 @@ def restore_training_state(trainer, path: str):
     payload = load_tensors(path, STATE_FILE, trainer.device)
     params = _section(payload, "params/")
     table_opt = None
-    if trainer.two_phase_embedding:
+    if trainer.table_opt is not None:  # two-phase, or sparse_embedding_update
         table_opt = SparseAdamState(mu=payload["table_opt/mu"], nu=payload["table_opt/nu"],
                                     count=payload["table_opt/count"])
     rt = state_to_runtime_layout(trainer, {"params": params, "table_opt": table_opt})

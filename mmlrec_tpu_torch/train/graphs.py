@@ -35,6 +35,11 @@ class StepGraphs:
         #: replays since construction, by key
         self.replays: Dict[Hashable, int] = {}
 
+    def discard(self, kind: str) -> None:
+        """Drop the graphs captured for ``kind`` (a key's first entry): the
+        buffers they read were replaced, so the next run captures anew."""
+        self.graphs = {k: v for k, v in self.graphs.items() if k[0] != kind}
+
     def run(self, key: Hashable, body: Callable[[], None]) -> None:
         if self.device.type != "cuda":
             body()

@@ -7,25 +7,27 @@ here; no ``[V, D]`` gradient, moment or update buffer exists.  Untouched
 rows' moment decay is deferred, as in every production sparse optimizer
 (torch.optim.SparseAdam).
 
-Ported:
+Ported, the whole of the JAX module at one shard:
 
-* the moment layouts: split f32 moments (``SparseAdamState``), packed bf16
-  pairs (``SparseAdamPackedState``) and the stacked (folded) container at
-  one shard, with the conversions between them (``to_split_state``,
-  ``to_runtime_state``, pack/unpack);
+* the moment layouts: split moments of any float dtype (``SparseAdamState``:
+  f32, bf16 or f16), packed bf16 pairs (``SparseAdamPackedState``) and the
+  stacked (folded) container, with the conversions between them
+  (``to_split_state``, ``to_runtime_state``, pack/unpack);
 * the dedup metadata, from one stable sort: in the step on the device
   (``device_step_metadata``) or per batch on the host
   (``batch_step_metadata``: numpy, or one pass of ``native/step_metadata.cpp``
-  through ``mmlrec_tpu_torch.native``);
-* the updates: the scatter route (``two_phase_sparse_adam``: rep-masked
-  row adds) and ``two_phase_sparse_adam_unique`` on the write-kernel path
-  with the scatter dedup route, for packed moments (one write of (table,
-  monu) or of the stacked pair) and for split f32 moments (one write of
-  (table, mu, nu)).
+  through ``mmlrec_tpu_torch.native``), with the gather route's lists
+  (``want_route``: accperm, the pruned residuals, the logical duplicates);
+* the updates: the dense-gradient row update of ``sparse_embedding_update``
+  (``sparse_adam_row_update``); the scatter route (``two_phase_sparse_adam``:
+  rep-masked row adds, the moments in their own dtype);
+  ``two_phase_sparse_adam_unique``, on the write-kernel path (packed moments:
+  one write of (table, monu) or of the stacked pair; split moments: one
+  write of (table, mu, nu)) or as the unique update (row adds at distinct
+  rows), with the scatter or the gather dedup route; and slot space
+  (``two_phase_sparse_adam_slot``) on the stacked container.
 
-Split bf16 or f16 moments, the ``"unique"`` update (XLA's unique-indices
-scatter), the gather dedup route and slot space are ROADMAP A4; the
-shard-major layouts A9.
+The shard-major layouts are ROADMAP A9.
 
 Bit layout of a packed container lane: mu in the low 16 bits, nu in the
 high 16 (pinned by tests/test_sparse_embedding.py::test_monu_pack_bit_layout
@@ -47,10 +49,15 @@ from ..ops.row_scatter import bits_as_bf16 as _bits_as_bf16
 from ..ops.row_scatter import rows_write, rows_write_dual
 
 
+#: ``table_opt_dtype`` -> the storage dtype of the table's split moments
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
 class SparseAdamState(NamedTuple):
-    """Split Adam moments of the table (sparse_embedding.py:38-41): f32 in
-    the trainer; a checkpoint's split form of packed moments holds them as
-    bfloat16."""
+    """Split Adam moments of the table (sparse_embedding.py:38-41), stored in
+    ``table_opt_dtype`` (f32, bf16 or f16; the update's arithmetic is f32);
+    a checkpoint's split form of packed moments holds them as bfloat16."""
 
     mu: torch.Tensor  # [V, W]
     nu: torch.Tensor  # [V, W]
@@ -227,22 +234,39 @@ def batch_dedup_metadata(flat_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return batch_step_metadata(flat_ids)[:2]
 
 
-def _native_step_metadata(comp, idx_bits, pack_factor, Kp):
+def _quantized_cap(need: int) -> int:
+    """The route lists' width: 256 * 2^k, the least that holds ``need``
+    (sparse_embedding.py:285-291), so that few distinct widths exist."""
+    cap = 256
+    while cap < need:
+        cap *= 2
+    return cap
+
+
+def _native_step_metadata(comp, idx_bits, pack_factor, Kp, want_route, r_cap_min):
     """The single pass of native/step_metadata.cpp over the sorted composite
-    (sparse_embedding.py:294-325, without the gather-route lists);
-    output-identical to the numpy formulation."""
-    from ..native import step_metadata_fill
+    (sparse_embedding.py:294-325): ``sm_counts`` sizes the route lists,
+    ``sm_fill`` fills every array; output-identical to the numpy
+    formulation."""
+    from ..native import step_metadata_counts, step_metadata_fill
 
     steps, K = comp.shape
     comp = np.ascontiguousarray(comp)
-    inv = np.empty((steps, K), np.int32)
-    rep = np.empty((steps, K), np.float32)
-    pids = np.empty((steps, Kp), np.int32)
-    pinv = np.empty((steps, K), np.int32)
-    nuniq = np.empty((steps, 1), np.int32)
-    prep = np.empty((steps, K), np.float32)
-    step_metadata_fill(comp, idx_bits, pack_factor, Kp, inv, rep, pids, pinv, nuniq, prep)
-    return inv, rep, pids, pinv, nuniq, prep
+    base = (np.empty((steps, K), np.int32), np.empty((steps, K), np.float32),
+            np.empty((steps, Kp), np.int32), np.empty((steps, K), np.int32),
+            np.empty((steps, 1), np.int32), np.empty((steps, K), np.float32))
+    if not want_route:
+        step_metadata_fill(comp, idx_bits, pack_factor, Kp, 0, 0, *base)
+        return base
+    n_resid, n_ldup = step_metadata_counts(comp, idx_bits, pack_factor)
+    R_cap = _quantized_cap(max(int(n_resid.max(initial=0)), int(r_cap_min)))
+    G_cap = _quantized_cap(max(int(n_ldup.max(initial=0)), int(r_cap_min)))
+    route = (np.zeros((steps, Kp), np.int32), np.zeros((steps, R_cap), np.int32),
+             np.full((steps, R_cap), Kp, np.int32),  # Kp = drop
+             np.zeros((steps, G_cap), np.int32),
+             np.full((steps, G_cap), K, np.int32))  # K = drop
+    step_metadata_fill(comp, idx_bits, pack_factor, Kp, R_cap, G_cap, *base, *route)
+    return base + route
 
 
 def batch_step_metadata(
@@ -251,6 +275,7 @@ def batch_step_metadata(
     n_phys_rows: Optional[int] = None,
     chunk: int = 256,
     want_route: bool = False,
+    r_cap_min: int = 0,
     use_native: Optional[bool] = None,
 ):
     """Host dedup metadata of ``flat_ids`` [steps, K] logical ids from ONE
@@ -265,14 +290,20 @@ def batch_step_metadata(
     the write kernel skips them through ``nuniq``), which needs
     ``n_phys_rows`` > Kp.
 
+    ``want_route`` adds the gather route's lists: ``accperm`` [steps, Kp]
+    (each slot's first physical contributor, pads 0), ``resid_pos`` /
+    ``resid_slot`` [steps, R_cap] (the positions that are logical-first but
+    not physical-first, the only other ones whose contribution can be
+    nonzero, and their slots; padded with (0, Kp), slot Kp drops) and
+    ``gdup_pos`` / ``gdup_tgt`` [steps, G_cap] (each non-first logical
+    occurrence and its first occurrence, padded with (0, K), target K
+    drops).  R_cap and G_cap are ``_quantized_cap`` of the call's largest
+    count and of ``r_cap_min``, the caller's monotone floor.
+
     With the physical metadata, the single pass of
     ``native/step_metadata.cpp`` runs when its library loads
     (``use_native`` None); when it does not, numpy runs, unless
-    ``use_native=True`` asked for the library, which then raises.  The
-    gather-route lists (``want_route``) are ROADMAP A4."""
-    if want_route:
-        raise NotImplementedError(
-            "the gather dedup route's lists (want_route) are not ported yet (ROADMAP A4)")
+    ``use_native=True`` asked for the library, which then raises."""
     steps, K = flat_ids.shape
     flat = np.asarray(flat_ids, np.int64)
     idx_bits = max(1, int(K - 1).bit_length())
@@ -290,7 +321,8 @@ def batch_step_metadata(
             from ..native import NativeUnavailable
 
             try:
-                out = _native_step_metadata(comp, idx_bits, pack_factor, Kp)
+                out = _native_step_metadata(comp, idx_bits, pack_factor, Kp, want_route,
+                                            r_cap_min)
                 metadata_calls["native"] += 1
                 return out
             except NativeUnavailable:
@@ -322,16 +354,43 @@ def batch_step_metadata(
     np.put_along_axis(pinv, order, pgrp, axis=1)
     np.put_along_axis(prep, order, pnew.astype(np.float32), axis=1)
     nuniq[:, 0] = pnew.sum(axis=1, dtype=np.int32)
+    if want_route:
+        # a position that is neither logical-first nor physical-first adds
+        # an exact zero to every plane of the update, so the residuals are
+        # the logical-first positions that are not physical-first (each
+        # physical run starts at a logical first occurrence)
+        resid = newv & ~pnew
+        R_cap = _quantized_cap(max(int(resid.sum(axis=1).max(initial=0)), int(r_cap_min)))
+        G_cap = _quantized_cap(max(int((K - newv.sum(axis=1)).max(initial=0)),
+                                   int(r_cap_min)))
+        accperm = np.zeros((steps, Kp), np.int32)
+        resid_pos = np.zeros((steps, R_cap), np.int32)
+        resid_slot = np.full((steps, R_cap), Kp, np.int32)  # Kp = drop
+        gdup_pos = np.zeros((steps, G_cap), np.int32)
+        gdup_tgt = np.full((steps, G_cap), K, np.int32)  # K = drop
     for b in range(steps):
         u = psvals[b][pnew[b]]
         U = len(u)
         pids[b, :U] = u
+        if want_route:
+            ob = order[b]
+            accperm[b, :U] = ob[pnew[b]]
+            R = int(resid[b].sum())
+            resid_pos[b, :R] = ob[resid[b]]
+            resid_slot[b, :R] = pgrp[b][resid[b]]
+            dup = ~newv[b]  # the non-first logical occurrences, in sorted order
+            L = int(dup.sum())
+            gdup_pos[b, :L] = ob[dup]
+            gdup_tgt[b, :L] = fs_sorted[b][dup]
         if U < Kp:
             # distinct untouched rows at the tail: the first non-members of
             # u in [0, Kp]
             present = np.zeros(Kp + 1, bool)
             present[u[u <= Kp]] = True
             pids[b, U:] = np.flatnonzero(~present)[: Kp - U]
+    if want_route:
+        return (inv, rep, pids, pinv, nuniq, prep, accperm, resid_pos, resid_slot,
+                gdup_pos, gdup_tgt)
     return inv, rep, pids, pinv, nuniq, prep
 
 
@@ -386,11 +445,14 @@ def _scatter_add_rows(arr: torch.Tensor, flat_ids: torch.Tensor, delta: torch.Te
     return arr.index_add_(0, rows.long(), _widen(delta, flat_ids, P))
 
 
-def _check_split(state: "SparseAdamState") -> None:
-    if state.mu.dtype != torch.float32 or state.nu.dtype != torch.float32:
-        raise NotImplementedError(
-            f"split {state.mu.dtype} moments are not ported yet (ROADMAP A4); the "
-            "split layout runs float32 moments (bfloat16 ones ride packed)")
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA computes it.  The CPU
+    build's vectorised f32 ``torch.sqrt`` is one ulp off on some inputs;
+    the f64 root rounded to f32 is exact (53 >= 2 x 24 + 2 bits), so the
+    CPU takes that.  The card's ``sqrtf`` is IEEE already."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def _adam_rows(mu_f, nu_f, g_sum, t, lr, b1, b2, eps):
@@ -399,7 +461,86 @@ def _adam_rows(mu_f, nu_f, g_sum, t, lr, b1, b2, eps):
     new_nu = b2 * nu_f + (1.0 - b2) * g_sum * g_sum
     mu_hat = new_mu / (1.0 - b1 ** t)
     nu_hat = new_nu / (1.0 - b2 ** t)
-    return new_mu, new_nu, -lr * mu_hat / (torch.sqrt(nu_hat) + eps)
+    return new_mu, new_nu, -lr * mu_hat / (_sqrt(nu_hat) + eps)
+
+
+def _spread_drops(index: torch.Tensor, n: int) -> torch.Tensor:
+    """``index`` in ``[0, n]`` with each drop value ``n`` sent to a scratch
+    row of its own, ``n + j`` for entry j: the lists' pads (up to most of
+    a list at its floor width) would otherwise all add into one row, one
+    after another."""
+    j = torch.arange(index.shape[0], dtype=torch.long, device=index.device)
+    return torch.where(index >= n, n + j, index.long())
+
+
+def _scatter_into(base: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``base.at[index].add(values, mode="drop")`` on int32 planes by
+    ``index_add_``, for ``index`` in ``[0, len(base)]``: the drops land in
+    scratch rows that are sliced away.  Integer adds, so exact in any
+    order, atomics on the card included."""
+    n = base.shape[0]
+    out = torch.cat([base, base.new_zeros((index.shape[0],) + tuple(base.shape[1:]))])
+    return out.index_add_(0, _spread_drops(index, n), values)[:n]
+
+
+def _gdup_sum(g_rows, gdup_pos, gdup_tgt) -> torch.Tensor:
+    """The gradient sums by the gather route (sparse_embedding.py:870-877):
+    ``g_rows.at[gdup_tgt].add(g_rows[gdup_pos], mode="drop")``: each first
+    occurrence gets its duplicates added in position order, as the
+    inv-scatter adds them; the other positions keep their own rows, which
+    every consumer masks.  The sums run from zeros with the first
+    occurrences ahead of their duplicates (``scatter_add_rows``, in
+    position order on both devices): 0 + g_first + d1 + ... has the bits of
+    g_first + d1 + ..., and on the card, where ``index_put_`` adds a
+    target's values first and then their sum to the old row, the old row
+    is the zero, so every sum is the inv-scatter's of the scatter route."""
+    K, G = g_rows.shape[0], gdup_tgt.shape[0]
+    dup = g_rows.index_select(0, gdup_pos.long())
+    first = torch.arange(K, dtype=torch.long, device=g_rows.device)
+    index = torch.cat([first, _spread_drops(gdup_tgt, K)])
+    return scatter_add_rows(torch.cat([g_rows, dup]), index, K + G)[:K]
+
+
+def _route_rows(c: torch.Tensor, accperm, resid_pos, resid_slot) -> torch.Tensor:
+    """An int32 plane [K, X] accumulated at its slots by the gather route
+    (sparse_embedding.py:1018-1020): ``c[accperm].at[resid_slot].add(
+    c[resid_pos], mode="drop")`` -> [Kp, X].  Integer adds, so bitwise
+    equal to ``zeros[Kp].at[pinv].add(c)`` wherever the dropped positions
+    contribute zeros."""
+    return _scatter_into(c.index_select(0, accperm.long()), resid_slot,
+                         c.index_select(0, resid_pos.long()))
+
+
+def sparse_adam_row_update(
+    table: torch.Tensor,
+    g_table: torch.Tensor,  # [V, W] dense gradient of the table
+    flat_ids: torch.Tensor,  # [K] rows touched this batch (duplicates OK)
+    state: SparseAdamState,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> Tuple[torch.Tensor, SparseAdamState]:
+    """SparseAdam of the touched rows from the dense table gradient, the
+    ``sparse_embedding_update`` step (sparse_embedding.py:222-271): the
+    moments are read in their dtype, the math is f32, and each touched row
+    of the table and its moments is set once per occurrence (duplicates
+    write equal values).  ``table``, the moments and the count are updated
+    in place and returned with the state."""
+    count = state.count.add_(1)  # in place: a captured step reads it
+    t = count.to(torch.float32)
+    mdt = state.mu.dtype
+    rows = flat_ids.long()
+    g = g_table.index_select(0, rows)
+    mu_rows = b1 * state.mu.index_select(0, rows).float() + (1.0 - b1) * g
+    nu_rows = b2 * state.nu.index_select(0, rows).float() + (1.0 - b2) * g * g
+    mu_hat = mu_rows / (1.0 - b1 ** t)
+    nu_hat = nu_rows / (1.0 - b2 ** t)
+    update = lr * mu_hat / (_sqrt(nu_hat) + eps)
+    table.index_copy_(0, rows, table.index_select(0, rows) - update)
+    state.mu.index_copy_(0, rows, mu_rows.to(mdt))
+    state.nu.index_copy_(0, rows, nu_rows.to(mdt))
+    return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)
 
 
 def two_phase_sparse_adam(
@@ -417,26 +558,95 @@ def two_phase_sparse_adam(
 ) -> Tuple[torch.Tensor, SparseAdamState]:
     """SparseAdam of the touched rows through rep-masked row adds, the
     scatter route (sparse_embedding.py:645-686): the gradient sums land at
-    each id's first occurrence, the moments' rows are gathered, and table,
-    mu and nu each receive ``old + delta`` as an ADD of the masked delta,
-    so ``mu`` becomes ``mu + (new_mu - mu)``, rounded as the JAX scatter
-    rounds it.  ``table``, the moments and the count are updated in place
-    and returned with the state."""
+    each id's first occurrence, the moments' rows are gathered in their
+    dtype ``mdt``, and table, mu and nu each receive ``old + delta`` as an
+    ADD of the masked delta: the table's in f32, the moments' as
+    ``(new.to(mdt) - old) * rep`` computed and added in ``mdt``, as the JAX
+    scatter does it.  ``table``, the moments and the count are updated in
+    place and returned with the state."""
     if not isinstance(state, SparseAdamState):
         raise TypeError("the scatter update takes split moments (SparseAdamState)")
-    _check_split(state)
     dim = g_rows.shape[-1]
+    mdt = state.mu.dtype
     count = state.count.add_(1)  # in place: a captured step reads it
     t = count.to(torch.float32)
     g_sum = _segment_sum(g_rows, inv)
     mu_rows = gather_rows(state.mu, flat_ids, dim, pack_factor)
     nu_rows = gather_rows(state.nu, flat_ids, dim, pack_factor)
-    new_mu, new_nu, d_table = _adam_rows(mu_rows, nu_rows, g_sum, t, lr, b1, b2, eps)
+    new_mu, new_nu, d_table = _adam_rows(mu_rows.float(), nu_rows.float(), g_sum, t, lr,
+                                         b1, b2, eps)
     r = rep[:, None]
     _scatter_add_rows(table, flat_ids, d_table * r, pack_factor)
-    _scatter_add_rows(state.mu, flat_ids, (new_mu - mu_rows) * r, pack_factor)
-    _scatter_add_rows(state.nu, flat_ids, (new_nu - nu_rows) * r, pack_factor)
+    r_m = r.to(mdt)
+    _scatter_add_rows(state.mu, flat_ids, (new_mu.to(mdt) - mu_rows) * r_m, pack_factor)
+    _scatter_add_rows(state.nu, flat_ids, (new_nu.to(mdt) - nu_rows) * r_m, pack_factor)
     return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)
+
+
+def two_phase_sparse_adam_slot(
+    table: torch.Tensor,  # [2Vp, W] stacked table + moment container
+    g_rows: torch.Tensor,  # [K, D] cotangent w.r.t. the gathered rows
+    flat_ids: torch.Tensor,  # [K] int32 logical row ids (duplicates OK)
+    rep: torch.Tensor,  # [K] 1.0 at first occurrences
+    pids: torch.Tensor,  # [Kp] unique physical rows
+    n_real: torch.Tensor,  # [1] int32: pids[n_real:] are padding
+    sup_slot: torch.Tensor,  # [Kp, W] old table rows at the slots
+    monu_slot: torch.Tensor,  # [Kp, W] old container rows at the slots
+    state: SparseAdamFoldedState,
+    lr: float,
+    accperm: torch.Tensor,  # [Kp] each slot's first physical contributor
+    resid_pos: torch.Tensor,  # [R_cap] the pruned residual positions
+    resid_slot: torch.Tensor,  # [R_cap] their slots (Kp = drop)
+    gdup_pos: torch.Tensor,  # [G_cap] the non-first logical occurrences
+    gdup_tgt: torch.Tensor,  # [G_cap] their first occurrences (K = drop)
+    pack_factor: int = 1,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> Tuple[torch.Tensor, SparseAdamFoldedState]:
+    """Slot-space SparseAdam of the stacked container
+    (sparse_embedding.py:689-809): the masked wide gradient and a [K, P]
+    lane-ownership plane are routed to the slots as int32 (one nonzero
+    contributor per (slot, lane), so the f32 bits land exactly), and the
+    wide-lane Adam chain runs on the slot rows that phase 1 gathered by
+    ``pids``.  Per owned lane it is the position path's op chain on the
+    same inputs; every other lane keeps its old bits through selects (so
+    -0.0 and NaN payloads survive), and the pad slots, which hold the
+    gather's poison, are never written (``n_real``).  One launch of the
+    dual write.  The container and the count are updated in place."""
+    if not isinstance(state, SparseAdamFoldedState):
+        raise TypeError("slot space runs on the stacked container (SparseAdamFoldedState)")
+    K, dim = g_rows.shape
+    P = pack_factor
+    W = table.shape[1]
+    Vp = table.shape[0] // 2
+    Kp = pids.shape[0]
+    count = state.count.add_(1)  # in place: a captured step reads it
+    t = count.to(torch.float32)
+    g_sum = _gdup_sum(g_rows, gdup_pos, gdup_tgt)
+    rep_b = (rep > 0)[:, None]
+    if P > 1:
+        gw = torch.where(_own_mask(flat_ids, P, dim) & rep_b, g_sum.repeat(1, P), 0.0)
+        lanes = torch.arange(P, dtype=torch.int32, device=flat_ids.device)
+        ow = ((lanes[None, :] == torch.remainder(flat_ids, P)[:, None]) & rep_b)
+    else:
+        gw = torch.where(rep_b, g_sum, 0.0)
+        ow = rep_b
+    g_slot = _route_rows(gw.view(torch.int32), accperm, resid_pos, resid_slot)
+    g_slot = g_slot.view(torch.float32)
+    ow_slot = _route_rows(ow.to(torch.int32), accperm, resid_pos, resid_slot)
+    n_own = ow_slot.shape[1]
+    touched = (ow_slot > 0)[:, :, None].expand(Kp, n_own, W // n_own).reshape(Kp, W)
+    mu_w, nu_w = unpack_monu_f32(monu_slot)
+    new_mu_w = b1 * mu_w + (1.0 - b1) * g_slot
+    new_nu_w = b2 * nu_w + (1.0 - b2) * g_slot * g_slot
+    mu_hat_w = new_mu_w / (1.0 - b1 ** t)
+    nu_hat_w = new_nu_w / (1.0 - b2 ** t)
+    d_w = -lr * mu_hat_w / (_sqrt(nu_hat_w) + eps)
+    new_t = torch.where(touched, sup_slot + d_w, sup_slot)
+    new_monu = torch.where(touched, pack_monu_rounded(new_mu_w, new_nu_w), monu_slot)
+    rows_write_dual(table.view(2, Vp, W), pids, torch.stack([new_t, new_monu]), n_real=n_real)
+    return table, SparseAdamFoldedState(count=count)
 
 
 def two_phase_sparse_adam_unique(
@@ -445,7 +655,7 @@ def two_phase_sparse_adam_unique(
     flat_ids: torch.Tensor,  # [K] int32 logical row ids (duplicates OK)
     inv: torch.Tensor,  # [K] first-occurrence positions
     rep: torch.Tensor,  # [K] 1.0 at first occurrences
-    pids: torch.Tensor,  # [Kp] unique physical rows, pads = n_phys_rows
+    pids: torch.Tensor,  # [Kp] unique physical rows, then pads
     pinv: torch.Tensor,  # [K] slot of each logical id's physical row in pids
     state,
     lr: float,
@@ -459,31 +669,40 @@ def two_phase_sparse_adam_unique(
     sup_c: Optional[torch.Tensor] = None,  # [K, W] container rows (dual gather)
     prep: Optional[torch.Tensor] = None,  # [K] 1.0 at each physical row's first occurrence
     monu_gather: str = "xla",  # "xla" | "pallas": moment-container gather
+    accperm: Optional[torch.Tensor] = None,  # [Kp] gather route (want_route lists)
+    resid_pos: Optional[torch.Tensor] = None,  # [R_cap]
+    resid_slot: Optional[torch.Tensor] = None,  # [R_cap] (Kp = drop)
+    gdup_pos: Optional[torch.Tensor] = None,  # [G_cap]
+    gdup_tgt: Optional[torch.Tensor] = None,  # [G_cap] (K = drop)
 ) -> Tuple[torch.Tensor, object]:
-    """SparseAdam of the touched rows with one write per physical row
-    (sparse_embedding.py:812-1065, the packed write-kernel path with the
-    scatter dedup route: ``accperm is None``, ``gdup_pos is None``).
+    """SparseAdam of the touched rows with one update per physical row
+    (sparse_embedding.py:812-1141).
 
-    The Adam chain runs at full lane width [K, W] on the unpacked moments;
-    each owned lane then rides as a wrapping int32 delta ``new - old`` and
-    each physical row's first occurrence adds its old row, accumulated with
-    an INTEGER scatter-add at ``pinv``: per lane the sum is the new bits
-    where owned and the old bits elsewhere, exact in any order.  The sums
-    are written with one launch: ``rows_write_dual`` into the stacked
-    container (``SparseAdamFoldedState``), or ``rows_write`` into (table,
-    monu) (``SparseAdamPackedState``).  ``table`` (and the split
-    container) and the count are updated IN PLACE and returned with the
-    state.
+    The gradient sums come from the inv-scatter, or with ``gdup_pos`` from
+    the gather route's duplicate lists (``inv`` is then not read).  Packed
+    moments (the stacked container or ``SparseAdamPackedState``): the Adam
+    chain runs at full lane width [K, W] on the unpacked moments; each owned
+    lane rides as a wrapping int32 delta ``new - old`` and each physical
+    row's first occurrence adds its old row, accumulated at the slots as
+    integers, by one scatter at ``pinv`` or, with ``accperm``, by the gather
+    route per plane (``pinv`` is then not read): per lane the sum is the new
+    bits where owned and the old bits elsewhere, exact in any order.  The
+    sums are written with one launch: ``rows_write_dual`` into the stacked
+    container, or ``rows_write`` into (table, monu).  Split moments
+    (``SparseAdamState`` of dtype ``mdt``): the narrow Adam chain, one f32
+    accumulation of (table, mu, nu) at the slots and one ``rows_write``.
+    ``use_pallas=False`` is the unique update (XLA's unique-indices
+    scatter): the accumulated deltas added at the distinct rows ``pids``,
+    pads included, with ``index_add_``.  ``table`` (and the moments) and the
+    count are updated in place and returned with the state.
     """
     folded = isinstance(state, SparseAdamFoldedState)
     split = isinstance(state, SparseAdamState)
     if not (folded or split or isinstance(state, SparseAdamPackedState)):
         raise TypeError(f"unknown SparseAdam state {type(state).__name__}")
-    if not use_pallas:
-        raise NotImplementedError(
-            "the unique table update (XLA's unique-indices scatter) is not ported "
-            "yet (ROADMAP A4); use the write kernel (use_pallas=True)")
-    if n_real is None or prep is None:
+    if folded and not use_pallas:
+        raise ValueError("table_container='stacked' requires the write kernel (use_pallas)")
+    if use_pallas and (n_real is None or prep is None):
         raise ValueError("the write-kernel update needs n_real and prep")
     if monu_gather not in ("xla", "pallas"):
         raise ValueError(f"monu_gather must be xla|pallas, got {monu_gather!r}")
@@ -493,17 +712,20 @@ def two_phase_sparse_adam_unique(
     Kp = pids.shape[0]
     count = state.count.add_(1)  # in place: a captured step reads it
     t = count.to(torch.float32)
-    g_sum = _segment_sum(g_rows, inv)
+    g_sum = (_gdup_sum(g_rows, gdup_pos, gdup_tgt) if gdup_pos is not None
+             else _segment_sum(g_rows, inv))
     r = rep[:, None]
     gids = torch.div(flat_ids, P, rounding_mode="floor") if P > 1 else flat_ids
     if split:
-        _check_split(state)
         return _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t,
-                             lr, P, b1, b2, eps, n_real, sup, prep)
+                             lr, P, b1, b2, eps, use_pallas, n_real, sup, prep)
     own_mask = _own_mask(flat_ids, P, dim) if P > 1 else None
 
     def own_sel(x):
         return torch.where(own_mask, x, 0.0) if P > 1 else x
+
+    def route(c):
+        return _route_rows(c, accperm, resid_pos, resid_slot)
 
     if folded:
         Vp = table.shape[0] // 2
@@ -513,8 +735,6 @@ def two_phase_sparse_adam_unique(
     if sup_c is None:
         sup_c = (rows_gather_hbm(monu_src, monu_ids) if monu_gather == "pallas"
                  else monu_src.index_select(0, monu_ids.long()))
-    if sup is None:
-        sup = table.index_select(0, gids.long())
     # packed Adam at full lane width; non-owned lanes compute values that
     # the own selects below discard
     mu_w, nu_w = unpack_monu_f32(sup_c)
@@ -523,11 +743,24 @@ def two_phase_sparse_adam_unique(
     new_nu_w = b2 * nu_w + (1.0 - b2) * g_w * g_w
     mu_hat_w = new_mu_w / (1.0 - b1 ** t)
     nu_hat_w = new_nu_w / (1.0 - b2 ** t)
-    d_table_w = -lr * mu_hat_w / (torch.sqrt(nu_hat_w) + eps) * r
+    d_table_w = -lr * mu_hat_w / (_sqrt(nu_hat_w) + eps) * r
     vals_c = pack_monu_rounded(new_mu_w, new_nu_w)
     r_w = r.expand(K, W)
     own = torch.where(own_mask, r_w, 0.0) if P > 1 else r_w
     owned = own > 0
+    if not use_pallas:
+        # the unique update of packed moments (sparse_embedding.py:1066-1083)
+        pl = pinv.long()
+        acc_vals = torch.zeros((Kp, W), dtype=torch.int32, device=table.device).index_add_(
+            0, pl, torch.where(owned, vals_c.view(torch.int32), 0)).view(torch.float32)
+        acc_mask = torch.zeros((Kp, W), device=table.device).index_add_(0, pl, own)
+        acc_t = torch.zeros((Kp, W), device=table.device).index_add_(0, pl, own_sel(d_table_w))
+        table.index_add_(0, pids.long(), acc_t)
+        old = state.monu.index_select(0, pids.long())
+        state.monu.index_copy_(0, pids.long(), torch.where(acc_mask > 0, acc_vals, old))
+        return table, SparseAdamPackedState(monu=state.monu, count=count)
+    if sup is None:
+        sup = table.index_select(0, gids.long())
     prep_i = prep.to(torch.int32)[:, None]
     old_i = sup_c.contiguous().view(torch.int32)
     new_i = vals_c.view(torch.int32)
@@ -536,34 +769,44 @@ def two_phase_sparse_adam_unique(
     new_t = sup + own_sel(d_table_w)
     contrib_t_i = torch.where(owned, new_t.view(torch.int32) - old_ti, 0) + prep_i * old_ti
     if folded:
-        accd = torch.zeros((2, Kp, W), dtype=torch.int32, device=table.device)
-        accd.index_add_(1, pinv.long(), torch.stack([contrib_t_i, contrib_monu_i]))
+        if accperm is not None:  # per plane: no stacked [2, K, W] copy
+            accd = torch.stack([route(contrib_t_i), route(contrib_monu_i)])
+        else:
+            accd = torch.zeros((2, Kp, W), dtype=torch.int32, device=table.device)
+            accd.index_add_(1, pinv.long(), torch.stack([contrib_t_i, contrib_monu_i]))
         rows_write_dual(table.view(2, Vp, W), pids, accd.view(torch.float32), n_real=n_real)
         return table, SparseAdamFoldedState(count=count)
-    acc2 = torch.zeros((Kp, 2 * W), dtype=torch.int32, device=table.device)
-    acc2.index_add_(0, pinv.long(), torch.cat([contrib_t_i, contrib_monu_i], dim=1))
-    acc2 = acc2.view(torch.float32)
-    rows_write((table, state.monu), pids, (acc2[:, :W], acc2[:, W:]), n_real=n_real)
+    if accperm is not None:
+        acc_t = route(contrib_t_i).view(torch.float32)
+        acc_monu = route(contrib_monu_i).view(torch.float32)
+    else:
+        acc2 = torch.zeros((Kp, 2 * W), dtype=torch.int32, device=table.device)
+        acc2.index_add_(0, pinv.long(), torch.cat([contrib_t_i, contrib_monu_i], dim=1))
+        acc2 = acc2.view(torch.float32)
+        acc_t, acc_monu = acc2[:, :W], acc2[:, W:]
+    rows_write((table, state.monu), pids, (acc_t, acc_monu), n_real=n_real)
     return table, SparseAdamPackedState(monu=state.monu, count=count)
 
 
 def _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t, lr, P,
-                  b1, b2, eps, n_real, sup, prep):
-    """The write-kernel update of split f32 moments (sparse_embedding.py:
-    1085-1132): the narrow Adam chain at the logical rows, then ONE f32
+                  b1, b2, eps, use_pallas, n_real, sup, prep):
+    """The update of split moments of dtype ``mdt`` (sparse_embedding.py:
+    1085-1141): the narrow Adam chain at the logical rows, the moments'
+    deltas as ``new.to(mdt).float() - old``.  With the write kernel, ONE f32
     accumulation of three [Kp, W] buffers at each physical row's slot, where
     the first occurrence of a physical row adds the old (table, mu, nu) row
-    and each owner its masked delta, and ONE launch of the write kernel
-    (B3) over (table, mu, nu).  Per lane the slot sums old + delta, at most
-    one of them past zero besides the old value, so the order of the adds
-    is immaterial."""
+    and each owner its masked delta (per lane at most one of them past zero
+    besides the old value, so the order of the adds is immaterial), and ONE
+    launch of the write kernel (B3) over (table, mu, nu), the moments
+    rounded to ``mdt``.  Without it (the unique update), each buffer holds
+    the deltas alone and is added at the distinct rows ``pids``."""
     dim = g_sum.shape[-1]
     W = table.shape[1]
     Kp = pids.shape[0]
-    if sup is None:
-        sup = table.index_select(0, gids.long())
-    sup_mu = state.mu.index_select(0, gids.long())
-    sup_nu = state.nu.index_select(0, gids.long())
+    mdt = state.mu.dtype
+    gl = gids.long()
+    sup_mu = state.mu.index_select(0, gl).float()
+    sup_nu = state.nu.index_select(0, gl).float()
     if P > 1:
         sub = _sub_rows(flat_ids, P)
         mu_f = sup_mu.reshape(-1, dim).index_select(0, sub)
@@ -571,14 +814,23 @@ def _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t, 
     else:
         mu_f, nu_f = sup_mu, sup_nu
     new_mu, new_nu, d_table = _adam_rows(mu_f, nu_f, g_sum, t, lr, b1, b2, eps)
+    deltas = (d_table * r, (new_mu.to(mdt).float() - mu_f) * r,
+              (new_nu.to(mdt).float() - nu_f) * r)
+    if not use_pallas:
+        pl, rows = pinv.long(), pids.long()
+        for arr, d in zip((table, state.mu, state.nu), deltas):
+            acc = torch.zeros((Kp, W), device=table.device).index_add_(
+                0, pl, _widen(d, flat_ids, P))
+            arr.index_add_(0, rows, acc.to(arr.dtype))
+        return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)
+    if sup is None:
+        sup = table.index_select(0, gl)
     pr = prep[:, None]
-    contrib = torch.cat([
-        _widen(d_table * r, flat_ids, P) + sup * pr,
-        _widen((new_mu - mu_f) * r, flat_ids, P) + sup_mu * pr,
-        _widen((new_nu - nu_f) * r, flat_ids, P) + sup_nu * pr,
-    ], dim=1)
+    contrib = torch.cat([_widen(d, flat_ids, P) + old * pr
+                         for d, old in zip(deltas, (sup, sup_mu, sup_nu))], dim=1)
     acc3 = torch.zeros((Kp, 3 * W), dtype=torch.float32, device=table.device)
     acc3.index_add_(0, pinv.long(), contrib)
     rows_write((table, state.mu, state.nu), pids,
-               (acc3[:, :W], acc3[:, W:2 * W], acc3[:, 2 * W:]), n_real=n_real)
+               (acc3[:, :W], acc3[:, W:2 * W].to(mdt), acc3[:, 2 * W:].to(mdt)),
+               n_real=n_real)
     return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)

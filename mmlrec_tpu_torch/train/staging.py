@@ -7,9 +7,10 @@ Everything between the host arrays and the step:
 * the dataset staged on the device once per fit (``stage_dataset``; ids
   stay int32 in their own tensor, where the JAX package packs one f32
   matrix) and batches taken from it by index on the device;
-* the two-phase step's fit-time resolution of ``table_update`` and
-  ``update_space`` and its host metadata (``step_metadata``: numpy or
-  ``native/step_metadata.cpp``), with the upload compaction codec
+* the two-phase step's fit-time resolution of ``table_update`` (with the
+  stacked container's demotion) and ``update_space`` and its host metadata
+  (``step_metadata``: numpy or ``native/step_metadata.cpp``, the gather
+  route's lists included), with the upload compaction codec
   (``MetaCodec``: uint16 positions, uint8 masks, decoded on the device
   after the per-step slice);
 * ``make_device_plan``: staged or streaming, block mode, the per-fit
@@ -39,6 +40,7 @@ an event.
 
 from __future__ import annotations
 
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Tuple
@@ -46,7 +48,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .sparse_embedding import batch_step_metadata
+from .sparse_embedding import SparseAdamPackedState, batch_step_metadata, to_split_state
 
 
 # ---------------------------------------------------------------------------
@@ -137,18 +139,34 @@ def resolve_table_update(trainer, batch_size: int) -> None:
     the write-kernel update needs the physical rows to exceed Kp, the
     padded per-batch id count, which depends on the fit's batch.  An update
     resolved from ``"auto"`` falls back to the scatter update; an explicit
-    one raises, and so does the stacked container, whose moments live in
-    the table (the JAX trainer undoes a stacked container that it opted into
-    itself while no variables exist; the port builds the table with the
-    model, so a stacked container is always initialised)."""
+    one raises.  A stacked container raises too, unless
+    ``resolve_table_container`` opted into it (``_table_container_auto``)
+    and no step has run: then the fused table is rebuilt as the split one
+    from the container's table plane (the same bits), with a warning, and
+    the update demotes.  Packed moments that earlier fits left become split
+    bfloat16 moments, bit for bit."""
     if trainer.table_update == "scatter":
         return
     K = batch_size * len(trainer.layout.sparse_slots)
     Kp = -(-K // 256) * 256
     if trainer._emb_phys_rows > Kp:
         return
+    mc = trainer.cfg.model_config
     stacked = trainer.table_container == "stacked"
-    if not trainer._table_update_auto or stacked:
+    if (stacked and mc.extra.get("_table_container_auto") and trainer._table_update_auto
+            and trainer.opt_state is None):
+        warnings.warn(
+            f"table_container='stacked' was auto-engaged at the config batch size but "
+            f"fit(batch_size={batch_size}) breaks the unique-metadata headroom (physical "
+            f"rows {trainer._emb_phys_rows} <= Kp={Kp}); demoting to the split layout and "
+            "the scatter update")
+        mc.extra["table_container"] = "split"
+        mc.extra.pop("_table_container_auto", None)
+        trainer.model.embeddings.fused.to_split_container()
+        trainer.table_container = "split"
+        trainer.pair_gather = "split"
+        trainer.dedup_route = "scatter"
+    elif not trainer._table_update_auto or stacked:
         raise ValueError(
             f"table_update={trainer.table_update!r}"
             + (" with table_container='stacked'" if stacked else "")
@@ -157,26 +175,44 @@ def resolve_table_update(trainer, batch_size: int) -> None:
             "or table_update='scatter'")
     trainer.table_update = "scatter"
     trainer._packed_moments = False
-    trainer._check_moment_layout()
+    if isinstance(trainer.table_opt, SparseAdamPackedState):
+        trainer.table_opt = to_split_state(trainer.table_opt)
 
 
 def resolve_update_space(trainer, flat: np.ndarray) -> None:
-    """Resolve ``update_space="auto"`` (staging.py:205-222).  Slot space
-    rides the gather route's lists (ROADMAP A4), so the port's auto always
-    resolves to position."""
-    if trainer.update_space == "auto":
+    """Resolve ``update_space="auto"`` from the FIRST metadata batch
+    (staging.py:205-222): slot space when the container is stacked, the
+    route is the gather route and at least 25% of the batch's ids repeat a
+    physical row; else position.  Sticky for the trainer's life, so the
+    captured step never flips within a fit."""
+    if trainer.update_space != "auto":
+        return
+    if trainer.table_container != "stacked" or trainer.dedup_route != "gather":
         trainer.update_space = "position"
+        return
+    P = trainer._emb_pack_factor
+    K = flat.shape[1]
+    dup = 1.0 - len(np.unique(flat[0] // P if P > 1 else flat[0])) / K
+    trainer.update_space = "slot" if dup >= 0.25 else "position"
 
 
 def step_metadata(trainer, flat: np.ndarray) -> tuple:
-    """Host metadata of flat [steps, K] logical ids (staging.py:225-260):
+    """Host metadata of flat [steps, K] logical ids (staging.py:225-250):
     (inv, rep) for the scatter update, plus (pids, pinv, nuniq, prep) for
-    the write-kernel update, all from one sort."""
+    the write-kernel and unique updates, plus the gather route's five lists
+    under ``dedup_route="gather"``, all from one sort.  The route lists'
+    widths never shrink: the trainer keeps the largest it has made
+    (``_route_r_cap``, one floor for both), so the captured step's buffers
+    change only when a batch needs more."""
     resolve_update_space(trainer, flat)
     if trainer.table_update == "scatter":
         return batch_step_metadata(flat)
-    return batch_step_metadata(flat, trainer._emb_pack_factor, trainer._emb_phys_rows,
-                               want_route=trainer.dedup_route == "gather")
+    want_route = trainer.dedup_route == "gather"
+    meta = batch_step_metadata(flat, trainer._emb_pack_factor, trainer._emb_phys_rows,
+                               want_route=want_route, r_cap_min=trainer._route_r_cap)
+    if want_route:
+        trainer._route_r_cap = max(trainer._route_r_cap, meta[7].shape[1], meta[9].shape[1])
+    return meta
 
 
 def flat_ids(trainer, ids: np.ndarray, steps: int) -> np.ndarray:
@@ -243,9 +279,10 @@ class MetaCodec:
 def meta_codec(trainer, meta: tuple) -> Optional[MetaCodec]:
     """The compaction codec of this fit's metadata layout (staging.py:
     329-371), or None when it cannot apply (K or Kp above 65,536) or
-    ``model_config.extra['meta_compact']`` is false.  The gather route's
-    kinds (``dead``, ``slot16``) come with its eleven-entry tuple (ROADMAP
-    A4); the position route uses ``idx16``, ``mask8`` and ``raw``."""
+    ``model_config.extra['meta_compact']`` is false.  Under the gather
+    route (the eleven-entry tuple) ``inv`` is dead (the duplicate lists
+    replace its scatter) and so is ``pinv`` in position space (``accperm``
+    replaces it); the drop values Kp and K ride as ``slot16``."""
     if not trainer.cfg.model_config.extra.get("meta_compact", True):
         return None
     K = meta[0].shape[1]
@@ -518,8 +555,13 @@ def run_gather_epoch(trainer, plan: Plan, prep, batch_size, steps_this_epoch):
     _rows_into(plan.w2d, L, (plan.arange_all[:L * batch_size] < take).to(torch.float32)
                .view(L, batch_size))
     if meta:
-        if plan.dedup is None:
+        if plan.dedup is None or any(b.shape[1:] != a.shape[1:]
+                                     for b, a in zip(plan.dedup, meta)):
+            # the first stacks, or route lists that outgrew the floor (a
+            # later epoch of a full shuffle may need wider ones): new
+            # buffers, on which the step is captured anew
             plan.dedup = tuple(_buffer_like(trainer, plan.steps, a) for a in meta)
+            trainer._graphs.discard("gather")
         for buf, a in zip(plan.dedup, meta):
             _rows_into(buf, L, a)
     drive_steps(trainer, "gather", plan, batch_size, L)

@@ -23,18 +23,27 @@ host metadata:
    the gathered rows, injected into the model (``rows=``);
 4. SparseAdam of the touched rows and Adam of the dense parameters.  The
    table update is ``table_update``: "scatter" (``two_phase_sparse_adam``,
-   rep-masked row adds into split f32 moments) or "pallas"
+   rep-masked row adds into split moments), "unique" (row adds at the
+   batch's distinct physical rows) or "pallas"
    (``two_phase_sparse_adam_unique``: one write launch per step, of
-   (table, mu, nu) for f32 moments, of (table, monu) or the stacked pair
+   (table, mu, nu) for split moments, of (table, monu) or the stacked pair
    for packed bf16 ones).  "auto" takes "pallas" on the card where the
    physical rows are 128 lanes wide, else "scatter"; at fit time an auto
    "pallas" whose table is not above the batch's padded id count falls back
-   to "scatter" (``staging.resolve_table_update``).
+   to "scatter" (``staging.resolve_table_update``).  With host metadata the
+   packed update takes the gather dedup route (``dedup_route``), and on the
+   stacked container slot space (``update_space``:
+   ``two_phase_sparse_adam_slot``, phase 1 gathering each unique physical
+   row's pair once) when the first batch shows 25% physical duplication.
 
 No ``[V, D]`` gradient or moment exists there.  Neither step reads a device
 value on the host (host metadata is built from the host's copy of the
 ids), and every state either step carries (parameters, moments, counts,
 BatchNorm statistics) is updated in place.
+
+The dense step takes ``sparse_embedding_update``: the table leaves the
+dense optimizer and its touched rows take SparseAdam from its dense
+gradient (``sparse_adam_row_update``).
 
 **The fit** takes the JAX package's default path (``train/staging.py``):
 the dataset is staged on the device once when its bytes x 2 are under
@@ -49,9 +58,8 @@ test metrics replay one captured forward per batch.  A fit synchronises
 once per epoch, for the loss and the collected probabilities.
 
 Every knob that is not ported raises NotImplementedError naming its
-ROADMAP item: the unique update, split bf16 and f16 moments, the gather
-dedup route and slot space (A4), per-task gradient methods and the CKA
-loss (A6), meshes (A9).
+ROADMAP item: per-task gradient methods and the CKA loss (A6), meshes
+(A9).  The combinations the JAX trainer refuses raise its ValueError.
 """
 
 from __future__ import annotations
@@ -75,10 +83,13 @@ from .losses import l2_regularization, multitask_loss
 from .metrics import get_metric_fns, regime_eval
 from .optimizers import Adam, Flat, _Elementwise, get_optimizer
 from .sparse_embedding import (
+    MOMENT_DTYPES,
     SparseAdamFoldedState,
     device_step_metadata,
     init_sparse_adam,
+    sparse_adam_row_update,
     two_phase_sparse_adam,
+    two_phase_sparse_adam_slot,
     two_phase_sparse_adam_unique,
 )
 
@@ -119,13 +130,16 @@ def resolve_table_container(cfg, layout, device="cuda") -> None:
     packed moments will engage, BEFORE the model is built (trainer.py:89-130):
     the container fixes the table's shape.  Decided at the config's
     ``train_batch_size`` on ``device``; a ``table_container`` the config sets
-    always wins.  Every shipped config keeps f32 moments and so the split
-    container."""
+    always wins.  The opt-in is marked (``_table_container_auto``): only it
+    may be undone, when a fit's batch breaks the headroom before any step
+    has run (``staging.resolve_table_update``).  Every shipped config keeps
+    f32 moments and so the split container."""
     mc = cfg.model_config
     if mc.extra.get("table_container") is not None:
         return
     if stacked_auto_conditions(cfg, layout, cfg.training_config.train_batch_size, device):
         mc.extra["table_container"] = "stacked"
+        mc.extra["_table_container_auto"] = True
 
 
 def get_mask(domain_values, mask_values, num_domains) -> np.ndarray:
@@ -217,6 +231,8 @@ class Trainer:
         # the fit's captured steps (staging.drive_steps); None between fits
         self._graphs: Optional[StepGraphs] = None
         self._meta_codec = "unset"
+        # the gather route's monotone list width (staging.step_metadata)
+        self._route_r_cap = 0
         # the side stream of the worker threads' uploads
         self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                                else None)
@@ -242,14 +258,17 @@ class Trainer:
     def _resolve_knobs(self) -> None:
         mc = self.cfg.model_config
         extra = mc.extra
-        if self.model_name == "pcg" or extra.get("use_gradnorm") or extra.get("use_cagrad"):
+        per_task = self.model_name == "pcg" or extra.get("use_gradnorm") or extra.get("use_cagrad")
+        self.two_phase_embedding = bool(extra.get("two_phase_embedding"))
+        if per_task and self.two_phase_embedding:
+            raise ValueError(
+                "two_phase_embedding is incompatible with per-task gradient methods (they "
+                "need whole-param task gradients)")
+        if per_task:
             raise NotImplementedError(
                 "per-task gradient methods are not ported yet (ROADMAP A6)")
         if mc.use_cka_loss and self.task_name in ("msl", "mtmsl"):
             raise NotImplementedError("the CKA domain loss is not ported yet (ROADMAP A6)")
-        if extra.get("sparse_embedding_update"):
-            raise NotImplementedError(
-                "sparse_embedding_update is not ported yet (ROADMAP A4)")
         # the fit's host loop (trainer.py:505-522): the streaming prefetch
         # depth (1 = synchronous), the staging cap (datasets whose bytes x 2
         # are below it are staged on the device), and scan_steps: unset =
@@ -263,8 +282,43 @@ class Trainer:
         # (mmlrec_tpu/train/trainer.py:523-533); a separate captured step
         self._gate_warmup_epochs = int(extra.get("snr_gate_noise_warmup_epochs", 0) or 0)
         self._gate_warmup_active = False
-        self.two_phase_embedding = bool(extra.get("two_phase_embedding"))
+        # two_phase_embedding supersedes sparse_embedding_update (trainer.py:200-236)
+        self.sparse_embedding_update = (bool(extra.get("sparse_embedding_update"))
+                                        and not self.two_phase_embedding)
+        self._moment_dtype = str(extra.get("table_opt_dtype") or "float32")
+        if self._moment_dtype not in MOMENT_DTYPES:
+            raise ValueError(f"table_opt_dtype must be {'|'.join(MOMENT_DTYPES)}, got "
+                             f"{self._moment_dtype!r}")
+        self._packed_moments = False
+        self.table_container = "split"
         fused = self.model.embeddings.fused
+        if self.two_phase_embedding or self.sparse_embedding_update:
+            flag = "two_phase_embedding" if self.two_phase_embedding else "sparse_embedding_update"
+            sparse_dims = {int(s.feature.embedding_dim) for s in self.layout.sparse_slots}
+            if len(sparse_dims) != 1 or self.layout.varlen_slots:
+                raise ValueError(
+                    f"{flag} requires the fused embedding path (uniform dims, no varlen "
+                    "features)")
+            if self.cfg.optim_config.optimizer != "adam":
+                raise ValueError(f"{flag} implements SparseAdam")
+            vocabs = [s.feature.vocabulary_size for s in self.layout.sparse_slots]
+            self._emb_dim = sparse_dims.pop()
+            self._emb_pack_factor = pack_factor_for(int(sum(vocabs)), self._emb_dim)
+            self._host_offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]]).astype(np.int64)
+            self._fused_offsets = torch.as_tensor(self._host_offsets.astype(np.int32),
+                                                  device=self.device)
+        self.table_update = _choice(mc, "table_update", "auto",
+                                    ("auto", "scatter", "unique", "pallas"))
+        self._table_update_auto = self.table_update == "auto"
+        if self._table_update_auto:
+            self.table_update = (
+                "pallas"
+                if (self.two_phase_embedding
+                    and self._emb_dim * self._emb_pack_factor == 128
+                    and self._moment_dtype in ("float32", "bfloat16")
+                    and self.device.type == "cuda")
+                else "scatter"
+            )
         if not self.two_phase_embedding:
             # the dense-table fit reads none of the two-phase knobs
             if fused is not None and fused.dual_container:
@@ -272,61 +326,26 @@ class Trainer:
                     "table_container='stacked' folds the two-phase step's moments "
                     "into the table; the dense-table fit needs the split table")
             return
-        sparse_dims = {int(s.feature.embedding_dim) for s in self.layout.sparse_slots}
-        if len(sparse_dims) != 1 or self.layout.varlen_slots:
-            raise ValueError(
-                "two_phase_embedding requires the fused embedding path "
-                "(uniform dims, no varlen features)")
-        vocabs = [s.feature.vocabulary_size for s in self.layout.sparse_slots]
-        self._emb_dim = sparse_dims.pop()
-        self._emb_pack_factor = pack_factor_for(int(sum(vocabs)), self._emb_dim)
-        self._host_offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]]).astype(np.int64)
-        self._fused_offsets = torch.as_tensor(self._host_offsets.astype(np.int32),
-                                              device=self.device)
-        mdt = str(extra.get("table_opt_dtype") or "float32")
-        if mdt not in ("float32", "bfloat16"):
-            raise NotImplementedError(
-                f"table_opt_dtype={mdt!r} moments are not ported yet (ROADMAP A4); the "
-                "port keeps float32 moments or packed bfloat16 ones")
-        self.table_update = _choice(mc, "table_update", "auto",
-                                    ("auto", "scatter", "unique", "pallas"))
-        self._table_update_auto = self.table_update == "auto"
-        if self._table_update_auto:
-            self.table_update = (
-                "pallas"
-                if self._emb_dim * self._emb_pack_factor == 128 and self.device.type == "cuda"
-                else "scatter"
-            )
-        if self.table_update == "unique":
-            raise NotImplementedError(
-                "table_update='unique' (XLA's unique-indices scatter) is not ported yet "
-                "(ROADMAP A4); the port runs 'scatter' or 'pallas'")
         # bf16 moments ride the write kernel packed as (mu, nu) pairs in f32
-        # lanes (trainer.py:302-312); split bf16 moments are not ported
-        self._moment_dtype = mdt
-        self._packed_moments = self.table_update == "pallas" and mdt == "bfloat16"
-        self._check_moment_layout()
+        # lanes; f16 has no packed layout (trainer.py:302-321)
+        self._packed_moments = self.table_update == "pallas" and self._moment_dtype == "bfloat16"
+        if (self.table_update == "pallas" and self.device.type == "cuda"
+                and self._moment_dtype == "float16"):
+            raise ValueError(
+                "table_update='pallas' supports float32 or bfloat16 moment storage, got "
+                f"table_opt_dtype={self._moment_dtype!r}")
+        # the gather dedup route: the slots' accumulation as one designated
+        # contributor's gather plus the residuals (trainer.py:322-352)
+        self.dedup_route = _choice(mc, "dedup_route", "auto", ("auto", "scatter", "gather"))
+        packed_pallas = self.table_update == "pallas" and self._packed_moments
+        if self.dedup_route == "auto":
+            self.dedup_route = "gather" if packed_pallas else "scatter"
+        elif self.dedup_route == "gather" and not packed_pallas:
+            raise ValueError(
+                "dedup_route='gather' requires table_update='pallas' with packed bf16 moments")
         self.monu_gather = _choice(mc, "monu_gather", "auto", ("auto", "xla", "pallas"))
         if self.monu_gather == "auto":
             self.monu_gather = "xla"
-        # in-step metadata on the device, or per batch on the host
-        # (staging.step_metadata: numpy or native/step_metadata.cpp)
-        self.device_metadata = bool(extra.get("device_metadata"))
-        self.dedup_route = _choice(mc, "dedup_route", "auto", ("auto", "scatter", "gather"))
-        if self.dedup_route == "auto" and self._packed_moments and not self.device_metadata:
-            # the JAX trainer resolves the host-metadata packed update to the
-            # gather route (trainer.py:341-352)
-            self.dedup_route = "gather"
-        if self.dedup_route == "gather":
-            raise NotImplementedError(
-                "dedup_route='gather' is not ported yet (ROADMAP A4); packed bf16 moments "
-                "with host metadata resolve to it: set device_metadata, or "
-                "dedup_route='scatter'")
-        self.dedup_route = "scatter"
-        if _choice(mc, "update_space", "auto", ("auto", "position", "slot")) == "slot":
-            raise NotImplementedError("update_space='slot' is not ported yet (ROADMAP A4)")
-        # resolved from the first host metadata batch (staging.resolve_update_space)
-        self.update_space = "position" if self.device_metadata else "auto"
         self.table_container = _choice(mc, "table_container", "split", ("split", "stacked"))
         if fused.dual_container != (self.table_container == "stacked"):
             raise ValueError(
@@ -336,20 +355,42 @@ class Trainer:
         if self.table_container == "stacked" and not self._packed_moments:
             raise ValueError(
                 "table_container='stacked' requires table_update='pallas' with packed bf16 "
-                f"moments (resolved: {self.table_update!r}, table_opt_dtype={mdt!r})")
+                f"moments (resolved: {self.table_update!r}, "
+                f"table_opt_dtype={self._moment_dtype!r})")
         self.pair_gather = _choice(mc, "pair_gather", "auto", ("auto", "split", "dual"))
         if self.pair_gather == "auto":
             self.pair_gather = "dual" if self.table_container == "stacked" else "split"
         elif self.pair_gather == "dual" and self.table_container != "stacked":
             raise ValueError("pair_gather='dual' requires table_container='stacked'")
+        # slot space: the update's gather and Adam chain at the unique
+        # physical slots; "auto" resolves from the first host metadata batch
+        # (staging.resolve_update_space, trainer.py:431-455)
+        self.update_space = _choice(mc, "update_space", "auto", ("auto", "position", "slot"))
+        if self.update_space == "slot":
+            if self.table_container != "stacked":
+                raise ValueError("update_space='slot' requires table_container='stacked'")
+            if self.dedup_route != "gather":
+                raise ValueError(
+                    "update_space='slot' requires dedup_route='gather' (the slot route "
+                    "rides the accperm/resid metadata)")
+        # in-step metadata on the device, or per batch on the host
+        # (staging.step_metadata: numpy or native/step_metadata.cpp)
+        self.device_metadata = bool(extra.get("device_metadata"))
+        if self.device_metadata:
+            if self.table_update == "unique":
+                raise ValueError(
+                    "device_metadata is incompatible with table_update='unique' (its "
+                    "unique-indices scatter needs the host path's distinct pad rows)")
+            if extra.get("dedup_route") == "gather":
+                raise ValueError(
+                    "device_metadata has no gather-route lists; drop dedup_route='gather' "
+                    "(the in-step scatter is used)")
+            if extra.get("update_space") == "slot":
+                raise ValueError(
+                    "device_metadata supports update_space='position' only (slot space "
+                    "rides the route metadata)")
+            self.dedup_route, self.update_space = "scatter", "position"
         self._emb_phys_rows = self._emb_phys_rows_static()
-
-    def _check_moment_layout(self) -> None:
-        if self._moment_dtype == "bfloat16" and not self._packed_moments:
-            raise NotImplementedError(
-                f"split bfloat16 moments (table_update={self.table_update!r} with "
-                "table_opt_dtype='bfloat16') are not ported yet (ROADMAP A4); bf16 moments "
-                "ride the pallas update packed, float32 ones either update")
 
     def _emb_phys_rows_static(self) -> int:
         """Physical rows of the fused table (staging.py:119-129)."""
@@ -382,14 +423,16 @@ class Trainer:
         return self
 
     def _use_flat_optimizer(self) -> bool:
-        """trainer.py:561-580 without meshes and the masked sparse path
-        (both refused): off with ``flat_optimizer: false``; on for the
-        two-phase step, whose table is not the dense optimizer's; else on
-        while the embedding tables hold under 2^22 elements (the flat
-        vector would copy a larger table every step)."""
+        """trainer.py:561-580 without meshes (refused): off with
+        ``flat_optimizer: false``; on for the two-phase step and
+        ``sparse_embedding_update``, whose table is not the dense
+        optimizer's (the JAX trainer keeps the latter per tensor, as its
+        masked transform does not ravel: elementwise, the same bits); else on
+        while the embedding tables hold under 2^22 elements (the flat vector
+        would copy a larger table every step)."""
         if not self.cfg.model_config.extra.get("flat_optimizer", True):
             return False
-        if self.two_phase_embedding:
+        if self.two_phase_embedding or self.sparse_embedding_update:
             return True
         return sum(v * d for v, d in self.layout.embedding_specs.values()) < (1 << 22)
 
@@ -450,22 +493,28 @@ class Trainer:
 
     def init_state(self) -> None:
         """Optimizer state, kept across fit() calls as the JAX trainer keeps
-        its state.  Dense fit: the compiled optimizer over every parameter.
-        Two-phase: Adam over the rest params plus the table's SparseAdam
-        state: the step counter alone for the stacked container (the moments
-        live in its bottom half), a zero packed container for the split one."""
-        if not self.two_phase_embedding:
+        its state.  Dense fit: the compiled optimizer over every parameter,
+        the table's SparseAdam state instead of its moments there under
+        ``sparse_embedding_update`` (trainer.py:1414-1425).  Two-phase: Adam
+        over the rest params plus the table's SparseAdam state: the step
+        counter alone for the stacked container (the moments live in its
+        bottom half), a zero packed container for packed moments, else zero
+        split moments of ``table_opt_dtype``."""
+        if self.sparse_embedding_update or self.two_phase_embedding:
+            if self.two_phase_embedding:
+                self.table.requires_grad_(False)  # never differentiated: rows are injected
+            self.opt_state = self.tx.init(self.rest_params())
+        else:
             self.opt_state = self.tx.init(dict(self.model.named_parameters()))
             return
-        self.table.requires_grad_(False)  # never differentiated: rows are injected
-        self.opt_state = self.tx.init(self.rest_params())
         if self.table_container == "stacked":
             self.table_opt = SparseAdamFoldedState(
                 count=torch.zeros((), dtype=torch.int32, device=self.device))
         elif self._packed_moments:
             self.table_opt = init_sparse_adam(self.table, packed=True)
         else:
-            self.table_opt = init_sparse_adam(self.table, dtype=torch.float32)
+            self.table_opt = init_sparse_adam(self.table,
+                                              dtype=MOMENT_DTYPES[self._moment_dtype])
 
     # ------------------------------------------------------------------
     # the dense step (trainer.py:668-715, 996-1107)
@@ -495,8 +544,20 @@ class Trainer:
         params = dict(self.model.named_parameters())
         with torch.enable_grad():
             total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
-            grads = _grads(total, list(params.values()))
-        self.opt_state = self.tx.step(params, dict(zip(params, grads)), self.opt_state)
+            grads = dict(zip(params, _grads(total, list(params.values()))))
+        if self.sparse_embedding_update:
+            # the table leaves the dense optimizer; its touched physical rows
+            # take SparseAdam from the dense gradient (trainer.py:1074-1094)
+            g_table = grads.pop(_TABLE)
+            table = params.pop(_TABLE)
+            F = len(self.layout.sparse_slots)
+            rows = (ids[:, :F] + self._fused_offsets[None, :]).reshape(-1)
+            if self._emb_pack_factor > 1:
+                rows = torch.div(rows, self._emb_pack_factor, rounding_mode="floor")
+            with torch.no_grad():
+                _, self.table_opt = sparse_adam_row_update(
+                    table, g_table, rows, self.table_opt, lr=self.cfg.optim_config.lr)
+        self.opt_state = self.tx.step(params, grads, self.opt_state)
         return total.detach(), data_loss.detach(), probs.detach()
 
     # ------------------------------------------------------------------
@@ -591,7 +652,8 @@ class Trainer:
         """The dedup metadata of one batch of host ids [B, S], built on the
         host (``staging.step_metadata``) and moved to the device: (inv, rep)
         for the scatter update, plus (pids, pinv, nuniq, prep) for the
-        write-kernel one (staging.py:720-725)."""
+        write-kernel and unique ones, plus the gather route's five lists
+        (staging.py:720-725)."""
         F = len(self.layout.sparse_slots)
         flat = (np.asarray(ids)[:, :F].astype(np.int64) + self._host_offsets).reshape(1, -1)
         return tuple(self._to_device(a[0]) for a in staging.step_metadata(self, flat))
@@ -609,12 +671,23 @@ class Trainer:
             if self.device_metadata:
                 meta = device_step_metadata(flat_ids, P, Kp, self._emb_phys_rows)
             inv, rep = meta[0], meta[1]
+            route = meta[6:]  # the gather route's lists (trainer.py:914-919)
+            slot_mode = self.update_space == "slot" and bool(route)
             phys = torch.div(flat_ids, P, rounding_mode="floor") if P > 1 else flat_ids
-            if self.pair_gather == "dual":
+            sup_c = None
+            if slot_mode:
+                # phase 1 at the slots: each unique physical row's pair once
+                # (n_real leaves the pads as the gather's poison), then the
+                # positions' super-rows by pinv (trainer.py:843-859)
+                pair = rows_gather_dual(table.view(2, table.shape[0] // 2, W), meta[2],
+                                        n_real=meta[4])
+                sup_slot, monu_slot = pair[0], pair[1]
+                sup = sup_slot.index_select(0, meta[3].long())
+            elif self.pair_gather == "dual":
                 pair = rows_gather_dual(table.view(2, table.shape[0] // 2, W), phys)
                 sup, sup_c = pair[0], pair[1]
             else:
-                sup, sup_c = table.index_select(0, phys.long()), None
+                sup = table.index_select(0, phys.long())
             if P > 1:  # the logical sub-row of each super-row
                 sub = torch.arange(K, device=flat_ids.device) * P + torch.remainder(flat_ids, P)
                 rows = sup.reshape(K * P, D).index_select(0, sub)
@@ -628,17 +701,23 @@ class Trainer:
                 rows, rep, ids, dense, y, dmask, weight)
             grads = _grads(total, [*rest.values(), rows])
         lr = self.cfg.optim_config.lr
+        g_rows = grads[-1].reshape(K, D)
         with torch.no_grad():
-            if self.table_update == "scatter":
+            if slot_mode:
+                _, self.table_opt = two_phase_sparse_adam_slot(
+                    table, g_rows, flat_ids, rep, meta[2], meta[4], sup_slot, monu_slot,
+                    self.table_opt, lr, *route, pack_factor=P)
+            elif self.table_update == "scatter":
                 _, self.table_opt = two_phase_sparse_adam(
-                    table, grads[-1].reshape(K, D), flat_ids, inv, rep, self.table_opt,
-                    lr=lr, pack_factor=P)
+                    table, g_rows, flat_ids, inv, rep, self.table_opt, lr=lr, pack_factor=P)
             else:
                 pids, pinv, nuniq, prep = meta[2:6]
+                names = ("accperm", "resid_pos", "resid_slot", "gdup_pos", "gdup_tgt")
                 _, self.table_opt = two_phase_sparse_adam_unique(
-                    table, grads[-1].reshape(K, D), flat_ids, inv, rep, pids, pinv,
-                    self.table_opt, lr=lr, pack_factor=P, use_pallas=True, n_real=nuniq,
-                    sup=sup, sup_c=sup_c, prep=prep, monu_gather=self.monu_gather)
+                    table, g_rows, flat_ids, inv, rep, pids, pinv, self.table_opt, lr=lr,
+                    pack_factor=P, use_pallas=self.table_update == "pallas", n_real=nuniq,
+                    sup=sup, sup_c=sup_c, prep=prep, monu_gather=self.monu_gather,
+                    **dict(zip(names, route)))
             self.opt_state = self.tx.step(rest, dict(zip(rest, grads[:-1])), self.opt_state)
         return total.detach(), data_loss.detach(), probs.detach()
 

@@ -388,11 +388,13 @@ def test_dropout_in_the_fit_follows_the_trainers_generator():
 # refusals
 # ----------------------------------------------------------------------
 # the host-loop knobs (scan_steps, batch_metric_curves, flat_optimizer,
-# prefetch_batches) are ported: their cases (item None) fit with the knob and
-# check that it took effect; tests/test_torch_staged_fit.py holds each
-# against the other paths bitwise
+# prefetch_batches) and sparse_embedding_update are ported: their cases
+# (item None) fit with the knob and check that it took effect;
+# tests/test_torch_staged_fit.py holds the host-loop knobs against the other
+# paths bitwise, tests/test_torch_split_moments.py sparse_embedding_update
+# against JAX
 @pytest.mark.parametrize("override,item", [
-    (dict(sparse_embedding_update=True), "A4"),
+    (dict(sparse_embedding_update=True), None),
     (dict(scan_steps=16), None),
     (dict(batch_metric_curves=True), None),
     (dict(use_cagrad=True), "A6"),
@@ -422,6 +424,9 @@ def test_dense_fit_unported_knobs_name_their_roadmap_item(override, item):
         assert abs(tr.history[-1]["batch_mean_auc"] - want) < 1e-12
     else:
         assert tr.batch_history == [] and "batch_mean_auc" not in tr.history[-1]
+    if "sparse_embedding_update" in override:  # the table's own SparseAdam, 6 steps
+        assert "embeddings.fused.table" not in tr.opt_state.mu
+        assert int(tr.table_opt.count) == 6 and tr.table_opt.mu.any()
 
 
 @pytest.mark.parametrize("call", ["Trainer(debug=True)", "fit(epoch_callback=...)"])

@@ -198,15 +198,23 @@ def test_f32_two_phase_fit_matches_jax(update, P):
 
 
 def test_f32_route_refusals():
-    """Split bf16 moments and the unique update stay ROADMAP A4; the stacked
-    container needs packed moments."""
-    for extra, err, item in ((dict(table_update="scatter", table_opt_dtype="bfloat16"),
-                              NotImplementedError, "A4"),
-                             (dict(table_update="unique"), NotImplementedError, "A4"),
-                             (dict(table_update="pallas", table_container="stacked"),
-                              ValueError, "packed bf16")):
+    """Split bf16 moments and the unique update run (ported from ROADMAP A4:
+    tests/test_torch_split_moments.py holds them against JAX); the stacked
+    container still needs packed moments, as the JAX trainer says."""
+    for extra, kind in ((dict(table_update="scatter", table_opt_dtype="bfloat16"),
+                         torch.bfloat16),
+                        (dict(table_update="unique"), torch.float32),
+                        (dict(table_update="pallas", table_container="stacked"), None)):
         cfg = tsyn.make_config(vocab=400, **{**KW, **extra})
-        layout, *_ = tsyn.make_data(cfg, n=8, seed=0, vocab=400)
+        layout, x, y, _ = tsyn.make_data(cfg, n=128, seed=0, vocab=400)
         model = get_model("mmoe", layout, cfg, device="cpu")
-        with pytest.raises(err, match=item):
-            Trainer(model, device="cpu")
+        if kind is None:
+            with pytest.raises(ValueError, match="packed bf16"):
+                Trainer(model, device="cpu")
+            continue
+        tr = Trainer(model, device="cpu").compile()
+        table0 = tr.table.detach().clone()
+        tr.fit(x, y, batch_size=64, epochs=1, verbose=0)
+        assert tr.table_update == extra["table_update"]
+        assert isinstance(tr.table_opt, T.SparseAdamState) and tr.table_opt.mu.dtype == kind
+        assert int(tr.table_opt.count) == 2 and not torch.equal(tr.table.detach(), table0)

@@ -101,8 +101,11 @@ def test_native_fallback_rule(monkeypatch):
     _assert_same(got, J.batch_step_metadata(ids, 4, 1024, use_native=False), "fallback")
     with pytest.raises(native.NativeUnavailable):
         T.batch_step_metadata(ids, 4, 1024, use_native=True)
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.batch_step_metadata(ids, 4, 1024, want_route=True)
+    # the gather route's lists too (ported from ROADMAP A4)
+    got = T.batch_step_metadata(ids, 4, 1024, want_route=True)
+    assert T.metadata_calls == {"native": 0, "numpy": 2}
+    _assert_same(got, J.batch_step_metadata(ids, 4, 1024, want_route=True, use_native=False),
+                 "route fallback")
     with pytest.raises(ValueError, match="n_phys_rows"):
         T.batch_step_metadata(ids, 4, 512)  # Kp = 512 leaves no pad rows
 
@@ -173,12 +176,22 @@ def test_resolve_table_update_explicit_mode_raises():
 
 
 def test_demotion_to_split_bf16_moments_is_refused():
+    """Once ROADMAP A4 refused it; now the packed update demotes to the
+    scatter update on split bf16 moments, as the JAX trainer does
+    (staging.py:187-202), and the fit trains them
+    (tests/test_torch_split_moments.py holds the packed state's unpacking
+    bitwise against JAX)."""
     tr, _ = _pair(1 << 16, table_update="pallas", table_opt_dtype="bfloat16",
                   device_metadata=True)
     assert tr._packed_moments
     tr._table_update_auto = True  # as the card resolves "auto"
-    with pytest.raises(NotImplementedError, match="A4"):
-        staging.resolve_table_update(tr, 4096)
+    staging.resolve_table_update(tr, 4096)
+    assert tr.table_update == "scatter" and not tr._packed_moments
+    cfg = tr.cfg
+    _, x, y, _ = tsyn.make_data(cfg, n=4096, vocab=1 << 16)
+    tr.fit(x, y, batch_size=4096, epochs=1, verbose=0)
+    assert isinstance(tr.table_opt, T.SparseAdamState) and tr.table_opt.mu.dtype == torch.bfloat16
+    assert int(tr.table_opt.count) == 1 and np.isfinite(tr.history[-1]["loss"])
 
 
 def test_step_metadata_follows_the_update():

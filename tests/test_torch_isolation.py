@@ -173,7 +173,7 @@ def test_native_ctypes_signatures_match_the_c_source():
              ctypes.POINTER(ctypes.c_float): "float*"}
     source = native.SOURCE.read_text()
     assert set(native.SIGNATURES) <= set(re.findall(r"\nvoid (\w+)\(", source))
-    assert "sm_fill" in native.SIGNATURES
+    assert {"sm_fill", "sm_counts"} <= set(native.SIGNATURES)
     for name, argtypes in native.SIGNATURES.items():
         found = re.search(r"\nvoid " + name + r"\(([^)]*)\)", source)
         params = [" ".join(p.split()).replace("const ", "") for p in found.group(1).split(",")]

@@ -181,22 +181,32 @@ def test_two_phase_sparse_adam_unique_matches_jax(container, P, monu_gather):
 
 
 def test_two_phase_sparse_adam_unique_refuses_unported_paths():
+    """An unknown state is a TypeError; the unique update (use_pallas=False)
+    of packed and split moments and split bf16 moments, once ROADMAP A4,
+    run (tests/test_torch_split_moments.py holds them bitwise against
+    JAX)."""
     table = torch.zeros(8, 4)
     args = [table, torch.zeros(2, 4), torch.zeros(2, dtype=torch.int32)] + [None] * 4
     with pytest.raises(TypeError, match="state"):
         T.two_phase_sparse_adam_unique(*args, object(), lr=0.1)
-    for st in (T.init_sparse_adam(table, packed=True), T.init_sparse_adam(table)):
-        with pytest.raises(NotImplementedError, match="A4"):  # XLA's unique-indices scatter
-            T.two_phase_sparse_adam_unique(*args, st, lr=0.1, use_pallas=False)
-    # split moments run as float32; split bf16 ones are ROADMAP A4
+    ids, g = torch.tensor([1, 1], dtype=torch.int32), torch.ones(2, 4)
+    rep, pids = torch.tensor([1.0, 0.0]), torch.tensor([1, 0, 2, 3], dtype=torch.int32)
+    pinv, nuniq = torch.zeros(2, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    for st in (T.init_sparse_adam(table, packed=True), T.init_sparse_adam(table),
+               T.init_sparse_adam(table, dtype=torch.bfloat16)):
+        for use_pallas in (False, True):
+            t = table.clone()
+            out, new = T.two_phase_sparse_adam_unique(
+                t, g, ids, torch.zeros(2, dtype=torch.int32), rep, pids, pinv,
+                type(st)(*(a.clone() for a in st)), lr=0.1, use_pallas=use_pallas,
+                n_real=nuniq, prep=rep)
+            assert out is t and int(new.count) == 1
+            # row 1 took one Adam step of lr against the summed gradient; the rest stay
+            torch.testing.assert_close(t[1], torch.full((4,), -0.1), rtol=1e-5, atol=0)
+            assert not t[[0, 2, 3]].any()
     assert T.init_sparse_adam(table).mu.dtype == torch.float32
     bf16 = T.init_sparse_adam(table, dtype=torch.bfloat16)
-    assert bf16.nu.dtype == torch.bfloat16
-    ids, g = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.two_phase_sparse_adam(table, g, ids, ids, torch.ones(2), bf16, lr=0.1)
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.two_phase_sparse_adam_unique(table, g, ids, ids, torch.ones(2),
-                                       torch.arange(256, dtype=torch.int32), ids, bf16,
-                                       lr=0.1, n_real=torch.ones(1, dtype=torch.int32),
-                                       prep=torch.ones(2))
+    t, new = T.two_phase_sparse_adam(table.clone(), g, ids, torch.zeros(2, dtype=torch.int32),
+                                     rep, bf16, lr=0.1)
+    assert new.mu.dtype == torch.bfloat16 and new.mu[1].float().gt(0).all()
+    torch.testing.assert_close(t[1], torch.full((4,), -0.1), rtol=1e-5, atol=0)

@@ -35,6 +35,8 @@ from mmlrec_tpu_torch.ops import kernels as K
 from mmlrec_tpu_torch.serving import ServingBundle, save_serving_bundle
 from mmlrec_tpu_torch.train import Trainer
 from mmlrec_tpu_torch.train.sparse_embedding import (
+    SparseAdamPackedState,
+    SparseAdamState,
     fold_stacked_planes,
     pack_monu_rounded,
     split_stacked_planes,
@@ -275,27 +277,34 @@ def test_multihead_score_backward_matches_autograd():
         torch.testing.assert_close(a, c, atol=1e-6, rtol=1e-5)
 
 
-# scan_steps and batch_metric_curves are ported: their cases (item None) fit
-# with the knob (tests/test_torch_staged_fit.py holds them bitwise)
+# scan_steps, batch_metric_curves and ROADMAP A4's routes are ported: their
+# cases (item None) fit with the knob (tests/test_torch_staged_fit.py holds
+# the host-loop knobs bitwise; test_torch_gather_route.py,
+# test_torch_slot_space.py and test_torch_split_moments.py the routes
+# against JAX); a combination the JAX trainer refuses raises its ValueError
+# (the item is then the message), an unported knob NotImplementedError
+# naming its ROADMAP item
 @pytest.mark.parametrize("override,item", [
     (dict(two_phase_embedding=False, scan_steps=16), None),  # the dense fit takes it too
-    (dict(table_update="scatter"), "A4"),
-    (dict(table_update="unique"), "A4"),
-    (dict(table_update="auto"), "A4"),  # the CPU resolves auto to scatter
-    (dict(table_opt_dtype="float16"), "A4"),
-    (dict(device_metadata=False), "A4"),
-    (dict(dedup_route="gather"), "A4"),
-    (dict(update_space="slot"), "A4"),
+    (dict(table_update="scatter"), None),  # split bf16 moments
+    (dict(table_update="unique"), ValueError("incompatible with table_update='unique'")),
+    (dict(table_update="auto"), None),  # the CPU resolves auto to scatter: split bf16
+    (dict(table_opt_dtype="float16"), None),  # the write kernel on split f16 (the CPU only)
+    (dict(device_metadata=False), None),  # host metadata: the gather route
+    (dict(dedup_route="gather"), ValueError("no gather-route lists")),
+    (dict(update_space="slot"), ValueError("update_space='slot' requires")),
     (dict(scan_steps=16), None),
     (dict(batch_metric_curves=True), None),
-    (dict(use_gradnorm=True), "A6"),
+    (dict(use_gradnorm=True), ValueError("per-task gradient methods")),
 ])
 def test_unported_knobs_raise_naming_their_roadmap_item(override, item):
     cfg = tsyn.make_config(**{**KW, "vocab": 400, **override})
     layout, x, y, _ = tsyn.make_data(cfg, n=150, seed=0, vocab=400)
     model = get_model("mmoe", layout, cfg, device="cpu")
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        err, match = ((type(item), str(item)) if isinstance(item, Exception)
+                      else (NotImplementedError, item))
+        with pytest.raises(err, match=match):
             Trainer(model, device="cpu")
         return
     tr = Trainer(model, device="cpu").compile(metrics=["auc"])
@@ -304,6 +313,14 @@ def test_unported_knobs_raise_naming_their_roadmap_item(override, item):
     curves = "batch_metric_curves" in override
     assert [len(c) for c in tr.batch_history] == ([3, 3] if curves else [])
     assert ("batch_mean_auc" in tr.history[-1]) == curves
+    if override.get("two_phase_embedding", True):
+        mdt = override.get("table_opt_dtype", "bfloat16")
+        split = tr.table_update == "scatter" or mdt == "float16"
+        assert isinstance(tr.table_opt, SparseAdamState if split else SparseAdamPackedState)
+        if split:
+            assert tr.table_opt.mu.dtype == getattr(torch, mdt)
+        assert tr.dedup_route == ("gather" if override.get("device_metadata") is False
+                                  else "scatter")
 
 
 def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch, tmp_path):
