@@ -185,10 +185,32 @@ failure and carries on):
    most ``SEU_TABLE_SHARE`` of its entries over 1e-6 and none over
    lr / 4), and the card's ValueError for f16 moments under the write
    kernel;
-14. one JSON line with every kernel's numbers, one with the dense fit, one
+14. the per-task gradient methods, the CKA loss and a behaviour sequence at
+   the flagship's full width (phase 9's MMoE, the masked loss): (a) as
+   ``pcg``, with ``use_gradnorm``, with ``use_cagrad`` and with
+   ``use_cka_loss``: three steps card against CPU with sigmoid DNNs
+   (phase 9's rule, GradNorm's weights atol 1e-6), the forward kernels
+   launched once a step and their plain backwards once per task (twice;
+   once for CKA); a staged fit of 16 batches x 2 epochs (phase 12's config,
+   dropout 0.2) replayed against eager bitwise, GradNorm's state included,
+   GradNorm's fit resumed from its epoch-1 training state bitwise equal to
+   the uninterrupted one, an eager step under
+   ``set_sync_debug_mode("error")``, and a replayed
+   step's device time beside phase 12's flagship; (b) the flagship's
+   columns plus ``VarLenSparseFeat(SparseFeat("hist", 100000, 8),
+   maxlen=50, combiner="mean")`` (id 0 as padding, lengths in 1..50):
+   three requests served from a bundle on the card against the CPU within
+   atol 1e-5 with each forward kernel launched once a forward, the
+   embed-concat bitwise against its plain version at its dense width of
+   69 (pooled + dense), the sequence table's cotangent
+   (``segment_sum_rows``) against the card's ``index_put_`` with
+   accumulate within 1e-5 of the largest entry with both device times,
+   three steps card against CPU (phase 9's rule) and a staged fit replayed
+   against eager bitwise;
+15. one JSON line with every kernel's numbers, one with the dense fit, one
    with the families, one with the shipped configurations, one with the
-   staged fits, one with the production recipe; the card's name and power
-   limit; the last line is the device line.
+   staged fits, one with the production recipe, one with phase 14; the
+   card's name and power limit; the last line is the device line.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -2315,6 +2337,9 @@ def _held_bitwise(torch, a, b) -> list:
         for field, t in a.table_opt._asdict().items():
             if not torch.equal(bits(t), bits(getattr(b.table_opt, field))):
                 bad.append(f"table_opt/{field}")
+    for k, t in (a.gn_state or {}).items():
+        if not torch.equal(bits(t), bits(b.gn_state[k])):
+            bad.append(f"gradnorm/{k}")
     if [h["loss"] for h in a.history] != [h["loss"] for h in b.history]:
         bad.append("history")
     return bad
@@ -2361,7 +2386,7 @@ def _replayed_step_device_ms(torch, tr, x, y, batch, **fit_kw):
 
 
 def _staged_pair(torch, K, card, tag, make, x, y, batch, epochs, timed_batches, meta_fn=None,
-                 streaming=False, **fit_kw):
+                 streaming=False, phase=12, **fit_kw):
     """Fit ``make(scan_steps)`` twice, staged with graph replay (scan_steps
     16) and staged eager (0), each on a fresh trainer from one init, and
     with ``streaming`` also on the streaming path (the dataset over a cap
@@ -2415,7 +2440,7 @@ def _staged_pair(torch, K, card, tag, make, x, y, batch, epochs, timed_batches, 
     for name, r, dev_ms, how in rows:
         busy = None if dev_ms is None else dev_ms / r["step_ms_wall_last_epoch"]
         r["device_busy_share"] = busy
-        log(f"[12] {tag}, {'staged ' if name in ('graph', 'eager') else ''}{name} ({how}): "
+        log(f"[{phase}] {tag}, {'staged ' if name in ('graph', 'eager') else ''}{name} ({how}): "
             f"fit {r['fit_s']:.2f} s, {r['fit_examples_per_s']:.0f} examples/s (first epoch "
             f"left out); last epoch {r['step_ms_wall_last_epoch']:.3f} ms a step (host clock, "
             f"the epoch's sync included); step device time "
@@ -2426,19 +2451,19 @@ def _staged_pair(torch, K, card, tag, make, x, y, batch, epochs, timed_batches, 
             f"{[tuple(round(v, 2) for v in t.values()) for t in r['host_ms_by_epoch']]}; "
             f"launches per step "
             f"{ {k: round(v, 3) for k, v in r['launches_per_step'].items()} } [{card}]")
-    log(f"[12] {tag}: a replayed step's device time from {REPLAY_SPIN_MS:.0f} ms spun epoch "
+    log(f"[{phase}] {tag}: a replayed step's device time from {REPLAY_SPIN_MS:.0f} ms spun epoch "
         f"(its replays queued in {replay_queued_ms:.1f} ms): "
         f"{'not measured' if replay_dev_ms is None else f'{replay_dev_ms:.3f} ms'} [{card}]")
     for name in bad:
-        log(f"[12] {tag}: {name} vs staged eager "
+        log(f"[{phase}] {tag}: {name} vs staged eager "
             f"{'bitwise equal' if not bad[name] else 'DIFFER in ' + str(bad[name][:8])} "
             f"(parameters, buffers, optimizer states, losses) [{card}]")
-    log(f"[12] {tag}: one eager step ran under set_sync_debug_mode('error') [{card}]")
+    log(f"[{phase}] {tag}: one eager step ran under set_sync_debug_mode('error') [{card}]")
     if differs:
-        raise AssertionError(f"phase 12, {tag}: fits differ from staged eager: {differs}")
+        raise AssertionError(f"phase {phase}, {tag}: fits differ from staged eager: {differs}")
     if not out[SCAN_GRAPH]["graph_replays"]["train"] or out[0]["graph_replays"]["train"] or any(
             r["graph_replays"]["train"] for r in streamed.values()):
-        raise AssertionError(f"phase 12, {tag}: the graph fit replayed nothing, or an eager one did")
+        raise AssertionError(f"phase {phase}, {tag}: the graph fit replayed nothing, or an eager one did")
     del graph
     torch.cuda.empty_cache()
     return res
@@ -2997,6 +3022,253 @@ def _update_card_equals_cpu(torch, cpu, x, extra):
                for a, b in zip(*outs))
 
 
+# ----------------------------------------------------------------------
+# phase 14: the per-task gradient methods, the CKA loss, a behaviour sequence
+# ----------------------------------------------------------------------
+# arm -> (registry name, model_config on top of the flagship's)
+PER_TASK_ARMS = {"pcg": ("pcg", {}), "gradnorm": ("mmoe", dict(use_gradnorm=True)),
+                 "cagrad": ("mmoe", dict(use_cagrad=True)),
+                 "cka": ("mmoe", dict(use_cka_loss=True))}
+TASK_BATCHES = 16  # phase 14's staged fits: 16 batches x STAGED_EPOCHS
+HIST_VOCAB, HIST_DIM, HIST_MAXLEN = 100_000, 8, 50  # phase 14 (b)'s behaviour sequence
+FORWARD_KERNELS = ("embed_concat", "gated_expert_mix", "multihead_score")
+
+
+def _varlen_inputs(n, seed):
+    """The flagship's layout and columns (``aliexpress_like_config``, vocab
+    100) plus one behaviour sequence ``hist``: ids in [1, 100,000), id 0
+    past a length drawn in 1..50, mean-pooled (dense operand of the
+    embed-concat: 8 pooled + 61 dense = 69 columns)."""
+    from mmlrec_tpu_torch.features import FeatureLayout, SparseFeat, VarLenSparseFeat
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+
+    base, x, y, _ = make_data(aliexpress_like_config("mmoe"), n=n, vocab=100, seed=seed)
+    hist = VarLenSparseFeat(SparseFeat("hist", HIST_VOCAB, HIST_DIM), maxlen=HIST_MAXLEN,
+                            combiner="mean")
+    layout = FeatureLayout(list(base.feature_columns) + [hist])
+    rng = np.random.default_rng(seed + 100)
+    lens = rng.integers(1, HIST_MAXLEN + 1, n)
+    ids = rng.integers(1, HIST_VOCAB, (n, HIST_MAXLEN))
+    x["hist"] = np.where(np.arange(HIST_MAXLEN)[None] < lens[:, None], ids, 0).astype(np.int32)
+    return layout, x, y
+
+
+def _phase14_card_vs_cpu(torch, K, card, tag, name, cfg, layout, x, y, backwards_per_step):
+    """Three steps, the last batch partial, card against CPU from one numpy
+    init with sigmoid DNNs, phase 9's rule (``_card_vs_cpu_state``);
+    GradNorm's state atol 1e-6; the launches and plain backwards a step."""
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.train import Trainer
+
+    def trainer(dev):
+        model = get_model(name, layout, cfg, device="cpu")
+        load_jax_variables(model, _numpy_train_state(model, seed=10))
+        return Trainer(model, seed=0, device=dev).compile(metrics=["auc", "logloss"])
+
+    batch = cfg.training_config.train_batch_size
+    gpu, cpu = trainer(DEV), trainer("cpu")
+    K.reset_launch_counts()
+    gpu.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    launches = _per_step(K, 3)
+    backwards = {k: v / 3 for k, v in K.backward_counts.items() if v}
+    want = {k: 1.0 for k in FORWARD_KERNELS}
+    if launches != want or backwards != {k: float(backwards_per_step) for k in FORWARD_KERNELS}:
+        raise AssertionError(f"phase 14, {tag}: launches per step {launches}, plain backwards "
+                             f"{backwards}, expected 1 each and {backwards_per_step} each")
+    cpu.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+    lg, lc = gpu.history[-1]["loss"], cpu.history[-1]["loss"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    worst, verdict = _card_vs_cpu_state(gpu, cpu, set(), cfg.optim_config.lr)
+    gn = None
+    if gpu.gn_state is not None:
+        gn = {k: (gpu.gn_state[k].cpu().tolist(), cpu.gn_state[k].tolist())
+              for k in gpu.gn_state}
+        np.testing.assert_allclose(gpu.gn_state["task_weights"].cpu().numpy(),
+                                   cpu.gn_state["task_weights"].numpy(), atol=1e-6, rtol=0)
+        if int(gpu.gn_state["gn_step"]) != 3 or int(cpu.gn_state["gn_step"]) != 3:
+            raise AssertionError(f"phase 14, {tag}: GradNorm took {gn['gn_step']} steps")
+    log(f"[14] {tag}, card vs CPU, 3 steps of {batch}, sigmoid DNNs: epoch loss card {lg:.9g} "
+        f"cpu {lc:.9g}; {verdict}; GradNorm (card, cpu) {gn}; launches per step {launches}, "
+        f"plain backwards per step {backwards} [{card}]")
+    if worst["failed"]:
+        raise AssertionError(f"phase 14, {tag}: the card's steps left the CPU's tolerance")
+    return dict(loss_card=lg, loss_cpu=lc, **worst, gradnorm=gn, launches_per_step=launches,
+                backwards_per_step=backwards)
+
+
+def _resume_bitwise(torch, card, tag, make, x, y, batch):
+    """A graph fit of 2 unshuffled epochs against one of 1 epoch, saved with
+    ``save_training_state`` and resumed for the second: bitwise equal
+    (parameters, buffers, optimizer states, GradNorm's state, the second
+    epoch's loss)."""
+    full, first, resumed = make(SCAN_GRAPH), make(SCAN_GRAPH), make(SCAN_GRAPH)
+    full.fit(x, y, batch_size=batch, epochs=2, shuffle=False, verbose=0)
+    first.fit(x, y, batch_size=batch, epochs=1, shuffle=False, verbose=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = first.save_training_state(tmp)
+        resumed.fit(x, y, batch_size=batch, epochs=2, shuffle=False, verbose=0,
+                    resume_from=path)
+    full.history = full.history[1:]
+    bad = _held_bitwise(torch, full, resumed)
+    log(f"[14] {tag}: a fit resumed from its epoch-1 training state vs the uninterrupted "
+        f"2-epoch fit (graph replay): {'bitwise equal' if not bad else 'DIFFER in ' + str(bad)}"
+        f"; GradNorm step {int(resumed.gn_state['gn_step'])} [{card}]")
+    if bad or int(resumed.gn_state["gn_step"]) != 2 * TASK_BATCHES:
+        raise AssertionError(f"phase 14, {tag}: the resumed fit differs: {bad}")
+    return dict(bitwise_equal=True, gn_step=int(resumed.gn_state["gn_step"]))
+
+
+def _varlen_cotangent(torch, card, hist):
+    """The varlen table's cotangent at one batch's ids ([4096, 50], id 0 at
+    about half the positions, their rows zero as the mean gives them):
+    ``segment_sum_rows`` (the step's) against the card's ``index_put_`` with
+    accumulate (``scatter_add_rows``), within 1e-5 of the largest entry,
+    two runs bitwise equal, with both device times."""
+    from mmlrec_tpu_torch.ops.embedding import segment_sum_rows
+    from mmlrec_tpu_torch.ops.kernels import scatter_add_rows
+    from mmlrec_tpu_torch.tools.timing import device_ms
+
+    idx = torch.from_numpy(np.ascontiguousarray(hist).reshape(-1)).to(DEV).long()
+    g = torch.randn((idx.shape[0], HIST_DIM), generator=torch.Generator(DEV).manual_seed(3),
+                    device=DEV) * (idx != 0)[:, None]
+    scan, again = (segment_sum_rows(g, idx, HIST_VOCAB) for _ in range(2))
+    serial = scatter_add_rows(g, idx, HIST_VOCAB)
+    err = float((scan - serial).abs().max()) / float(serial.abs().max())
+    same = torch.equal(scan.view(torch.int32), again.view(torch.int32))
+    scan_us = device_ms(lambda: segment_sum_rows(g, idx, HIST_VOCAB), reps=5, inner=3) * 1e3
+    serial_us = device_ms(lambda: scatter_add_rows(g, idx, HIST_VOCAB), reps=5, inner=3) * 1e3
+    log(f"[14] varlen table cotangent, {idx.shape[0]} ids into [{HIST_VOCAB}, {HIST_DIM}] "
+        f"({int((idx == 0).sum())} padding): segment_sum_rows {scan_us:.1f} us, index_put_ "
+        f"accumulate {serial_us:.1f} us; max difference {err:.3g} of the largest entry; two "
+        f"runs {'bitwise equal' if same else 'DIFFER'} [{card}]")
+    if err > 1e-5 or not same:
+        raise AssertionError("phase 14, varlen: segment_sum_rows disagrees or is not deterministic")
+    return dict(segment_sum_us=scan_us, index_put_accumulate_us=serial_us,
+                max_rel_difference=err, deterministic=same)
+
+
+def per_task_and_varlen(torch, K, card, flagship_staged):
+    """Phase 14: (a) the flagship as ``pcg``, with GradNorm, with CAGrad and
+    with the CKA loss: card against CPU, a staged fit replayed against
+    eager, a sync-free eager step, the step's device time beside phase
+    12's flagship; (b) the flagship with a behaviour sequence: serving
+    from a bundle card against CPU, the embed-concat bitwise at its dense
+    width, three steps card against CPU and a staged fit replayed against
+    eager."""
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.serving import ServingBundle, _pack_from_schema, save_serving_bundle
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.tools.timing import device_ms
+    from mmlrec_tpu_torch.train import Trainer
+    from mmlrec_tpu_torch.utils.seeding import make_generator
+
+    batch = FLAGSHIP_BATCH
+    base_ms = flagship_staged["replayed_step_device_ms"]
+    out = {"phase12_flagship_replayed_step_device_ms": base_ms}
+    # ---- (a) the per-task methods and the CKA loss at the flagship's widths
+    layout3, x3, y3, _ = make_data(aliexpress_like_config("mmoe"), n=3 * batch - 1000,
+                                   vocab=100, seed=9)
+    layout, x, y, _ = make_data(aliexpress_like_config("mmoe"), n=TASK_BATCHES * batch,
+                                vocab=100, seed=11)
+    for arm, (name, extra) in PER_TASK_ARMS.items():
+        cfg = aliexpress_like_config(name, masked_loss=True, dnn_activation="sigmoid", **extra)
+        T = 1 if arm == "cka" else cfg.num_tasks
+        res = {"card_vs_cpu": _phase14_card_vs_cpu(torch, K, card, arm, name, cfg, layout3, x3,
+                                                   y3, T)}
+
+        def make(scan, name=name, extra=extra):
+            cfg = aliexpress_like_config(name, masked_loss=True, dnn_dropout=0.2,
+                                         scan_steps=scan, **extra)
+            model = get_model(name, layout, cfg, generator=make_generator(5, DEV), device=DEV)
+            return Trainer(model, seed=0, device=DEV).compile(metrics=["auc", "logloss"])
+
+        res["staged"] = _staged_pair(torch, K, card, f"{arm} (phase 12's flagship config)",
+                                     make, x, y, batch, STAGED_EPOCHS, timed_batches=5,
+                                     phase=14)
+        if arm == "gradnorm":
+            res["resume"] = _resume_bitwise(torch, card, arm, make, x, y, batch)
+        ms = res["staged"]["replayed_step_device_ms"]
+        ratio = None if ms is None or base_ms is None else ms / base_ms
+        res["replayed_device_vs_phase12"] = ratio
+        log(f"[14] {arm}: a replayed step {'not measured' if ms is None else f'{ms:.3f} ms'} "
+            f"of device time against phase 12's flagship "
+            f"{'not measured' if base_ms is None else f'{base_ms:.3f} ms'}"
+            f"{'' if ratio is None else f' ({ratio:.2f}x)'}; "
+            f"{res['staged']['graph']['fit_examples_per_s']:.0f} examples/s [{card}]")
+        out[arm] = res
+    # ---- (b) a behaviour sequence beside the flagship's columns
+    cfg = aliexpress_like_config("mmoe")
+    vl, vx, _ = _varlen_inputs(sum(FAMILY_REQUESTS), seed=30)
+    model = get_model("mmoe", vl, cfg, device="cpu")
+    load_jax_variables(model, numpy_variables(model, seed=31))
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "varlen_mmoe")
+    save_serving_bundle(model, path)
+    gpu, cpu = ServingBundle.load(path, device=DEV), ServingBundle.load(path, device="cpu")
+    edges = np.cumsum((0,) + FAMILY_REQUESTS)
+    requests = [{k: v[a:b] for k, v in vx.items()} for a, b in zip(edges[:-1], edges[1:])]
+    gpu.predict(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    outs = [gpu.predict(r) for r in requests]
+    serve_launches = {k: v for k, v in K.launch_counts.items() if v}
+    if serve_launches != {k: len(requests) for k in FORWARD_KERNELS}:
+        raise AssertionError(f"phase 14, varlen: {serve_launches} in {len(requests)} forwards")
+    worst = 0.0
+    for r, got in zip(requests, outs):
+        want = cpu.predict(r)
+        if got.shape != (len(r["s0"]), 2) or not np.isfinite(got).all():
+            raise AssertionError(f"phase 14, varlen: predictions of shape {got.shape}")
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        worst = max(worst, float(np.abs(got - want).max()))
+    # the embed-concat at this dense width, against its plain version
+    ids, dense = _pack_from_schema(gpu.meta["packing"], requests[0])
+    ids_d, dense_d = torch.from_numpy(ids).to(DEV), torch.from_numpy(dense).to(DEV)
+    fused = gpu.model.embeddings.fused
+    with torch.no_grad():
+        side = torch.cat([*gpu.model.pooled_varlen(ids_d), dense_d], dim=1)
+        flat = ids_d[:, :fused.offsets.shape[0]] + fused.offsets[None]
+        table = fused.table.view(-1, fused.dim)
+        got, want = K.embed_concat(table, flat, side), K.embed_concat_plain(table, flat, side)
+        bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        vec_rows = K.embed_concat_vector_rows(ids.shape[0], fused.dim, got.shape[1],
+                                              table.data_ptr(), side.data_ptr(), got.data_ptr())
+        b7_us = device_ms(lambda: K.embed_concat(table, flat, side), reps=11, inner=10) * 1e3
+    log(f"[14] varlen (mmoe, 16 sparse + hist [{HIST_VOCAB}, {HIST_DIM}] maxlen {HIST_MAXLEN} "
+        f"mean + 61 dense): {len(requests)} requests from a bundle, max |gpu - cpu| {worst:.3g}; "
+        f"launches {serve_launches}; embed_concat at dense width {side.shape[1]} (output "
+        f"{got.shape[1]} wide): {vec_rows} of {ids.shape[0]} rows on the vector body, "
+        f"{'bitwise equal' if bitwise else 'DIFFERS'} to its plain version, {b7_us:.2f} us "
+        f"[{card}]")
+    if not bitwise:
+        raise AssertionError("phase 14, varlen: embed_concat differs from its plain version")
+    varlen = dict(serving_max_abs_err=worst, launches_in_serving=serve_launches,
+                  embed_concat_dense_width=int(side.shape[1]), embed_concat_vector_rows=vec_rows,
+                  embed_concat_bitwise=bitwise, embed_concat_us=b7_us,
+                  table_cotangent=_varlen_cotangent(torch, card, requests[0]["hist"]))
+    del gpu, cpu
+    vl3, vx3, vy3 = _varlen_inputs(3 * batch - 1000, seed=32)
+    smooth = aliexpress_like_config("mmoe", masked_loss=True, dnn_activation="sigmoid")
+    varlen["card_vs_cpu"] = _phase14_card_vs_cpu(torch, K, card, "varlen", "mmoe", smooth, vl3,
+                                                 vx3, vy3, 1)
+    vl, vx, vy = _varlen_inputs(TASK_BATCHES * batch, seed=33)
+
+    def make_varlen(scan):
+        cfg = aliexpress_like_config("mmoe", masked_loss=True, dnn_dropout=0.2, scan_steps=scan)
+        model = get_model("mmoe", vl, cfg, generator=make_generator(5, DEV), device=DEV)
+        return Trainer(model, seed=0, device=DEV).compile(metrics=["auc", "logloss"])
+
+    varlen["staged"] = _staged_pair(torch, K, card, "varlen (phase 12's flagship config + hist)",
+                                    make_varlen, vx, vy, batch, STAGED_EPOCHS, timed_batches=5,
+                                    phase=14)
+    out["varlen"] = varlen
+    torch.cuda.empty_cache()
+    return out
+
+
 def _table_and_moments(tr):
     """(table [Vp, W], mu, nu) of a two-phase trainer, the moments as f32."""
     from mmlrec_tpu_torch.train.sparse_embedding import unpack_monu_f32
@@ -3057,6 +3329,7 @@ def main() -> int:
     shipped_ae = shipped_full_width(torch, K, card, workdir)
     staged = staged_fits(torch, K, card)
     recipe = production_recipe(torch, K, card)
+    task = per_task_and_varlen(torch, K, card, staged["dense_flagship"])
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS}
@@ -3077,6 +3350,17 @@ def main() -> int:
     kernels["rows_write"]["launches_per_step_phase13"] = {
         "gather route, split": recipe["card_vs_cpu"]["gather route, split"]["launches_per_step"]
         .get("rows_write")}
+    # phase 14: launches a step of the per-task arms and of the varlen fit
+    for name in FORWARD_KERNELS:
+        kernels[name]["launches_per_step_phase14"] = {
+            arm: task[arm]["card_vs_cpu"]["launches_per_step"].get(name)
+            for arm in (*PER_TASK_ARMS, "varlen")}
+        kernels[name]["plain_backwards_per_step_phase14"] = {
+            arm: task[arm]["card_vs_cpu"]["backwards_per_step"].get(name)
+            for arm in (*PER_TASK_ARMS, "varlen")}
+    kernels["embed_concat"]["phase14_dense_width_69"] = {
+        k: task["varlen"][k] for k in ("embed_concat_dense_width", "embed_concat_vector_rows",
+                                       "embed_concat_bitwise", "embed_concat_us")}
     line = {"kernels": [
         dict(name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
              launches=launches[name], launches_phase11_cli=shipped_launches.get(name, 0),
@@ -3098,6 +3382,7 @@ def main() -> int:
                                   "config_AE_full_width": shipped_ae}, "card": card}), flush=True)
     print(json.dumps({"staged_fit": staged, "card": card}), flush=True)
     print(json.dumps({"production_recipe": recipe, "card": card}), flush=True)
+    print(json.dumps({"per_task_and_varlen": task, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

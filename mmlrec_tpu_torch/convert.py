@@ -2,7 +2,8 @@
 
 The port names its parameters as the flax modules do, so the flax path
 ``embeddings/fused/table`` is the state-dict key ``embeddings.fused.table``
-and every leaf keeps its layout (``[K, in, out]`` kernels, the lane-packed
+(a varlen feature's ``embeddings/table_{name}`` is
+``embeddings.table_{name}``) and every leaf keeps its layout (``[K, in, out]`` kernels, the lane-packed
 ``[rows/P, 128]`` table, the stacked ``[2Vp, 128]`` container).  Trees are
 given as numpy arrays (or anything ``np.asarray`` takes); this module
 imports no JAX.

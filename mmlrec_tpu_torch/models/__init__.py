@@ -1,7 +1,8 @@
 """Model registry of the port (mmlrec_tpu/models/__init__.py).
 
 All sixteen names of the JAX registry are ported.  ``pcg`` is MMoE, as in
-the JAX registry: the PCGrad method itself is the trainer's (ROADMAP A6).
+the JAX registry: the PCGrad method itself is the trainer's
+(``train/pcgrad.py``).
 """
 
 from __future__ import annotations

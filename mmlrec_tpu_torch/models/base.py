@@ -5,14 +5,16 @@ Every model is an ``nn.Module`` called as::
 
     probs = model(ids, dense, domain_mask)
 
-with ``ids: int32 [B, n_sparse]``, ``dense: float32 [B, n_dense]``,
+with ``ids: int32 [B, n_id_slots]`` (the sparse ids, then each varlen
+feature's ``maxlen`` ids and its length column if it has one),
+``dense: float32 [B, n_dense]``,
 ``domain_mask: [B, D] or None`` and output ``[B, num_tasks]``
 probabilities (reference forward contract, e.g. model/mmoe.py:65-119).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,7 +22,7 @@ from torch import nn
 from ..config import ExperimentConfig
 from ..features import FeatureLayout
 from ..ops.embedding import EmbeddingCollection
-from ..ops.layers import PredictionHeads, StackedDense, StackedMLP, WideLinear
+from ..ops.layers import PredictionHeads, StackedDense, StackedMLP, WideLinear, sequence_pooling
 
 
 class RecModel(nn.Module):
@@ -102,28 +104,47 @@ class RecModel(nn.Module):
 
     def embed_inputs(self, ids: torch.Tensor, dense: torch.Tensor, rows=None):
         """Return (dnn_input [B, input_dim], sparse_emb [B, F, D_emb] or None):
-        flattened sparse embeddings ++ dense values (reference
-        basemodel.py:461-487, model/utils.py:434-446), built by one
-        embed-concat kernel; ``sparse_emb`` is a view into ``dnn_input``.
+        flattened sparse embeddings ++ pooled varlen embeddings ++ dense
+        values (mmlrec_tpu/models/base.py:108-135, reference
+        basemodel.py:461-487), built by one embed-concat kernel whose dense
+        operand is ``cat(pooled varlen, dense)``; ``sparse_emb`` is a view
+        into ``dnn_input``.
 
         ``rows`` [B, F, D] are the two-phase step's injected rows: then
         ``dnn_input = cat(rows.flatten(1), dense)`` in plain ops,
         differentiable w.r.t. the rows, and the table is not read."""
         fused = self.embeddings.fused
-        n_dense = self.layout.num_dense_dims
-        if fused is None:
-            if not n_dense:
-                raise ValueError("dnn_feature_columns is null!")
-            return dense, None
-        n_sparse = len(self.layout.sparse_slots)
-        if not n_dense:
+        if not self.layout.num_dense_dims:
             dense = dense.new_empty((dense.shape[0], 0))
+        pooled = self.pooled_varlen(ids)
+        side = torch.cat([*pooled, dense], dim=1) if pooled else dense
+        if fused is None:
+            if side.shape[1] == 0:
+                raise ValueError("dnn_feature_columns is null!")
+            return side, None
+        n_sparse = len(self.layout.sparse_slots)
         if rows is not None:
             rows = self.embeddings.sparse_embeddings(ids, rows)
-            return torch.cat([rows.flatten(1), dense], dim=1), rows
-        dnn_input = fused.embed_concat(ids[:, :n_sparse], dense)
+            return torch.cat([rows.flatten(1), side], dim=1), rows
+        dnn_input = fused.embed_concat(ids[:, :n_sparse], side)
         sparse_emb = dnn_input[:, : n_sparse * fused.dim].unflatten(1, (n_sparse, fused.dim))
         return dnn_input, sparse_emb
+
+    def pooled_varlen(self, ids: torch.Tensor) -> List[torch.Tensor]:
+        """Each varlen feature's sequence pooled to [B, E] by its combiner:
+        positions below the length column when the feature has one, else
+        the ids other than 0 (reference model/utils.py:454)."""
+        out = []
+        for slot in self.layout.varlen_slots:
+            seq_ids = ids[:, slot.start:slot.end]
+            seq_emb = self.embeddings.varlen_embedding(slot.feature.embedding_name, seq_ids)
+            if slot.length_slot is not None:
+                steps = torch.arange(slot.feature.maxlen, device=ids.device)
+                mask = steps[None, :] < ids[:, slot.length_slot][:, None]
+            else:
+                mask = seq_ids != 0
+            out.append(sequence_pooling(seq_emb, mask, mode=slot.feature.combiner))
+        return out
 
     def set_dropout_generator(self, generator: torch.Generator) -> None:
         """Hand every module that draws in training (dropout, stochastic

@@ -30,7 +30,8 @@ import torch
 from torch import nn
 
 from ..features import FeatureLayout
-from .kernels import embed_concat
+from .initializers import normal_init
+from .kernels import embed_concat, take_fill
 
 
 #: one-hot budget of the matmul backward: f32 [B, F, vmax] bytes
@@ -94,6 +95,56 @@ def fused_table_geometry(layout):
     if P > 1:
         rows = _round_up(rows, P * 128)
     return dim, P, rows // P
+
+
+def segment_sum_rows(values: torch.Tensor, index: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``zeros([n_rows, D]).at[index].add(values)`` in fixed-shape tensor ops
+    whose time does not grow with how often one index repeats: the rows
+    sorted by index (stable), a segmented inclusive scan of log2(K) shifted
+    adds (each position adds the one ``2^k`` before it when both carry the
+    same index), and each index's total, at its segment's last position,
+    written to its row once.  An index outside ``[0, n_rows)`` adds
+    nothing.  Deterministic (no atomics), without a host read, so a
+    captured step replays bitwise.  The card's ``index_put_`` with
+    accumulate adds a repeated index's values one after another in one
+    thread: with a behaviour sequence's padding id at half of a batch's
+    204,800 positions it took 17.2 ms on an H100 (80GB HBM3, 700 W), this
+    0.58 ms (``chip_smoke.py`` phase 14)."""
+    K, D = values.shape
+    idx = index.long()
+    idx = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows)
+    key, order = torch.sort(idx, stable=True)
+    x = values.index_select(0, order)
+    shift = 1
+    while shift < K:
+        same = (key[shift:] == key[:-shift])[:, None]
+        x = torch.cat([x[:shift], x[shift:] + torch.where(same, x[:-shift], 0.0)])
+        shift *= 2
+    last = torch.cat([key[1:] != key[:-1], torch.ones_like(key[:1], dtype=torch.bool)])
+    out = values.new_zeros((n_rows + 2, D))
+    # every real row is the target of one position; the rest go to row n_rows + 1
+    out.index_put_((torch.where(last, key, n_rows + 1),), x)
+    return out[:n_rows]
+
+
+class _TakeRows(torch.autograd.Function):
+    """``take_fill`` whose table cotangent is ``segment_sum_rows``, one
+    deterministic formula on both devices, so a step that runs it replays
+    bitwise (autograd's own backward of an index adds with atomics on the
+    card)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return take_fill(table, ids)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1).long()
+        flat = torch.where(flat < 0, flat + ctx.n_rows, flat)
+        return segment_sum_rows(grad_out.reshape(flat.shape[0], -1), flat, ctx.n_rows), None
 
 
 class FusedEmbedding(nn.Module):
@@ -194,9 +245,18 @@ class FusedEmbedding(nn.Module):
 
 class EmbeddingCollection(nn.Module):
     """Embedding bank for a FeatureLayout (mmlrec_tpu/ops/embedding.py:
-    321-390).  The port has the fused path only: every reference config
-    uses one global ``emb``, and per-feature tables (non-uniform dims,
-    varlen features) are ROADMAP A5."""
+    321-394): the fused table of the sparse features, plus one table
+    ``table_{embedding_name}`` of ``(vocab, dim)`` per embedding name of the
+    varlen features (behaviour sequences), drawn from ``normal(init_std)``
+    in sorted name order.  A varlen feature that shares its name with a
+    sparse feature still gets a table of its own, as in the JAX package
+    (embedding.py:360-361).  A layout without sparse features has no fused
+    table, only the varlen tables.
+
+    Sparse features of more than one embedding dim raise ValueError: the
+    JAX package builds a table per name for them and then fails to stack
+    the lookups (``jnp.stack`` in ``sparse_embeddings``, embedding.py:
+    386-390), so no model of such a layout runs there either."""
 
     def __init__(
         self, layout: FeatureLayout, *, generator: torch.Generator,
@@ -204,15 +264,13 @@ class EmbeddingCollection(nn.Module):
         grad_mode: str = "auto", grad_budget_divisor: int = 1,
     ):
         super().__init__()
-        if layout.varlen_slots:
-            raise NotImplementedError(
-                "varlen features are not ported yet (ROADMAP A5)")
         names = [s.feature.embedding_name for s in layout.sparse_slots]
         dims = {layout.embedding_specs[n][1] for n in names}
         if len(dims) > 1:
-            raise NotImplementedError(
-                "per-feature tables of non-uniform embedding dims are not "
-                "ported yet (ROADMAP A5)")
+            raise ValueError(
+                f"sparse features of embedding dims {sorted(dims)}: the JAX package's "
+                "per-feature lookups do not stack (ValueError: All input arrays must have "
+                "the same shape, mmlrec_tpu/ops/embedding.py:386-390); use one dim")
         self.fused = None
         if names:
             self.fused = FusedEmbedding(
@@ -221,6 +279,10 @@ class EmbeddingCollection(nn.Module):
                 dual_container=dual_container, dual_shards=dual_shards,
                 grad_mode=grad_mode, grad_budget_divisor=grad_budget_divisor,
             )
+        init = normal_init(init_std)
+        for name in sorted({s.feature.embedding_name for s in layout.varlen_slots}):
+            self.register_parameter(
+                f"table_{name}", nn.Parameter(init(generator, layout.embedding_specs[name])))
 
     def sparse_embeddings(self, ids: torch.Tensor, rows=None) -> torch.Tensor:
         """ids [B, n_sparse] -> [B, n_sparse, D].  Injected ``rows`` [B, F, D]
@@ -229,3 +291,9 @@ class EmbeddingCollection(nn.Module):
         if rows is not None:
             return rows
         return self.fused(ids)
+
+    def varlen_embedding(self, name: str, seq_ids: torch.Tensor) -> torch.Tensor:
+        """seq_ids [B, T] -> [B, T, D] from ``table_{name}`` (embedding.py:
+        392-394: ``jnp.take``'s fill mode; the table's cotangent by
+        ``segment_sum_rows``)."""
+        return _TakeRows.apply(getattr(self, f"table_{name}"), seq_ids)

@@ -49,7 +49,7 @@ LIBRARY = cuda_build.CudaLibrary("recsys_kernels.cu", {
     "mmlrec_empty_launch": [_i, _i, _p],
 })
 launch_counts.update(embed_concat=0, gated_expert_mix=0, multihead_score=0)
-backward_counts.update(embed_concat=0)
+backward_counts.update(embed_concat=0, gated_expert_mix=0, multihead_score=0)
 
 _EMBED_ROWS_PER_BLOCK = 8  # kEmbedRowsPerBlock (MMLREC_EMBED_TILE_ROWS) in the CUDA source
 _SMEM_LIMIT = 48 * 1024  # static launch limit without an opt-in attribute
@@ -363,6 +363,7 @@ class _GatedExpertMix(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        backward_counts["gated_expert_mix"] += 1
         return gated_expert_mix_backward(*ctx.saved_tensors, grad_out)
 
 
@@ -496,4 +497,5 @@ class _MultiheadScore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        backward_counts["multihead_score"] += 1
         return (*multihead_score_backward(*ctx.saved_tensors, grad_out), None)

@@ -399,6 +399,23 @@ class AITMAttention(nn.Module):
         return torch.sum(att * V, dim=1)
 
 
+def sequence_pooling(seq_emb: torch.Tensor, mask: torch.Tensor, mode: str = "mean",
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Masked pooling over a behaviour sequence (mmlrec_tpu/ops/layers.py:
+    715-731): ``seq_emb`` [B, T, E], ``mask`` [B, T] (1 = valid) -> [B, E];
+    "sum", "mean" (the sum over ``length + eps``) or "max" (the masked
+    positions pushed down by 1e9)."""
+    mask = mask.to(seq_emb.dtype)
+    if mode == "max":
+        return torch.amax(seq_emb - (1.0 - mask[..., None]) * 1e9, dim=1)
+    summed = torch.sum(seq_emb * mask[..., None], dim=1)
+    if mode == "sum":
+        return summed
+    if mode == "mean":
+        return summed / (torch.sum(mask, dim=1, keepdim=True) + eps)
+    raise ValueError(f"pooling mode {mode!r} must be sum/mean/max")
+
+
 class SharedSpecificDense(nn.Module):
     """STAR's shared x specific layer (reference ``SharedSpecificLinear``,
     model/utils.py:163-223; mmlrec_tpu/ops/layers.py:448-503): domain d's

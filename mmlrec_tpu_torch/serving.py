@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .config import ExperimentConfig
-from .features import DenseFeat, FeatureLayout, SparseFeat
+from .features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
 
 _PARAMS_FILE = "params.pt"
 _META_FILE = "meta.json"
@@ -98,23 +98,30 @@ def _domain_mask_from_meta(meta: Dict, x) -> Optional[np.ndarray]:
     return mask
 
 
+def _sparse_spec(col: SparseFeat) -> Dict:
+    return {"name": col.name, "vocabulary_size": int(col.vocabulary_size),
+            "embedding_dim": int(col.embedding_dim), "embedding_name": col.embedding_name,
+            "group_name": col.group_name}
+
+
+def _sparse_from_spec(s: Dict) -> SparseFeat:
+    return SparseFeat(s["name"], s["vocabulary_size"], s["embedding_dim"],
+                      embedding_name=s["embedding_name"], group_name=s["group_name"])
+
+
 def _feature_specs(layout: FeatureLayout) -> List[Dict]:
+    """The layout's feature columns, in their order, as JSON."""
     specs = []
     for col in layout.feature_columns:
         if isinstance(col, SparseFeat):
-            specs.append({
-                "kind": "sparse", "name": col.name,
-                "vocabulary_size": int(col.vocabulary_size),
-                "embedding_dim": int(col.embedding_dim),
-                "embedding_name": col.embedding_name,
-                "group_name": col.group_name,
-            })
+            specs.append({"kind": "sparse", **_sparse_spec(col)})
         elif isinstance(col, DenseFeat):
             specs.append({"kind": "dense", "name": col.name,
                           "dimension": int(col.dimension)})
         else:
-            raise NotImplementedError(
-                f"{type(col).__name__} is not ported yet (ROADMAP A5)")
+            specs.append({"kind": "varlen", "sparsefeat": _sparse_spec(col.sparsefeat),
+                          "maxlen": int(col.maxlen), "combiner": col.combiner,
+                          "length_name": col.length_name})
     return specs
 
 
@@ -122,9 +129,10 @@ def _layout_from_specs(specs: List[Dict]) -> FeatureLayout:
     cols = []
     for s in specs:
         if s["kind"] == "sparse":
-            cols.append(SparseFeat(
-                s["name"], s["vocabulary_size"], s["embedding_dim"],
-                embedding_name=s["embedding_name"], group_name=s["group_name"]))
+            cols.append(_sparse_from_spec(s))
+        elif s["kind"] == "varlen":
+            cols.append(VarLenSparseFeat(_sparse_from_spec(s["sparsefeat"]), s["maxlen"],
+                                         combiner=s["combiner"], length_name=s["length_name"]))
         else:
             cols.append(DenseFeat(s["name"], s["dimension"]))
     return FeatureLayout(cols)

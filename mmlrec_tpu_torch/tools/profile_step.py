@@ -13,7 +13,13 @@ warms it up, and traces ``--steps`` steps with torch.profiler:
 * ``--family <name>``: the dense-table step of another family at the same
   widths (mlp, sharedbottom, esmm, escm, escm_dr, hmoe, cross_stitch, aitm,
   ple, pcg; msl with 2 domains, or mtl with two tasks for esmm, escm,
-  escm_dr and aitm), with BatchNorm when ``--bn`` is given.
+  escm_dr and aitm), with BatchNorm when ``--bn`` is given; ``--family
+  pcg`` trains with PCGrad;
+* ``--knob KEY=VALUE`` (repeatable) sets a model_config key of a dense
+  step, the value read as JSON (``--knob use_gradnorm=true``,
+  ``--knob use_cagrad=true``, ``--knob use_cka_loss=true``);
+* ``--varlen`` adds to a dense step a behaviour sequence of 50 ids from a
+  [100000, 8] table, mean-pooled, id 0 past a length drawn in 1..50.
 
 The steps run eagerly (``Trainer.train_step``: the path of ``scan_steps``
 0), with the flat optimizer unless ``--per-tensor-optimizer`` asks for
@@ -23,7 +29,8 @@ the wall time and the host's largest self CPU times, and the device numbers
 as one JSON line last.
 
     python -m mmlrec_tpu_torch.tools.profile_step [--fit two-phase|dense]
-        [--family NAME [--bn]] [--container stacked|split] [--steps 10]
+        [--family NAME [--bn]] [--knob KEY=VALUE] [--varlen]
+        [--container stacked|split] [--steps 10]
         [--per-tensor-optimizer] [--trace step_trace.json]
 
 Needs one CUDA device; exits 1 without one.
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 VOCAB, FEATURES, EMB, DENSE, BATCH = 2_500_000, 16, 32, 4, 4096
+HIST_VOCAB, HIST_MAXLEN = 100_000, 50  # --varlen's behaviour sequence
 MTL_FAMILIES = ("esmm", "escm", "escm_dr", "aitm")  # two tasks, no domains
 
 
@@ -63,7 +71,9 @@ def build_trainer(container: str, flat: bool = True):
     return Trainer(model, seed=0, device="cuda").compile()
 
 
-def build_dense_trainer(family: str = "mmoe", use_bn: bool = False, flat: bool = True):
+def build_dense_trainer(family: str = "mmoe", use_bn: bool = False, flat: bool = True,
+                        knobs=None, varlen: bool = False):
+    from ..features import FeatureLayout, SparseFeat, VarLenSparseFeat
     from ..models import get_model
     from ..synthetic import aliexpress_like_config, make_data
     from ..train import Trainer
@@ -71,8 +81,11 @@ def build_dense_trainer(family: str = "mmoe", use_bn: bool = False, flat: bool =
 
     task = "mtl" if family in MTL_FAMILIES else "msl"
     cfg = aliexpress_like_config(family, task_name=task, masked_loss=True, dnn_use_bn=use_bn,
-                                 flat_optimizer=flat)
+                                 flat_optimizer=flat, **(knobs or {}))
     layout, *_ = make_data(cfg, n=8, vocab=100)
+    if varlen:
+        layout = FeatureLayout(list(layout.feature_columns) + [VarLenSparseFeat(
+            SparseFeat("hist", HIST_VOCAB, 8), maxlen=HIST_MAXLEN, combiner="mean")])
     # the reference's init (std 1e-4) leaves every relu dead-flat; a wider
     # draw gives the backward its usual work
     model = get_model(family, layout, cfg, init_std=0.05, generator=make_generator(0, "cuda"),
@@ -80,13 +93,18 @@ def build_dense_trainer(family: str = "mmoe", use_bn: bool = False, flat: bool =
     return Trainer(model, seed=0, device="cuda").compile(metrics=[])
 
 
-def _batches(n: int, dense_fit: bool, domains: bool = True):
+def _batches(n: int, dense_fit: bool, domains: bool = True, varlen: bool = False):
     """``n`` random batches on the card, as ``Trainer.train_step`` takes them."""
     rng = np.random.default_rng(40)
     vocab, n_dense = (100, 61) if dense_fit else (VOCAB, DENSE)
     out = []
     for _ in range(n):
         ids = rng.integers(0, vocab, (BATCH, FEATURES)).astype(np.int32)
+        if varlen:
+            lens = rng.integers(1, HIST_MAXLEN + 1, BATCH)
+            hist = rng.integers(1, HIST_VOCAB, (BATCH, HIST_MAXLEN))
+            hist = np.where(np.arange(HIST_MAXLEN)[None] < lens[:, None], hist, 0)
+            ids = np.concatenate([ids, hist.astype(np.int32)], axis=1)
         dense = rng.random((BATCH, n_dense)).astype(np.float32)
         y = (rng.random((BATCH, 2)) < 0.3).astype(np.float32)
         dmask = (np.eye(2, dtype=np.float32)[rng.integers(0, 2, BATCH)]
@@ -101,6 +119,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fit", default="two-phase", choices=("two-phase", "dense"))
     ap.add_argument("--family", default=None, help="a family's dense step at the AE widths")
     ap.add_argument("--bn", action="store_true", help="with --family: dnn_use_bn on")
+    ap.add_argument("--knob", action="append", default=[],
+                    help="KEY=VALUE: a model_config key of the dense step (VALUE as JSON)")
+    ap.add_argument("--varlen", action="store_true",
+                    help="the dense step with a 50-long behaviour sequence")
     ap.add_argument("--container", default="stacked", choices=("stacked", "split"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--per-tensor-optimizer", action="store_true",
@@ -113,14 +135,17 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    dense_fit = args.fit == "dense" or args.family is not None
+    knobs = {k: json.loads(v) for k, v in (kv.split("=", 1) for kv in args.knob)}
+    dense_fit = args.fit == "dense" or args.family is not None or bool(knobs) or args.varlen
     family = args.family or "mmoe"
     flat = not args.per_tensor_optimizer
-    tr = (build_dense_trainer(family, args.bn, flat) if dense_fit
+    tr = (build_dense_trainer(family, args.bn, flat, knobs, args.varlen) if dense_fit
           else build_trainer(args.container, flat))
     what = (f"dense {family}{'+bn' if args.bn else ''}" if dense_fit else args.container) + (
-        "" if flat else ", per-tensor optimizer")
-    batches = _batches(args.steps + 5, dense_fit, domains=family not in MTL_FAMILIES)
+        "" if flat else ", per-tensor optimizer") + "".join(
+        f", {k}={v}" for k, v in knobs.items()) + (", varlen" if args.varlen else "")
+    batches = _batches(args.steps + 5, dense_fit, domains=family not in MTL_FAMILIES,
+                       varlen=args.varlen)
     for b in batches[:5]:
         tr.train_step(*b)
     torch.cuda.synchronize()
@@ -155,6 +180,7 @@ def main(argv=None) -> int:
         print(f"  {e.self_cpu_time_total / steps:9.1f} us  {e.count / steps:5.1f}x  {e.key[:110]}")
     print(json.dumps({
         "fit": "dense" if dense_fit else args.fit, "family": family, "bn": args.bn,
+        "knobs": knobs, "varlen": args.varlen,
         "flat_optimizer": flat,
         "container": None if dense_fit else args.container,
         "steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,

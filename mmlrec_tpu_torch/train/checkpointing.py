@@ -8,7 +8,8 @@ Two kinds, in the JAX package's directories under ``save_config.save_path``:
   statistics;
 * the training state (``save_training_state`` / ``restore_training_state``,
   ``{model}_{task}_seed{seed}_state/``): parameters, BatchNorm statistics,
-  the dense optimizer's state, the table's SparseAdam state, the state of
+  the dense optimizer's state, the table's SparseAdam state, GradNorm's
+  task weights, first losses and step, the state of
   the generator that seeds each step's dropout, the epoch reached, the
   best snapshot and the early-stop bookkeeping, so that a fit resumed
   from it continues as the uninterrupted fit would have.
@@ -174,6 +175,8 @@ def save_training_state(trainer, path: str, epoch: Optional[int] = None) -> str:
         topt = split["table_opt"]
         payload.update({"table_opt/mu": topt.mu, "table_opt/nu": topt.nu,
                         "table_opt/count": topt.count})
+    if trainer.gn_state is not None:
+        payload.update({f"gradnorm/{k}": v for k, v in trainer.gn_state.items()})
     if best is not None:
         payload.update({f"best/{k}": v for k, v in _split_variables(trainer, best).items()})
     payload.update(rng=trainer._dropout_master.get_state(), epoch=torch.tensor(int(epoch)),
@@ -207,6 +210,11 @@ def restore_training_state(trainer, path: str):
         fields[field] = (_section(payload, f"opt_state/{field}/") if isinstance(value, dict)
                          else payload[f"opt_state/{field}"])
     load_state_(trainer.opt_state, fields)  # in place: a flat state keeps its buffer
+    gradnorm = _section(payload, "gradnorm/")
+    if trainer.per_task == "gradnorm" and gradnorm:
+        trainer.reset_gradnorm()
+        for k, v in trainer.gn_state.items():
+            v.copy_(gradnorm[k])
     trainer._dropout_master.set_state(payload["rng"].cpu())
     best = _section(payload, "best/")
     best = _runtime_variables(trainer, best) if best else None

@@ -1,0 +1,31 @@
+"""Linear CKA between domains' representations (the port of
+``mmlrec_tpu/train/cka.py``, cka.py:17-36):
+``CKA(X, Y) = ||Yc^T Xc||_F^2 / (||Xc^T Xc||_F ||Yc^T Yc||_F)`` on
+column-centred matrices, summed over the domain pairs i < j."""
+
+from __future__ import annotations
+
+import torch
+
+
+def linear_cka(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x, y [B, F] -> the scalar CKA in [0, 1]."""
+    xc = x - torch.mean(x, dim=0, keepdim=True)
+    yc = y - torch.mean(y, dim=0, keepdim=True)
+    hsic = torch.sum(torch.square(xc.T @ yc))
+    norm_x = torch.sqrt(torch.sum(torch.square(xc.T @ xc)))
+    norm_y = torch.sqrt(torch.sum(torch.square(yc.T @ yc)))
+    return hsic / (norm_x * norm_y + eps)
+
+
+def cka_domain_loss(last_layer: torch.Tensor, domain_mask: torch.Tensor,
+                    alpha: float = 0.5) -> torch.Tensor:
+    """``alpha`` times the sum over domain pairs i < j of the CKA between
+    ``last_layer`` [B, F] masked to domain i and masked to domain j."""
+    D = domain_mask.shape[-1]
+    total = 0.0
+    for i in range(D - 1):
+        for j in range(i + 1, D):
+            total = total + linear_cka(last_layer * domain_mask[:, i][:, None],
+                                       last_layer * domain_mask[:, j][:, None])
+    return alpha * total

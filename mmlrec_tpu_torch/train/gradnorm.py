@@ -1,0 +1,47 @@
+"""GradNorm, gradient-norm loss balancing (the port of
+``mmlrec_tpu/train/gradnorm.py``, gradnorm.py:31-49).
+
+Per step, from the per-task gradient dicts of ``w_i * L_i``:
+
+    G_i      = || g_i ||, over every parameter
+    r_i      = (L_i / L_i(0)) / mean_j(L_j / L_j(0))
+    target_i = mean_j G_j * r_i ** alpha            (a constant)
+    dw_i     = sign(G_i - target_i) * G_i / w_i
+
+and the weights take one SGD step at ``lr``, floored at 1e-3 and
+renormalised to sum to T.  The norm runs over every parameter, as the
+JAX code does (its docstring's "shared params" is not what it computes).
+Plain tensor ops, no host read.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+
+def _global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads.values()) + 1e-12)
+
+
+def gradnorm_update(
+    weights: torch.Tensor,
+    task_losses: torch.Tensor,
+    initial_losses: torch.Tensor,
+    task_grads: List[Dict[str, torch.Tensor]],
+    alpha: float = 1.5,
+    lr: float = 0.025,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(new weights [T], norms [T]) from the weights [T], the unweighted
+    losses [T], the losses of the first step [T] and the gradients of
+    ``w_i * L_i``."""
+    T = weights.shape[0]
+    norms = torch.stack([_global_norm(g) for g in task_grads])
+    loss_ratio = task_losses / torch.clamp(initial_losses, min=1e-12)
+    inv_rate = loss_ratio / torch.mean(loss_ratio)
+    target = (torch.mean(norms) * inv_rate ** alpha).detach()
+    raw = norms / torch.clamp(weights, min=1e-12)
+    dw = torch.sign(norms - target) * raw
+    new_w = torch.clamp(weights - lr * dw, min=1e-3)
+    return new_w * (T / torch.sum(new_w)), norms

@@ -117,6 +117,34 @@ def multitask_loss(
     return total
 
 
+def per_task_losses(
+    probs: torch.Tensor,
+    y: torch.Tensor,
+    sample_weight: torch.Tensor,
+    loss_names: Sequence[str],
+    task_name: str,
+    num_domains: int,
+    domain_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The heads' sum-reduced losses as a [T] vector, weighted as in
+    ``multitask_loss`` but without ``loss_weights`` (losses.py:135-157;
+    GradNorm's ``L_i``)."""
+    num_tasks = probs.shape[-1]
+    fns = [get_loss_fn(n) for n in list(loss_names)[:num_tasks]]
+    if len(fns) < num_tasks:
+        fns = fns + [fns[-1]] * (num_tasks - len(fns))
+    out = []
+    for i in range(num_tasks):
+        w = sample_weight
+        if domain_mask is not None:
+            if task_name == "msl":
+                w = w * domain_mask[:, i]
+            elif task_name == "mtmsl":
+                w = w * domain_mask[:, i % num_domains]
+        out.append(torch.sum(fns[i](probs[:, i], y[:, i]) * w))
+    return torch.stack(out)
+
+
 def l2_regularization(
     params: Dict[str, torch.Tensor],
     l2_embedding: float,

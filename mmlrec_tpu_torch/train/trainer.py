@@ -5,10 +5,14 @@ streaming ``fit`` with validation (on the host, or on the device with
 and resume, plus ``evaluate``, ``predict`` (with the named layer outputs
 after ``update_save``) and the final test metrics on the device.
 
-**The dense step** (``two_phase_embedding`` off; trainer.py:996-1107 without
-the per-task loop): forward and loss, one ``torch.autograd.grad`` over all
-parameters, the fused table included (through the embed-concat kernel's
-plain backward), then the compiled optimizer over all of them.
+**The dense step** (``two_phase_embedding`` off; trainer.py:996-1107):
+forward and loss (with the CKA term under ``use_cka_loss``), one
+``torch.autograd.grad`` over all parameters, the fused table and the varlen
+tables included (through the embed-concat kernel's plain backward), then
+the compiled optimizer over all of them.  The per-task methods (``pcg``,
+``use_gradnorm``, ``use_cagrad``) take one forward and one backward per
+task instead, and merge the task gradients (``pcgrad.py``, ``gradnorm.py``,
+``cagrad.py``) before the optimizer.
 
 **The two-phase step** (trainer.py:797-962), on the model's device but for
 host metadata:
@@ -57,9 +61,8 @@ one runs; a larger dataset streams with a prefetch worker
 test metrics replay one captured forward per batch.  A fit synchronises
 once per epoch, for the loss and the collected probabilities.
 
-Every knob that is not ported raises NotImplementedError naming its
-ROADMAP item: per-task gradient methods and the CKA loss (A6), meshes
-(A9).  The combinations the JAX trainer refuses raise its ValueError.
+Meshes are not ported: they raise NotImplementedError naming ROADMAP A9.
+The combinations the JAX trainer refuses raise its ValueError.
 """
 
 from __future__ import annotations
@@ -79,9 +82,13 @@ from ..ops.embedding import fused_table_geometry, pack_factor_for
 from ..ops.row_gather import rows_gather_dual
 from . import checkpointing, device_metrics, staging
 from .graphs import StepGraphs
-from .losses import l2_regularization, multitask_loss
+from .cagrad import cagrad_merge
+from .cka import cka_domain_loss
+from .gradnorm import gradnorm_update
+from .losses import l2_regularization, multitask_loss, per_task_losses
 from .metrics import get_metric_fns, regime_eval
 from .optimizers import Adam, Flat, _Elementwise, get_optimizer
+from .pcgrad import pcgrad_merge
 from .sparse_embedding import (
     MOMENT_DTYPES,
     SparseAdamFoldedState,
@@ -150,11 +157,13 @@ def get_mask(domain_values, mask_values, num_domains) -> np.ndarray:
     return (dv == mv).astype(np.float32)
 
 
-def _grads(total: torch.Tensor, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+def _grads(total: torch.Tensor, tensors: List[torch.Tensor],
+           retain: bool = False) -> List[torch.Tensor]:
     """d total / d tensors, zeros for a tensor the loss does not reach (a
     parameter that a reference-faithful freeze detaches, a DomainBatchNorm
-    that no mask reaches), as jax.grad gives them."""
-    grads = torch.autograd.grad(total, tensors, allow_unused=True)
+    that no mask reaches, another task's tower in a per-task backward), as
+    jax.grad gives them; ``retain`` keeps the graph for another backward."""
+    grads = torch.autograd.grad(total, tensors, allow_unused=True, retain_graph=retain)
     return [torch.zeros_like(t) if g is None else g for g, t in zip(grads, tensors)]
 
 
@@ -202,6 +211,8 @@ class Trainer:
         self.batch_history: List[List[Dict[str, float]]] = []
         self.opt_state = None
         self.table_opt = None
+        #: GradNorm's task weights, first losses and step (``reset_gradnorm``)
+        self.gn_state: Optional[Dict[str, torch.Tensor]] = None
         #: the parameters and BatchNorm statistics of the last fit's best
         #: epoch by ``val_auc`` (owned copies, by state-dict key), or None:
         #: then the model's current state is the best there is.  ``predict``
@@ -258,17 +269,20 @@ class Trainer:
     def _resolve_knobs(self) -> None:
         mc = self.cfg.model_config
         extra = mc.extra
-        per_task = self.model_name == "pcg" or extra.get("use_gradnorm") or extra.get("use_cagrad")
+        # the per-task gradient methods of the dense step, by the JAX
+        # trainer's priority (trainer.py:1005-1066): GradNorm, CAGrad, PCGrad
+        self.per_task = ("gradnorm" if extra.get("use_gradnorm")
+                         else "cagrad" if extra.get("use_cagrad")
+                         else "pcgrad" if self.model_name == "pcg" else None)
         self.two_phase_embedding = bool(extra.get("two_phase_embedding"))
-        if per_task and self.two_phase_embedding:
+        if self.per_task and self._escm:
+            raise ValueError(
+                "per-task gradient methods (pcg/gradnorm/cagrad) are not defined for ESCM's "
+                "entire-space objective")
+        if self.per_task and self.two_phase_embedding:
             raise ValueError(
                 "two_phase_embedding is incompatible with per-task gradient methods (they "
                 "need whole-param task gradients)")
-        if per_task:
-            raise NotImplementedError(
-                "per-task gradient methods are not ported yet (ROADMAP A6)")
-        if mc.use_cka_loss and self.task_name in ("msl", "mtmsl"):
-            raise NotImplementedError("the CKA domain loss is not ported yet (ROADMAP A6)")
         # the fit's host loop (trainer.py:505-522): the streaming prefetch
         # depth (1 = synchronous), the staging cap (datasets whose bytes x 2
         # are below it are staged on the device), and scan_steps: unset =
@@ -441,7 +455,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def pack_inputs(self, x) -> Tuple[np.ndarray, np.ndarray]:
         """dict {feature_name: array} -> (ids [N,S] int32, dense [N,Dd]
-        float32) in layout order."""
+        float32) in layout order: the sparse columns, then each varlen
+        feature's [N, maxlen] ids and its length column if it has one."""
         if isinstance(x, tuple) and len(x) == 2:
             return np.asarray(x[0], np.int32), np.asarray(x[1], np.float32)
         n = None
@@ -450,6 +465,12 @@ class Trainer:
             col = np.asarray(x[slot.feature.name]).reshape(-1, 1)
             ids_parts.append(col.astype(np.int32))
             n = len(col)
+        for slot in self.layout.varlen_slots:
+            seq = np.asarray(x[slot.feature.name]).reshape(n if n else -1, -1)
+            ids_parts.append(seq.astype(np.int32))
+            if slot.feature.length_name is not None:
+                ids_parts.append(np.asarray(x[slot.feature.length_name])
+                                 .reshape(-1, 1).astype(np.int32))
         dense_parts = [
             np.asarray(x[slot.feature.name], np.float32).reshape(-1, slot.feature.dimension)
             for slot in self.layout.dense_slots
@@ -491,6 +512,16 @@ class Trainer:
         the two-phase step."""
         return {k: p for k, p in self.model.named_parameters() if k != _TABLE}
 
+    def reset_gradnorm(self) -> None:
+        """GradNorm's state on the device (trainer.py:1450-1454): the task
+        weights at one, the first step's losses (taken at ``gn_step`` 0)
+        and the step.  Every fit() starts it anew, as the JAX fit rebuilds
+        it, unless the fit resumes a saved state."""
+        T, dev = self.num_tasks, self.device
+        self.gn_state = {"task_weights": torch.ones((T,), device=dev),
+                         "initial_losses": torch.ones((T,), device=dev),
+                         "gn_step": torch.zeros((), dtype=torch.int32, device=dev)}
+
     def init_state(self) -> None:
         """Optimizer state, kept across fit() calls as the JAX trainer keeps
         its state.  Dense fit: the compiled optimizer over every parameter,
@@ -530,21 +561,99 @@ class Trainer:
 
     def _loss_terms(self, params, ids, dense, y, dmask, weight):
         """(total, data loss, probs) with the L2 penalty over ``params``, the
-        whole table included (trainer.py:668-715)."""
+        whole table included, and under msl / mtmsl with a domain mask and
+        ``use_cka_loss`` the CKA between the domains' representations: the
+        model's ``last_layer``, else its ``dnn_input`` (trainer.py:668-715)."""
         mc = self.cfg.model_config
         model_mask = dmask if (mc.masked_loss and dmask is not None) else None
-        probs = self.model(ids, dense, model_mask)
+        want_cka = (mc.use_cka_loss and self.task_name in ("msl", "mtmsl")
+                    and dmask is not None)
+        if want_cka:
+            probs, inter = self.model(ids, dense, model_mask, return_intermediates=True)
+        else:
+            probs = self.model(ids, dense, model_mask)
         data_loss = self._data_loss(probs, y, dmask, weight)
         reg = l2_regularization(
             params, mc.l2_reg_embedding, mc.l2_reg_dnn,
             dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
-        return data_loss + reg, data_loss, probs
+        total = data_loss + reg
+        if want_cka:
+            last = inter.get("last_layer", inter.get("dnn_input"))
+            if last is not None:
+                total = total + cka_domain_loss(last, dmask, alpha=0.5)
+        return total, data_loss, probs
+
+    def _per_task_grads(self, params, ids, dense, y, dmask, weight):
+        """(per-task gradient dicts, data loss, probs) of the per-task
+        methods (trainer.py:1007-1024, ``_loss_terms_single_task`` :1292-1316).
+        The JAX step runs T forwards from one rng and one set of BatchNorm
+        statistics and keeps the last statistics: that is one forward here,
+        whose statistics move once and whose dropout and gates draw once,
+        then one backward per task of ``multitask_loss(probs . onehot_i +
+        probs.detach() . (1 - onehot_i)) + reg / T``, without
+        ``loss_weights`` and without the CKA term."""
+        mc = self.cfg.model_config
+        model_mask = dmask if (mc.masked_loss and dmask is not None) else None
+        probs = self.model(ids, dense, model_mask)
+        reg = l2_regularization(
+            params, mc.l2_reg_embedding, mc.l2_reg_dnn,
+            dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
+        frozen = probs.detach()
+        heads = torch.arange(probs.shape[-1], device=probs.device)
+        names, tensors = list(params), list(params.values())
+        T = self.num_tasks
+        task_grads = []
+        for i in range(T):
+            onehot = (heads == i).to(probs.dtype)[None]
+            masked = probs * onehot + frozen * (1 - onehot)
+            data_loss = multitask_loss(
+                masked, y, weight, self.loss_names, self.task_name, self.num_domains,
+                domain_mask=dmask if mc.masked_loss else None, model_name=self.model_name)
+            total = data_loss + reg / max(T, 1)
+            task_grads.append(dict(zip(names, _grads(total, tensors, retain=i < T - 1))))
+        return task_grads, data_loss, probs
+
+    def _merge_task_grads(self, task_grads, data_loss, probs, y, dmask, weight):
+        """(merged gradients, the step's loss) of the per-task method
+        (trainer.py:1025-1066): GradNorm sums the gradients of ``w_i * L_i``
+        and moves its weights in place (its loss ``sum(w * L)``); CAGrad and
+        PCGrad merge, their loss the data loss."""
+        mc = self.cfg.model_config
+        if self.per_task == "cagrad":
+            return cagrad_merge(task_grads, alpha=float(mc.extra.get("cagrad_alpha", 0.5))), \
+                data_loss
+        if self.per_task == "pcgrad":
+            return pcgrad_merge(task_grads), data_loss
+        loss_vec = per_task_losses(probs, y, weight, self.loss_names, self.task_name,
+                                   self.num_domains,
+                                   domain_mask=dmask if mc.masked_loss else None)
+        st = self.gn_state
+        w = st["task_weights"]
+        init_losses = torch.where(st["gn_step"] == 0, loss_vec, st["initial_losses"])
+        scaled = [{k: w[i] * g for k, g in tg.items()} for i, tg in enumerate(task_grads)]
+        grads = {k: sum(sg[k] for sg in scaled) for k in scaled[0]}
+        new_w, _ = gradnorm_update(
+            w, loss_vec, init_losses, scaled, alpha=float(mc.extra.get("gradnorm_alpha", 1.5)),
+            lr=float(mc.extra.get("gradnorm_lr", 0.025)))
+        total = torch.sum(w * loss_vec)
+        w.copy_(new_w)
+        st["initial_losses"].copy_(init_losses)
+        st["gn_step"].add_(1)
+        return grads, total
 
     def _train_step_dense(self, ids, dense, y, dmask, weight):
         params = dict(self.model.named_parameters())
         with torch.enable_grad():
-            total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
-            grads = dict(zip(params, _grads(total, list(params.values()))))
+            if self.per_task:
+                task_grads, data_loss, probs = self._per_task_grads(
+                    params, ids, dense, y, dmask, weight)
+                probs = probs.detach()
+                with torch.no_grad():
+                    grads, total = self._merge_task_grads(
+                        task_grads, data_loss, probs, y, dmask, weight)
+            else:
+                total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
+                grads = dict(zip(params, _grads(total, list(params.values()))))
         if self.sparse_embedding_update:
             # the table leaves the dense optimizer; its touched physical rows
             # take SparseAdam from the dense gradient (trainer.py:1074-1094)
@@ -591,6 +700,8 @@ class Trainer:
         passes it, from its host copy of the ids)."""
         if self.opt_state is None:
             self.init_state()
+        if self.per_task == "gradnorm" and self.gn_state is None:
+            self.reset_gradnorm()
         self._reseed()
         return self._step_on_batch(ids, dense, y, dmask, weight, meta)
 
@@ -796,6 +907,8 @@ class Trainer:
 
         if self.opt_state is None:
             self.init_state()
+        if self.per_task == "gradnorm":
+            self.reset_gradnorm()
         best_auc, early_stop_count, best_snapshot = 0.0, 0, None
         if resume_from is not None:
             self._progress = checkpointing.restore_training_state(self, resume_from)
@@ -1108,7 +1221,7 @@ class Trainer:
         with torch.no_grad():
             self.model.load_state_dict(fresh.state_dict())
         self.seed = seed
-        self.opt_state = self.table_opt = self.best_variables = None
+        self.opt_state = self.table_opt = self.best_variables = self.gn_state = None
         self.history, self.batch_history = [], []
         self.throughput_examples_per_s = self._progress = None
         self._meta_codec = "unset"

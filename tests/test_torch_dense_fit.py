@@ -388,16 +388,17 @@ def test_dropout_in_the_fit_follows_the_trainers_generator():
 # refusals
 # ----------------------------------------------------------------------
 # the host-loop knobs (scan_steps, batch_metric_curves, flat_optimizer,
-# prefetch_batches) and sparse_embedding_update are ported: their cases
-# (item None) fit with the knob and check that it took effect;
-# tests/test_torch_staged_fit.py holds the host-loop knobs against the other
-# paths bitwise, tests/test_torch_split_moments.py sparse_embedding_update
+# prefetch_batches), sparse_embedding_update and the per-task methods are
+# ported: their cases (item None) fit with the knob and check that it took
+# effect; tests/test_torch_staged_fit.py holds the host-loop knobs against
+# the other paths bitwise, tests/test_torch_split_moments.py
+# sparse_embedding_update and tests/test_torch_task_gradients.py CAGrad
 # against JAX
 @pytest.mark.parametrize("override,item", [
     (dict(sparse_embedding_update=True), None),
     (dict(scan_steps=16), None),
     (dict(batch_metric_curves=True), None),
-    (dict(use_cagrad=True), "A6"),
+    (dict(use_cagrad=True), None),
     (dict(table_container="stacked", stacked_shards=2), "A9"),
     (dict(flat_optimizer=False), None),
     (dict(prefetch_batches=4), None),
@@ -424,6 +425,7 @@ def test_dense_fit_unported_knobs_name_their_roadmap_item(override, item):
         assert abs(tr.history[-1]["batch_mean_auc"] - want) < 1e-12
     else:
         assert tr.batch_history == [] and "batch_mean_auc" not in tr.history[-1]
+    assert tr.per_task == ("cagrad" if "use_cagrad" in override else None)
     if "sparse_embedding_update" in override:  # the table's own SparseAdam, 6 steps
         assert "embeddings.fused.table" not in tr.opt_state.mu
         assert int(tr.table_opt.count) == 6 and tr.table_opt.mu.any()

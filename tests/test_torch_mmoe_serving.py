@@ -216,19 +216,22 @@ def test_serving_bundle_matches_jax_bundle(tmp_path, task_name, kw):
 
 
 def test_unported_options_are_refused():
-    """What stays refused names its ROADMAP item: varlen features and
-    tables of non-uniform dims (A5), the shard-major stacked container (A9).
-    The parameterised activations and the wide logit build."""
+    """What stays refused: the shard-major stacked container names its
+    ROADMAP item (A9), sparse features of non-uniform dims raise the
+    ValueError of the JAX package's failed stack.  A behaviour sequence, the
+    parameterised activations and the wide logit build."""
     from mmlrec_tpu_torch.features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
 
     tl, *_ = tsyn.make_data(tsyn.make_config(**SMALL), n=8)
     cfg = tsyn.make_config(**SMALL, table_container="stacked", stacked_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         get_model("mmoe", tl, cfg, device="cpu")
-    for cols in ([SparseFeat("s0", 50, 4), VarLenSparseFeat(SparseFeat("h", 50, 4), maxlen=3)],
-                 [SparseFeat("s0", 50, 4), SparseFeat("s1", 50, 6), DenseFeat("d0", 1)]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            get_model("star", FeatureLayout(cols), tsyn.make_config(**SMALL), device="cpu")
+    varlen = [SparseFeat("s0", 50, 4), VarLenSparseFeat(SparseFeat("h", 50, 4), maxlen=3)]
+    model = get_model("star", FeatureLayout(varlen), tsyn.make_config(**SMALL), device="cpu")
+    assert tuple(model.embeddings.table_h.shape) == (50, 4)
+    mixed = [SparseFeat("s0", 50, 4), SparseFeat("s1", 50, 6), DenseFeat("d0", 1)]
+    with pytest.raises(ValueError, match="same shape"):
+        get_model("star", FeatureLayout(mixed), tsyn.make_config(**SMALL), device="cpu")
     for kw in ({"dnn_activation": "prelu"}, {"dnn_activation": "dice"},
                {"use_wide_linear": True}):
         get_model("mmoe", tl, tsyn.make_config(**SMALL, **kw), device="cpu")

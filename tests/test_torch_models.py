@@ -275,9 +275,10 @@ def test_aitm_needs_exactly_two_tasks_and_esmm_ignores_the_mask():
 
 
 def test_registry_names_and_refusals():
-    """Every name of the JAX registry builds; what stays refused names its
-    ROADMAP item: varlen features and per-feature tables of non-uniform
-    dims (A5), the shard-major stacked container (A9)."""
+    """Every name of the JAX registry builds, on a layout with a behaviour
+    sequence too; sparse features of non-uniform dims raise the ValueError
+    of the JAX package's failed stack (tests/test_torch_varlen.py holds both
+    against JAX); the shard-major stacked container names ROADMAP A9."""
     from mmlrec_tpu_torch.features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY) and UNPORTED == ()
@@ -290,9 +291,11 @@ def test_registry_names_and_refusals():
     varlen = FeatureLayout([SparseFeat("s0", 100, 4), DenseFeat("d0", 1), VarLenSparseFeat(
         SparseFeat("hist", 100, 4), maxlen=5, combiner="mean")])
     mixed = FeatureLayout([SparseFeat("s0", 100, 4), SparseFeat("s1", 100, 8), DenseFeat("d0", 1)])
-    for bad in (varlen, mixed):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            get_model("sharedbottom", bad, cfg, device="cpu")
+    model = get_model("sharedbottom", varlen, cfg, device="cpu")
+    assert sorted(k for k, _ in model.named_parameters() if k.startswith("embeddings")) == [
+        "embeddings.fused.table", "embeddings.table_hist"]
+    with pytest.raises(ValueError, match="same shape"):
+        get_model("sharedbottom", mixed, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         get_model("sharedbottom", layout, tsyn.make_config(
             **SMALL, table_container="stacked", stacked_shards=2), device="cpu")
