@@ -207,10 +207,38 @@ failure and carries on):
    accumulate within 1e-5 of the largest entry with both device times,
    three steps card against CPU (phase 9's rule) and a staged fit replayed
    against eager bitwise;
-15. one JSON line with every kernel's numbers, one with the dense fit, one
-   with the families, one with the shipped configurations, one with the
-   staged fits, one with the production recipe, one with phase 14; the
-   card's name and power limit; the last line is the device line.
+15. one JSON line with every kernel's numbers (B5-B7 with their launches
+   a suite step and their folded calls, phase 16), one with the dense fit,
+   one with the families, one with the shipped configurations, one with
+   the staged fits, one with the production recipe, one with phase 14, one
+   with phase 16; the card's name and power limit; the last line is the
+   device line.
+16. (run after phase 14, printed with phase 15's lines) the seed suite and
+   the lr sweep (``train/multi_seed.py``, ``train/sweep.py``): (a) the
+   flagship as a stacked suite of 4 seeds: 3 steps (sigmoid DNNs, dropout
+   0.2, each member's masks its own) with each member held against its
+   solo fit on the card by phase 9's rule, the table held as a dense
+   weight (``_suite_vs_solo``); each folded forward kernel at the suite
+   step's shapes against 4 separate plain calls (B7 bitwise, B5 / B6 atol
+   1e-6 / rtol 1e-5), one launch a folded call, its device time beside 4
+   separate kernel calls'; a staged suite fit (phase 12's config, 16
+   batches x 2 epochs) with graph replay and eagerly, held bitwise, B5-B7
+   and their plain backwards once a suite step; one eager suite step under
+   ``set_sync_debug_mode("error")``; a replayed suite step's device time
+   (its replays queued behind a spin) against 4 x phase 12's solo step,
+   the busy share; the staged members against their solo fits; (b) a
+   sequential-shared suite of the two-phase stacked step at phase 7's
+   2^20 rows, 2 seeds, each member's best snapshot, losses and predictions
+   bitwise equal to its solo fit, each seed's capture seconds, and
+   ``reset_for_seed`` bitwise equal to the model the CLI draws; (c) a
+   stacked 2 seeds x 2 lrs sweep on the flagship (dropout 0, 3 steps),
+   each combination held against its solo fit at that lr by phase 9's
+   rule scaled to the lr, the lrs' predictions apart; (d) the CLI:
+   ``configs/example_synthetic_msl.json`` cut as in phase 11 with
+   ``--seeds 0,2 --vmap_seeds`` against the loop's rows (the schema, a
+   metric gap under 0.02), ``--sweep_lrs 0.01,0.001`` with the JAX
+   labels, and ``configs/msl/config_AE.json`` with ``--vmap_seeds``
+   (sequential-shared) whose rows equal the loop's.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -1578,7 +1606,7 @@ LOOSE = {"star": dict(share=1e-3, mu=1e-3, nu=1e-3),
 
 
 def _card_vs_cpu_state(gpu, cpu, noise, lr, share=1e-4, mu=2e-5, nu=1e-4, stats=1e-6,
-                       table_atol=5e-6, table_share=None):
+                       table_atol=5e-6, table_share=None, over=1e-6):
     """Phases 9 and 10: the card's trainer against the CPU's after the same
     steps, ``noise`` (``_noise_driven``) left out.  Returns (the worst
     differences and whether they failed, a line saying so).
@@ -1610,6 +1638,9 @@ def _card_vs_cpu_state(gpu, cpu, noise, lr, share=1e-4, mu=2e-5, nu=1e-4, stats=
     1e-6, every one within 2 x lr, with losses equal to 1.2e-7, and MSSM's
     running variances (~1.5) by 3.2e-6, some 16 ulps (PERF.md, section 6).
 
+    ``over`` is the 1e-6 of that count, set for phase 9's lr of 1e-3: the
+    rule at another lr scales it with the lr (phase 16's sweep).
+
     The steps run ``dnn_activation: sigmoid``: relu has a kink, and a
     pre-activation within rounding of zero is kept on one side and dropped
     on the other, which moves every gradient upstream of it by one
@@ -1627,12 +1658,12 @@ def _card_vs_cpu_state(gpu, cpu, noise, lr, share=1e-4, mu=2e-5, nu=1e-4, stats=
         which = ("table" if k == "embeddings.fused.table"
                  else "stats" if k not in params else "dense")
         if which == "table":
-            table_over, n_table = int((diff > 1e-6).sum()), diff.numel()
+            table_over, n_table = int((diff > over).sum()), diff.numel()
         elif which == "dense":
-            over = int((diff > 1e-6).sum())
-            n_over, n_dense = n_over + over, n_dense + diff.numel()
-            if over:
-                over_by_tensor[k] = over
+            n = int((diff > over).sum())
+            n_over, n_dense = n_over + n, n_dense + diff.numel()
+            if n:
+                over_by_tensor[k] = n
         if float(diff.max()) > worst[which]:
             worst[which], worst_at[which] = float(diff.max()), k
         if k in params and k in gpu.opt_state.mu:  # sparse_embedding_update: not the table
@@ -1643,16 +1674,17 @@ def _card_vs_cpu_state(gpu, cpu, noise, lr, share=1e-4, mu=2e-5, nu=1e-4, stats=
                     worst[m], worst_at[m] = float((a - b).abs().max()) / scale, k
     worst.update(dense_entries_over_1e_6=n_over, dense_entries=n_dense,
                  table_entries_over_1e_6=table_over, table_entries=n_table, worst_at=worst_at,
-                 over_1e_6_by_tensor=over_by_tensor)
+                 over_1e_6_by_tensor=over_by_tensor, over=over)
     worst["failed"] = bool(
         worst["dense"] > 3 * lr or n_over > share * n_dense
         or worst["table"] > table_atol
         or (table_share is not None and table_over > table_share * n_table)
         or worst["stats"] > stats or worst["mu"] > mu or worst["nu"] > nu)
     line = (f"max |card - cpu|: dense {worst['dense']:.3g} with {n_over} of {n_dense} entries "
-            f"over 1e-6 (tol: at most {int(share * n_dense)} over 1e-6, none over {3 * lr:.3g}), "
-            f"table {worst['table']:.3g} with {table_over} of {n_table} entries over 1e-6 (tol: "
-            f"{'' if table_share is None else f'at most {int(table_share * n_table)} over 1e-6, '}"
+            f"over {over:g} (tol: at most {int(share * n_dense)} over {over:g}, none over "
+            f"{3 * lr:.3g}), table {worst['table']:.3g} with {table_over} of {n_table} entries "
+            f"over {over:g} (tol: "
+            f"{'' if table_share is None else f'at most {int(table_share * n_table)} over {over:g}, '}"
             f"none over {table_atol:.3g}), running "
             f"statistics {worst['stats']:.3g} "
             f"(tol {stats:g}), Adam mu {worst['mu']:.3g} (tol {mu:g}) and nu {worst['nu']:.3g} (tol "
@@ -3279,6 +3311,440 @@ def _table_and_moments(tr):
     return tr.table.detach(), tr.table_opt.mu.float(), tr.table_opt.nu.float()
 
 
+# ----------------------------------------------------------------------
+# phase 16: the seed suite and the lr sweep (train/multi_seed.py, sweep.py)
+# ----------------------------------------------------------------------
+SUITE_SEEDS = (0, 2, 4, 8)
+SUITE_BATCHES = 16  # phase 16 (a)'s staged suite: 16 batches x STAGED_EPOCHS
+SEQ_SEEDS, SEQ_BATCHES, SEQ_BATCH = (0, 2), 4, 4000  # (b): phase 7's 2^20 rows
+SWEEP_SEEDS, SWEEP_LRS = (0, 2), (1e-3, 1e-2)  # (c)
+
+
+def _member_view(suite, si):
+    """Member ``si`` of a stacked suite after its fit, as the trainer-like
+    object ``_card_vs_cpu_state`` reads: its model with the member's state
+    and its Adam moments."""
+    from types import SimpleNamespace
+
+    model = suite._draw(suite.seeds[si])
+    model.load_state_dict(suite.member_variables(si))
+    st = suite._opt_state
+    return SimpleNamespace(model=model, opt_state=SimpleNamespace(
+        mu={k: v[si] for k, v in st.mu.items()}, nu={k: v[si] for k, v in st.nu.items()}))
+
+
+class _OnHost:
+    """A trainer's state copied to the host, as ``_card_vs_cpu_state`` reads
+    its CPU side: ``model.state_dict()``, ``model.named_parameters()`` and
+    ``opt_state.mu`` / ``.nu`` by name."""
+
+    def __init__(self, tr):
+        from types import SimpleNamespace
+
+        sd = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+        params = [(k, sd[k]) for k, _ in tr.model.named_parameters()]
+        self.model = SimpleNamespace(state_dict=lambda: sd, named_parameters=lambda: params)
+        self.opt_state = SimpleNamespace(**{m: {k: v.detach().cpu() for k, v in
+                                                getattr(tr.opt_state, m).items()}
+                                            for m in ("mu", "nu")})
+
+
+def _suite_bitwise(torch, a, b) -> list:
+    """Names of the stacked variables, flat optimizer buffers, GradNorm state
+    and per-member losses where two suites differ in any bit."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    bad = [k for k, v in a.variables.items() if not torch.equal(bits(v), bits(b.variables[k]))]
+    for field in a._opt_state._fields:
+        x, y = getattr(a._opt_state, field), getattr(b._opt_state, field)
+        x, y = (x.flat, y.flat) if hasattr(x, "flat") else (x, y)
+        if not torch.equal(bits(x), bits(y)):
+            bad.append(f"opt_state/{field}")
+    for k, t in (a.gn_state or {}).items():
+        if not torch.equal(bits(t), bits(b.gn_state[k])):
+            bad.append(f"gradnorm/{k}")
+    if [[h["loss"] for h in hs] for hs in a.histories] != \
+            [[h["loss"] for h in hs] for hs in b.histories]:
+        bad.append("histories")
+    return bad
+
+
+def _fold_checks(torch, K, card, S, cfg):
+    """Each forward kernel's folded call at the suite step's shapes (S
+    members of batch 4096) against S separate plain calls: B7 bitwise, B5
+    and B6 atol 1e-6 / rtol 1e-5; one launch a folded call; the folded
+    call's device time beside S separate kernel calls'."""
+    from torch.func import vmap
+
+    from mmlrec_tpu_torch.tools.timing import device_ms
+
+    g = torch.Generator(device=DEV).manual_seed(160)
+    B, mc = FLAGSHIP_BATCH, cfg.model_config
+    F, D, Nd, V = 16, 8, 61, 16 * 100 + 64
+    T, E, H, Ht = cfg.num_tasks, mc.num_experts, mc.expert_dnn_hidden_units[-1], \
+        mc.tower_dnn_hidden_units[-1]
+    table = torch.randn(S, V, D, device=DEV, generator=g)
+    ids = torch.randint(0, V, (S, B, F), device=DEV, generator=g, dtype=torch.int32)
+    dense = torch.randn(S, B, Nd, device=DEV, generator=g)
+    logits = torch.randn(S, B, T, E, device=DEV, generator=g)
+    experts = torch.randn(S, B, E, H, device=DEV, generator=g)
+    tower = torch.randn(S, B, T, Ht, device=DEV, generator=g)
+    weights = torch.randn(S, T, Ht, device=DEV, generator=g)
+    bias = torch.randn(S, T, device=DEV, generator=g)
+    binary = torch.ones(T, device=DEV)
+    cases = {
+        "embed_concat": (vmap(K.embed_concat), (table, ids, dense), K.embed_concat,
+                         K.embed_concat_plain, 0.0, 0.0),
+        "gated_expert_mix": (vmap(K.gated_expert_mix), (logits, experts), K.gated_expert_mix,
+                             K.gated_expert_mix_plain, 1e-6, 1e-5),
+        "multihead_score": (vmap(K.multihead_score, in_dims=(0, 0, 0, None)),
+                            (tower, weights, bias, binary), K.multihead_score,
+                            K.multihead_score_plain, 1e-6, 1e-5),
+    }
+    out = {}
+    for name, (folded, args, one, plain, atol, rtol) in cases.items():
+        member_args = [tuple(a if a is binary else a[s] for a in args) for s in range(S)]
+        with torch.no_grad():
+            K.reset_launch_counts()
+            got = folded(*args)
+            torch.cuda.synchronize()
+            launches = K.launch_counts[name]
+            want = torch.stack([plain(*m) for m in member_args])
+            err = float((got - want).abs().max())
+            if atol == 0.0:
+                ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            else:
+                ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
+            fold_us = device_ms(lambda: folded(*args)) * 1e3
+            separate_us = device_ms(lambda: [one(*m) for m in member_args]) * 1e3
+        out[name] = dict(members=S, launches_per_folded_call=launches, max_abs_err=err,
+                         held=("bitwise" if atol == 0.0 else f"atol {atol:g} rtol {rtol:g}"),
+                         ok=ok, folded_us=fold_us, separate_us=separate_us,
+                         shapes=[list(a.shape) for a in args])
+        log(f"[16] {name} folded over {S} members {[list(a.shape) for a in args]}: "
+            f"{launches} launch, max |folded - {S} plain calls| {err:.3g} "
+            f"({out[name]['held']}: {'ok' if ok else 'FAILED'}); {fold_us:.2f} us against "
+            f"{separate_us:.2f} us for {S} separate kernel calls [{card}]")
+        if launches != 1 or not ok:
+            raise AssertionError(f"phase 16: {name}'s folded call launched {launches} times or "
+                                 f"left its plain version (max err {err:.3g})")
+    return out
+
+
+def _suite_vs_solo(torch, K, card, tag, make_suite, make_solo, lrs, x, y, batch):
+    """3 steps (the last batch partial), each member of ``make_suite()``
+    against ``make_solo(i)`` on the card, both from one numpy init: losses
+    rtol 1e-5 and phase 9's rule (``_card_vs_cpu_state``) with the table
+    held as one more dense weight (the dense fit steps it with the same
+    Adam): at most 1e-4 of all entries over 1e-6 x lr / 1e-3 (phase 9's
+    1e-6 at its lr) and none over 3 x lr.
+    Phase 9's own table atol (5e-6) was set for one trainer card vs CPU;
+    a member's batched products round otherwise than its solo run's, and
+    a table lane whose gradient cancels keeps that rounding as a dense
+    weight does (a CPU rehearsal moved 1 of 13,312 lanes by 7.6e-6).
+    Returns the verdicts and the launches a suite step."""
+    from mmlrec_tpu_torch.convert import load_jax_variables
+
+    suite = make_suite()
+    inits = [_numpy_train_state(m, seed=10 + i) for i, m in enumerate(suite.members)]
+    for m, v in zip(suite.members, inits):
+        load_jax_variables(m, v)
+    K.reset_launch_counts()
+    suite.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    launches = _per_step(K, 3)
+    backwards = {k: v / 3 for k, v in K.backward_counts.items() if v}
+    out = {"launches_per_suite_step": launches, "plain_backwards_per_suite_step": backwards,
+           "members": []}
+    for i in range(len(suite.seeds)):
+        solo = make_solo(i)
+        load_jax_variables(solo.model, inits[i])
+        solo.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+        ls, lo = suite.histories[i][-1]["loss"], solo.history[-1]["loss"]
+        worst, verdict = _card_vs_cpu_state(_member_view(suite, i), _OnHost(solo), set(),
+                                            lrs[i], table_atol=3 * lrs[i],
+                                            over=1e-6 * lrs[i] / 1e-3)
+        over = worst["dense_entries_over_1e_6"] + worst["table_entries_over_1e_6"]
+        entries = worst["dense_entries"] + worst["table_entries"]
+        log(f"[16] {tag}, member {suite.labels[i]} vs its solo fit on the card, 3 steps of "
+            f"{batch}: epoch loss {ls:.9g} / {lo:.9g}; {verdict}; dense and table together "
+            f"{over} of {entries} entries over {worst['over']:g} (tol {int(1e-4 * entries)}) "
+            f"[{card}]")
+        if worst["failed"] or over > 1e-4 * entries or abs(ls - lo) > 1e-5 * abs(lo):
+            raise AssertionError(f"phase 16, {tag}: member {i} left its solo fit's tolerance")
+        out["members"].append(dict(label=suite.labels[i], loss=ls, solo_loss=lo,
+                                   worst={k: v for k, v in worst.items()
+                                          if k not in ("over_1e_6_by_tensor",)}))
+    want = {k: 1.0 for k in FORWARD_KERNELS}
+    if launches != want or backwards != want:
+        raise AssertionError(f"phase 16, {tag}: launches per suite step {launches}, plain "
+                             f"backwards {backwards}, expected 1 each")
+    return out, suite
+
+
+def seed_suite(torch, K, card, flagship_staged):
+    """Phase 16: (a) the stacked flagship suite: members against solo fits
+    (3 steps, phase 9's rule, dropout 0.2), the folded kernels against
+    plain calls, a staged suite fit replayed against eager bitwise with one
+    launch of B5-B7 a suite step, a sync-free eager suite step and the
+    replayed suite step's device time against 4 x the solo step; (b)
+    sequential-shared two-phase members bitwise equal to solo fits, and
+    reset_for_seed bitwise equal to the CLI's model; (c) the (seed x lr)
+    sweep against solo fits at each lr; (d) the CLI's --vmap_seeds and
+    --sweep_lrs."""
+    from mmlrec_tpu_torch.main import parse_args, run
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.tools.timing import spin_cycles
+    from mmlrec_tpu_torch.train import Trainer
+    from mmlrec_tpu_torch.train.multi_seed import SeedSuiteTrainer
+    from mmlrec_tpu_torch.train.optimizers import get_optimizer
+    from mmlrec_tpu_torch.train.sweep import GridSweepTrainer
+    from mmlrec_tpu_torch.utils import set_seed
+    from mmlrec_tpu_torch.utils.seeding import make_generator
+
+    batch, S = FLAGSHIP_BATCH, len(SUITE_SEEDS)
+    out = {}
+    # ---- (a) the stacked flagship suite
+    layout3, x3, y3, _ = make_data(aliexpress_like_config("mmoe"), n=3 * batch - 1000,
+                                   vocab=100, seed=9)
+    smooth = aliexpress_like_config("mmoe", masked_loss=True, dnn_activation="sigmoid",
+                                    dnn_dropout=0.2)
+
+    def solo3(seed, cfg=smooth, optimizer=None):
+        model = get_model("mmoe", layout3, cfg, generator=make_generator(seed, DEV), device=DEV)
+        return Trainer(model, seed=seed, device=DEV).compile(optimizer=optimizer,
+                                                             metrics=["auc"])
+
+    out["card_vs_solo"], _ = _suite_vs_solo(
+        torch, K, card, "stacked flagship suite (sigmoid DNNs, dropout 0.2, masks per member)",
+        lambda: SeedSuiteTrainer(get_model("mmoe", layout3, smooth, device=DEV),
+                                 seeds=SUITE_SEEDS, device=DEV).compile(metrics=["auc"]),
+        lambda i: solo3(SUITE_SEEDS[i]), [smooth.optim_config.lr] * S, x3, y3, batch)
+    out["fold"] = _fold_checks(torch, K, card, S, smooth)
+
+    layout, x, y, _ = make_data(aliexpress_like_config("mmoe"), n=SUITE_BATCHES * batch,
+                                vocab=100, seed=11)
+
+    def make(scan):
+        cfg = aliexpress_like_config("mmoe", masked_loss=True, dnn_dropout=0.2, scan_steps=scan)
+        model = get_model("mmoe", layout, cfg, generator=make_generator(5, DEV), device=DEV)
+        return SeedSuiteTrainer(model, seeds=SUITE_SEEDS, device=DEV).compile(
+            metrics=["auc", "logloss"])
+
+    fits, launches = {}, {}
+    for scan in (SCAN_GRAPH, 0):
+        fits[scan] = make(scan)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        fits[scan].fit(x, y, batch_size=batch, epochs=STAGED_EPOCHS, verbose=0)
+        torch.cuda.synchronize()
+        launches[scan] = dict(fit_s=time.perf_counter() - t0,
+                              launches=_per_step(K, SUITE_BATCHES * STAGED_EPOCHS),
+                              backwards={k: v / (SUITE_BATCHES * STAGED_EPOCHS)
+                                         for k, v in K.backward_counts.items() if v},
+                              graph_replays=fits[scan].graph_replays)
+    graph, eager = fits[SCAN_GRAPH], fits[0]
+    differs = _suite_bitwise(torch, graph, eager)
+    want = {k: 1.0 for k in FORWARD_KERNELS}
+    g_l = launches[SCAN_GRAPH]
+    log(f"[16] stacked flagship suite, {S} members x batch {batch}, dropout 0.2, "
+        f"{SUITE_BATCHES} batches x {STAGED_EPOCHS} epochs: graph replay (scan_steps "
+        f"{SCAN_GRAPH}) vs eager {'bitwise equal' if not differs else 'DIFFER in ' + str(differs)}"
+        f" (stacked variables, flat optimizer buffers, losses); launches per suite step "
+        f"{g_l['launches']}, plain backwards {g_l['backwards']}, graph replays "
+        f"{g_l['graph_replays']}; fits {g_l['fit_s']:.2f} / {launches[0]['fit_s']:.2f} s [{card}]")
+    if differs or g_l["launches"] != want or g_l["backwards"] != want \
+            or launches[0]["launches"] != want or not g_l["graph_replays"]["train"]:
+        raise AssertionError(f"phase 16: the staged suite differs ({differs}) or launched "
+                             f"{g_l['launches']} a suite step")
+    # one eager suite step without a synchronising call
+    ids, dense = eager.tr.pack_inputs(x)
+    stacked = [torch.from_numpy(np.ascontiguousarray(a[:batch])).to(DEV)[None].repeat(
+        S, *([1] * a.ndim)) if a is not None else None
+        for a in (ids, dense, eager.tr._prepare_y(y), eager.tr._domain_mask_from(x))]
+    w = torch.ones(batch, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager._reseed()
+        eager._stacked_step(*stacked, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[16] one eager suite step ran under set_sync_debug_mode('error') [{card}]")
+    del eager, fits
+    # the replayed suite step's device time: a further graph fit whose last
+    # epoch's replays queue behind a spin (as _replayed_step_device_ms)
+    cycles = spin_cycles(REPLAY_SPIN_MS)
+    graph.fit(x, y, batch_size=batch, epochs=3, verbose=0,
+              epoch_callback=lambda e, _: e == 1 and torch.cuda._sleep(cycles))
+    last = graph.fit_timing[-1]
+    queued = (last["prep_s"] + last["issue_s"]) * 1e3
+    suite_ms = (None if queued > 0.8 * REPLAY_SPIN_MS
+                else last["steps_device_s"] * 1e3 / SUITE_BATCHES)
+    wall_ms = graph.fit_timing[1]["issue_s"] * 1e3 / SUITE_BATCHES  # the 2nd epoch, unspun
+    sync_ms = graph.fit_timing[1]["sync_s"] * 1e3 / SUITE_BATCHES
+    step_wall = wall_ms + sync_ms
+    solo_ms = flagship_staged["replayed_step_device_ms"]
+    ratio = None if suite_ms is None or solo_ms is None else suite_ms / (S * solo_ms)
+    busy = None if suite_ms is None else suite_ms / step_wall
+    log(f"[16] a replayed suite step ({S} members x {batch}): "
+        f"{'not measured' if suite_ms is None else f'{suite_ms:.3f} ms'} of device time (its "
+        f"replays queued in {queued:.1f} ms behind a {REPLAY_SPIN_MS:.0f} ms spin) against "
+        f"{S} x the solo flagship's {solo_ms} ms (phase 12, this run): "
+        f"{'not measured' if ratio is None else f'{ratio:.2f}x'}; wall {step_wall:.3f} ms a "
+        f"step (issue + sync of an unspun epoch, host clock), busy "
+        f"{'not measured' if busy is None else f'{busy:.1%}'}; "
+        f"{S * batch / (step_wall / 1e3):.0f} member examples/s [{card}]")
+    # the members of the staged fit against their solo fits (relu: loose)
+    preds = graph.predict(x3, batch)
+    member_diffs = []
+    for i, seed in enumerate(SUITE_SEEDS):
+        cfg = aliexpress_like_config("mmoe", masked_loss=True, dnn_dropout=0.2)
+        solo = Trainer(get_model("mmoe", layout, cfg, generator=make_generator(seed, DEV),
+                                 device=DEV), seed=seed, device=DEV).compile(metrics=["auc"])
+        solo.fit(x, y, batch_size=batch, epochs=3, verbose=0)
+        losses = [(a["loss"], b["loss"]) for a, b in zip(graph.histories[i], solo.history)]
+        member_diffs.append(dict(
+            seed=seed, max_loss_rel=max(abs(a - b) / abs(b) for a, b in losses),
+            max_pred_abs=float(np.abs(preds[i] - solo.predict(x3, batch)).max())))
+        del solo
+    log(f"[16] the staged suite's members (relu, 3 epochs) vs their solo fits on the card: "
+        f"{member_diffs} [{card}]")
+    if any(d["max_loss_rel"] > 1e-3 or d["max_pred_abs"] > 1e-2 for d in member_diffs):
+        raise AssertionError(f"phase 16: a staged member left its solo fit: {member_diffs}")
+    out["staged"] = dict(members=S, batch=batch, bitwise_equal=not differs,
+                         launches_per_suite_step=g_l["launches"],
+                         plain_backwards_per_suite_step=g_l["backwards"],
+                         graph_replays=g_l["graph_replays"], fit_s=g_l["fit_s"],
+                         eager_fit_s=launches[0]["fit_s"], sync_free_eager_step=True,
+                         replayed_suite_step_device_ms=suite_ms, replays_queued_host_ms=queued,
+                         solo_replayed_step_device_ms_phase12=solo_ms,
+                         suite_over_members_x_solo=ratio, step_wall_ms=step_wall,
+                         device_busy_share=busy, member_vs_solo=member_diffs)
+    del graph
+    torch.cuda.empty_cache()
+
+    # ---- (b) sequential-shared: the two-phase stacked step at 2^20 rows
+    tp = aliexpress_like_config("mmoe", **TWO_PHASE, table_container="stacked")
+    n = SEQ_BATCHES * SEQ_BATCH
+    layout_b, xb, yb, _ = make_data(tp, n=n + SEQ_BATCH, vocab=1 << 16, seed=12)
+    x_tr, y_tr = {k: v[:n] for k, v in xb.items()}, yb[:n]
+    x_val, y_val = {k: v[n:] for k, v in xb.items()}, yb[n:]
+    suite = SeedSuiteTrainer(get_model("mmoe", layout_b, tp, generator=make_generator(0, DEV),
+                                       device=DEV), seeds=SEQ_SEEDS, device=DEV).compile(
+        metrics=["auc"])
+    if not suite.sequential:
+        raise AssertionError("phase 16 (b): the two-phase suite is not sequential-shared")
+    K.reset_launch_counts()
+    suite.fit(x_tr, y_tr, batch_size=SEQ_BATCH, epochs=2, validation_data=(x_val, y_val),
+              verbose=0)
+    torch.cuda.synchronize()
+    seq_launches = _per_step(K, len(SEQ_SEEDS) * 2 * SEQ_BATCHES)
+    seq_preds = suite.predict(x_val, SEQ_BATCH)
+    seq = dict(seeds=list(SEQ_SEEDS), capture_s=suite.capture_s, members=[])
+    for i, seed in enumerate(SEQ_SEEDS):
+        solo = Trainer(get_model("mmoe", layout_b, tp, generator=make_generator(seed, DEV),
+                                 device=DEV), seed=seed, device=DEV).compile(metrics=["auc"])
+        solo.fit(x_tr, y_tr, batch_size=SEQ_BATCH, epochs=2, validation_data=(x_val, y_val),
+                 verbose=0)
+        best = suite._seq_best[i]
+        bad = [k for k, v in solo.best_variables.items() if not torch.equal(v, best[k])]
+        if [h["loss"] for h in solo.history] != [h["loss"] for h in suite.histories[i]]:
+            bad.append("history")
+        if not np.array_equal(solo.predict(x_val, SEQ_BATCH), seq_preds[i]):
+            bad.append("predictions")
+        seq["members"].append(dict(seed=seed, bitwise_equal=not bad, differs=bad[:8]))
+        del solo
+    cli_model = get_model("mmoe", layout_b, tp, generator=set_seed(SEQ_SEEDS[1], DEV),
+                          device=DEV)
+    suite.tr.reset_for_seed(SEQ_SEEDS[1])
+    reset_bad = [k for k, v in cli_model.state_dict().items()
+                 if not torch.equal(v, suite.tr.model.state_dict()[k])]
+    seq.update(reset_for_seed_bitwise=not reset_bad, launches_per_step=seq_launches)
+    log(f"[16] sequential-shared two-phase suite (phase 7's 2^20 rows, stacked container, "
+        f"seeds {list(SEQ_SEEDS)}, {SEQ_BATCHES} batches of {SEQ_BATCH} x 2 epochs): members "
+        f"vs solo fits {[(m['seed'], 'bitwise equal' if m['bitwise_equal'] else m['differs']) for m in seq['members']]}"
+        f" (best snapshots, losses, predictions); its graphs captured in "
+        f"{[round(c, 3) for c in suite.capture_s]} s per seed; reset_for_seed({SEQ_SEEDS[1]}) vs "
+        f"the CLI's model {'bitwise equal' if not reset_bad else 'DIFFER in ' + str(reset_bad[:4])}"
+        f"; launches per step {seq_launches} [{card}]")
+    if reset_bad or not all(m["bitwise_equal"] for m in seq["members"]):
+        raise AssertionError("phase 16 (b): a sequential member or reset_for_seed differs")
+    out["sequential"] = seq
+    del suite, cli_model
+    torch.cuda.empty_cache()
+
+    # ---- (c) the (seed x lr) sweep on the flagship, dropout 0
+    plain_cfg = aliexpress_like_config("mmoe", masked_loss=True, dnn_activation="sigmoid")
+    grid = [(s, lr) for s in SWEEP_SEEDS for lr in SWEEP_LRS]
+    sweep_out, sweep = _suite_vs_solo(
+        torch, K, card, "stacked (seed x lr) sweep (sigmoid DNNs, dropout 0)",
+        lambda: GridSweepTrainer(get_model("mmoe", layout3, plain_cfg, device=DEV),
+                                 seeds=SWEEP_SEEDS, lrs=SWEEP_LRS, device=DEV).compile(
+            metrics=["auc"]),
+        lambda i: solo3(grid[i][0], plain_cfg, get_optimizer("adam", grid[i][1])),
+        [lr for _, lr in grid], x3, y3, batch)
+    p = sweep.predict(x3, batch)
+    lr_gap = float(np.abs(p[0] - p[1]).max())
+    sweep_out.update(grid=[dict(seed=s, lr=lr) for s, lr in grid], lrs_differ_max_abs=lr_gap,
+                     row_labels=sweep.row_labels)
+    log(f"[16] sweep {sweep.labels}: seed {SWEEP_SEEDS[0]}'s predictions at lr "
+        f"{SWEEP_LRS[0]} and {SWEEP_LRS[1]} part by {lr_gap:.3g} [{card}]")
+    if lr_gap <= 1e-4:
+        raise AssertionError("phase 16 (c): the lrs did not differ")
+    out["sweep"] = sweep_out
+    del sweep
+
+    # ---- (d) the CLI
+    cwd, cli = os.getcwd(), {}
+
+    def cli_rows(rel, *flags):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_suite_") as work:
+            _, cfg_path = _cut_config(rel, work, CLI_EPOCHS, CLI_BATCH)
+            os.chdir(work)
+            try:
+                return [row for row, _ in run(parse_args([
+                    "--config", cfg_path, "--synthetic", "--synthetic_rows", str(CLI_ROWS),
+                    "--device", DEV, *flags]))]
+            finally:
+                os.chdir(cwd)
+
+    metrics_of = (lambda r: {k: v for k, v in r.items()
+                             if k not in ("type", "suite_wall_s", "examples_per_s")})
+    rel = os.path.join("configs", "example_synthetic_msl.json")
+    suite_rows = cli_rows(rel, "--seeds", "0,2", "--vmap_seeds")
+    loop_rows = cli_rows(rel, "--seeds", "0,2")
+    gaps = [max(abs(metrics_of(a)[k] - metrics_of(b)[k]) for k in metrics_of(b))
+            for a, b in zip(suite_rows, loop_rows)]
+    same_keys = all(list(metrics_of(a)) == list(metrics_of(b)) and a["type"] == b["type"]
+                    and "suite_wall_s" in a for a, b in zip(suite_rows, loop_rows))
+    sweep_rows = cli_rows(rel, "--seed", "0", "--sweep_lrs", "0.01,0.001")
+    labels = [r["type"] for r in sweep_rows]
+    tp_rel = AE_CONFIG
+    tp_suite = cli_rows(tp_rel, "--seeds", "0,2", "--vmap_seeds")
+    tp_loop = cli_rows(tp_rel, "--seeds", "0,2")
+    tp_equal = [metrics_of(a) == metrics_of(b) for a, b in zip(tp_suite, tp_loop)]
+    cli = dict(suite_rows=suite_rows, loop_rows=loop_rows, max_metric_gap=gaps,
+               sweep_labels=labels, two_phase_suite_rows=tp_suite, two_phase_loop_rows=tp_loop,
+               two_phase_rows_bitwise_equal=tp_equal)
+    log(f"[16] CLI {rel} --seeds 0,2 --vmap_seeds (stacked): rows {suite_rows}; the loop's "
+        f"{loop_rows}; largest metric gap per seed {gaps} [{card}]")
+    log(f"[16] CLI --sweep_lrs 0.01,0.001: labels {labels}; {tp_rel} --vmap_seeds "
+        f"(sequential-shared) rows equal to the loop's {tp_equal} [{card}]")
+    want_labels = [f"synthetic_ae_like_msl_mmoe_0_lr{v}" for v in ("0.01", "0.001")]
+    if not same_keys or max(gaps) > 2e-2 or labels != want_labels or not all(tp_equal) \
+            or not all(np.isfinite(v) for r in suite_rows + sweep_rows
+                       for v in metrics_of(r).values()):
+        raise AssertionError(f"phase 16 (d): the CLI's suite rows are off: {cli}")
+    out["cli"] = cli
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -3330,6 +3796,7 @@ def main() -> int:
     staged = staged_fits(torch, K, card)
     recipe = production_recipe(torch, K, card)
     task = per_task_and_varlen(torch, K, card, staged["dense_flagship"])
+    suite = seed_suite(torch, K, card, staged["dense_flagship"])
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS}
@@ -3358,6 +3825,12 @@ def main() -> int:
         kernels[name]["plain_backwards_per_step_phase14"] = {
             arm: task[arm]["card_vs_cpu"]["backwards_per_step"].get(name)
             for arm in (*PER_TASK_ARMS, "varlen")}
+    # phase 16: launches a suite step (4 members), and each folded call
+    for name in FORWARD_KERNELS:
+        kernels[name]["launches_per_suite_step_phase16"] = {
+            "stacked flagship suite, 4 members": suite["staged"]["launches_per_suite_step"][name],
+            "sweep, 4 combinations": suite["sweep"]["launches_per_suite_step"][name]}
+        kernels[name]["fold_phase16"] = suite["fold"][name]
     kernels["embed_concat"]["phase14_dense_width_69"] = {
         k: task["varlen"][k] for k in ("embed_concat_dense_width", "embed_concat_vector_rows",
                                        "embed_concat_bitwise", "embed_concat_us")}
@@ -3383,6 +3856,7 @@ def main() -> int:
     print(json.dumps({"staged_fit": staged, "card": card}), flush=True)
     print(json.dumps({"production_recipe": recipe, "card": card}), flush=True)
     print(json.dumps({"per_task_and_varlen": task, "card": card}), flush=True)
+    print(json.dumps({"seed_suite": suite, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

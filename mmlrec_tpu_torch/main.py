@@ -2,7 +2,8 @@
 package's ``main.py`` (reference main.py:71-181) on PyTorch, on the card.
 
     python -m mmlrec_tpu_torch.main --config configs/msl/config_AE.json \
-        --synthetic [--seed S | --seeds 0,2,4,8] [--device cuda|cpu]
+        --synthetic [--seed S | --seeds 0,2,4,8] [--vmap_seeds | --sweep_lrs 0.01,0.001]
+        [--device cuda|cpu]
 
 For each seed: build the config's model on synthetic data of the config's
 schema, fit it with the config's batch and epochs while validating on the
@@ -16,9 +17,13 @@ directory as the config gives it.  ``--device`` (the reference's flag)
 defaults to the card and raises without one; ``--device cpu`` runs the
 plain versions of the kernels.
 
-Not ported: the CSV data pipeline without ``--synthetic`` (ROADMAP A10b),
-meshes (``--data_parallel``, A9) and the vmapped seed suite and lr sweep
-(``--vmap_seeds``, ``--sweep_lrs``, A8).
+``--vmap_seeds`` with more than one seed trains the seeds as one suite
+(``train/multi_seed.py``; one seed runs the plain loop, as main.py:109-113
+decides), ``--sweep_lrs`` the (seed x lr) grid (``train/sweep.py``); each
+member appends its row with the suite's wall seconds (``run_vmapped_suite``).
+
+Not ported: the CSV data pipeline without ``--synthetic`` (ROADMAP A10b)
+and meshes (``--data_parallel``, A9).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -55,8 +61,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--synthetic_rows", type=int, default=20000)
     p.add_argument("--synthetic_vocab", type=int, default=100,
                    help="per-feature vocabulary for --synthetic data")
-    p.add_argument("--vmap_seeds", action="store_true", help="ROADMAP A8")
-    p.add_argument("--sweep_lrs", type=str, default="", help="ROADMAP A8")
+    p.add_argument("--vmap_seeds", action="store_true",
+                   help="train the seeds as one suite (train/multi_seed.py)")
+    p.add_argument("--sweep_lrs", type=str, default="",
+                   help="comma-separated lrs: the (seed x lr) grid as one suite "
+                        "(train/sweep.py)")
     p.add_argument("--device_eval", action="store_true",
                    help="validation and the final test metrics on the device "
                         "(train/device_metrics.py): only scalars reach the host")
@@ -93,10 +102,6 @@ def load_dataset(cfg: ExperimentConfig, args) -> CTRDataset:
 def _refuse_unported(args) -> None:
     if args.data_parallel:
         raise NotImplementedError("meshes (--data_parallel) are not ported yet (ROADMAP A9)")
-    if args.vmap_seeds or args.sweep_lrs:
-        raise NotImplementedError(
-            "the vmapped seed suite and lr sweep (--vmap_seeds, --sweep_lrs) are not "
-            "ported yet (ROADMAP A8)")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
                            "plain versions of the kernels on the CPU")
@@ -107,11 +112,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
     return [row for row, _ in run(parse_args(argv))]
 
 
-def run(args: argparse.Namespace) -> List[Tuple[Dict, Trainer]]:
-    """The seed loop of ``main`` on parsed arguments: (row, trained Trainer)
-    per seed."""
+def run(args: argparse.Namespace) -> List[Tuple[Dict, object]]:
+    """``main`` on parsed arguments: (row, trained Trainer) per seed of the
+    loop, or (row, the suite) per member of a suite (main.py:109-113)."""
     _refuse_unported(args)
     seeds = [args.seed] if args.seed is not None else [int(s) for s in args.seeds.split(",")]
+    if args.sweep_lrs:
+        return run_vmapped_suite(args, seeds, lrs=[float(v) for v in args.sweep_lrs.split(",")])
+    if args.vmap_seeds and len(seeds) > 1:
+        return run_vmapped_suite(args, seeds)
     out = []
     for seed in seeds:
         print("seed:", seed)
@@ -172,6 +181,61 @@ def run(args: argparse.Namespace) -> List[Tuple[Dict, Trainer]]:
             bundle_dir = os.path.join(args.export_bundle, model_type)
             meta = save_serving_bundle(trainer, bundle_dir)
             print(f"serving bundle -> {bundle_dir} (batch_mode={meta['batch_mode']})")
+    return out
+
+
+def run_vmapped_suite(args, seeds: List[int], lrs: Optional[List[float]] = None
+                      ) -> List[Tuple[Dict, object]]:
+    """Every seed (x every lr) as one suite (main.py:191-254): one fit, then
+    one row per member, ``type`` ``{data}_{task}_{model}_{row label}`` (the
+    seed, or ``{seed}_lr{lr}``) with the suite's wall seconds
+    (``suite_wall_s``) in place of ``examples_per_s``; the final metrics on
+    the device with ``--device_eval``."""
+    from .train.multi_seed import SeedSuiteTrainer
+    from .train.sweep import GridSweepTrainer
+
+    cfg = ExperimentConfig.from_file(args.config)
+    if args.run and args.model_name:
+        cfg.model_config.model_name = args.model_name
+    if args.device_eval:
+        cfg.training_config.extra["device_eval"] = True
+    mc, dc, oc, tc = cfg.model_config, cfg.data_config, cfg.optim_config, cfg.training_config
+    print(cfg.to_dict())
+
+    ds = load_dataset(cfg, args)
+    # the container the sequential loop would take, so a sequential-shared
+    # member equals that loop's run of its seed
+    resolve_table_container(cfg, ds.layout, device=args.device)
+    model = get_model(mc.model_name, ds.layout, cfg, generator=set_seed(seeds[0], args.device),
+                      device=args.device)
+    if lrs:
+        print(f"(seed x lr) grid: seeds={seeds} lrs={lrs}")
+        suite = GridSweepTrainer(model, seeds=seeds, lrs=lrs, device=args.device)
+    else:
+        print(f"seed suite: {seeds}")
+        suite = SeedSuiteTrainer(model, seeds=seeds, device=args.device)
+    suite.compile(optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
+    print(f"mode: {'sequential-shared' if suite.sequential else 'stacked'}")
+    t0 = time.time()
+    suite.fit(ds.train_input, ds.y_train, batch_size=tc.train_batch_size, epochs=tc.epochs,
+              validation_data=(ds.test_input, ds.y_test))
+    wall = time.time() - t0
+    if args.device_eval:
+        per_member = suite.masked_test_metrics_device(ds.test_input, ds.y_test, ds.test_mask,
+                                                      tc.test_batch_size)
+    else:
+        preds = suite.predict(ds.test_input, tc.test_batch_size)
+        y_test = suite.tr._prepare_y(ds.y_test)
+        per_member = [masked_test_metrics(y_test, preds[si], mc.task_name, dc.num_domains,
+                                          ds.test_mask, suite.tr.model.task_types)
+                      for si in range(len(suite.row_labels))]
+    out = []
+    for si, label in enumerate(suite.row_labels):
+        row = {"type": f"{dc.data_name}_{mc.task_name}_{mc.model_name}_{label}",
+               **per_member[si], "suite_wall_s": round(wall, 1)}
+        print(row)
+        append_result_row(dc.test_result_path, row)
+        out.append((row, suite))
     return out
 
 

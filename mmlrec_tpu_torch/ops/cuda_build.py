@@ -175,6 +175,29 @@ def on_cuda(name: str, *tensors: torch.Tensor, forward_only: bool = True) -> boo
     return True
 
 
+def under_vmap(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when any of ``tensors`` is batched by ``torch.func.vmap``: a
+    wrapper then goes through its ``autograd.Function``, whose ``vmap`` rule
+    folds the stack into one call of the kernel."""
+    return any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
+def needs_grad(t: torch.Tensor) -> bool:
+    """``requires_grad`` of the tensor under any vmap levels (a batched
+    tensor reports False whatever the tensor it wraps requires)."""
+    while torch._C._functorch.is_batchedtensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t.requires_grad
+
+
+def stack_front(t: torch.Tensor, in_dim: Optional[int], size: int) -> torch.Tensor:
+    """A vmap rule's operand with its stack axis first: moved there, or, for
+    an operand the stack shares (``in_dim`` None), expanded to ``size``."""
+    if in_dim is None:
+        return t.unsqueeze(0).expand(size, *t.shape)
+    return t.movedim(in_dim, 0)
+
+
 def launch(library: CudaLibrary, name: str, fn, *args, device: torch.device) -> None:
     """Call ``fn(*args, stream)`` on ``device``'s current stream, raise if
     the launch was refused, and count it."""

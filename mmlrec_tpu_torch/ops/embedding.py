@@ -31,6 +31,7 @@ from torch import nn
 
 from ..features import FeatureLayout
 from .initializers import normal_init
+from .cuda_build import needs_grad, stack_front
 from .kernels import embed_concat, take_fill
 
 
@@ -131,13 +132,18 @@ class _TakeRows(torch.autograd.Function):
     """``take_fill`` whose table cotangent is ``segment_sum_rows``, one
     deterministic formula on both devices, so a step that runs it replays
     bitwise (autograd's own backward of an index adds with atomics on the
-    card)."""
+    card).  Under ``torch.func.vmap`` the stack folds into one gather
+    (``vmap``)."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(table, ids):
+        return take_fill(table, ids)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, ids = inputs
         ctx.save_for_backward(ids)
         ctx.n_rows = table.shape[0]
-        return take_fill(table, ids)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -145,6 +151,30 @@ class _TakeRows(torch.autograd.Function):
         flat = ids.reshape(-1).long()
         flat = torch.where(flat < 0, flat + ctx.n_rows, flat)
         return segment_sum_rows(grad_out.reshape(flat.shape[0], -1), flat, ctx.n_rows), None
+
+    @staticmethod
+    def vmap(info, in_dims, table, ids):
+        """S stacked gathers as ONE: the tables as one ``[S*V, D]`` table,
+        member s's ids offset by ``s * V`` (an id in [-V, 0) wrapped first,
+        any other id outside [0, V) sent past the stack: a NaN row, as
+        alone), ids folded to ``[S*B, ...]``."""
+        S = info.batch_size
+        ids = stack_front(ids, in_dims[1], S)
+        if in_dims[0] is None:
+            out = _TakeRows.apply(table, ids)
+            return out, 0
+        table = stack_front(table, in_dims[0], S)
+        V = table.shape[1]
+        if S * V >= 2**31:
+            raise ValueError(f"_TakeRows: {S} stacked tables of {V} rows pass int32 ids")
+        idx = ids.long()
+        idx = torch.where(idx < 0, idx + V, idx)
+        idx = torch.where((idx >= 0) & (idx < V), idx, S * V)
+        step = torch.arange(S, device=ids.device) * V
+        idx = idx + step.view(S, *([1] * (ids.dim() - 1)))
+        idx = torch.where(idx >= S * V, S * V, idx)
+        out = _TakeRows.apply(table.reshape(S * V, *table.shape[2:]), idx)
+        return out, 0
 
 
 class FusedEmbedding(nn.Module):
@@ -231,7 +261,7 @@ class FusedEmbedding(nn.Module):
         the table and the dense block."""
         flat_ids = ids.to(torch.int32) + self.offsets[None, :]
         matmul_grad = None
-        if (self.table.requires_grad and torch.is_grad_enabled()
+        if (needs_grad(self.table) and torch.is_grad_enabled()
                 and self.table_grad_mode(ids.numel()) == "matmul"):
             matmul_grad = (self.vocab_sizes, self.offsets)
         return embed_concat(self.table.view(-1, self.dim), flat_ids, dense,

@@ -39,6 +39,8 @@ from .cuda_build import (  # noqa: F401  (re-exported)
     backward_counts,
     launch_counts,
     reset_launch_counts,
+    stack_front,
+    under_vmap,
 )
 
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -155,21 +157,28 @@ def onehot_matmul_rows(g: torch.Tensor, ids_local: torch.Tensor,
     return torch.cat(parts, dim=0)
 
 
-def embed_concat_backward(grad_out, ids, n_rows: int, dim: int, matmul_grad=None):
+def embed_concat_backward(grad_out, ids, n_rows: int, dim: int, matmul_grad=None,
+                          members: int = 1):
     """Plain backward of the embed-concat (pallas_kernels.py:82-88):
     ``(d_table [n_rows, dim], d_dense [B, Nd])`` from the output's cotangent
     [B, F*dim + Nd] and the pre-offset ids [B, F].  ``d_table`` is the
     scatter-add of the row cotangents at ``ids`` (an id in [-n_rows, 0)
     wraps once, as in the forward; the forward's NaN rows add nothing), or,
     when ``matmul_grad`` gives ``(vocab_sizes, offsets [F])``, the one-hot
-    product per feature."""
+    product per feature.  ``members`` > 1: the call is a folded stack
+    (``_EmbedConcat.vmap``), member s's rows ``[s * V, (s + 1) * V)`` of the
+    table and its ids offset by ``s * V``; the scatter-add needs nothing
+    more, the one-hot product runs per member."""
     B, F = ids.shape
     g_rows = grad_out[:, : F * dim]
     d_dense = grad_out[:, F * dim:]
     if matmul_grad is not None:
         vocab_sizes, offsets = matmul_grad
-        d_table = onehot_matmul_rows(g_rows.reshape(B, F, dim), ids - offsets[None],
-                                     vocab_sizes, n_rows)
+        V, b = n_rows // members, B // members
+        g4 = g_rows.reshape(members, b, F, dim)
+        parts = [onehot_matmul_rows(g4[s], ids[s * b:(s + 1) * b] - (offsets[None] + s * V),
+                                    vocab_sizes, V) for s in range(members)]
+        d_table = parts[0] if members == 1 else torch.cat(parts)
     else:
         flat = ids.reshape(-1).long()
         flat = torch.where(flat < 0, flat + n_rows, flat)
@@ -205,26 +214,84 @@ def embed_concat_grid(batch: int) -> Tuple[int, int]:
 
 class _EmbedConcat(torch.autograd.Function):
     """The embed-concat kernel forward (its plain version on the CPU),
-    ``embed_concat_backward`` backward."""
+    ``embed_concat_backward`` backward; under ``torch.func.vmap`` the stack
+    folds into one call (``vmap``)."""
 
     @staticmethod
-    def forward(ctx, table, ids, dense, matmul_grad):
-        ctx.save_for_backward(ids)
-        ctx.table_shape = tuple(table.shape)
-        ctx.matmul_grad = matmul_grad
+    def forward(table, ids, dense, matmul_grad, members):
         if table.device.type == "cuda":
             return _embed_concat_cuda(table, ids, dense)
         return embed_concat_plain(table, ids, dense)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, ids, _, matmul_grad, members = inputs
+        ctx.save_for_backward(ids)
+        ctx.table_shape = tuple(table.shape)
+        ctx.matmul_grad = matmul_grad
+        ctx.members = members
 
     @staticmethod
     def backward(ctx, grad_out):
         (ids,) = ctx.saved_tensors
         backward_counts["embed_concat"] += 1
         d_table, d_dense = embed_concat_backward(
-            grad_out, ids, *ctx.table_shape, matmul_grad=ctx.matmul_grad)
-        need_table, _, need_dense, _ = ctx.needs_input_grad
+            grad_out, ids, *ctx.table_shape, matmul_grad=ctx.matmul_grad, members=ctx.members)
+        need_table, _, need_dense, _, _ = ctx.needs_input_grad
         return (d_table if need_table else None, None,
-                d_dense if need_dense else None, None)
+                d_dense if need_dense else None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, table, ids, dense, matmul_grad, members):
+        """S stacked calls as ONE: the tables viewed as one ``[S*V, D]``
+        table (a lane-packed ``[S, V/P, 128]`` stack is that array in
+        memory), member s's ids offset by ``s * V`` (an id in [-V, 0)
+        wrapped first, any other id outside [0, V) sent past the stack: a
+        NaN row, as alone), ids and dense folded to ``[S*B, ...]``; a table
+        the stack shares is not copied."""
+        S = info.batch_size
+        ids = stack_front(ids, in_dims[1], S)
+        dense = stack_front(dense, in_dims[2], S)
+        B, F = ids.shape[1:]
+        if in_dims[0] is None:
+            flat_ids, members_f = ids.reshape(S * B, F), members
+        else:
+            table = stack_front(table, in_dims[0], S)
+            V, D = table.shape[1:]
+            if S * V >= 2**31:
+                raise ValueError(f"embed_concat: {S} stacked tables of {V} rows pass int32 ids")
+            # member s's id i is row s*V + i once wrapped as alone; an id the
+            # member's table does not hold goes past the stack (a NaN row)
+            idx = torch.where(ids < 0, ids + V, ids)
+            step = torch.arange(S, dtype=ids.dtype, device=ids.device)[:, None, None] * V
+            idx = torch.where((idx >= 0) & (idx < V), idx + step, S * V)
+            flat_ids = idx.reshape(S * B, F)
+            table, members_f = table.reshape(S * V, D), S * members
+        out = _embed_concat_apply(table, flat_ids, dense.reshape(S * B, dense.shape[-1]),
+                                  matmul_grad, members_f)
+        return out.view(S, B, out.shape[-1]), 0
+
+
+def _embed_concat_checks(table, ids, dense) -> bool:
+    """Whether the call launches the kernel (its inputs on one card); what
+    the kernel cannot take raises."""
+    name = "embed_concat"
+    on_cuda = _on_cuda(name, table, ids, dense)
+    if on_cuda:
+        if table.shape[1] < 1 or table.shape[0] < 1:
+            raise ValueError(f"{name}: empty table {tuple(table.shape)}")
+        if 8 * _EMBED_ROWS_PER_BLOCK * ids.shape[1] > _SMEM_LIMIT:
+            raise ValueError(f"{name}: {ids.shape[1]} features exceed the kernel's tile")
+    return on_cuda
+
+
+def _embed_concat_apply(table, ids, dense, matmul_grad, members):
+    """``_EmbedConcat`` on a folded stack: contiguous operands, checked as
+    the wrapper checks them (a nested stack folds at its own level)."""
+    if not under_vmap(table, ids, dense):
+        table, ids, dense = table.contiguous(), ids.contiguous(), dense.contiguous()
+        _embed_concat_checks(table, ids, dense)
+    return _EmbedConcat.apply(table, ids, dense, matmul_grad, members)
 
 
 def embed_concat(table: torch.Tensor, ids: torch.Tensor, dense: torch.Tensor,
@@ -258,18 +325,14 @@ def embed_concat(table: torch.Tensor, ids: torch.Tensor, dense: torch.Tensor,
     _check_dtype(name, dense, torch.float32, "dense")
     if table.dim() != 2 or ids.dim() != 2 or dense.dim() != 2:
         raise ValueError(f"{name}: expected 2-D table, ids and dense")
-    V, D = table.shape
-    B, F = ids.shape
+    B = ids.shape[0]
     if dense.shape[0] != B:
         raise ValueError(f"{name}: ids have {B} rows, dense {dense.shape[0]}")
-    on_cuda = _on_cuda(name, table, ids, dense)
-    if on_cuda:
-        if D < 1 or V < 1:
-            raise ValueError(f"{name}: empty table {tuple(table.shape)}")
-        if 8 * _EMBED_ROWS_PER_BLOCK * F > _SMEM_LIMIT:
-            raise ValueError(f"{name}: {F} features exceed the kernel's tile")
+    if under_vmap(table, ids, dense):
+        return _EmbedConcat.apply(table, ids, dense, matmul_grad, 1)
+    on_cuda = _embed_concat_checks(table, ids, dense)
     if torch.is_grad_enabled() and (table.requires_grad or dense.requires_grad):
-        return _EmbedConcat.apply(table, ids, dense, matmul_grad)
+        return _EmbedConcat.apply(table, ids, dense, matmul_grad, 1)
     if not on_cuda:
         return embed_concat_plain(table, ids, dense)
     return _embed_concat_cuda(table, ids, dense)
@@ -321,13 +384,22 @@ def gated_expert_mix(gate_logits: torch.Tensor, experts: torch.Tensor):
         raise ValueError(
             f"{name}: experts {tuple(experts.shape)} do not match logits "
             f"{tuple(gate_logits.shape)}")
-    if not _on_cuda(name, gate_logits, experts):
+    if under_vmap(gate_logits, experts):
+        return _GatedExpertMix.apply(gate_logits, experts)
+    if not _mix_checks(gate_logits, experts):
         return gated_expert_mix_plain(gate_logits, experts)
-    if E < 1 or 4 * T * E > _SMEM_LIMIT:
-        raise ValueError(f"{name}: unsupported T={T}, E={E}")
     if torch.is_grad_enabled() and (gate_logits.requires_grad or experts.requires_grad):
         return _GatedExpertMix.apply(gate_logits, experts)
     return _gated_expert_mix_cuda(gate_logits, experts)
+
+
+def _mix_checks(gate_logits, experts) -> bool:
+    """Whether the call launches the kernel; what it cannot take raises."""
+    on_cuda = _on_cuda("gated_expert_mix", gate_logits, experts)
+    T, E = gate_logits.shape[1:]
+    if on_cuda and (E < 1 or 4 * T * E > _SMEM_LIMIT):
+        raise ValueError(f"gated_expert_mix: unsupported T={T}, E={E}")
+    return on_cuda
 
 
 def _gated_expert_mix_cuda(gate_logits, experts):
@@ -354,17 +426,37 @@ def gated_expert_mix_backward(gate_logits, experts, grad_out):
 
 
 class _GatedExpertMix(torch.autograd.Function):
-    """The mix kernel forward, ``gated_expert_mix_backward`` backward."""
+    """The mix kernel forward (its plain version on the CPU, where only a
+    stacked call comes here), ``gated_expert_mix_backward`` backward."""
 
     @staticmethod
-    def forward(ctx, gate_logits, experts):
-        ctx.save_for_backward(gate_logits, experts)
-        return _gated_expert_mix_cuda(gate_logits, experts)
+    def forward(gate_logits, experts):
+        if gate_logits.device.type == "cuda":
+            return _gated_expert_mix_cuda(gate_logits, experts)
+        return gated_expert_mix_plain(gate_logits, experts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, grad_out):
         backward_counts["gated_expert_mix"] += 1
         return gated_expert_mix_backward(*ctx.saved_tensors, grad_out)
+
+    @staticmethod
+    def vmap(info, in_dims, gate_logits, experts):
+        """S stacked calls as ONE: the stack folded into the batch,
+        ``[S*B, T, E]`` logits against ``[S*B, E, D]`` experts."""
+        S = info.batch_size
+        g, e = (stack_front(t, d, S) for t, d in zip((gate_logits, experts), in_dims))
+        B = g.shape[1]
+        g, e = g.reshape(S * B, *g.shape[2:]), e.reshape(S * B, *e.shape[2:])
+        if not under_vmap(g, e):
+            g, e = g.contiguous(), e.contiguous()
+            _mix_checks(g, e)
+        out = _GatedExpertMix.apply(g, e)
+        return out.view(S, B, *out.shape[1:]), 0
 
 
 # ----------------------------------------------------------------------
@@ -454,6 +546,8 @@ def multihead_score(
         raise ValueError(
             f"{name}: weights {tuple(weights.shape)}, bias {tuple(bias.shape)}"
             f", binary {tuple(binary.shape)} do not match tower {(B, T, H)}")
+    if under_vmap(tower, weights, bias, binary):
+        return _MultiheadScore.apply(tower, weights, bias, binary)
     if not _on_cuda(name, tower, weights, bias, binary):
         return multihead_score_plain(tower, weights, bias, binary)
     if torch.is_grad_enabled() and any(
@@ -488,14 +582,39 @@ def multihead_score_backward(tower, weights, bias, binary, grad_out):
 
 
 class _MultiheadScore(torch.autograd.Function):
-    """The score kernel forward, ``multihead_score_backward`` backward."""
+    """The score kernel forward (its plain version on the CPU, where only a
+    stacked call comes here), ``multihead_score_backward`` backward."""
 
     @staticmethod
-    def forward(ctx, tower, weights, bias, binary):
-        ctx.save_for_backward(tower, weights, bias, binary)
-        return _multihead_score_cuda(tower, weights, bias, binary)
+    def forward(tower, weights, bias, binary):
+        if tower.device.type == "cuda":
+            return _multihead_score_cuda(tower, weights, bias, binary)
+        return multihead_score_plain(tower, weights, bias, binary)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, grad_out):
         backward_counts["multihead_score"] += 1
         return (*multihead_score_backward(*ctx.saved_tensors, grad_out), None)
+
+    @staticmethod
+    def vmap(info, in_dims, tower, weights, bias, binary):
+        """S stacked calls as ONE: the stack folded into the heads, a
+        ``[B, S*T, H]`` tower (one copy, member-major heads) against
+        ``[S*T, H]`` weights, ``[S*T]`` bias and binary; the result is
+        ``[B, S, T]`` with the stack on axis 1."""
+        S = info.batch_size
+        tower, weights, bias, binary = (
+            stack_front(t, d, S) for t, d in zip((tower, weights, bias, binary), in_dims))
+        B, T, H = tower.shape[1:]
+        tower = tower.movedim(0, 1).reshape(B, S * T, H)
+        weights, bias, binary = (t.reshape(S * T, *t.shape[2:]) for t in (weights, bias, binary))
+        if not under_vmap(tower, weights, bias, binary):
+            tower, weights, bias, binary = (
+                t.contiguous() for t in (tower, weights, bias, binary))
+            _on_cuda("multihead_score", tower, weights, bias, binary)
+        out = _MultiheadScore.apply(tower, weights, bias, binary)
+        return out.view(B, S, T), 1

@@ -42,16 +42,57 @@ def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]
     raise NotImplementedError(f"activation {name!r}")
 
 
+class MemberGenerators(list):
+    """One generator per member of a stacked model (``train/multi_seed.py``):
+    set as a model's draw generator, it makes every draw inside
+    ``torch.func.vmap`` take member s's values from generator s, the draw a
+    solo model with that generator makes (``uniform``)."""
+
+
+class _MemberUniform(torch.autograd.Function):
+    """U[0, 1) of ``shape`` from each member's generator, stacked, under
+    vmap (``like`` carries the stack); not differentiable."""
+
+    @staticmethod
+    def forward(like, shape, generators):
+        raise RuntimeError("member draws run under torch.func.vmap over the members")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, like, shape, generators):
+        if info.batch_size != len(generators):
+            raise ValueError(f"{info.batch_size} stacked members, {len(generators)} generators")
+        return torch.stack([torch.rand(shape, generator=g, device=g.device)
+                            for g in generators]), 0
+
+
+def uniform(shape, generator, device, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """U[0, 1) of ``shape`` on ``device`` from ``generator``, or, from
+    ``MemberGenerators`` under vmap over the members, member s's draw from
+    its generator s (``like``: a tensor that carries the stack)."""
+    if isinstance(generator, MemberGenerators):
+        return _MemberUniform.apply(like, tuple(shape), generator)
+    return torch.rand(tuple(shape), generator=generator, device=device)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """``nn.Dropout`` semantics as the JAX package's ``ShardedDropout`` has
     them on one device (layers.py:133-160): a Bernoulli keep mask drawn from
-    ``generator`` (on ``x``'s device), kept values scaled by ``1 / keep``."""
+    ``generator`` (on ``x``'s device; per member from ``MemberGenerators``),
+    kept values scaled by ``1 / keep``."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device, x) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -545,7 +586,7 @@ class SNRGate(nn.Module):
         self.noise_off = False
         self.dropout_generator: Optional[torch.Generator] = None
 
-    def gate_u(self, device) -> torch.Tensor:
+    def gate_u(self, device, like: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The u of this call: the parameter, or (stochastic) a draw or the
         midpoint."""
         if not self.stochastic:
@@ -556,7 +597,7 @@ class SNRGate(nn.Module):
                     "stochastic gates in training mode need a generator: set "
                     "RecModel.set_dropout_generator (the Trainer does)")
             lo, hi = self.e, 1.0 - 2.0 ** -20
-            draw = torch.rand(self.u_shape, generator=self.dropout_generator, device=device)
+            draw = uniform(self.u_shape, self.dropout_generator, device, like)
             return lo + (hi - lo) * draw
         return torch.full(self.u_shape, 0.5, device=device)
 
@@ -573,7 +614,7 @@ class SNRGate(nn.Module):
         if x.dim() != 3 or tuple(x.shape[1:]) != (self.input_dim, self.units):
             raise ValueError(f"SNRGate expects [B, {self.input_dim}, {self.units}], "
                              f"got {tuple(x.shape)}")
-        z = self.gates(self.gate_u(x.device))
+        z = self.gates(self.gate_u(x.device, x))
         trans = self.trans.detach() if self.freeze_trans else self.trans
         tz = trans * (z[:, :, None, :] if self.elementwise else z[:, :, None, None])
         return torch.einsum("bju,ijuv->biv", x, tz)

@@ -11,16 +11,19 @@ time, eagerly on a side stream (the warm-up the capture needs, and a real
 step) and then capturing it for the next calls.  On the CPU it calls
 ``body``.
 
-The generator the step draws its dropout masks and gates from is
-registered with each graph: a replay takes the generator's seed and offset
-at the time of the replay, so the trainer's reseed before each step gives a
-replayed step the draws of the eager one.  The wrappers' launch counts are
+The generators the step draws its dropout masks and gates from (one, or
+one per member of a stacked suite: ``layers.MemberGenerators``) are
+registered with each graph: a replay takes each generator's seed and
+offset at the time of the replay, so the trainer's reseed before each step
+gives a replayed step the draws of the eager one.  ``capture_s`` sums the
+host seconds of the first runs (eager warm-up and capture).  The wrappers' launch counts are
 recorded at capture and added on every replay (``cuda_build``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Optional, Tuple
+import time
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -28,12 +31,17 @@ from ..ops import cuda_build
 
 
 class StepGraphs:
-    def __init__(self, device: torch.device, generator: Optional[torch.Generator] = None):
+    def __init__(self, device: torch.device,
+                 generator: Union[torch.Generator, Sequence[torch.Generator], None] = None):
         self.device = torch.device(device)
-        self.generator = generator
+        self.generators = ([] if generator is None else
+                           [generator] if isinstance(generator, torch.Generator)
+                           else list(generator))
         self.graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         #: replays since construction, by key
         self.replays: Dict[Hashable, int] = {}
+        #: host seconds of the captures (each with its eager warm-up run)
+        self.capture_s = 0.0
 
     def discard(self, kind: str) -> None:
         """Drop the graphs captured for ``kind`` (a key's first entry): the
@@ -51,6 +59,7 @@ class StepGraphs:
             cuda_build.add_launches(launches)
             self.replays[key] = self.replays.get(key, 0) + 1
             return
+        clock = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
@@ -58,11 +67,13 @@ class StepGraphs:
             body()
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None and self.generator.device.type == "cuda":
-            graph.register_generator_state(self.generator)
+        for gen in self.generators:
+            if gen.device.type == "cuda":
+                graph.register_generator_state(gen)
         with cuda_build.captured_launches() as launches:
             # thread_local: the fit's worker threads keep uploading meanwhile
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 body()
         self.graphs[key] = (graph, launches)
         self.replays.setdefault(key, 0)
+        self.capture_s += time.perf_counter() - clock

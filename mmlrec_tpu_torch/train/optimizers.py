@@ -35,8 +35,9 @@ equal to the per-tensor path, on the CPU and on the card.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
@@ -70,15 +71,17 @@ class FlatTensors(dict):
         self.flat = flat
 
 
-def flat_like(params: Tensors, value: float) -> FlatTensors:
+def flat_like(params: Tensors, value: float, members: int = 0) -> FlatTensors:
     """A ``FlatTensors`` shaped as ``params`` (in their order), filled with
-    ``value``."""
+    ``value``; with ``members`` S, ``[S, N]``, whose views carry the
+    leading S."""
     first = next(iter(params.values()))
-    flat = torch.full((sum(p.numel() for p in params.values()),), float(value),
+    lead = (members,) if members else ()
+    flat = torch.full(lead + (sum(p.numel() for p in params.values()),), float(value),
                       dtype=torch.float32, device=first.device)
     views, off = {}, 0
     for k, p in params.items():
-        views[k] = flat[off:off + p.numel()].view(p.shape)
+        views[k] = flat[..., off:off + p.numel()].view(*lead, *p.shape)
         off += p.numel()
     return FlatTensors(flat, views)
 
@@ -93,7 +96,48 @@ class _Elementwise:
     """An optimizer as one elementwise chain: ``_shared`` once per step
     (the step count's terms), ``_apply`` per tensor (or once over the flat
     vectors), which moves the state tensors in place and returns the
-    parameter delta."""
+    parameter delta.
+
+    ``HYPER`` names the update-time hyperparameters.  The chain reads them
+    through ``k``, the constants ``_derive`` computes from them in double
+    precision (``1 - b1``, ``-lr``, ...): Python floats here, and in an
+    ``inject``-ed copy f32 tensors of the same values, one per stacked
+    member (optax's ``inject_hyperparams`` state leaves), so a member's
+    step takes the f32 constants a plain optimizer of its values takes."""
+
+    HYPER: Tuple[str, ...] = ()
+
+    def __init__(self, **hyper: float):
+        self.hyper = {k: float(v) for k, v in hyper.items()}
+        for name, v in self.hyper.items():
+            setattr(self, name, v)
+        self.k = self._derive(**self.hyper)
+
+    def _derive(self, **hyper) -> Dict[str, object]:
+        raise NotImplementedError
+
+    def inject(self, values: Dict[str, object], device) -> "_Elementwise":
+        """A copy whose hyperparameters are f32 tensors on ``device``: a
+        sequence in ``values[name]`` gives one value per member (``[S, 1]``,
+        against a member-stacked ``Flat``), a number a 0-d tensor, and a
+        name it does not give keeps its value as a 0-d tensor.  A name
+        outside ``HYPER`` raises KeyError."""
+        unknown = sorted(set(values) - set(self.HYPER))
+        if unknown:
+            raise KeyError(f"{unknown} are not update-time hyperparameters of "
+                           f"{type(self).__name__} (available: {sorted(self.HYPER)})")
+
+        def leaf(v):
+            a = np.asarray(v, np.float64)
+            return a.reshape(-1, 1) if a.ndim else a
+
+        hyper = {k: leaf(values.get(k, v)) for k, v in self.hyper.items()}
+        out = object.__new__(type(self))
+        out.hyper = dict(self.hyper)
+        out.__dict__.update({k: v for k, v in self.__dict__.items() if k not in ("k", "hyper")})
+        out.k = {name: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+                 for name, v in self._derive(**hyper).items()}
+        return out
 
     def fields(self, state) -> Tuple[Tensors, ...]:
         return tuple(v for v in state if isinstance(v, dict))
@@ -115,8 +159,13 @@ class _Elementwise:
 class Adam(_Elementwise):
     """``optax.adam(lr, b1, b2, eps)`` over a dict of tensors."""
 
+    HYPER = ("lr", "b1", "b2", "eps")
+
     def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        self.lr, self.b1, self.b2, self.eps = float(lr), float(b1), float(b2), float(eps)
+        super().__init__(lr=lr, b1=b1, b2=b2, eps=eps)
+
+    def _derive(self, lr, b1, b2, eps):
+        return dict(neg_lr=-lr, b1=b1, one_b1=1.0 - b1, b2=b2, one_b2=1.0 - b2, eps=eps)
 
     def init(self, params: Tensors, flat: bool = False) -> AdamState:
         device = next(iter(params.values())).device
@@ -126,67 +175,98 @@ class Adam(_Elementwise):
     def _shared(self, state):
         state.count.add_(1)
         t = state.count.to(torch.float32)
-        return 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        return 1.0 - self.k["b1"] ** t, 1.0 - self.k["b2"] ** t
 
     def _apply(self, g, mu, nu, c1, c2):
-        b1, b2 = self.b1, self.b2
-        mu.mul_(b1).add_((1.0 - b1) * g)
-        nu.mul_(b2).add_((1.0 - b2) * (g * g))
-        return ((mu / c1) / (torch.sqrt(nu / c2) + self.eps)) * -self.lr
+        k = self.k
+        mu.mul_(k["b1"]).add_(k["one_b1"] * g)
+        nu.mul_(k["b2"]).add_(k["one_b2"] * (g * g))
+        return ((mu / c1) / (torch.sqrt(nu / c2) + k["eps"])) * k["neg_lr"]
 
 
 class Adagrad(_Elementwise):
-    """``optax.adagrad(lr, initial_accumulator_value, eps)``."""
+    """``optax.adagrad(lr, initial_accumulator_value, eps)``; the initial
+    accumulator is an init-time value, no hyperparameter of the chain."""
+
+    HYPER = ("lr", "eps")
 
     def __init__(self, lr: float, initial_accumulator_value: float = 0.0, eps: float = 1e-10):
-        self.lr, self.initial, self.eps = float(lr), float(initial_accumulator_value), float(eps)
+        super().__init__(lr=lr, eps=eps)
+        self.initial = float(initial_accumulator_value)
+
+    def _derive(self, lr, eps):
+        return dict(neg_lr=-lr, eps=eps)
 
     def init(self, params: Tensors, flat: bool = False) -> AdagradState:
         return AdagradState(_field(params, self.initial, flat))
 
     def _apply(self, g, s):
         s.add_(g * g)
-        scale = torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0)
-        return (scale * g) * -self.lr
+        scale = torch.where(s > 0, torch.rsqrt(s + self.k["eps"]), 0.0)
+        return (scale * g) * self.k["neg_lr"]
 
 
 class RmsProp(_Elementwise):
     """``optax.rmsprop(lr, decay, eps)`` (eps inside the root, no momentum)."""
 
+    HYPER = ("lr", "decay", "eps")
+
     def __init__(self, lr: float, decay: float = 0.99, eps: float = 1e-8):
-        self.lr, self.decay, self.eps = float(lr), float(decay), float(eps)
+        super().__init__(lr=lr, decay=decay, eps=eps)
+
+    def _derive(self, lr, decay, eps):
+        return dict(neg_lr=-lr, decay=decay, one_decay=1.0 - decay, eps=eps)
 
     def init(self, params: Tensors, flat: bool = False) -> RmsPropState:
         return RmsPropState(_field(params, 0.0, flat))
 
     def _apply(self, g, nu):
-        nu.mul_(self.decay).add_((1.0 - self.decay) * (g * g))
-        return (torch.rsqrt(nu + self.eps) * g) * -self.lr
+        k = self.k
+        nu.mul_(k["decay"]).add_(k["one_decay"] * (g * g))
+        return (torch.rsqrt(nu + k["eps"]) * g) * k["neg_lr"]
 
 
 class Sgd(_Elementwise):
     """``optax.sgd(lr)``: no momentum, no state."""
 
+    HYPER = ("lr",)
+
     def __init__(self, lr: float):
-        self.lr = float(lr)
+        super().__init__(lr=lr)
+
+    def _derive(self, lr):
+        return dict(neg_lr=-lr)
 
     def init(self, params: Tensors, flat: bool = False) -> SgdState:
         return SgdState()
 
     def _apply(self, g):
-        return g * -self.lr
+        return g * self.k["neg_lr"]
 
 
 class Flat:
     """``optax.flatten(inner)``: ``inner``'s chain once over the
     concatenation of every tensor (trainer.py:547-580), on ``FlatTensors``
-    state; the state keeps ``inner``'s type and field names."""
+    state; the state keeps ``inner``'s type and field names.
 
-    def __init__(self, inner: _Elementwise):
+    ``members`` S > 0: every tensor carries a leading axis of S stacked
+    members (``train/multi_seed.py``); the flat buffers are ``[S, N]``, one
+    row per member in the solo order, so a per-member ``[S, 1]``
+    hyperparameter (``_Elementwise.inject``) broadcasts over its row."""
+
+    def __init__(self, inner: _Elementwise, members: int = 0):
         self.inner = inner
+        self.members = int(members)
 
     def init(self, params: Tensors, flat: bool = True):
-        return self.inner.init(params, flat=True)
+        if not self.members:
+            return self.inner.init(params, flat=True)
+        member = {k: p[0] for k, p in params.items()}
+        state = self.inner.init(member, flat=True)
+        return type(state)(**{
+            field: flat_like(member, float(value.flat[0]), members=self.members)
+            if isinstance(value, FlatTensors) else value
+            for field, value in state._asdict().items()})
 
     @torch.no_grad()
     def step(self, params: Tensors, grads: Tensors, state):
@@ -196,9 +276,10 @@ class Flat:
             raise TypeError("Flat steps a state made by Flat.init (FlatTensors fields)")
         names = list(fields[0]) if fields else list(params)  # the flat buffers' order
         tensors: List[torch.Tensor] = [params[k] for k in names]
-        g = torch.cat([grads[k].reshape(-1) for k in names])
+        lead = (self.members,) if self.members else ()
+        g = torch.cat([grads[k].reshape(*lead, -1) for k in names], dim=-1)
         delta = self.inner._apply(g, *(f.flat for f in fields), *self.inner._shared(state))
-        parts = delta.split([p.numel() for p in tensors])
+        parts = delta.split([p[0].numel() if lead else p.numel() for p in tensors], dim=-1)
         torch._foreach_add_(tensors, [d.view(p.shape) for d, p in zip(parts, tensors)])
         return state
 

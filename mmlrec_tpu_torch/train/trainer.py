@@ -221,6 +221,8 @@ class Trainer:
         self.throughput_examples_per_s: Optional[float] = None
         #: CUDA-graph replays of the last fit's steps and validation batches
         self.graph_replays: Dict[str, int] = {"train": 0, "eval": 0}
+        #: host seconds the last fit spent on its captures (``StepGraphs``)
+        self.graph_capture_s = 0.0
         #: per epoch of the last fit, host seconds spent on the epoch's
         #: indices and metadata (waiting for the worker included), on issuing
         #: its steps, and on the loss read that waits for the card; on the
@@ -559,19 +561,29 @@ class Trainer:
             loss_weights=mc.loss_weights if mc.extra.get("use_loss_weights") else None,
         )
 
-    def _loss_terms(self, params, ids, dense, y, dmask, weight):
+    def _forward(self, state, *args, **kwargs):
+        """The model on ``args``: with its own tensors, or with ``state``
+        (tensors by state-dict key, those of one member of a stacked suite
+        under ``torch.func.vmap``) in their place."""
+        if state is None:
+            return self.model(*args, **kwargs)
+        return torch.func.functional_call(self.model, state, args, kwargs)
+
+    def _loss_terms(self, params, ids, dense, y, dmask, weight, state=None):
         """(total, data loss, probs) with the L2 penalty over ``params``, the
         whole table included, and under msl / mtmsl with a domain mask and
         ``use_cka_loss`` the CKA between the domains' representations: the
-        model's ``last_layer``, else its ``dnn_input`` (trainer.py:668-715)."""
+        model's ``last_layer``, else its ``dnn_input`` (trainer.py:668-715).
+        ``state``: the tensors the model runs with (``_forward``)."""
         mc = self.cfg.model_config
         model_mask = dmask if (mc.masked_loss and dmask is not None) else None
         want_cka = (mc.use_cka_loss and self.task_name in ("msl", "mtmsl")
                     and dmask is not None)
         if want_cka:
-            probs, inter = self.model(ids, dense, model_mask, return_intermediates=True)
+            probs, inter = self._forward(state, ids, dense, model_mask,
+                                         return_intermediates=True)
         else:
-            probs = self.model(ids, dense, model_mask)
+            probs = self._forward(state, ids, dense, model_mask)
         data_loss = self._data_loss(probs, y, dmask, weight)
         reg = l2_regularization(
             params, mc.l2_reg_embedding, mc.l2_reg_dnn,
@@ -583,35 +595,61 @@ class Trainer:
                 total = total + cka_domain_loss(last, dmask, alpha=0.5)
         return total, data_loss, probs
 
-    def _per_task_grads(self, params, ids, dense, y, dmask, weight):
-        """(per-task gradient dicts, data loss, probs) of the per-task
-        methods (trainer.py:1007-1024, ``_loss_terms_single_task`` :1292-1316).
-        The JAX step runs T forwards from one rng and one set of BatchNorm
-        statistics and keeps the last statistics: that is one forward here,
-        whose statistics move once and whose dropout and gates draw once,
-        then one backward per task of ``multitask_loss(probs . onehot_i +
+    def _per_task_totals(self, params, ids, dense, y, dmask, weight, state=None):
+        """(the T task totals, the last task's data loss, probs) of the
+        per-task methods (trainer.py:1007-1024, ``_loss_terms_single_task``
+        :1292-1316).  The JAX step runs T forwards from one rng and one set
+        of BatchNorm statistics and keeps the last statistics: that is one
+        forward here, whose statistics move once and whose dropout and gates
+        draw once; task i's total is ``multitask_loss(probs . onehot_i +
         probs.detach() . (1 - onehot_i)) + reg / T``, without
-        ``loss_weights`` and without the CKA term."""
+        ``loss_weights`` and without the CKA term.  ``state``: the tensors
+        the model runs with (``_forward``)."""
         mc = self.cfg.model_config
         model_mask = dmask if (mc.masked_loss and dmask is not None) else None
-        probs = self.model(ids, dense, model_mask)
+        probs = self._forward(state, ids, dense, model_mask)
         reg = l2_regularization(
             params, mc.l2_reg_embedding, mc.l2_reg_dnn,
             dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
         frozen = probs.detach()
         heads = torch.arange(probs.shape[-1], device=probs.device)
-        names, tensors = list(params), list(params.values())
         T = self.num_tasks
-        task_grads = []
+        totals = []
         for i in range(T):
             onehot = (heads == i).to(probs.dtype)[None]
             masked = probs * onehot + frozen * (1 - onehot)
             data_loss = multitask_loss(
                 masked, y, weight, self.loss_names, self.task_name, self.num_domains,
                 domain_mask=dmask if mc.masked_loss else None, model_name=self.model_name)
-            total = data_loss + reg / max(T, 1)
-            task_grads.append(dict(zip(names, _grads(total, tensors, retain=i < T - 1))))
+            totals.append(data_loss + reg / max(T, 1))
+        return totals, data_loss, probs
+
+    def _per_task_grads(self, params, ids, dense, y, dmask, weight):
+        """(per-task gradient dicts, data loss, probs): one backward per
+        task total of ``_per_task_totals``."""
+        totals, data_loss, probs = self._per_task_totals(params, ids, dense, y, dmask, weight)
+        names, tensors = list(params), list(params.values())
+        T = len(totals)
+        task_grads = [dict(zip(names, _grads(total, tensors, retain=i < T - 1)))
+                      for i, total in enumerate(totals)]
         return task_grads, data_loss, probs
+
+    def _gradnorm_terms(self, task_grads, probs, y, dmask, weight, st):
+        """GradNorm's step as a function (trainer.py:1025-1044): (the summed
+        gradients of ``w_i * L_i``, its loss ``sum(w * L)``, the new weights,
+        the first losses) from the state ``st``, which it does not move."""
+        mc = self.cfg.model_config
+        loss_vec = per_task_losses(probs, y, weight, self.loss_names, self.task_name,
+                                   self.num_domains,
+                                   domain_mask=dmask if mc.masked_loss else None)
+        w = st["task_weights"]
+        init_losses = torch.where(st["gn_step"] == 0, loss_vec, st["initial_losses"])
+        scaled = [{k: w[i] * g for k, g in tg.items()} for i, tg in enumerate(task_grads)]
+        grads = {k: sum(sg[k] for sg in scaled) for k in scaled[0]}
+        new_w, _ = gradnorm_update(
+            w, loss_vec, init_losses, scaled, alpha=float(mc.extra.get("gradnorm_alpha", 1.5)),
+            lr=float(mc.extra.get("gradnorm_lr", 0.025)))
+        return grads, torch.sum(w * loss_vec), new_w, init_losses
 
     def _merge_task_grads(self, task_grads, data_loss, probs, y, dmask, weight):
         """(merged gradients, the step's loss) of the per-task method
@@ -624,19 +662,10 @@ class Trainer:
                 data_loss
         if self.per_task == "pcgrad":
             return pcgrad_merge(task_grads), data_loss
-        loss_vec = per_task_losses(probs, y, weight, self.loss_names, self.task_name,
-                                   self.num_domains,
-                                   domain_mask=dmask if mc.masked_loss else None)
         st = self.gn_state
-        w = st["task_weights"]
-        init_losses = torch.where(st["gn_step"] == 0, loss_vec, st["initial_losses"])
-        scaled = [{k: w[i] * g for k, g in tg.items()} for i, tg in enumerate(task_grads)]
-        grads = {k: sum(sg[k] for sg in scaled) for k in scaled[0]}
-        new_w, _ = gradnorm_update(
-            w, loss_vec, init_losses, scaled, alpha=float(mc.extra.get("gradnorm_alpha", 1.5)),
-            lr=float(mc.extra.get("gradnorm_lr", 0.025)))
-        total = torch.sum(w * loss_vec)
-        w.copy_(new_w)
+        grads, total, new_w, init_losses = self._gradnorm_terms(
+            task_grads, probs, y, dmask, weight, st)
+        st["task_weights"].copy_(new_w)
         st["initial_losses"].copy_(init_losses)
         st["gn_step"].add_(1)
         return grads, total
@@ -937,6 +966,7 @@ class Trainer:
             self.graph_replays = {
                 "train": sum(v for k, v in replays.items() if k[0] != "eval"),
                 "eval": sum(v for k, v in replays.items() if k[0] == "eval")}
+            self.graph_capture_s = self._graphs.capture_s
             self._graphs = None
         if self.cfg.save_config.save:
             try:
@@ -1208,23 +1238,32 @@ class Trainer:
     # ------------------------------------------------------------------
     def reset_for_seed(self, seed: int, generator: Optional[torch.Generator] = None) -> "Trainer":
         """Start over for ``seed``: the model's weights drawn anew, in place,
-        as ``get_model`` draws them from ``generator`` (by default
-        ``make_generator(seed)`` on the CPU, as the port's CLI seeds a
-        model), the optimizer states, history, snapshots, the draws'
-        generator and the fit's metadata codec reset; compile's optimizer,
-        loss and metrics kept (trainer.py:1862-1877)."""
+        as ``get_model`` draws them from ``generator`` on the generator's
+        device, by default ``make_generator(seed, device)`` on the trainer's
+        device, the generator the CLI seeds a model with on that device
+        (``set_seed``), so the weights are the bits the CLI draws for
+        ``seed``; the optimizer states, history, snapshots, the draws'
+        generator, the fit's metadata codec and the knobs a fit resolves
+        (``update_space``, the route lists' width) reset; compile's
+        optimizer, loss and metrics kept (trainer.py:1862-1877)."""
         from ..models import get_model
         from ..utils.seeding import make_generator
 
-        gen = generator if generator is not None else make_generator(seed)
-        fresh = get_model(self.model_name, self.layout, self.cfg, generator=gen, device="cpu")
+        gen = generator if generator is not None else make_generator(seed, str(self.device))
+        fresh = get_model(self.model_name, self.layout, self.cfg, generator=gen,
+                          device=gen.device)
         with torch.no_grad():
             self.model.load_state_dict(fresh.state_dict())
+        del fresh
         self.seed = seed
         self.opt_state = self.table_opt = self.best_variables = self.gn_state = None
         self.history, self.batch_history = [], []
         self.throughput_examples_per_s = self._progress = None
         self._meta_codec = "unset"
+        self._route_r_cap = 0
+        if self.two_phase_embedding and not self.device_metadata:
+            self.update_space = _choice(self.cfg.model_config, "update_space", "auto",
+                                        ("auto", "position", "slot"))
         self._dropout_master = torch.Generator().manual_seed(seed + 1)
         return self
 
@@ -1279,10 +1318,13 @@ class _EvalProgram:
     writes its probabilities into ``out`` at it, so one captured graph is
     replayed per batch on the card (eagerly without ``graphs``, in debug
     mode and on the CPU).  A fit keeps one for its validation set and
-    replays it every epoch."""
+    replays it every epoch.  ``forward(ids, dense, dmask)`` stands in for
+    the model's (a stacked suite's forward under vmap: ``out`` is then
+    ``[steps, S, B, heads]``)."""
 
-    def __init__(self, trainer: Trainer, ev, best, graphs: Optional[StepGraphs]):
+    def __init__(self, trainer: Trainer, ev, best, graphs: Optional[StepGraphs], forward=None):
         self.trainer, self.ev, self.best, self.graphs = trainer, ev, best, graphs
+        self.forward = forward
         self.counter = torch.zeros(1, dtype=torch.int64, device=trainer.device)
         self.out: Optional[torch.Tensor] = None
         self.key = ("eval", id(self))
@@ -1293,15 +1335,18 @@ class _EvalProgram:
                      for a in (ev.ids, ev.dense, ev.dmask))
         model = self.trainer.model
         with torch.no_grad():
-            p = (model(*args) if self.best is None
-                 else torch.func.functional_call(model, self.best, args))
+            if self.forward is not None:
+                p = self.forward(*args)
+            else:
+                p = (model(*args) if self.best is None
+                     else torch.func.functional_call(model, self.best, args))
         if self.out is None:  # the first call is eager: the shape is known there
             self.out = torch.zeros((ev.ids.shape[0],) + tuple(p.shape), device=p.device)
         self.out.index_copy_(0, s, p[None])
         s.add_(1)
 
-    def run(self) -> torch.Tensor:
-        """[steps * batch, heads] selected probabilities on the device."""
+    def collect(self) -> torch.Tensor:
+        """Every batch's forward: ``out`` [steps, ...] on the device."""
         self.trainer.model.eval()
         self.counter.zero_()
         for _ in range(self.ev.ids.shape[0]):
@@ -1309,7 +1354,12 @@ class _EvalProgram:
                 self.body()
             else:
                 self.graphs.run(self.key, self.body)
-        return self.trainer._selected(self.out.reshape(-1, self.out.shape[-1]))
+        return self.out
+
+    def run(self) -> torch.Tensor:
+        """[steps * batch, heads] selected probabilities on the device."""
+        out = self.collect()
+        return self.trainer._selected(out.reshape(-1, out.shape[-1]))
 
 
 def _order_masked_row(vals: Dict[str, float]) -> Dict[str, float]:

@@ -34,23 +34,26 @@ def cut_config(rel: str, out_dir, epochs: int = 1) -> str:
     return path
 
 
-def run_port(cfg_path: str, *extra: str):
+def run_port(cfg_path: str, *extra: str, seeds: str = ""):
+    """The port's main() on the CPU, with ``--seed 0`` or ``--seeds seeds``."""
     from mmlrec_tpu_torch.main import main
 
-    return main(["--config", cfg_path, "--seed", "0", "--synthetic", "--synthetic_rows",
+    seed = ["--seeds", seeds] if seeds else ["--seed", "0"]
+    return main(["--config", cfg_path, *seed, "--synthetic", "--synthetic_rows",
                  str(ROWS), "--device", "cpu", *extra])
 
 
-def run_jax(cfg_path: str, *extra: str) -> None:
+def run_jax(cfg_path: str, *extra: str, seeds: str = "") -> None:
     """The JAX package's main.py, imported by path (another main.py may be on
-    sys.path)."""
+    sys.path), with ``--seed 0`` or ``--seeds seeds``."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("mmlrec_main", os.path.join(ROOT, "main.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     old = sys.argv
-    sys.argv = ["main.py", "--config", cfg_path, "--seed", "0", "--synthetic",
+    seed = ["--seeds", seeds] if seeds else ["--seed", "0"]
+    sys.argv = ["main.py", "--config", cfg_path, *seed, "--synthetic",
                 "--synthetic_rows", str(ROWS), *extra]
     try:
         mod.main()

@@ -79,8 +79,6 @@ def test_device_eval_flag_and_bundle_export(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,err,item", [
     (["--data_parallel", "2"], NotImplementedError, "A9"),
-    (["--vmap_seeds"], NotImplementedError, "A8"),
-    (["--sweep_lrs", "0.1,0.01"], NotImplementedError, "A8"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_flags_raise(flags, err, item, tmp_path, monkeypatch):
@@ -90,6 +88,43 @@ def test_unported_flags_raise(flags, err, item, tmp_path, monkeypatch):
     with pytest.raises(err, match=item):
         main(["--config", cfg, "--seed", "0", "--synthetic", "--device", "cpu", *flags])
     assert not (tmp_path / "results").exists()
+
+
+def test_vmap_seeds_with_one_seed_runs_the_loop(tmp_path, monkeypatch):
+    """``--vmap_seeds`` with one seed trains as the plain loop does
+    (main.py:109-113): the same row as without the flag, the throughput
+    (a wall-clock number) apart."""
+    monkeypatch.chdir(tmp_path)
+    cfg = cut_config("configs/example_synthetic_msl.json", tmp_path)
+    with_flag, = run_port(cfg, "--vmap_seeds")
+    without, = run_port(cfg)
+    assert "suite_wall_s" not in with_flag
+    with_flag.pop("examples_per_s"), without.pop("examples_per_s")
+    assert with_flag == without
+
+
+@pytest.mark.parametrize("seeds,flags", [("0,2", ["--vmap_seeds"]),
+                                         ("", ["--sweep_lrs", "0.01,0.001"])])
+def test_suite_flags_write_jax_rows(seeds, flags, tmp_path, monkeypatch):
+    """The seed suite and the lr sweep run through the CLI on the CPU and
+    write one row per member with the JAX package's labels and keys."""
+    rows = {}
+    for side, run in (("jax", run_jax), ("port", run_port)):
+        work = tmp_path / side
+        work.mkdir()
+        monkeypatch.chdir(work)
+        cfg = cut_config("configs/example_synthetic_msl.json", work)
+        with open(cfg) as f:
+            raw = json.load(f)
+        raw["data_config"]["test_result_path"] = "results/rows.csv"
+        with open(cfg, "w") as f:
+            json.dump(raw, f)
+        run(cfg, *flags, seeds=seeds)
+        rows[side] = read_csv(str(work / "results" / "rows.csv"))
+    assert len(rows["port"]) == 2
+    assert [r["type"] for r in rows["port"]] == [r["type"] for r in rows["jax"]]
+    assert [list(r) for r in rows["port"]] == [list(r) for r in rows["jax"]]
+    assert rows["port"][0]["type"].endswith("_0" if seeds else "_0_lr0.01")
 
 
 def test_csv_data_pipeline_is_not_ported(tmp_path, monkeypatch):

@@ -42,7 +42,8 @@ def test_import_pulls_in_no_jax():
               "models.star", "models.apg", "models.pepnet", "ops.domain_norm", "main",
               "native", "data", "train.checkpointing", "train.device_metrics",
               "train.staging", "train.graphs", "utils.results", "utils.seeding",
-              "train.pcgrad", "train.gradnorm", "train.cagrad", "train.cka"):
+              "train.pcgrad", "train.gradnorm", "train.cagrad", "train.cka",
+              "train.multi_seed", "train.sweep"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}
