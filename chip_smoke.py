@@ -3,7 +3,10 @@
 
 Run from the root of a checkout, on a machine with an H100 and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
+
+``--seed`` draws phase 17's CSV files (default 17); the other phases use
+fixed seeds of their own.
 
 Phases (any mismatch or exception exits non-zero; no phase catches a
 failure and carries on):
@@ -211,8 +214,8 @@ failure and carries on):
    a suite step and their folded calls, phase 16), one with the dense fit,
    one with the families, one with the shipped configurations, one with
    the staged fits, one with the production recipe, one with phase 14, one
-   with phase 16; the card's name and power limit; the last line is the
-   device line.
+   with phase 16, one with phase 17; the card's name and power limit; the
+   last line is the device line.
 16. (run after phase 14, printed with phase 15's lines) the seed suite and
    the lr sweep (``train/multi_seed.py``, ``train/sweep.py``): (a) the
    flagship as a stacked suite of 4 seeds: 3 steps (sigmoid DNNs, dropout
@@ -239,6 +242,27 @@ failure and carries on):
    metric gap under 0.02), ``--sweep_lrs 0.01,0.001`` with the JAX
    labels, and ``configs/msl/config_AE.json`` with ``--vmap_seeds``
    (sequential-shared) whose rows equal the loop's.
+17. (run after phase 16, printed with phase 15's lines) the CSV pipeline
+   (``data.ctrdataset``): (a) the loader built from ``native/fast_csv.cpp``
+   with g++ into ``build/native/`` at first use, its build seconds; (b) a
+   CSV pair of ``configs/msl/config_AE.json``'s 81 columns at 500,000 +
+   125,000 rows (~0.46 GB; 9-digit categorical values from pools of
+   300,000, 10,000 and 100 distinct values, dense values as %.6g, one
+   column as %.17g) read by the native loader (host seconds, rows/s,
+   MB/s); its head of 50,000 + 12,500 rows read by both backends and held
+   equal (codes, vocabs, labels, mask, the %.6g columns bitwise; the %.17g
+   column parsed within rtol 1e-12, scaled within 1e-12 in f64 and bitwise
+   in f32); the pair fitted through
+   the CLI's functions, 1 epoch at the config's batch of 4096: the write
+   kernel's route with native host metadata, the table's logical rows the
+   summed vocabs, B3 and B6 once a step (B6 and B7 once more per evaluated
+   batch); (c) each shipped config that names CSV files on a pair of its
+   schema (4,096 + 1,024 rows; string columns for kuairec, iaac and
+   amazon_new, whose paths send ``auto`` to the pandas-equivalent reader,
+   checked by the codes' dtype) through the CLI, cut as in phase 11; (d)
+   ``config_AE.json``'s pair card against CPU, 3 steps from one numpy init
+   at phase 11's rule, and the CLI's row on the CPU in the card's schema;
+   neither pandas nor scikit-learn imported.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -250,6 +274,7 @@ in full f32 like the CPU reference.
 
 from __future__ import annotations
 
+import csv
 import itertools
 import json
 import os
@@ -1943,15 +1968,16 @@ def _shipped_configs():
     return sorted(found)
 
 
-def _cut_config(rel, out_dir, epochs, batch):
-    """A copy of a shipped config with its epochs and batches cut, all else
-    (paths included) as shipped."""
+def _cut_config(rel, out_dir, epochs, batch=None):
+    """A copy of a shipped config with its epochs and batches cut (the
+    batches as shipped where ``batch`` is None), all else (paths included)
+    as shipped."""
     with open(os.path.join(ROOT, rel)) as f:
         raw = json.load(f)
     tc = raw["training_config"]
     tc["epochs"] = epochs
     for k in ("train_batch_size", "val_batch_size", "test_batch_size"):
-        if k in tc:
+        if k in tc and batch is not None:
             tc[k] = batch
     path = os.path.join(out_dir, "config.json")
     with open(path, "w") as f:
@@ -2098,17 +2124,51 @@ def _same_state(torch, a, b):
     return all(torch.equal(bits(x), bits(y)) for x, y in pairs)
 
 
+def _shipped_config(path, **model_fields):
+    """A shipped config as the CLI reads it, without saving, with
+    ``model_fields`` set on its model section (``dnn_activation`` is a field
+    there: one put into ``extra`` would change nothing)."""
+    from mmlrec_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_file(path)
+    cfg.save_config.save = False
+    for k, v in model_fields.items():
+        if not hasattr(cfg.model_config, k):
+            raise AttributeError(f"the model section has no field {k!r}")
+        setattr(cfg.model_config, k, v)
+    return cfg
+
+
+def _config_trainer(cfg, ds, dev, seed=None, numpy_seed=None):
+    """The trainer the CLI builds for ``cfg`` on ``ds``, its weights drawn
+    from ``set_seed(seed, dev)`` as the CLI draws them, or from numpy
+    (``_numpy_train_state``) so that the card and the CPU start equal."""
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.train import Trainer, resolve_table_container
+    from mmlrec_tpu_torch.utils import set_seed
+
+    resolve_table_container(cfg, ds.layout, device=dev)
+    mc, oc = cfg.model_config, cfg.optim_config
+    if numpy_seed is None:
+        model = get_model(mc.model_name, ds.layout, cfg, generator=set_seed(seed, dev),
+                          device=dev)
+    else:
+        model = get_model(mc.model_name, ds.layout, cfg, device="cpu")
+        load_jax_variables(model, _numpy_train_state(model, seed=numpy_seed))
+    return Trainer(model, seed=0, device=dev).compile(
+        optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
+
+
 def shipped_full_width(torch, K, card, workdir):
     """Phase 11 (2)-(4): configs/msl/config_AE.json at production vocabulary
     on the card: B3 on (table, mu, nu), 3 steps against the CPU, 16 timed
     steps, checkpoints and validation on the device."""
-    from mmlrec_tpu_torch.config import ExperimentConfig
-    from mmlrec_tpu_torch.convert import load_jax_variables
     from mmlrec_tpu_torch.main import load_dataset, parse_args
     from mmlrec_tpu_torch.models import get_model
     from mmlrec_tpu_torch.ops import row_scatter as S
     from mmlrec_tpu_torch.tools.timing import device_ms, eager_ms, queued_ms
-    from mmlrec_tpu_torch.train import Trainer, resolve_table_container
+    from mmlrec_tpu_torch.train import Trainer
     from mmlrec_tpu_torch.train import device_metrics as DM
     from mmlrec_tpu_torch.train import sparse_embedding as SE
     from mmlrec_tpu_torch.train import staging
@@ -2118,28 +2178,14 @@ def shipped_full_width(torch, K, card, workdir):
     path = os.path.join(ROOT, AE_CONFIG)
     out = {}
 
-    def config(**model_extra):
-        cfg = ExperimentConfig.from_file(path)
-        cfg.save_config.save = False
-        cfg.model_config.extra.update(model_extra)
-        return cfg
+    def config(**model_fields):
+        return _shipped_config(path, **model_fields)
 
     def data(cfg, rows):
         return load_dataset(cfg, parse_args(["--config", path, "--synthetic", "--synthetic_rows",
                                              str(rows), "--synthetic_vocab", str(AE_VOCAB)]))
 
-    def trainer(cfg, ds, dev, seed=None, numpy_seed=None):
-        resolve_table_container(cfg, ds.layout, device=dev)
-        mc, oc = cfg.model_config, cfg.optim_config
-        if numpy_seed is None:
-            model = get_model(mc.model_name, ds.layout, cfg, generator=set_seed(seed, dev),
-                              device=dev)
-        else:
-            model = get_model(mc.model_name, ds.layout, cfg, device="cpu")
-            load_jax_variables(model, _numpy_train_state(model, seed=numpy_seed))
-        return Trainer(model, seed=0, device=dev).compile(
-            optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
-
+    trainer = _config_trainer
     batch = config().training_config.train_batch_size
     # ---- (2) 3 steps, the last partial, card against CPU, sigmoid DNNs
     # (phase 9's rule is stated for them: _card_vs_cpu_state)
@@ -3745,9 +3791,427 @@ def seed_suite(torch, K, card, flagship_staged):
 
 
 
-def main() -> int:
+# ----------------------------------------------------------------------
+# phase 17: the CSV pipeline (data.ctrdataset, native/fast_csv.cpp)
+# ----------------------------------------------------------------------
+CSV_TRAIN, CSV_TEST = 500_000, 125_000  # (b): the AE schema at a realistic size
+CSV_HEAD_TRAIN, CSV_HEAD_TEST = 50_000, 12_500  # (b): both backends on the head
+# (b): distinct raw values per feature; with the scene's 2, 1,240,802 fused
+# rows, 77,568 physical rows (P = 16) above Kp = 69,632 at batch 4096, so the
+# shipped AE config takes the write kernel (B3)
+CSV_POOLS = (300_000,) * 4 + (10_000,) * 4 + (100,) * 8
+CSV_SMALL_TRAIN, CSV_SMALL_TEST = 4096, 1024  # (c): each shipped config
+# (c): the columns the fixup datasets hold as strings
+CSV_STRING_COLUMNS = {"kuairec": ("user_active_degree",),
+                      "iaac": ("item_category_list", "item_property_list",
+                               "predict_category_property"),
+                      "amazon_new": ("reviewer_id", "asin_id", "style_new")}
+
+
+def _ascii_digits(values, width):
+    """[n, width] uint8: the ASCII digits of each value, zero-padded."""
+    powers = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((values[:, None] // powers) % 10 + ord("0")).astype(np.uint8)
+
+
+def write_ae_csv(out_dir, seed, n_train, n_test, head):
+    """A CSV pair at configs/msl/config_AE.json's 81 columns,
+    ``ae_train.csv`` / ``ae_test.csv`` in ``out_dir`` and the first rows of
+    each under ``head/``: the 16 features as random 9-digit integers drawn
+    from pools of ``CSV_POOLS`` distinct values (every value of a pool
+    appears), the scene and the label 0 / 1, 62 dense columns written as
+    %.6g (values in [0.1, 1) of six significant digits, the last nonzero)
+    and the last dense column as %.17g.  The fixed-width part of the rows is
+    laid out as bytes by numpy; Python formats the %.17g column only.
+    Returns (the files, the header, the %.17g column)."""
+    with open(os.path.join(ROOT, AE_CONFIG)) as f:
+        dc = json.load(f)["data_config"]
+    feats, dense = dc["feature_columns"], dc["dense_columns"]
+    labels = list(dict.fromkeys(dc["label_columns"]))
+    header = feats + [dc["scene_feature"]] + labels + dense
+    n = n_train + n_test
+    rng = np.random.default_rng(seed)
+    comma = np.full((n, 1), ord(","), np.uint8)
+    parts = []
+    for k in CSV_POOLS:
+        pool = rng.choice(np.unique(rng.integers(10 ** 8, 10 ** 9, 2 * k)), k, replace=False)
+        idx = rng.integers(0, k, n)
+        idx[rng.choice(n, k, replace=False)] = np.arange(k)  # every pool value appears
+        parts += [_ascii_digits(pool[idx], 9), comma]
+    for _ in range(1 + len(labels)):  # the scene, the label
+        parts += [rng.integers(ord("0"), ord("2"), (n, 1), dtype=np.uint8), comma]
+    for _ in dense[:-1]:
+        d = rng.integers(ord("0"), ord("9") + 1, (n, 8), dtype=np.uint8)
+        d[:, 0], d[:, 1] = ord("0"), ord(".")
+        d[:, 2] = rng.integers(ord("1"), ord("9") + 1, n, dtype=np.uint8)
+        d[:, 7] = rng.integers(ord("1"), ord("9") + 1, n, dtype=np.uint8)
+        parts += [d, comma]
+    fixed = np.concatenate(parts, axis=1)
+    width = fixed.shape[1]
+    flat = fixed.tobytes()
+    del fixed, parts
+    lines = [flat[i * width:(i + 1) * width] + b"%.17g\n" % v
+             for i, v in enumerate(0.1 + 0.9 * rng.random(n))]
+    files = {}
+    for name, rows in (("ae_train.csv", slice(0, n_train)), ("ae_test.csv", slice(n_train, n)),
+                       ("head/ae_train.csv", slice(0, head[0])),
+                       ("head/ae_test.csv", slice(n_train, n_train + head[1]))):
+        path = os.path.join(out_dir, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write((",".join(header) + "\n").encode())
+            f.write(b"".join(lines[rows]))
+        files[name] = path
+    return files, header, dense[-1]
+
+
+def write_config_csv(raw, work, seed, n_train, n_test):
+    """A CSV pair at a shipped config's schema, at the config's own paths
+    under ``work``: labels 0 / 1, dense columns as %.6g, the mask column's
+    domains, integer features, and for the fixup datasets string columns
+    (kuairec's ``user_active_degree`` with its "0" rows, a float onehot
+    column with empty cells)."""
+    dc = raw["data_config"]
+    path = dc["train_dataset_path"]
+    dataset = next((k for k in CSV_STRING_COLUMNS if k in path), "")
+    rng = np.random.default_rng(seed)
+
+    def column(name, n):
+        if name in dc["label_columns"]:
+            return rng.integers(0, 2, n).astype(str)
+        if name in dc["dense_columns"]:
+            return ["%.6g" % v for v in rng.random(n)]
+        if name == "user_active_degree" and dataset == "kuairec":
+            return rng.choice(["0", "full_active", "high_active", "middle_active"], n)
+        if name == dc.get("mask_column"):
+            return rng.integers(0, dc.get("num_domains", 1), n).astype(str)
+        if name in CSV_STRING_COLUMNS.get(dataset, ()):
+            return [f"{a}:{b};{a + b}" for a, b in rng.integers(0, 30, (n, 2))]
+        if name == "onehot_feat0":
+            return rng.choice(["0.0", "1.0", ""], n)
+        return rng.integers(0, 50, n).astype(str)
+
+    header = list(dc["all_columns"])
+    for part, n in ((path, n_train), (dc["test_dataset_path"], n_test)):
+        cols = [column(c, n) for c in header]
+        os.makedirs(os.path.dirname(os.path.join(work, part)), exist_ok=True)
+        with open(os.path.join(work, part), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(header)
+            w.writerows(zip(*cols))
+    return dataset
+
+
+def _codes_backend(ds):
+    """The backend that built a dataset: the native loader's codes are
+    int32, the pandas-equivalent reader's int64."""
+    dtypes = {ds.train_input[s.feature.name].dtype for s in ds.layout.sparse_slots}
+    if dtypes == {np.dtype(np.int32)}:
+        return "native"
+    if dtypes == {np.dtype(np.int64)}:
+        return "pandas"
+    raise AssertionError(f"phase 17: codes of dtypes {dtypes}")
+
+
+def _backends_equal(nat, pdx, long_col):
+    """Phase 17 (b): the two backends on the same head: codes (int32 against
+    int64), vocabs, labels and mask equal; dense bitwise, the %.17g column
+    (the reader follows pandas' parser, the loader strtod: a few ulps apart,
+    held at rtol 1e-12 before the scaling, ``_raw_long_column``) within 1e-12
+    of the column's [0, 1] range in f64 (the min-max shift makes the parse's
+    relative error an absolute one near 0) and bitwise in f32.  Returns the
+    entries of that column whose f64 values differ."""
+    sparse = {s.feature.name for s in nat.layout.sparse_slots}
+    if ({s.feature.name: s.feature.vocabulary_size for s in nat.layout.sparse_slots}
+            != {s.feature.name: s.feature.vocabulary_size for s in pdx.layout.sparse_slots}):
+        raise AssertionError("phase 17: the two backends' vocabs differ")
+    differ = 0
+    for split in ("train_input", "test_input"):
+        a_all, b_all = getattr(nat, split), getattr(pdx, split)
+        if list(a_all) != list(b_all):
+            raise AssertionError(f"phase 17: {split} columns {list(a_all)} vs {list(b_all)}")
+        for name in a_all:
+            a, b = a_all[name], b_all[name]
+            if name in sparse:
+                ok = np.array_equal(a, b)
+            elif name == long_col:
+                ok = (np.allclose(a, b, rtol=0, atol=1e-12) and np.array_equal(
+                    a.astype(np.float32).view(np.int32), b.astype(np.float32).view(np.int32)))
+                differ += int((a != b).sum())
+            else:
+                ok = a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            if not ok:
+                raise AssertionError(f"phase 17: {split} {name} differs between the backends")
+    for a, b in ((nat.y_train, pdx.y_train), (nat.y_test, pdx.y_test),
+                 (nat.test_mask, pdx.test_mask)):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError("phase 17: labels or the test mask differ between the backends")
+    return differ
+
+
+def _raw_long_column(paths, long_col):
+    """Phase 17 (b): the %.17g column as each backend parses it, before the
+    scaling: the loader's strtod against the reader's copy of pandas'
+    parser, held at rtol 1e-12; returns the largest relative gap and the
+    count of values apart."""
+    from mmlrec_tpu_torch import native
+    from mmlrec_tpu_torch.data import _read_csv
+
+    loaded = native.load_csv_columns(*paths, [long_col], [0])[0][long_col]
+    read = np.concatenate([_read_csv(p, [long_col])[long_col] for p in paths])
+    if not np.allclose(loaded, read, rtol=1e-12, atol=0):
+        raise AssertionError(f"phase 17: {long_col} parses apart by more than rtol 1e-12")
+    return float(np.max(np.abs(loaded - read) / np.abs(read))), int((loaded != read).sum())
+
+
+def csv_pipeline(torch, K, card, workdir, seed):
+    """Phase 17: the CSV pipeline on the H100 machine: (a) the loader built
+    from native/fast_csv.cpp at first use; (b) a CSV pair at config_AE.json's
+    schema at 500,000 + 125,000 rows loaded by the native loader, its head by
+    both backends held equal, the pair fitted through the CLI's functions (1
+    epoch at the config's batch of 4096, the write kernel's path); (c) every
+    shipped config that names CSV files on a small pair of its schema through
+    the CLI, the backend ``auto`` took checked against the path rule; (d)
+    config_AE.json's pair card against CPU: 3 steps from one numpy init at
+    phase 11's rule, and the CLI's row on the CPU in the card's schema."""
+    from mmlrec_tpu_torch import main as cli
+    from mmlrec_tpu_torch import native
+    from mmlrec_tpu_torch.data import FIXUP_DATASETS, ctrdataset
+    from mmlrec_tpu_torch.main import parse_args, run
+    from mmlrec_tpu_torch.train import sparse_embedding as SE
+
+    out = {}
+    # ---- (a) the loader, built into build/native/ at first use
+    lib_path = native.library_path(native.CSV_SOURCE)
+    found = lib_path.exists()
+    t0 = time.perf_counter()
+    native.get_csv_lib()
+    out["loader"] = dict(library=os.path.relpath(lib_path, ROOT), built=not found,
+                         build_s=time.perf_counter() - t0, flags=" ".join(native.CXX_FLAGS))
+    log(f"[17] {'found' if found else 'built'} {out['loader']['library']} from "
+        f"native/fast_csv.cpp in {out['loader']['build_s']:.2f} s (g++ {out['loader']['flags']})")
+
+    os.makedirs(workdir, exist_ok=True)
+    cwd = os.getcwd()
+    # ---- (b) the AE schema at 500,000 + 125,000 rows
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_csv_", dir=workdir) as work:
+        t0 = time.perf_counter()
+        files, header, long_col = write_ae_csv(os.path.join(work, "data"), seed, CSV_TRAIN,
+                                               CSV_TEST, (CSV_HEAD_TRAIN, CSV_HEAD_TEST))
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(files[f]) for f in ("ae_train.csv", "ae_test.csv"))
+        raw, cfg_path = _cut_config(AE_CONFIG, work, 1)
+        os.chdir(work)
+        try:
+            head_cfg = _shipped_config(cfg_path)
+            head_cfg.data_config.train_dataset_path = os.path.join("data", "head", "ae_train.csv")
+            head_cfg.data_config.test_dataset_path = os.path.join("data", "head", "ae_test.csv")
+            head_rows = CSV_HEAD_TRAIN + CSV_HEAD_TEST
+            head_bytes = sum(os.path.getsize(files[f])
+                             for f in ("head/ae_train.csv", "head/ae_test.csv"))
+            t0 = time.perf_counter()
+            nat = ctrdataset(head_cfg, backend="native")
+            head_native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pdx = ctrdataset(head_cfg, backend="pandas")
+            head_pandas_s = time.perf_counter() - t0
+            differ = _backends_equal(nat, pdx, long_col)
+            raw_gap, raw_differ = _raw_long_column(
+                (head_cfg.data_config.train_dataset_path, head_cfg.data_config.test_dataset_path),
+                long_col)
+            del nat, pdx
+            log(f"[17] wrote {nbytes / 1e6:.1f} MB ({len(header)} columns, {CSV_TRAIN} + "
+                f"{CSV_TEST} rows) in {write_s:.1f} s; its head ({CSV_HEAD_TRAIN} + "
+                f"{CSV_HEAD_TEST} rows, {head_bytes / 1e6:.1f} MB): native {head_native_s:.2f} s "
+                f"({head_rows / head_native_s:.0f} rows/s), pandas-equivalent "
+                f"{head_pandas_s:.2f} s ({head_rows / head_pandas_s:.0f} rows/s); codes, vocabs, "
+                f"labels, mask and the %.6g columns equal bitwise; {long_col} (%.17g) parsed "
+                f"{raw_differ} of {head_rows} values apart, by at most {raw_gap:.2e} relative "
+                f"(rtol 1e-12), scaled {differ} apart within 1e-12, bitwise in f32 [{card}]")
+            # the CLI's own load of the pair, asked for the native loader
+            # explicitly (what auto takes on this path) and timed
+            loads = []
+
+            def native_load(cfg):
+                t1 = time.perf_counter()
+                loaded = ctrdataset(cfg, backend="native")
+                loads.append((time.perf_counter() - t1, loaded))
+                return loaded
+
+            K.reset_launch_counts()
+            SE.reset_metadata_calls()
+            auto_load, cli.ctrdataset = cli.ctrdataset, native_load
+            t0 = time.perf_counter()
+            try:
+                (row, tr), = run(parse_args(["--config", cfg_path, "--seed", "0"]))
+                torch.cuda.synchronize()
+            finally:
+                cli.ctrdataset = auto_load
+            run_s = time.perf_counter() - t0
+            written = _check_outputs(AE_CONFIG, raw, row, work)
+        finally:
+            os.chdir(cwd)
+    (load_s, ds), = loads
+    batch = tr.cfg.training_config.train_batch_size
+    rows_all = CSV_TRAIN + CSV_TEST
+    vocabs = [s.feature.vocabulary_size for s in ds.layout.sparse_slots]
+    log(f"[17] the native loader read the pair in {load_s:.2f} s of host time: "
+        f"{rows_all / load_s:.0f} rows/s, {nbytes / 1e6 / load_s:.1f} MB/s; vocabs {vocabs} "
+        f"[{card}]")
+    if (vocabs != list(CSV_POOLS) + [2] or len(ds.y_train) != CSV_TRAIN
+            or len(ds.y_test) != CSV_TEST or _codes_backend(ds) != "native"):
+        raise AssertionError(f"phase 17: the native load gave vocabs {vocabs}, "
+                             f"{len(ds.y_train)} + {len(ds.y_test)} rows")
+    del ds
+    launches = {k: v for k, v in K.launch_counts.items() if v}
+    calls = dict(SE.metadata_calls)
+    steps = -(-CSV_TRAIN // batch) * len(tr.history)
+    fused = tr.model.embeddings.fused
+    Kp = -(-batch * len(vocabs) // 256) * 256
+    route = (tr.table_update, type(tr.table_opt).__name__, tr.table_container)
+    per_step = {"rows_write": launches.get("rows_write", 0) / steps,
+                "multihead_score": (launches.get("multihead_score", 0)
+                                    - launches.get("embed_concat", 0)) / steps}
+    epoch_s = tr.history[-1]["epoch_s"]
+    out["ae_full"] = dict(
+        rows=[CSV_TRAIN, CSV_TEST], columns=len(header), bytes=nbytes, write_s=write_s,
+        native_load_s=load_s, native_rows_per_s=rows_all / load_s,
+        native_mb_per_s=nbytes / 1e6 / load_s, head_rows=head_rows, head_bytes=head_bytes,
+        head_native_s=head_native_s, head_pandas_s=head_pandas_s,
+        head_native_rows_per_s=head_rows / head_native_s,
+        head_pandas_rows_per_s=head_rows / head_pandas_s, long_column_parse_differ=raw_differ,
+        long_column_parse_max_rel=raw_gap, long_column_scaled_differ=differ,
+        vocab_sum=sum(vocabs), table=list(fused.table.shape), pack_factor=fused.pack_factor,
+        Kp=Kp, route=list(route), metadata_calls=calls, steps=steps, launches=launches,
+        launches_per_step=per_step, epoch_s=epoch_s, cli_s=run_s, row=row, files=written,
+        val_auc=[h.get("val_auc") for h in tr.history])
+    log(f"[17] {AE_CONFIG} through the CLI on the pair: table {list(fused.table.shape)} (P = "
+        f"{fused.pack_factor}, {sum(fused.vocab_sizes)} logical rows = the summed vocabs, "
+        f"{fused.phys_rows} physical > Kp = {Kp}), route {route}, host metadata {calls}; "
+        f"{steps} steps of {batch}; launches {launches}: B3 {per_step['rows_write']} a step, "
+        f"B6 {per_step['multihead_score']} a step beside one B6 and one B7 per evaluated "
+        f"batch; load {load_s:.2f} s, the epoch {epoch_s:.2f} s, the whole CLI run "
+        f"{run_s:.1f} s (its load included); row {row} [{card}]")
+    _check_ae_csv_fit(out["ae_full"], sum(fused.vocab_sizes), fused.phys_rows)
+    del tr
+
+    # ---- (c) every shipped config that names CSV files, through the CLI
+    out["shipped"] = {}
+    for rel in _shipped_configs():
+        with open(os.path.join(ROOT, rel)) as f:
+            names_files = json.load(f)["data_config"]["train_dataset_path"]
+        if not names_files:
+            continue  # the example config names no files
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_csv_", dir=workdir) as work:
+            raw, cfg_path = _cut_config(rel, work, CLI_EPOCHS, CLI_BATCH)
+            dataset = write_config_csv(raw, work, seed + 1 + len(out["shipped"]),
+                                       CSV_SMALL_TRAIN, CSV_SMALL_TEST)
+            want = "pandas" if any(k in raw["data_config"]["train_dataset_path"]
+                                   for k in FIXUP_DATASETS) else "native"
+            os.chdir(work)
+            try:
+                ds = ctrdataset(_shipped_config(cfg_path))
+                took = _codes_backend(ds)
+                if took != want:
+                    raise AssertionError(f"phase 17, {rel}: auto took {took}, the path rule "
+                                         f"says {want}")
+                K.reset_launch_counts()
+                SE.reset_metadata_calls()
+                t0 = time.perf_counter()
+                (row, tr), = run(parse_args(["--config", cfg_path, "--seed", "0"]))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                written = _check_outputs(rel, raw, row, work)
+                launches = {k: v for k, v in K.launch_counts.items() if v}
+                entry = dict(backend=took, strings=dataset or None, rows=[len(ds.y_train),
+                             len(ds.y_test)], model=tr.model_name, task=tr.task_name,
+                             two_phase=tr.two_phase_embedding,
+                             route=tr.table_update if tr.two_phase_embedding else "dense",
+                             launches=launches, wall_s=wall_s, row=row, files=written)
+                if rel == AE_CONFIG:
+                    entry["card_vs_cpu"] = _csv_card_vs_cpu(torch, K, cfg_path, ds, row, card)
+            finally:
+                os.chdir(cwd)
+        _check_launched(f"phase 17, {rel}", launches, "embed_concat")
+        out["shipped"][rel] = entry
+        log(f"[17] {rel} from CSV ({entry['rows'][0]} + {entry['rows'][1]} rows"
+            f"{', string columns of ' + dataset if dataset else ''}): auto took {took}; "
+            f"{tr.model_name} {tr.task_name}, route {entry['route']}, {wall_s:.1f} s; launches "
+            f"{launches}; row {row} [{card}]")
+        del tr, ds
+
+    # ---- (a) the pipeline ran without pandas and scikit-learn
+    loaded = [m for m in ("pandas", "sklearn") if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"phase 17: {loaded} imported")
+    return out
+
+
+def _check_ae_csv_fit(entry, logical_rows, phys_rows):
+    """Phase 17 (b)'s fit: the table holds the summed vocabs above Kp, the
+    write kernel's route with native host metadata, B3 and B6 once a step
+    and B7 in the validation."""
+    per_step, launches = entry["launches_per_step"], entry["launches"]
+    if (logical_rows != entry["vocab_sum"] or phys_rows <= entry["Kp"]
+            or entry["route"] != ["pallas", "SparseAdamState", "split"]
+            or entry["metadata_calls"].get("numpy") or not entry["metadata_calls"].get("native")
+            or per_step != {"rows_write": 1.0, "multihead_score": 1.0}):
+        raise AssertionError(f"phase 17: the AE fit on the CSV pair: {entry}")
+    _check_launched("phase 17, the AE fit", launches, "embed_concat")
+
+
+def _check_launched(what, launches, name):
+    if not launches.get(name):
+        raise AssertionError(f"{what}: {name} never launched: {launches}")
+
+
+def _csv_card_vs_cpu(torch, K, cfg_path, ds, card_row, card):
+    """Phase 17 (d): config_AE.json on its small CSV pair, card against CPU:
+    3 steps of the cut batch from one numpy init, sigmoid DNNs, at phase 11's
+    rule (``_held_card_vs_cpu``); then the CLI's row on the CPU, in the
+    card's schema (the two draw their weights from different generators)."""
+    from mmlrec_tpu_torch.main import parse_args, run
+
+    n = 3 * CLI_BATCH - 100
+    x = {k: v[:n] for k, v in ds.train_input.items()}
+    y = ds.y_train[:n]
+    cfg = _shipped_config(cfg_path, dnn_activation="sigmoid")
+    gpu = _config_trainer(cfg, ds, DEV, numpy_seed=12)
+    cpu = _config_trainer(_shipped_config(cfg_path, dnn_activation="sigmoid"), ds, "cpu",
+                          numpy_seed=12)
+    K.reset_launch_counts()
+    gpu.fit(x, y, batch_size=CLI_BATCH, epochs=1, shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    launches = _per_step(K, 3)
+    cpu.fit(x, y, batch_size=CLI_BATCH, epochs=1, shuffle=False, verbose=0)
+    lg, lc = gpu.history[-1]["loss"], cpu.history[-1]["loss"]
+    worst = _held_card_vs_cpu(gpu, cpu, cfg.optim_config.lr)
+    route = (gpu.table_update, type(gpu.table_opt).__name__, gpu.table_container)
+    (cpu_row, _), = run(parse_args(["--config", cfg_path, "--seed", "0", "--device", "cpu"]))
+    gaps = {k: abs(card_row[k] - cpu_row[k]) for k in card_row
+            if k.startswith(("auc", "total_auc", "log_loss"))}
+    log(f"[17] (d) {AE_CONFIG} on its CSV pair, 3 steps of {CLI_BATCH} ({n} rows) card vs CPU "
+        f"from one numpy init, sigmoid DNNs: route {route}, epoch loss card {lg:.9g} cpu "
+        f"{lc:.9g}; {worst}; launches per step {launches}; the CLI's row on the CPU {cpu_row} "
+        f"(metric gaps {gaps}: the weights differ) [{card}]")
+    if (not np.isclose(lg, lc, rtol=1e-5, atol=0) or worst["failed"]
+            or list(cpu_row) != list(card_row) or cpu_row["type"] != card_row["type"]
+            or not all(np.isfinite(v) for k, v in cpu_row.items() if k != "type")):
+        raise AssertionError("phase 17 (d): the card left the CPU's tolerance, or the CPU's "
+                             "row differs in schema")
+    return dict(loss_card=lg, loss_cpu=lc, **worst, route=list(route),
+                launches_per_step=launches, cpu_row=cpu_row, metric_gaps=gaps)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke test of mmlrec_tpu_torch on one GPU")
+    parser.add_argument("--seed", type=int, default=17,
+                        help="the seed of phase 17's CSV files (default 17)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3797,6 +4261,7 @@ def main() -> int:
     recipe = production_recipe(torch, K, card)
     task = per_task_and_varlen(torch, K, card, staged["dense_flagship"])
     suite = seed_suite(torch, K, card, staged["dense_flagship"])
+    csv_path = csv_pipeline(torch, K, card, workdir, args.seed)
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS}
@@ -3831,6 +4296,11 @@ def main() -> int:
             "stacked flagship suite, 4 members": suite["staged"]["launches_per_suite_step"][name],
             "sweep, 4 combinations": suite["sweep"]["launches_per_suite_step"][name]}
         kernels[name]["fold_phase16"] = suite["fold"][name]
+    # phase 17: launches in the CLI's fit of the AE pair from CSV (one epoch
+    # and its validation: B3 a step, B6 a step and a validation batch, B7 a
+    # validation batch; the two-phase step injects its gathered rows)
+    for name in ("embed_concat", "multihead_score", "rows_write"):
+        kernels[name]["launches_phase17_ae_csv_fit"] = csv_path["ae_full"]["launches"].get(name, 0)
     kernels["embed_concat"]["phase14_dense_width_69"] = {
         k: task["varlen"][k] for k in ("embed_concat_dense_width", "embed_concat_vector_rows",
                                        "embed_concat_bitwise", "embed_concat_us")}
@@ -3857,6 +4327,7 @@ def main() -> int:
     print(json.dumps({"production_recipe": recipe, "card": card}), flush=True)
     print(json.dumps({"per_task_and_varlen": task, "card": card}), flush=True)
     print(json.dumps({"seed_suite": suite, "card": card}), flush=True)
+    print(json.dumps({"csv_pipeline": csv_path, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,13 @@
 package's ``main.py`` (reference main.py:71-181) on PyTorch, on the card.
 
     python -m mmlrec_tpu_torch.main --config configs/msl/config_AE.json \
-        --synthetic [--seed S | --seeds 0,2,4,8] [--vmap_seeds | --sweep_lrs 0.01,0.001]
+        [--synthetic] [--seed S | --seeds 0,2,4,8] [--vmap_seeds | --sweep_lrs 0.01,0.001]
         [--device cuda|cpu]
 
-For each seed: build the config's model on synthetic data of the config's
-schema, fit it with the config's batch and epochs while validating on the
+For each seed: read the config's train and test CSV files
+(``data.ctrdataset``; with ``--synthetic``, synthetic data of the config's
+schema instead), build the config's model, fit it with the config's batch
+and epochs while validating on the
 test split (on the device where ``training_config.device_eval`` asks for
 it), save the best variables where ``save_config.save`` is set, dump the
 named layer outputs as pickled float64 numpy arrays where
@@ -22,8 +24,7 @@ plain versions of the kernels.
 decides), ``--sweep_lrs`` the (seed x lr) grid (``train/sweep.py``); each
 member appends its row with the suite's wall seconds (``run_vmapped_suite``).
 
-Not ported: the CSV data pipeline without ``--synthetic`` (ROADMAP A10b)
-and meshes (``--data_parallel``, A9).
+Not ported: meshes (``--data_parallel``, ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .config import ExperimentConfig
-from .data import CTRDataset, get_test_mask
+from .data import CTRDataset, ctrdataset, get_test_mask
 from .models import get_model
 from .train import Trainer, resolve_table_container
 from .train.metrics import masked_test_metrics
@@ -78,12 +79,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def load_dataset(cfg: ExperimentConfig, args) -> CTRDataset:
-    """Synthetic train and test splits of the config's schema (main.py:88-110):
-    ``--synthetic_rows`` training rows and a quarter as many test rows (at
-    least 1000), from seeds 0 and 1."""
+    """The config's CSV files through ``ctrdataset`` (main.py:94-96), or with
+    ``--synthetic`` synthetic train and test splits of the config's schema
+    (main.py:77-93): ``--synthetic_rows`` training rows and a quarter as many
+    test rows (at least 1000), from seeds 0 and 1."""
     if not args.synthetic:
-        raise NotImplementedError(
-            "the CSV data pipeline is not ported yet (ROADMAP A10b); pass --synthetic")
+        return ctrdataset(cfg)
     from .synthetic import make_data
 
     n_train, n_test = args.synthetic_rows, max(args.synthetic_rows // 4, 1000)

@@ -128,7 +128,12 @@ def test_suite_flags_write_jax_rows(seeds, flags, tmp_path, monkeypatch):
 
 
 def test_csv_data_pipeline_is_not_ported(tmp_path, monkeypatch):
+    """The CSV pipeline is ported now (tests/test_torch_data.py): without
+    ``--synthetic`` the CLI reads the config's CSV files, and the example
+    config, which names none, fails on the missing file as the JAX
+    package's main.py does, not on a refusal."""
     monkeypatch.chdir(tmp_path)
     cfg = cut_config("configs/example_synthetic_msl.json", tmp_path)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(FileNotFoundError):
         main(["--config", cfg, "--seed", "0", "--device", "cpu"])
+    assert not (tmp_path / "results").exists()

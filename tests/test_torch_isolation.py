@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, a CPU
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+pandas or scikit-learn, which the machine with the card lacks), a CPU
 tensor never reaches a CUDA kernel, and the default device is the card."""
 
 import ast
@@ -9,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,7 +18,7 @@ from mmlrec_tpu_torch.ops import kernels as K
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mmlrec_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmlrec_tpu", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmlrec_tpu", "sklearn", "pandas")
 
 
 def _forbidden(module: str) -> bool:
@@ -164,25 +166,73 @@ def test_row_kernel_source_builds_for_hopper():
         assert source.count(kernel + "<<<") == 1
 
 
+def _c_type(decl: str) -> str:
+    """The type of a C declaration ``type name``, without ``const`` and with
+    its stars attached: ``const int32_t *kinds`` -> ``int32_t*``."""
+    return re.sub(r"\s*\*\s*", "* ", " ".join(decl.replace("const ", "").split())).rsplit(" ", 1)[0]
+
+
 def test_native_ctypes_signatures_match_the_c_source():
-    """The host metadata's loader declares each function of
-    native/step_metadata.cpp it calls with one ctypes entry per C parameter: int64_t
-    as c_int64, int32_t as c_int32, pointers as pointers of their type."""
+    """The host loaders declare each function of native/step_metadata.cpp
+    and native/fast_csv.cpp they call with its C return type and one ctypes
+    entry per C parameter: int64_t as c_int64, int32_t as c_int32, char* as
+    c_char_p, void* as c_void_p, pointers as pointers of their type; and
+    every ``fc_*`` function of the CSV loader is declared."""
     from mmlrec_tpu_torch import native
 
-    kinds = {ctypes.c_int64: "int64_t", ctypes.c_int32: "int32_t",
+    kinds = {None: "void", ctypes.c_void_p: "void*", ctypes.c_char_p: "char*",
+             ctypes.c_int64: "int64_t", ctypes.c_int32: "int32_t",
              ctypes.POINTER(ctypes.c_int64): "int64_t*", ctypes.POINTER(ctypes.c_int32): "int32_t*",
-             ctypes.POINTER(ctypes.c_float): "float*"}
-    source = native.SOURCE.read_text()
-    assert set(native.SIGNATURES) <= set(re.findall(r"\nvoid (\w+)\(", source))
+             ctypes.POINTER(ctypes.c_float): "float*", ctypes.POINTER(ctypes.c_double): "double*"}
+    declared = {}  # name -> (return type, parameter types), per source
+    for source in (native.SOURCE, native.CSV_SOURCE):
+        for ret, name, params in re.findall(r"\n((?:const )?\w+[ *]+)(\w+)\(([^)]*)\)",
+                                            source.read_text()):
+            declared[source, name] = (_c_type(ret + name), [_c_type(p) for p in params.split(",")])
     assert {"sm_fill", "sm_counts"} <= set(native.SIGNATURES)
-    for name, argtypes in native.SIGNATURES.items():
-        found = re.search(r"\nvoid " + name + r"\(([^)]*)\)", source)
-        params = [" ".join(p.split()).replace("const ", "") for p in found.group(1).split(",")]
-        want = [p.rsplit(" ", 1)[0].replace(" *", "*") for p in params]
-        want = [w + "*" if p.rsplit(" ", 1)[1].startswith("*") else w
-                for w, p in zip(want, params)]
-        assert [kinds[t] for t in argtypes] == want, (name, params)
+    assert {n for s, n in declared if s == native.CSV_SOURCE and n.startswith("fc_")} == {
+        n for n in native.SIGNATURES if n.startswith("fc_")} == {
+        "fc_load", "fc_error", "fc_rows", "fc_train_rows", "fc_vocab", "fc_read_floats",
+        "fc_read_codes", "fc_free"}
+    for name, (restype, argtypes) in native.SIGNATURES.items():
+        ret, params = declared[native.EXPORTED_BY[name], name]
+        assert (kinds[restype], [kinds[t] for t in argtypes]) == (ret, params), name
+
+
+def test_ctrdataset_runs_without_pandas_or_sklearn(tmp_path, monkeypatch):
+    """The machine with the card has neither pandas nor scikit-learn: both
+    backends, the fixups and the auto rule read CSV pairs with the two
+    modules unimportable."""
+    from _torch_data_common import raw_config, write_pair
+    from mmlrec_tpu_torch import native
+    from mmlrec_tpu_torch.config import ExperimentConfig
+    from mmlrec_tpu_torch.data import ctrdataset
+
+    monkeypatch.setitem(sys.modules, "pandas", None)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(ImportError):
+        import pandas  # noqa: F401
+    rng = np.random.default_rng(0)
+    header = ["user_active_degree", "onehot_a", "n", "scene", "label"]
+
+    def rows(n):
+        return [[rng.choice(["0", "low", "high"]), rng.choice(["1.0", "", "2.5"]),
+                 "%.6g" % rng.normal(), rng.integers(0, 2), rng.integers(0, 2)] for _ in range(n)]
+    backends = ["pandas"]
+    try:
+        native.get_csv_lib()
+        backends.append("native")
+    except native.NativeUnavailable:
+        pass
+    for prefix in ("plain_", "kuairec_"):
+        train = rows(50)
+        tr, te = write_pair(tmp_path, prefix, header, train, rows(20))
+        cfg = ExperimentConfig.from_dict(raw_config(tr, te, header, header[:2], ["n"]))
+        for backend in backends + ["auto"]:
+            ds = ctrdataset(cfg, backend=backend)
+            fixups = prefix == "kuairec_" and backend != "native"  # the active-degree filter
+            assert len(ds.y_train) == (sum(r[0] != "0" for r in train) if fixups else 50)
+            assert ds.y_test.shape == (20, 2) and len(ds.test_input["n"]) == 20
 
 
 def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
@@ -197,8 +247,18 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config", config, "--seed", "0", "--synthetic"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config", config, "--seed", "0"])  # the CSV path: raised before any file is read
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         checkpointing.load_tensors(str(tmp_path), checkpointing.VARIABLES_FILE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         set_seed(0)
     assert set_seed(0, "cpu").device.type == "cpu"
     assert main.__module__ == "mmlrec_tpu_torch.main"
+    # the CSV pipeline is host code: numpy arrays, no device to default
+    import inspect
+
+    from mmlrec_tpu_torch import native
+    from mmlrec_tpu_torch.data import ctrdataset
+
+    for fn in (ctrdataset, native.load_csv_columns):
+        assert "device" not in inspect.signature(fn).parameters
