@@ -12,8 +12,9 @@ Phases (any mismatch or exception exits non-zero; no phase catches a
 failure and carries on):
 
 1. the card's name and power limit (nvidia-smi);
-2. build csrc/recsys_kernels.cu and csrc/row_kernels.cu for sm_90a, one
-   nvcc each, started together, with the build seconds;
+2. build csrc/recsys_kernels.cu, csrc/row_kernels.cu and
+   csrc/probe_kernels.cu for sm_90a, one nvcc each, started together, with
+   the build seconds;
 3. the launch floor (an empty kernel replayed from a CUDA graph, as one
    warp, on embed_concat's grid and on multihead_score's); each forward
    kernel (B5-B7) against
@@ -263,6 +264,25 @@ failure and carries on):
    ``config_AE.json``'s pair card against CPU, 3 steps from one numpy init
    at phase 11's rule, and the CLI's row on the CPU in the card's schema;
    neither pandas nor scikit-learn imported.
+18. (run after phase 17, printed with phase 15's lines) the probe kernels
+   of ``benchmarks/`` (P1-P5, ``csrc/probe_kernels.cu``) at the scripts'
+   full shapes: (a) the probe tool's three sub-commands
+   (``python -m mmlrec_tpu_torch.tools.probe_rows``) run through its
+   ``run`` with the launch counts reset just before: every variant's µs a
+   launch (16 launches of fresh ids replayed from one CUDA graph), ns a
+   row, byte bound, plain µs and library µs; the tool's own checks, which
+   hold each kernel bitwise against its plain version over the whole
+   output or array (a [10,000,000, 128] f32 table, K = 65,536 rows: P1 at
+   every run length R = 1, 2, 4, 8, 16, two sets of fresh run starts each,
+   written into a copy; P3 on sorted ids with repeats; a [2, 6,000,000,
+   128] container for P2 on two sets of distinct ids and P4; a [k x
+   2,500,000, 128] array for P5 at k = 2, 3 on two sets of distinct
+   windows; a write's check after its sub-command's times); and each
+   kernel's launches exactly the tool's (B9's too, the ``vmem`` variant);
+   (b) each kernel in child processes of its own, on ids inside its array
+   (bitwise equal to the plain version) and then on a negative id or on
+   one past the end, either of which must stop the kernel and fail the
+   process.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -302,6 +322,11 @@ SOURCES = {
     "rows_update": "mmlrec_tpu_torch/csrc/row_kernels.cu",
     "row_gather": "mmlrec_tpu_torch/csrc/row_kernels.cu",
     "rows_write_pipelined": "mmlrec_tpu_torch/csrc/row_kernels.cu",
+    "probe_rows_write": "mmlrec_tpu_torch/csrc/probe_kernels.cu",
+    "probe_pairs_write": "mmlrec_tpu_torch/csrc/probe_kernels.cu",
+    "probe_rows_gather": "mmlrec_tpu_torch/csrc/probe_kernels.cu",
+    "probe_pairs_gather": "mmlrec_tpu_torch/csrc/probe_kernels.cu",
+    "probe_window_add": "mmlrec_tpu_torch/csrc/probe_kernels.cu",
 }
 REPLACES = {
     "embed_concat": "mmlrec_tpu/ops/pallas_kernels.py:43",
@@ -314,8 +339,22 @@ REPLACES = {
     "rows_update": "mmlrec_tpu/ops/pallas_scatter.py:397",
     "row_gather": "mmlrec_tpu/ops/pallas_gather.py:39",
     "rows_write_pipelined": "mmlrec_tpu/ops/pallas_scatter.py:349",
+    "probe_rows_write": "benchmarks/probe_dma_issue_floor.py:88",
+    "probe_pairs_write": "benchmarks/probe_dma_issue_floor.py:144",
+    "probe_rows_gather": "benchmarks/probe_row_gather_scan.py:77",
+    "probe_pairs_gather": "benchmarks/probe_row_gather_scan.py:122",
+    "probe_window_add": "benchmarks/probe_pallas_row_windows.py:66",
 }
 ROW_KERNELS = ("rows_gather_dual", "rows_write_dual", "rows_write", "rows_gather_hbm")
+# phase 18: each probe kernel -> the probe tool's sub-command and the
+# variants that launch it (the first one's numbers stand in the kernels line)
+PROBE_KERNELS = {  # ... and whether it writes (its check: CHECK_SETS launches, else 1)
+    "probe_rows_write": ("dma-issue-floor", ("R1", "R2", "R4", "R8", "R16"), True),
+    "probe_pairs_write": ("dma-issue-floor", ("dual",), True),
+    "probe_rows_gather": ("row-gather-scan", ("hbm",), False),
+    "probe_pairs_gather": ("row-gather-scan", ("dual",), False),
+    "probe_window_add": ("row-windows", ("k3", "k2"), True),
+}
 LIBRARY_KERNELS = ("rows_update", "row_gather", "rows_write_pipelined")
 # phase 8: the production-vocabulary step (benchmarks/bench_40m_table_update.py)
 FULL_VOCAB, FULL_FEATURES, FULL_EMB, FULL_DENSE = 2_500_000, 16, 32, 4
@@ -4203,6 +4242,126 @@ def _csv_card_vs_cpu(torch, K, cfg_path, ds, card_row, card):
                 launches_per_step=launches, cpu_row=cpu_row, metric_gaps=gaps)
 
 
+# ----------------------------------------------------------------------
+# phase 18: the probe kernels of benchmarks/
+# ----------------------------------------------------------------------
+# a child process a probe kernel and a side: ids up to the last row held
+# against the plain version, then one id outside the array (negative, or
+# past its end), which must stop the kernel; the child exits 0 only if
+# nothing stopped it
+_OUTSIDE = r"""
+import sys, torch
+from mmlrec_tpu_torch.tools import probe_rows as P
+name, side, rows, dev = sys.argv[1], sys.argv[2], 1024, torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(18)
+def ids(*a):
+    return torch.tensor(a, dtype=torch.int32, device=dev)
+def rand(*shape):
+    return torch.rand(shape, generator=g, device=dev)
+if name == "probe_rows_write":  # runs of 4
+    array, good, vals = rand(rows, 128), ids(8, rows - 4), rand(8, 128)
+    bad = ids(8, -4) if side == "negative" else ids(rows - 3, 0)
+    kernel = lambda a, i: P.rows_write(a, i, vals, 4)
+    plain = lambda a, i: P.rows_write_plain(a, i, vals, 4)
+elif name == "probe_window_add":  # windows of 3
+    array, good, vals = rand(3 * rows, 128), ids(5, rows - 1), rand(6, 128)
+    bad = ids(5, -1) if side == "negative" else ids(rows, 5)
+    kernel = lambda a, i: P.window_add(a, i, vals, 3)
+    plain = lambda a, i: P.window_add_plain(a, i, vals, 3)
+else:  # P2, P3 and P4 on a pair of planes or a table
+    array = rand(rows, 128) if name == "probe_rows_gather" else rand(2, rows, 128)
+    good, bad = ids(3, rows - 1), ids(3, -1) if side == "negative" else ids(3, rows)
+    vals = rand(2, 2, 128)
+    kernel, plain = {
+        "probe_pairs_write": (lambda a, i: P.pairs_write(a, i, vals),
+                              lambda a, i: P.pairs_write_plain(a, i, vals)),
+        "probe_rows_gather": (P.rows_gather, P.rows_gather_plain),
+        "probe_pairs_gather": (P.pairs_gather, P.pairs_gather_plain)}[name]
+got = kernel(array.clone(), good)  # a write's copy, or the gathered rows
+want = plain(array, good)
+assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+torch.cuda.synchronize()
+print("ids inside: bitwise equal to the plain version", flush=True)
+kernel(array, bad)
+torch.cuda.synchronize()
+print("an id outside the array: NOT stopped", flush=True)
+"""
+OUTSIDE_SIDES = ("negative", "past the end")
+
+
+def _probes_outside(card):
+    """Phase 18 (b): each probe kernel on ids inside its array, against its
+    plain version, then on a negative id and, in another child, on an id
+    past its end, each of which must stop it: one child process a kernel
+    and a side (a stopped kernel ends its process's CUDA context), all
+    started together."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    children = {(name, side): subprocess.Popen(
+        [sys.executable, "-c", _OUTSIDE, name, side], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in PROBE_KERNELS for side in OUTSIDE_SIDES}
+    seen = {name: {} for name in PROBE_KERNELS}
+    for (name, side), child in children.items():
+        out, err = child.communicate(timeout=300)
+        errors = [line for line in err.splitlines()
+                  if "CUDA error" in line or "kernel launch failed" in line]
+        if child.returncode == 0 or "bitwise equal" not in out or not errors:
+            raise AssertionError(f"phase 18 (b): {name}, {side}: exited {child.returncode}: "
+                                 f"{out}{err}")
+        seen[name][side] = errors[-1].strip()
+        log(f"[18] {name}: ids inside bitwise equal to the plain version; an id {side} "
+            f"stopped it: {seen[name][side]} [{card}]")
+    return seen
+
+
+def probe_kernels(torch, card):
+    """Phase 18: the probe tool's sub-commands with the launch counts reset
+    just before (each kernel timed, and held bitwise against its plain
+    version by the tool's own checks), then each kernel on ids outside
+    its array in child processes."""
+    from mmlrec_tpu_torch.ops import cuda_build
+    from mmlrec_tpu_torch.tools import probe_rows as P
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_build.reset_launch_counts()
+    runs = {cmd: P.run([cmd]) for cmd in P.COMMANDS}
+    launches = dict(cuda_build.launch_counts)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    # per timed variant: 3 warm-ups, then 3 + REPS replays of a graph of
+    # LAUNCHES launches; per checked variant: CHECK_SETS launches into a
+    # write's copy, one gather (B9, the vmem variant: not checked)
+    per_variant = 3 + (3 + P.REPS) * P.LAUNCHES
+    want = {name: len(variants) * (per_variant + (P.CHECK_SETS if writes else 1))
+            for name, (_, variants, writes) in PROBE_KERNELS.items()}
+    want["row_gather"] = per_variant
+    got = {name: launches.get(name, 0) for name in want}
+    others = {n: v for n, v in launches.items() if v and n not in want}
+    if got != want or others:
+        raise AssertionError(f"phase 18: the tool launched {got} (expected {want}), others {others}")
+    outside = _probes_outside(card)
+    t2 = time.perf_counter()
+    kernels = {}
+    for name, (cmd, variants, _) in PROBE_KERNELS.items():
+        entries = runs[cmd]["variants"]
+        e = entries[variants[0]]
+        kernels[name] = dict(
+            max_abs_err=0.0, ms=e["us"] / 1e3, plain_ms=e["plain_us"] / 1e3,
+            bound_ms=e["bound_us"] / 1e3, bound_by=e["bound_by"],
+            library_ms=e["library_us"] / 1e3, library_call=e["library"], launches=got[name],
+            variant=f"{cmd} {variants[0]}", variants={v: entries[v] for v in variants},
+            outside_the_array=outside[name])
+        for v in variants:
+            log(f"[18] {name} ({cmd} {v}): {entries[v]['us']:.2f} us a launch, "
+                f"{entries[v]['ns_per_row']:.4f} ns/row; bound {entries[v]['bound_us']:.2f} us; "
+                f"plain {entries[v]['plain_us']:.2f} us; {entries[v]['library']} "
+                f"{entries[v]['library_us']:.2f} us [{card}]")
+    log(f"[18] launches in the tool's run {got}; the tool {t1 - t0:.1f} s, the ids outside "
+        f"{t2 - t1:.1f} s [{card}]")
+    return dict(kernels=kernels, runs=runs, row_gather_launches=got["row_gather"],
+                tool_s=t1 - t0, outside_s=t2 - t1)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4227,8 +4386,9 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     from mmlrec_tpu_torch.ops import cuda_build, row_gather
+    from mmlrec_tpu_torch.tools import probe_rows
 
-    libraries = (K.LIBRARY, row_gather.LIBRARY)
+    libraries = (K.LIBRARY, row_gather.LIBRARY, probe_rows.LIBRARY)
     t0 = time.perf_counter()
     built = [lib.path().exists() for lib in libraries]
     paths = cuda_build.build_all(libraries)
@@ -4262,9 +4422,13 @@ def main(argv=None) -> int:
     task = per_task_and_varlen(torch, K, card, staged["dense_flagship"])
     suite = seed_suite(torch, K, card, staged["dense_flagship"])
     csv_path = csv_pipeline(torch, K, card, workdir, args.seed)
+    probes = probe_kernels(torch, card)
 
     launches = {name: flagship["launches"][name] for name in REPLACES
-                if name not in ROW_KERNELS + LIBRARY_KERNELS}
+                if name not in ROW_KERNELS + LIBRARY_KERNELS + tuple(PROBE_KERNELS)}
+    kernels.update(probes.pop("kernels"))
+    launches.update({name: kernels[name].pop("launches") for name in PROBE_KERNELS})
+    kernels["row_gather"]["launches_phase18_vmem_variant"] = probes.pop("row_gather_launches")
     launches.update({name: kernels[name].pop("launches") for name in LIBRARY_KERNELS})
     launches.update(rows_gather_dual=full["stacked"]["launches"]["rows_gather_dual"],
                     rows_write_dual=full["stacked"]["launches"]["rows_write_dual"],
@@ -4316,7 +4480,8 @@ def main(argv=None) -> int:
                                 "rows_update, row_gather, rows_write_pipelined":
                                     f"phase 6 ({LIBRARY_STEPS} row updates through the public ops)",
                                 "rows_gather_dual, rows_write_dual": f"phase 8 stacked fit ({FULL_STEPS} steps)",
-                                "rows_write, rows_gather_hbm": f"phase 8 split fit ({FULL_STEPS} steps)"},
+                                "rows_write, rows_gather_hbm": f"phase 8 split fit ({FULL_STEPS} steps)",
+                                "probe_*": "phase 18 (the probe tool's three sub-commands)"},
         "card": card}
     print(json.dumps(line), flush=True)
     print(json.dumps({"dense_fit": dense, "card": card}), flush=True)
@@ -4328,6 +4493,7 @@ def main(argv=None) -> int:
     print(json.dumps({"per_task_and_varlen": task, "card": card}), flush=True)
     print(json.dumps({"seed_suite": suite, "card": card}), flush=True)
     print(json.dumps({"csv_pipeline": csv_path, "card": card}), flush=True)
+    print(json.dumps({"probes": probes, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops import cuda_build
+
 
 def _event_ms(run: Callable[[], None], reps: int, inner: int) -> float:
     """Median over ``reps`` CUDA-event windows of ``run()``, per call of the
@@ -54,7 +56,10 @@ def eager_ms(fn: Callable[[], object], reps: int = 31, inner: int = 20) -> float
 
 def device_ms(fn: Callable[[], object], reps: int = 31, inner: int = 20) -> float:
     """Device time per call of ``fn``: ``inner`` calls captured in one CUDA
-    graph and replayed, so the host's launch rate is out of the way."""
+    graph and replayed, so the host's launch rate is out of the way.  The
+    launches the wrappers count during the capture are counted on every
+    replay instead (``cuda_build.captured_launches``), so that
+    ``launch_counts`` says what ran."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as capture needs
@@ -63,13 +68,18 @@ def device_ms(fn: Callable[[], object], reps: int = 31, inner: int = 20) -> floa
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with cuda_build.captured_launches() as recorded, torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
-    for _ in range(3):
+
+    def replay():
         graph.replay()
+        cuda_build.add_launches(recorded)
+
+    for _ in range(3):
+        replay()
     torch.cuda.synchronize()
-    return _event_ms(graph.replay, reps, inner)
+    return _event_ms(replay, reps, inner)
 
 
 def spin_cycles(spin_ms: float) -> int:

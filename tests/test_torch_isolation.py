@@ -45,7 +45,7 @@ def test_import_pulls_in_no_jax():
               "native", "data", "train.checkpointing", "train.device_metrics",
               "train.staging", "train.graphs", "utils.results", "utils.seeding",
               "train.pcgrad", "train.gradnorm", "train.cagrad", "train.cka",
-              "train.multi_seed", "train.sweep"):
+              "train.multi_seed", "train.sweep", "tools.probe_rows", "tools.timing"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}
@@ -75,11 +75,12 @@ def test_ctypes_signatures_match_the_c_sources():
     a Python int to 32 bits: a stream handle above 4 GB then crashes the
     launch (the row kernels' lists once ended before the stream)."""
     from mmlrec_tpu_torch.ops import row_gather
+    from mmlrec_tpu_torch.tools import probe_rows
 
     kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_uint: "unsigned",
              ctypes.c_longlong: "long long"}
     seen = 0
-    for library in (K.LIBRARY, row_gather.LIBRARY):
+    for library in (K.LIBRARY, row_gather.LIBRARY, probe_rows.LIBRARY):
         source = library.source.read_text()
         for name, argtypes in library.signatures.items():
             found = re.search(r"\bint " + name + r"\(([^)]*)\)", source)
@@ -90,7 +91,7 @@ def test_ctypes_signatures_match_the_c_sources():
             assert [kinds[t] for t in argtypes] == want, (name, params)
             assert params[-1] == "void* stream"
             seen += 1
-    assert seen == 9
+    assert seen == 14
 
 
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
@@ -164,6 +165,28 @@ def test_row_kernel_source_builds_for_hopper():
                    "rows_write_pipelined_kernel", "rows_update_kernel"):  # one __global__ each
         assert len(re.findall(r"\n" + kernel + r"\(", source)) == 1
         assert source.count(kernel + "<<<") == 1
+
+
+def test_probe_kernel_source_builds_for_hopper():
+    """The probe kernels are a third library of the same build, keyed by
+    their own source: one __global__ function and one launch a kernel."""
+    from mmlrec_tpu_torch.ops import cuda_build, row_gather
+    from mmlrec_tpu_torch.tools import probe_rows
+
+    path = probe_rows.LIBRARY.path()
+    assert path.parent == K.library_path().parent
+    assert path not in (K.library_path(), row_gather.LIBRARY.path())
+    assert path.name.startswith("libprobe_kernels_") and path.suffix == ".so"
+    assert probe_rows.LIBRARY.source == ROOT / "mmlrec_tpu_torch" / "csrc" / "probe_kernels.cu"
+    names = ("rows_write", "pairs_write", "rows_gather", "pairs_gather", "window_add")
+    assert set(probe_rows.LIBRARY.signatures) == {f"mmlrec_probe_{n}" for n in names}
+    source = probe_rows.LIBRARY.source.read_text()
+    assert len(re.findall(r"\n__global__ ", source)) == len(names)
+    for n in names:
+        kernel = f"probe_{n}_kernel"
+        assert len(re.findall(r"\n" + kernel + r"\(", source)) == 1
+        assert source.count(kernel + "<<<") == 1
+        assert cuda_build.launch_counts[f"probe_{n}"] >= 0  # counted by its wrapper
 
 
 def _c_type(decl: str) -> str:
@@ -253,6 +276,21 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         set_seed(0)
     assert set_seed(0, "cpu").device.type == "cpu"
+    from mmlrec_tpu_torch.tools import probe_rows
+
+    for command in probe_rows.COMMANDS:  # the probe tool: --device cpu runs its plain versions
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            probe_rows.main([command])
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.synthetic import make_config, make_data
+    from mmlrec_tpu_torch.train.multi_seed import SeedSuiteTrainer
+    from mmlrec_tpu_torch.train.sweep import GridSweepTrainer
+
+    cfg = make_config(emb=4, n_sparse=3, n_dense=2, hidden=(8,), tower=(4,), gate=(4,))
+    layout, *_ = make_data(cfg, n=8)
+    for suite, kw in ((SeedSuiteTrainer, {}), (GridSweepTrainer, dict(lrs=[1e-3]))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            suite(get_model("mmoe", layout, cfg, device="cpu"), **kw)
     assert main.__module__ == "mmlrec_tpu_torch.main"
     # the CSV pipeline is host code: numpy arrays, no device to default
     import inspect
