@@ -215,8 +215,8 @@ failure and carries on):
    a suite step and their folded calls, phase 16), one with the dense fit,
    one with the families, one with the shipped configurations, one with
    the staged fits, one with the production recipe, one with phase 14, one
-   with phase 16, one with phase 17; the card's name and power limit; the
-   last line is the device line.
+   with phase 16, one with phase 17, one with phase 18, one with phase 19;
+   the card's name and power limit; the last line is the device line.
 16. (run after phase 14, printed with phase 15's lines) the seed suite and
    the lr sweep (``train/multi_seed.py``, ``train/sweep.py``): (a) the
    flagship as a stacked suite of 4 seeds: 3 steps (sigmoid DNNs, dropout
@@ -283,6 +283,24 @@ failure and carries on):
    (bitwise equal to the plain version) and then on a negative id or on
    one past the end, either of which must stop the kernel and fail the
    process.
+19. (run after phase 18, printed with phase 15's lines) data parallel
+   (``mmlrec_tpu_torch/parallel``, ``Trainer(mesh=)``): (a) phase 12's
+   flagship staged fit (dropout 0.2, graph replay with the collectives
+   captured, 16 batches x 2 epochs) on a 1 x 1 mesh over NCCL held bitwise
+   against the same fit without a mesh (parameters, buffers, optimizer
+   states, losses, predictions), B5-B7 once a step, one eager
+   data-parallel step under ``set_sync_debug_mode("error")``, a replayed
+   step's device time with and without the mesh beside phase 12's, and the
+   step's two collectives timed alone at their sizes; (b) two ranks on the
+   one card over gloo (NCCL takes one rank a card; gloo's collectives on
+   CUDA tensors pass through the host, so its steps run eagerly): MMoE
+   with BatchNorm and STAR with DomainBatchNorm, dropout 0.2, 3 steps of
+   4096 (the last partial) through the staged path (``distributed_take``),
+   rank 0's training state restored on the CPU and held against the
+   single-process fit of the same global batches by phase 9's rule in the
+   form ``DP_RULE`` says, the ranks' losses equal, B5-B7 once a step a
+   rank; and MMoE with BatchNorm without dropout, whose verdict by phase
+   9's own form is reported, not held.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -4362,6 +4380,296 @@ def probe_kernels(torch, card):
                 tool_s=t1 - t0, outside_s=t2 - t1)
 
 
+# ----------------------------------------------------------------------
+# phase 19: data parallel (mmlrec_tpu_torch/parallel, the trainer's mesh)
+# ----------------------------------------------------------------------
+
+DP_BATCHES = 16  # (a): phase 12's flagship config, 16 batches x STAGED_EPOCHS
+# (b): the world-2 arms, BatchNorm on, 3 steps (the last partial), phase
+# 10's sigmoid DNNs so that phase 9's rule applies: arm -> (family, dropout,
+# held).  The two held arms run dropout 0.2; the third, MMoE without
+# dropout, is a control that is reported and not held (see DP_RULE).
+DP_ARMS = {"mmoe+bn": ("mmoe", 0.2, True), "star+bn": ("star", 0.2, True),
+           "mmoe+bn, dropout 0 (control)": ("mmoe", 0.0, False)}
+DP_WORLD = 2
+# (b)'s form of phase 9's rule: LOOSE's, as for STAR and MSSM (every layer
+# of both arms feeds a normalisation over the whole batch, whose backward is
+# a near-cancelling sum), and the table held as a dense weight, as phase 16
+# holds it (the ranks' split sums round otherwise than one sum, and a table
+# lane whose gradient cancels keeps that rounding as a dense weight does).
+# A development run (PERF.md, section 6) found the MMoE arm's worst Adam mu at
+# 3.0e-5 of its tensor's largest (gate_dnn.dense_0.kernel) and one table
+# lane 2.6e-4 apart, with phase 9's own form: mu 2e-5, table 5e-6; with
+# dropout off both were inside it (the control arm prints that form's
+# verdict every run), as the card against the CPU was.
+DP_RULE = dict(share=1e-3, mu=1e-3, nu=1e-3, table_share=1e-3)
+
+
+def _dp_config(name, dropout):
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config
+
+    return aliexpress_like_config(name, dnn_use_bn=True, masked_loss=True,
+                                  dnn_activation="sigmoid", dnn_dropout=dropout)
+
+
+def _dp_trainer(name, layout, dev, cfg, mesh=None):
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.train import Trainer
+
+    model = get_model(name, layout, cfg, device="cpu")
+    load_jax_variables(model, _numpy_train_state(model, seed=22))
+    return Trainer(model, seed=0, mesh=mesh, device=dev).compile(metrics=["auc"])
+
+
+def _dp_arm_data(name, dropout):
+    from mmlrec_tpu_torch.synthetic import make_data
+
+    cfg = _dp_config(name, dropout)
+    batch = cfg.training_config.train_batch_size
+    layout, x, y, _ = make_data(cfg, n=3 * batch - 1000, vocab=100, seed=23)
+    return cfg, batch, layout, x, y
+
+
+def _dp_rank(rank, port, workdir, reports):
+    """Phase 19 (b): one of two ranks on the one card, over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from mmlrec_tpu_torch.ops import kernels as K
+    from mmlrec_tpu_torch.parallel import create_mesh
+    from mmlrec_tpu_torch.train import staging
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=DP_WORLD)
+        mesh = create_mesh(data=DP_WORLD, device="cpu")  # gloo, the tensors on the card
+        takes = []
+        fetch = staging.fetch_staged_rows
+        staging.fetch_staged_rows = lambda tr, st, idx: (
+            takes.append(type(st).__name__) or fetch(tr, st, idx))
+        for arm, (name, dropout, _) in DP_ARMS.items():
+            cfg, batch, layout, x, y = _dp_arm_data(name, dropout)
+            tr = _dp_trainer(name, layout, DEV, cfg, mesh)
+            del takes[:]
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            state = tr.save_training_state(os.path.join(workdir, arm))
+            reports.put((rank, arm, dict(
+                losses=[h["loss"] for h in tr.history], fit_ms=fit_ms,
+                launches_per_step=_per_step(K, 3), staged_fetches=len(takes),
+                staged_kind=sorted(set(takes)), state=state,
+                graph_replays=tr.graph_replays["train"]), None))
+        dist.destroy_process_group()
+    except Exception as e:
+        reports.put((rank, None, None, f"{type(e).__name__}: {e}"))
+        raise
+
+
+def _replayed_kernels(torch, tr, x, y, batch):
+    """(device µs, kernels and copies) a replayed step: ``torch.profiler``
+    over the second epoch of a 2-epoch graph fit (the first one captures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def second_epoch(epoch, _):
+        if epoch == 0:
+            torch.cuda.synchronize()
+            prof.start()
+
+    tr.fit(x, y, batch_size=batch, epochs=2, verbose=0, epoch_callback=second_epoch)
+    torch.cuda.synchronize()
+    prof.stop()
+    steps = (len(next(iter(x.values()))) - 1) // batch + 1
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return sum(e.device_time_total for e in events) / steps, len(events) / steps
+
+
+def _dp_world1(torch, K, card, flagship_staged):
+    """Phase 19 (a): the flagship staged fit on a (data = 1, model = 1) mesh
+    over NCCL against the same fit without a mesh, bitwise."""
+    import torch.distributed as dist
+
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.parallel import create_mesh
+    from mmlrec_tpu_torch.parallel.mesh import reduce_scatter
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+    from mmlrec_tpu_torch.tools.timing import device_ms
+    from mmlrec_tpu_torch.train import Trainer
+    from mmlrec_tpu_torch.utils.seeding import make_generator
+
+    batch = FLAGSHIP_BATCH
+    layout, x, y, _ = make_data(aliexpress_like_config("mmoe"), n=DP_BATCHES * batch,
+                                vocab=100, seed=11)
+    mesh = create_mesh(data=1)  # NCCL, a process group of one
+    try:
+        def make(mesh):
+            cfg = aliexpress_like_config("mmoe", masked_loss=True, dnn_dropout=0.2,
+                                         scan_steps=SCAN_GRAPH)
+            model = get_model("mmoe", layout, cfg, generator=make_generator(5, DEV), device=DEV)
+            return Trainer(model, seed=0, mesh=mesh, device=DEV).compile(
+                metrics=["auc", "logloss"])
+
+        plain, meshed = make(None), make(mesh)
+        runs = {"no mesh": _fit_once(torch, K, plain, x, y, batch, STAGED_EPOCHS),
+                "mesh 1x1": _fit_once(torch, K, meshed, x, y, batch, STAGED_EPOCHS)}
+        differs = _held_bitwise(torch, meshed, plain)
+        preds = [tr.predict(x, batch) for tr in (plain, meshed)]
+        if not np.array_equal(preds[0].view(np.int64), preds[1].view(np.int64)):
+            differs.append("predictions")
+        launches = runs["mesh 1x1"]["launches_per_step"]
+        log(f"[19] (a) flagship staged fit on a 1x1 NCCL mesh (scan_steps {SCAN_GRAPH}, "
+            f"{DP_BATCHES} batches x {STAGED_EPOCHS} epochs, dropout 0.2) vs the same fit "
+            f"without a mesh: {'bitwise equal' if not differs else 'DIFFER in ' + str(differs[:8])}"
+            f" (parameters, buffers, optimizer states, losses, predictions); graph replays "
+            f"{runs['mesh 1x1']['graph_replays']}; launches per step "
+            f"{ {k: round(v, 3) for k, v in launches.items()} } [{card}]")
+        if differs:
+            raise AssertionError(f"phase 19 (a): the 1x1 mesh fit differs from the plain one: "
+                                 f"{differs[:8]}")
+        if not runs["mesh 1x1"]["graph_replays"]["train"] or any(
+                launches.get(k) != 1.0 for k in FORWARD_KERNELS):
+            raise AssertionError(f"phase 19 (a): no replays, or B5-B7 not once a step: "
+                                 f"{launches}")
+        ids, dense = meshed.pack_inputs(x)
+        yy, dmask = meshed._prepare_y(y), meshed._domain_mask_from(x)
+        first = [torch.from_numpy(np.ascontiguousarray(a[:batch])).to(DEV) for a in
+                 (ids, dense, yy, dmask)] + [torch.ones(batch, device=DEV)]
+        _sync_free_step(torch, meshed, first)
+        log(f"[19] (a) one eager data-parallel step (the all-reduce and the staged fetch's "
+            f"reduce-scatter inside) ran under set_sync_debug_mode('error') [{card}]")
+        readings = {"no mesh": [], "mesh 1x1": []}
+        for name, tr in (("no mesh", plain), ("mesh 1x1", meshed), ("mesh 1x1", meshed),
+                         ("no mesh", plain)):  # in turns
+            readings[name].append(_replayed_step_device_ms(torch, tr, x, y, batch)[0])
+        replay = {k: None if None in v else statistics.median(v) for k, v in readings.items()}
+        kernels_us = {name: _replayed_kernels(torch, tr, x, y, batch)
+                      for name, tr in (("no mesh", plain), ("mesh 1x1", meshed))}
+        # the step's two collectives at their sizes: the gradients and the
+        # loss (one all-reduce) and the staged fetch (one reduce-scatter)
+        n_grad = sum(p.numel() for p in meshed.model.parameters()) + 1
+        flat = torch.zeros(n_grad, device=DEV)
+        width = sum(a.shape[1] for a in (ids, dense, yy, dmask))
+        contrib = torch.zeros(batch, width, dtype=torch.int32, device=DEV)
+        rows = torch.empty_like(contrib)
+        coll_us = {"all_reduce (gradients + loss)": device_ms(lambda: dist.all_reduce(flat)) * 1e3,
+                   "reduce_scatter (staged fetch)": device_ms(
+                       lambda: reduce_scatter(rows, contrib, None)) * 1e3}
+        base = flagship_staged["replayed_step_device_ms"]
+        fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"  # noqa: E731
+        log(f"[19] (a) a replayed step's device time, two readings each in turns (no mesh, "
+            f"mesh, mesh, no mesh): mesh 1x1 {readings['mesh 1x1']}, no mesh "
+            f"{readings['no mesh']}; medians mesh 1x1 {fmt(replay['mesh 1x1'])}, no "
+            f"mesh {fmt(replay['no mesh'])} ({DP_BATCHES} batches, this phase), phase 12's "
+            f"flagship {fmt(base)} ({DENSE_BATCHES} batches); the step's collectives at world "
+            f"1 ({n_grad} f32 all-reduced, [{batch}, {width}] int32 reduce-scattered): "
+            f"{ {k: round(v, 2) for k, v in coll_us.items()} } us; a replayed step under "
+            f"torch.profiler (us of kernels and copies, their count): "
+            f"{ {k: (round(v[0], 1), round(v[1], 1)) for k, v in kernels_us.items()} } [{card}]")
+        return dict(bitwise_equal=True, fits=runs, sync_free_eager_step=True,
+                    replayed_step_device_ms=replay, replayed_step_device_ms_readings=readings,
+                    phase12_replayed_step_device_ms=base,
+                    collectives_us_per_step=coll_us, gradient_elements=n_grad,
+                    replayed_step_kernels_us_and_count=kernels_us,
+                    staged_row_width=width, launches_per_step=launches)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_world2(torch, K, card, workdir):
+    """Phase 19 (b): two ranks on the one card over gloo (NCCL takes one rank
+    a card), the flagship-width MMoE with BatchNorm and STAR with
+    DomainBatchNorm, 3 steps each (``DP_ARMS``): every rank against the
+    single-process fit of the same global batches by phase 9's rule."""
+    import multiprocessing as mp
+    import queue
+
+    from mmlrec_tpu_torch.main import _free_port
+    from mmlrec_tpu_torch.train import checkpointing
+
+    ctx = mp.get_context("spawn")
+    reports = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_dp_rank, args=(r, port, workdir, reports))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < DP_WORLD * len(DP_ARMS):
+            try:
+                rank, arm, res, error = reports.get(timeout=5.0)
+            except queue.Empty:
+                if any(p.exitcode is not None and p.exitcode != 0 for p in procs):
+                    raise AssertionError("phase 19 (b): a rank died without a report")
+                continue
+            if error is not None:
+                raise AssertionError(f"phase 19 (b): rank {rank} failed: {error}")
+            got[(rank, arm)] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    out = {}
+    for arm, (name, dropout, held) in DP_ARMS.items():
+        cfg, batch, layout, x, y = _dp_arm_data(name, dropout)
+        single = _dp_trainer(name, layout, DEV, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single.fit(x, y, batch_size=batch, epochs=1, verbose=0)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        ranks = [got[(r, arm)] for r in range(DP_WORLD)]
+        restored = _dp_trainer(name, layout, "cpu", cfg)
+        restored.init_state()
+        checkpointing.restore_training_state(restored, ranks[0]["state"])
+        noise = _noise_driven(restored.model)
+        lr = cfg.optim_config.lr
+        # the held arms by DP_RULE, the control by phase 9's own form
+        rule = dict(table_atol=3 * lr, **DP_RULE) if held else {}
+        worst, verdict = _card_vs_cpu_state(single, restored, noise, lr, **rule)
+        losses = [r["losses"][0] for r in ranks]
+        launches = ranks[0]["launches_per_step"]
+        log(f"[19] (b) {arm}, world 2 on one card over gloo (BatchNorm, dropout {dropout}, "
+            f"3 steps of "
+            f"{batch}, the last partial): staged fetches {ranks[0]['staged_fetches']} "
+            f"({ranks[0]['staged_kind']}: distributed_take), graph replays "
+            f"{ranks[0]['graph_replays']} (gloo steps run eagerly); epoch loss ranks {losses}, "
+            f"single process {single.history[-1]['loss']:.9g}; rank 0's state vs the single "
+            f"process, {'held by DP_RULE' if held else 'phase 9 own form, reported'}: "
+            f"{verdict}; launches per step per rank "
+            f"{ {k: round(v, 3) for k, v in launches.items()} }; fit host ms {ranks[0]['fit_ms']:.1f} "
+            f"(world 2, gloo) vs {single_ms:.1f} (one process) [{card}]")
+        if ((held and worst["failed"]) or len(set(losses)) != 1
+                or abs(losses[0] - single.history[-1]["loss"]) > 1e-5 * abs(losses[0])
+                or ranks[0]["staged_fetches"] != 3 or ranks[0]["staged_kind"] != ["RankStaged"]
+                or launches != {k: 1.0 for k in FORWARD_KERNELS
+                                if k != "gated_expert_mix" or name == "mmoe"}):
+            raise AssertionError(f"phase 19 (b), {arm}: the world-2 fit left phase 9's rule, "
+                                 f"the ranks' losses differ, or the path was not the staged one")
+        out[arm] = dict(**worst, held=held, losses_by_rank=losses,
+                        loss_single=single.history[-1]["loss"],
+                        launches_per_step_per_rank=launches, fit_host_ms_world2=ranks[0]["fit_ms"],
+                        fit_host_ms_single=single_ms, staged_fetches=ranks[0]["staged_fetches"])
+    return out
+
+
+def data_parallel(torch, K, card, flagship_staged, workdir):
+    """Phase 19: (a) world 1 over NCCL, (b) world 2 over gloo on the card."""
+    return {"world1_nccl": _dp_world1(torch, K, card, flagship_staged),
+            "world2_gloo": _dp_world2(torch, K, card, os.path.join(workdir, "dp"))}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4423,6 +4731,7 @@ def main(argv=None) -> int:
     suite = seed_suite(torch, K, card, staged["dense_flagship"])
     csv_path = csv_pipeline(torch, K, card, workdir, args.seed)
     probes = probe_kernels(torch, card)
+    dp = data_parallel(torch, K, card, staged["dense_flagship"], workdir)
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS + tuple(PROBE_KERNELS)}
@@ -4465,6 +4774,12 @@ def main(argv=None) -> int:
     # validation batch; the two-phase step injects its gathered rows)
     for name in ("embed_concat", "multihead_score", "rows_write"):
         kernels[name]["launches_phase17_ae_csv_fit"] = csv_path["ae_full"]["launches"].get(name, 0)
+    # phase 19: launches a step of the data-parallel fits, each rank on its rows
+    for name in FORWARD_KERNELS:
+        kernels[name]["launches_per_step_phase19"] = {
+            "world 1 (NCCL), flagship": dp["world1_nccl"]["launches_per_step"].get(name, 0.0),
+            **{f"world 2 (gloo), {arm}, per rank": res["launches_per_step_per_rank"].get(name, 0.0)
+               for arm, res in dp["world2_gloo"].items()}}
     kernels["embed_concat"]["phase14_dense_width_69"] = {
         k: task["varlen"][k] for k in ("embed_concat_dense_width", "embed_concat_vector_rows",
                                        "embed_concat_bitwise", "embed_concat_us")}
@@ -4494,6 +4809,7 @@ def main(argv=None) -> int:
     print(json.dumps({"seed_suite": suite, "card": card}), flush=True)
     print(json.dumps({"csv_pipeline": csv_path, "card": card}), flush=True)
     print(json.dumps({"probes": probes, "card": card}), flush=True)
+    print(json.dumps({"data_parallel": dp, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

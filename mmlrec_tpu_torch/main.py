@@ -3,7 +3,7 @@ package's ``main.py`` (reference main.py:71-181) on PyTorch, on the card.
 
     python -m mmlrec_tpu_torch.main --config configs/msl/config_AE.json \
         [--synthetic] [--seed S | --seeds 0,2,4,8] [--vmap_seeds | --sweep_lrs 0.01,0.001]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--data_parallel N [--model_parallel 1]]
 
 For each seed: read the config's train and test CSV files
 (``data.ctrdataset``; with ``--synthetic``, synthetic data of the config's
@@ -24,7 +24,13 @@ plain versions of the kernels.
 decides), ``--sweep_lrs`` the (seed x lr) grid (``train/sweep.py``); each
 member appends its row with the suite's wall seconds (``run_vmapped_suite``).
 
-Not ported: meshes (``--data_parallel``, ROADMAP A9).
+``--data_parallel N`` trains each seed data parallel over N ranks
+(``parallel/``, main.py:95-113): outside a process group the command starts
+the N processes itself (one card each with NCCL; ``--device cpu`` takes
+gloo), under ``torchrun`` it joins the group there is.  Rank 0 alone
+prints and writes the rows, checkpoints and pickles; ``--vmap_seeds`` and
+``--sweep_lrs`` run the plain seed loop.  ``--model_parallel`` above 1 (the
+row-sharded table) is ROADMAP A9 part 2.
 """
 
 from __future__ import annotations
@@ -32,14 +38,19 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import queue
+import socket
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .config import ExperimentConfig
 from .data import CTRDataset, ctrdataset, get_test_mask
 from .models import get_model
+from .parallel import create_mesh
+from .parallel.multihost import initialize_distributed
 from .train import Trainer, resolve_table_container
 from .train.metrics import masked_test_metrics
 from .utils import append_result_row, set_seed
@@ -55,7 +66,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--model_name", type=str, default="")
     p.add_argument("--config", type=str, required=True)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="data mesh axis size (0 = no mesh; meshes are ROADMAP A9)")
+                   help="data mesh axis size: N ranks (0 = no mesh)")
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--synthetic", action="store_true",
                    help="use synthetic data with the config's schema")
@@ -101,11 +112,79 @@ def load_dataset(cfg: ExperimentConfig, args) -> CTRDataset:
 
 
 def _refuse_unported(args) -> None:
-    if args.data_parallel:
-        raise NotImplementedError("meshes (--data_parallel) are not ported yet (ROADMAP A9)")
+    if args.data_parallel and args.model_parallel > 1:
+        raise NotImplementedError("--model_parallel above 1 row-shards the embedding table: "
+                                  "ROADMAP A9 part 2")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
                            "plain versions of the kernels on the CPU")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(arg_values: Dict, rank: int, world: int, port: int, results) -> None:
+    """One rank of a ``--data_parallel`` run the CLI started: join the group,
+    run, and send (rank, rows or None, error or None) back: rank 0's rows,
+    or the failure of any rank."""
+    args = argparse.Namespace(**arg_values)
+    cuda = torch.device(args.device).type == "cuda"
+    try:
+        if cuda:
+            torch.cuda.set_device(rank)
+        initialize_distributed(f"localhost:{port}", world, rank,
+                               backend="nccl" if cuda else "gloo")
+        rows = [row for row, _ in run(args)]
+        results.put((rank, rows if rank == 0 else None, None))
+    except Exception as e:  # reported by the parent, which raises it
+        results.put((rank, None, f"{type(e).__name__}: {e}"))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(args) -> List[Tuple[Dict, None]]:
+    """Start ``--data_parallel`` processes, one per rank, and wait for them;
+    rank 0's rows, or RuntimeError with the first failure a rank reports."""
+    import multiprocessing as mp
+
+    n = args.data_parallel
+    if torch.device(args.device).type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"mesh {n}x{args.model_parallel} on the card needs {n} cards (NCCL "
+                         f"takes one rank a card), {torch.cuda.device_count()} are visible")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, args=(vars(args), rank, n, port, results))
+             for rank in range(n)]
+    for p in procs:
+        p.start()
+    reports: Dict[int, Tuple] = {}
+    try:
+        while len(reports) < n:  # drained before any join
+            try:
+                rank, rows, error = results.get(timeout=1.0)
+            except queue.Empty:
+                lost = [r for r, p in enumerate(procs) if p.exitcode is not None
+                        and r not in reports]
+                if lost:
+                    raise RuntimeError(f"--data_parallel {n}: rank(s) {lost} ended without "
+                                       "a report") from None
+                continue
+            reports[rank] = (rows, error)
+            if error is not None:
+                raise RuntimeError(f"--data_parallel {n}: rank {rank} failed: {error}")
+    finally:
+        for p in procs:
+            p.join(timeout=0 if len(reports) < n else None)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [(row, None) for row in reports[0][0]]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
@@ -115,16 +194,41 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
 
 def run(args: argparse.Namespace) -> List[Tuple[Dict, object]]:
     """``main`` on parsed arguments: (row, trained Trainer) per seed of the
-    loop, or (row, the suite) per member of a suite (main.py:109-113)."""
+    loop, or (row, the suite) per member of a suite (main.py:109-113); for
+    the ranks this command started, (row, None)."""
     _refuse_unported(args)
     seeds = [args.seed] if args.seed is not None else [int(s) for s in args.seeds.split(",")]
-    if args.sweep_lrs:
-        return run_vmapped_suite(args, seeds, lrs=[float(v) for v in args.sweep_lrs.split(",")])
-    if args.vmap_seeds and len(seeds) > 1:
-        return run_vmapped_suite(args, seeds)
+    if not args.data_parallel:
+        if args.sweep_lrs:
+            return run_vmapped_suite(args, seeds,
+                                     lrs=[float(v) for v in args.sweep_lrs.split(",")])
+        if args.vmap_seeds and len(seeds) > 1:
+            return run_vmapped_suite(args, seeds)
+        return run_seeds(args, seeds, None)
+    cuda = torch.device(args.device).type == "cuda"
+    initialize_distributed(backend="nccl" if cuda else "gloo")  # under torchrun: its group
+    if not dist.is_initialized() and args.data_parallel > 1:
+        return _spawn_ranks(args)
+    created = not dist.is_initialized()
+    if cuda and not created:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+    try:
+        mesh = create_mesh(data=args.data_parallel, model=args.model_parallel,
+                           device=args.device)
+        return run_seeds(args, seeds, mesh)
+    finally:
+        if created:  # the group of one this command made
+            dist.destroy_process_group()
+
+
+def run_seeds(args, seeds: List[int], mesh) -> List[Tuple[Dict, object]]:
+    """The sequential seed loop (main.py:115-181), data parallel over
+    ``mesh`` when one is given (rank 0 prints and writes)."""
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     out = []
     for seed in seeds:
-        print("seed:", seed)
+        say("seed:", seed)
         generator = set_seed(seed, args.device)
         cfg = ExperimentConfig.from_file(args.config)
         if args.run and args.model_name:
@@ -133,25 +237,25 @@ def run(args: argparse.Namespace) -> List[Tuple[Dict, object]]:
             cfg.training_config.extra["device_eval"] = True
         mc, dc, oc, tc, sc = (cfg.model_config, cfg.data_config, cfg.optim_config,
                               cfg.training_config, cfg.save_config)
-        print(cfg.to_dict())
+        say(cfg.to_dict())
 
         ds = load_dataset(cfg, args)
         resolve_table_container(cfg, ds.layout, device=args.device)
         if mc.extra.get("table_container") == "stacked":
-            print("table_container: stacked (auto: the packed-moment write path)")
+            say("table_container: stacked (auto: the packed-moment write path)")
         model = get_model(mc.model_name, ds.layout, cfg, generator=generator,
                           device=args.device)
-        trainer = Trainer(model, seed=seed, device=args.device).compile(
+        trainer = Trainer(model, seed=seed, mesh=mesh, device=args.device).compile(
             optimizer=oc.optimizer, loss=oc.loss, metrics=oc.metrics)
         shuffle = tc.extra.get("shuffle_mode", "full")
         trainer.fit(ds.train_input, ds.y_train, batch_size=tc.train_batch_size,
                     epochs=tc.epochs, validation_data=(ds.test_input, ds.y_test),
-                    shuffle="block" if shuffle == "block" else True)
+                    shuffle="block" if shuffle == "block" else True, verbose=int(lead))
 
         if sc.save_layer_output:
             trainer.update_save()
             pred_ans, layer_output_dict = trainer.predict(ds.test_input, tc.test_batch_size)
-            for key, value in layer_output_dict.items():
+            for key, value in (layer_output_dict.items() if lead else ()):
                 file_name = dc.layer_output_path + f"{mc.model_name}_l2{mc.l2_reg_dnn}_{key}.pkl"
                 os.makedirs(os.path.dirname(os.path.abspath(file_name)), exist_ok=True)
                 with open(file_name, "wb") as f:
@@ -172,11 +276,12 @@ def run(args: argparse.Namespace) -> List[Tuple[Dict, object]]:
         row = {"type": model_type, **results}
         if trainer.throughput_examples_per_s:
             row["examples_per_s"] = round(trainer.throughput_examples_per_s, 1)
-        print(row)
-        append_result_row(dc.test_result_path, row)
+        say(row)
+        if lead:
+            append_result_row(dc.test_result_path, row)
         out.append((row, trainer))
 
-        if args.export_bundle:
+        if args.export_bundle and lead:
             from .serving import save_serving_bundle
 
             bundle_dir = os.path.join(args.export_bundle, model_type)

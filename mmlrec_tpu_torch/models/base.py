@@ -49,7 +49,7 @@ class RecModel(nn.Module):
         if int(extra.get("stacked_shards", 1) or 1) > 1:
             raise NotImplementedError(
                 "the shard-major stacked container (stacked_shards > 1) is "
-                "not ported yet (ROADMAP A9)")
+                "not ported yet (ROADMAP A9 part 2)")
         self.wide_linear: Optional[WideLinear] = None
         if extra.get("use_wide_linear"):
             self.wide_linear = self._make_wide_linear(generator)

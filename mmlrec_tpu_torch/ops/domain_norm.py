@@ -18,6 +18,14 @@ domain absent from the batch alone; eval normalises by them.  Normalisation
 uses the biased variance, eps 1e-5.  The whole-batch variance of
 ``reference`` mode is the two-pass one (``jnp.var``), the per-domain
 variance ``E[x^2] - E[x]^2`` clipped at 0, as in the JAX module.
+
+In a batch shard of a data-parallel step (``layers.batch_shard``) the
+statistics are the global batch's (the JAX module's ``gsum``,
+domain_norm.py:40-60): the per-domain counts, masked sums and masked sums
+of squares are summed over the group in one ``all_reduce_sum``, and the
+whole-batch moments are the rank moments summed and divided by the group's
+size (equal shards), each pass of the two-pass variance in turn; with one
+rank the values are the unsharded ones.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .layers import all_reduce_sum, current_batch_shard
 
 
 class DomainBatchNorm(nn.Module):
@@ -49,8 +59,14 @@ class DomainBatchNorm(nn.Module):
         self.register_buffer("pop_var", torch.ones(shape))
 
     def _batch_moments(self, x: torch.Tensor):
+        dp = current_batch_shard()
         m = x.mean(dim=0, keepdim=True)
-        return m, torch.square(x - m).mean(dim=0, keepdim=True)
+        if dp is not None:
+            m = all_reduce_sum(m, dp) / dp.world
+        v = torch.square(x - m).mean(dim=0, keepdim=True)
+        if dp is not None:
+            v = all_reduce_sum(v, dp) / dp.world
+        return m, v
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         if mask is None:  # reference model/utils.py:609-611: plain, no affine
@@ -59,9 +75,15 @@ class DomainBatchNorm(nn.Module):
         mask = mask.to(x.dtype)
         if self.training:
             counts = mask.sum(dim=0)  # [D]
+            msum, sqsum = mask.t() @ x, mask.t() @ (x * x)
+            dp = current_batch_shard()
+            if dp is not None:
+                F = x.shape[1]
+                sums = all_reduce_sum(torch.cat([counts[:, None], msum, sqsum], dim=1), dp)
+                counts, msum, sqsum = sums[:, 0], sums[:, 1:1 + F], sums[:, 1 + F:]
             safe = torch.clamp(counts, min=1.0)[:, None]
-            dom_mean = (mask.t() @ x) / safe
-            sq = (mask.t() @ (x * x)) / safe
+            dom_mean = msum / safe
+            sq = sqsum / safe
             dom_var = torch.clamp(sq - dom_mean * dom_mean, min=0.0)
             with torch.no_grad():
                 unbiased = dom_var * (safe / torch.clamp(counts - 1.0, min=1.0)[:, None])

@@ -215,7 +215,7 @@ class FusedEmbedding(nn.Module):
         if dual_shards != 1:
             raise NotImplementedError(
                 "the shard-major stacked container (stacked_shards > 1) is not "
-                "ported yet (ROADMAP A9)")
+                "ported yet (ROADMAP A9 part 2)")
         self.dual_container = bool(dual_container)
         if self.dual_container:
             # table_container="stacked" (embedding.py:245-276): [2Vp, W],

@@ -9,11 +9,15 @@ state-dict key is the flax path with ``.`` for ``/``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.mesh import all_gather
 from .initializers import (
     constant_init,
     eye_init,
@@ -82,17 +86,105 @@ def uniform(shape, generator, device, like: Optional[torch.Tensor] = None) -> to
     return torch.rand(tuple(shape), generator=generator, device=device)
 
 
+# ---------------------------------------------------------------------------
+# The batch shard of a data-parallel step (layers.py:33-100).  Under a mesh
+# each rank's step sees only its rows of the global batch; the trainer sets
+# this context around a step whose batch is split over the ``data`` group
+# (a ``parallel.mesh.DataGroup``: group, rank, world), and what couples the
+# rows of a batch reads it: BatchNorm and DomainBatchNorm reduce their
+# statistics over the group (``all_reduce_sum``), dropout draws the mask of
+# the global batch and keeps the rank's rows.  Unset (one process, or a
+# batch every rank holds whole) they act on the batch they are given.
+# ---------------------------------------------------------------------------
+
+_BATCH_SHARD: contextvars.ContextVar = contextvars.ContextVar("batch_shard", default=None)
+
+
+@contextlib.contextmanager
+def batch_shard(dp):
+    """Run the block with the step's batch split over ``dp`` (None: whole)."""
+    token = _BATCH_SHARD.set(dp)
+    try:
+        yield
+    finally:
+        _BATCH_SHARD.reset(token)
+
+
+def current_batch_shard():
+    """The data group the running step's batch is split over, or None."""
+    return _BATCH_SHARD.get()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the group's ranks, forward and backward: the loss of a
+    data-parallel step is the sum of the ranks' losses, each reading the
+    summed statistic, so the cotangent of a rank's input is the sum of
+    every rank's cotangent of the statistic."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, dp) -> torch.Tensor:
+    """``x`` summed over the ranks of ``dp`` (a differentiable all-reduce)."""
+    return _AllReduceSum.apply(x, dp.group)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Every rank's rows in rank order; the cotangent of a rank's rows is
+    its slice of the global cotangent (each rank computes the whole of a
+    loss that reads the gathered rows)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, world):
+        ctx.rank, ctx.rows = rank, x.shape[0]
+        out = torch.empty((world * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        all_gather(out, x.contiguous(), group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None, None, None
+
+
+def all_gather_rows(x: torch.Tensor, dp) -> torch.Tensor:
+    """Every rank's ``x`` of ``dp`` concatenated along dim 0 in rank order:
+    the global batch of a rank's rows (differentiable)."""
+    return _AllGatherRows.apply(x, dp.group, dp.rank, dp.world)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """``nn.Dropout`` semantics as the JAX package's ``ShardedDropout`` has
-    them on one device (layers.py:133-160): a Bernoulli keep mask drawn from
-    ``generator`` (on ``x``'s device; per member from ``MemberGenerators``),
-    kept values scaled by ``1 / keep``."""
+    them (layers.py:133-160): a Bernoulli keep mask drawn from ``generator``
+    (on ``x``'s device; per member from ``MemberGenerators``), kept values
+    scaled by ``1 / keep``.  In a batch shard (``batch_shard``) the mask is
+    drawn for the global ``[world * B, ...]`` batch, and the rank keeps its
+    rows: every rank's generator draws what the one process draws, so a
+    rank applies the one process's mask to its examples, and the draws after
+    it stay in step."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = uniform(x.shape, generator, x.device, x) < keep
+    dp = _BATCH_SHARD.get()
+    if dp is None:
+        mask = uniform(x.shape, generator, x.device, x) < keep
+    else:
+        b = x.shape[0]
+        whole = uniform((dp.world * b,) + tuple(x.shape[1:]), generator, x.device, x)
+        mask = whole[dp.rank * b:(dp.rank + 1) * b] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -111,8 +203,11 @@ class BatchNorm(nn.Module):
     ``nn.BatchNorm1d`` keeps the unbiased one and would part from flax after
     one step.  ``scale`` and ``bias`` are parameters (none with ``affine``
     off, as Dice's ``use_scale=False, use_bias=False``), ``mean`` and
-    ``var`` buffers, named as the flax leaves.  Synced statistics across
-    devices are ROADMAP A9."""
+    ``var`` buffers, named as the flax leaves.  In a batch shard
+    (``batch_shard``) the statistics are the global batch's: the shards are
+    equal, so the rank means of ``x`` and ``x^2`` are summed over the group
+    (one ``all_reduce_sum``) and divided by its size (bn_cross_replica_axis,
+    layers.py:33-65); with one rank the values are the unsharded ones."""
 
     def __init__(self, feature_shape: Sequence[int], *, momentum: float = 0.9,
                  eps: float = 1e-5, affine: bool = True, batch_axes: int = 1):
@@ -134,7 +229,12 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(n))
             mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            sq = (x * x).mean(dim=dims)
+            dp = _BATCH_SHARD.get()
+            if dp is not None:
+                both = all_reduce_sum(torch.stack([mean, sq]), dp) / dp.world
+                mean, sq = both[0], both[1]
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)

@@ -270,14 +270,20 @@ class Flat:
 
     @torch.no_grad()
     def step(self, params: Tensors, grads: Tensors, state):
-        """Update ``params`` and ``state`` in place; returns ``state``."""
+        """Update ``params`` and ``state`` in place; returns ``state``.
+        ``grads`` may be a ``FlatTensors`` in the buffers' order, whose
+        vector is stepped as it is."""
         fields = self.inner.fields(state)
         if not all(isinstance(f, FlatTensors) for f in fields):
             raise TypeError("Flat steps a state made by Flat.init (FlatTensors fields)")
         names = list(fields[0]) if fields else list(params)  # the flat buffers' order
         tensors: List[torch.Tensor] = [params[k] for k in names]
         lead = (self.members,) if self.members else ()
-        g = torch.cat([grads[k].reshape(*lead, -1) for k in names], dim=-1)
+        if (not lead and isinstance(grads, FlatTensors) and list(grads) == names
+                and grads.flat.shape[-1] == sum(p.numel() for p in tensors)):
+            g = grads.flat  # already one vector in this order (a mesh's reduced one)
+        else:
+            g = torch.cat([grads[k].reshape(*lead, -1) for k in names], dim=-1)
         delta = self.inner._apply(g, *(f.flat for f in fields), *self.inner._shared(state))
         parts = delta.split([p[0].numel() if lead else p.numel() for p in tensors], dim=-1)
         torch._foreach_add_(tensors, [d.view(p.shape) for d, p in zip(parts, tensors)])

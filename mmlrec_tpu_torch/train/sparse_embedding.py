@@ -27,7 +27,8 @@ Ported, the whole of the JAX module at one shard:
   rows), with the scatter or the gather dedup route; and slot space
   (``two_phase_sparse_adam_slot``) on the stacked container.
 
-The shard-major layouts are ROADMAP A9.
+The shard-major layouts (``n_shards > 1``) are ROADMAP A9 part 2, the
+row-sharded table.
 
 Bit layout of a packed container lane: mu in the low 16 bits, nu in the
 high 16 (pinned by tests/test_sparse_embedding.py::test_monu_pack_bit_layout
@@ -152,7 +153,7 @@ def to_runtime_state(st, packed: bool):
 def _one_shard(n_shards: int) -> None:
     if n_shards != 1:
         raise NotImplementedError(
-            "the shard-major stacked layout (n_shards > 1) is not ported yet (ROADMAP A9)")
+            "the shard-major stacked layout (n_shards > 1) is not ported yet (ROADMAP A9 part 2)")
 
 
 def split_stacked_planes(fat: torch.Tensor, n_shards: int = 1):

@@ -1,6 +1,5 @@
 """Dataset staging, per-batch metadata and epoch execution for
-``Trainer.fit`` (the port of ``mmlrec_tpu/train/staging.py``, single
-device).
+``Trainer.fit`` (the port of ``mmlrec_tpu/train/staging.py``).
 
 Everything between the host arrays and the step:
 
@@ -36,6 +35,15 @@ values, so the paths are bitwise equal.
 Uploads on the card come from pinned memory, without a sync; the worker
 threads upload on a side stream and order the main stream after them with
 an event.
+
+Under a mesh (``trainer._dp``) rank r stages its contiguous rows of the
+dataset, padded to divide by the ranks, as one int32 matrix (the ids, then
+the bits of the f32 columns: staging.py:48-77), and a step fetches its
+rows of the global batch with ``distributed_take``, whose sums are then
+exact; this needs the batch to divide by the ranks, else the fit streams,
+each batch's rows split by ``shard_batch`` or, when they do not divide,
+every rank taking all of them (staging.py:716-719).  Eval batches are
+split the same way, or whole (``prepare_eval_tensors``).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import batch_rows, distributed_take, shard_batch
 from .sparse_embedding import SparseAdamPackedState, batch_step_metadata, to_split_state
 
 
@@ -114,14 +123,47 @@ class Staged(NamedTuple):
     dmask: Optional[torch.Tensor]
 
 
-def stage_dataset(trainer, ids, dense, y, dmask) -> Staged:
-    """Upload the dataset once (staging.py:48-77, single device)."""
-    return Staged(*(to_device(trainer, a) for a in (ids, dense, y, dmask)))
+class RankStaged(NamedTuple):
+    """Under a mesh: this rank's contiguous rows of the dataset as one int32
+    matrix, the ids and then the int32 bits of the f32 dense features,
+    labels and mask, and the widths of the four (the mask's 0 without one)."""
+
+    rows: torch.Tensor
+    widths: Tuple[int, int, int, int]
 
 
-def fetch_staged_rows(trainer, staged: Staged, idx: torch.Tensor) -> Staged:
-    """Rows ``idx`` [B] of the staged dataset, taken on the device."""
-    return Staged(*(None if a is None else a.index_select(0, idx) for a in staged))
+def stage_dataset(trainer, ids, dense, y, dmask):
+    """Upload the dataset once (staging.py:48-77): whole on one device, as
+    ``Staged``; under a mesh this rank's rows ``[r N / n, (r + 1) N / n)``
+    of it padded with zero rows to N divisible by n (no index reaches a
+    pad), as ``RankStaged``."""
+    if trainer._dp is None:
+        return Staged(*(to_device(trainer, a) for a in (ids, dense, y, dmask)))
+    dp = trainer._dp
+    floats = [a for a in (dense, y, dmask) if a is not None]
+    packed = np.concatenate([np.asarray(ids, np.int32)]
+                            + [np.ascontiguousarray(a, np.float32).view(np.int32)
+                               for a in floats], axis=1)
+    pad = (-len(packed)) % dp.world
+    if pad:
+        packed = np.concatenate([packed, np.zeros((pad, packed.shape[1]), np.int32)])
+    per = len(packed) // dp.world
+    widths = (ids.shape[1], dense.shape[1], y.shape[1], 0 if dmask is None else dmask.shape[1])
+    return RankStaged(to_device(trainer, packed[dp.rank * per:(dp.rank + 1) * per]), widths)
+
+
+def fetch_staged_rows(trainer, staged, idx: torch.Tensor) -> Staged:
+    """Rows ``idx`` [B] of the staged dataset, taken on the device; under a
+    mesh this rank's rows of the global batch, by ``distributed_take``
+    (staging.py:95-101), bitwise the rows ``index_select`` would take."""
+    if isinstance(staged, Staged):
+        return Staged(*(None if a is None else a.index_select(0, idx) for a in staged))
+    rows = distributed_take(staged.rows, idx, trainer._dp)
+    S, Dd, T, Dm = staged.widths
+    ids = rows[:, :S].contiguous()
+    cols = rows[:, S:].view(torch.float32)
+    dense, y = cols[:, :Dd].contiguous(), cols[:, Dd:Dd + T].contiguous()
+    return Staged(ids, dense, y, cols[:, Dd + T:].contiguous() if Dm else None)
 
 
 def split_staged(trainer, rows: Staged, weight: torch.Tensor) -> tuple:
@@ -343,7 +385,9 @@ class Plan:
     live as long as the fit: a captured step reads their addresses."""
 
     use_device_data = block_mode = False
-    staged: Optional[Staged] = None
+    staged = None  # Staged, or RankStaged under a mesh
+    #: under a mesh, this rank's rows of a global batch (``batch_rows``)
+    rank_rows: Optional[slice] = None
     block_w = block_w_dev = block_dedup = fs_pool = None
     arg = w2d = loss = probs = epoch_step = arange_b = arange_all = None
     dedup: Optional[tuple] = None
@@ -372,7 +416,15 @@ def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, steps_p
     plan = Plan()
     plan.steps = steps_per_epoch
     dataset_bytes = ids.nbytes + dense.nbytes + y.nbytes
-    plan.use_device_data = dataset_bytes * 2 < trainer._device_data_bytes_cap
+    dp = trainer._dp
+    if dp is None:
+        plan.use_device_data = dataset_bytes * 2 < trainer._device_data_bytes_cap
+    else:
+        # the staged rows are split n ways, and the fetch splits the batch
+        # (staging.py:427-437)
+        plan.rank_rows = batch_rows(batch_size, dp)
+        plan.use_device_data = (plan.rank_rows is not None and dataset_bytes * 2
+                                < trainer._device_data_bytes_cap * dp.world)
     plan.block_mode = shuffle == "block"
     host_meta = trainer.two_phase_embedding and not trainer.device_metadata
     if plan.block_mode:
@@ -428,31 +480,39 @@ def close_plan(plan: Plan) -> None:
 
 
 class EvalTensors(NamedTuple):
-    """[steps, B, ...] device tensors of a fixed eval set and its row count."""
+    """[steps, B, ...] device tensors of a fixed eval set and its row count;
+    ``split``: they hold this rank's rows of each batch, [steps, B / n, ...]."""
 
     ids: torch.Tensor
     dense: torch.Tensor
     dmask: Optional[torch.Tensor]
     n: int
+    split: bool = False
 
 
-def prepare_eval_tensors(trainer, ids, dense, dmask, batch_size: int) -> EvalTensors:
+def prepare_eval_tensors(trainer, ids, dense, dmask, batch_size: int,
+                         split: bool = True) -> EvalTensors:
     """Pad with the last row to whole batches and upload once; the mask only
-    when the model reads it (``masked_loss``)."""
+    when the model reads it (``masked_loss``).  Under a mesh each batch's
+    rows are split over the ranks when ``split`` and the batch divides by
+    them, else every rank holds them all (eval_batch_spec, staging.py:
+    526-560)."""
     n = len(ids)
     steps = (n - 1) // batch_size + 1
     pad = steps * batch_size - n
     if not (trainer.cfg.model_config.masked_loss and dmask is not None):
         dmask = None
+    rows = batch_rows(batch_size, trainer._dp) if split and trainer._dp is not None else None
 
     def prep(a):
         if a is None:
             return None
         if pad:
             a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
-        return to_device(trainer, a.reshape(steps, batch_size, *a.shape[1:]))
+        a = a.reshape(steps, batch_size, *a.shape[1:])
+        return to_device(trainer, a if rows is None else a[:, rows])
 
-    return EvalTensors(prep(ids), prep(dense), prep(dmask), n)
+    return EvalTensors(prep(ids), prep(dense), prep(dmask), n, rows is not None)
 
 
 def prepare_metric_tensors(trainer, y, total: int):
@@ -489,7 +549,7 @@ def drive_steps(trainer, kind: str, plan: Plan, batch_size: int, steps_this_epoc
     body = trainer._staged_step_body(kind, plan, batch_size)
     key = (kind, batch_size, trainer._gate_warmup_active)
     scan = trainer._scan_steps
-    graphs = trainer._graphs if scan and not trainer.debug else None
+    graphs = trainer._graphs if scan and not trainer.debug and trainer._capturable else None
     pos = 0
     while pos < steps_this_epoch:
         L = (steps_this_epoch - pos if scan < 0
@@ -588,8 +648,10 @@ def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_
             weight = weight.copy()
             weight[len(idx):] = 0.0
             idx = np.concatenate([idx, np.zeros(pad, np.int64)])
-        arrays = [ids[idx], dense[idx], y[idx], dmask[idx] if dmask is not None else None,
-                  weight]
+        idx_r, weight_r = (idx, weight) if trainer.mesh is None else shard_batch(
+            (idx, weight), trainer.mesh)  # this rank's rows, or the whole batch
+        arrays = [ids[idx_r], dense[idx_r], y[idx_r],
+                  dmask[idx_r] if dmask is not None else None, weight_r]
         if host_meta:
             arrays += [a[0] for a in step_metadata(trainer, flat_ids(trainer, ids[idx], 1))]
         return weight, upload_async(trainer, arrays)

@@ -61,7 +61,25 @@ one runs; a larger dataset streams with a prefetch worker
 test metrics replay one captured forward per batch.  A fit synchronises
 once per epoch, for the loss and the collected probabilities.
 
-Meshes are not ported: they raise NotImplementedError naming ROADMAP A9.
+**Under a mesh** (``Trainer(mesh=parallel.create_mesh(data=N))``, one
+process per rank on ``torch.distributed``) the dense fit runs data
+parallel: parameters and buffers are broadcast from rank 0 once; a batch
+that divides by N is split, rank r taking rows ``[r B / N, (r + 1) B / N)``
+(the staged dataset row-sharded and fetched by ``distributed_take``, the
+streaming batches by ``shard_batch``), BatchNorm statistics and dropout
+masks are the global batch's (``ops.layers.batch_shard``), and one
+all-reduce SUM a step over the concatenated gradients (the flat optimizer's
+order) and the loss makes the global step; the L2 penalty and ESCM's
+entire-space loss, which is not a sum over rows, are counted once.  A batch
+that does not divide is replicated: every rank computes all of it and the
+all-reduce takes rank 0's gradients.  Eval rows are split the same way and
+the probabilities all-gathered in order, so every rank holds the global
+predictions and decides the same best epoch and early stop; rank 0 writes
+the checkpoints.  With one rank every value equals the unsharded fit's.
+Still refused there, by name: the per-task methods and the CKA loss
+(ROADMAP A9 part 1b: each task's gradient, and CKA's Gram sums, must be
+all-reduced before their non-linear merge), and the two-phase step and
+``model > 1`` (part 2, the row-sharded table).
 The combinations the JAX trainer refuses raise its ValueError.
 """
 
@@ -75,11 +93,14 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ExperimentConfig
 from ..models.base import RecModel
 from ..ops.embedding import fused_table_geometry, pack_factor_for
+from ..ops.layers import all_gather_rows, batch_shard
 from ..ops.row_gather import rows_gather_dual
+from ..parallel.mesh import data_group, model_size, shard_variables
 from . import checkpointing, device_metrics, staging
 from .graphs import StepGraphs
 from .cagrad import cagrad_merge
@@ -87,7 +108,7 @@ from .cka import cka_domain_loss
 from .gradnorm import gradnorm_update
 from .losses import l2_regularization, multitask_loss, per_task_losses
 from .metrics import get_metric_fns, regime_eval
-from .optimizers import Adam, Flat, _Elementwise, get_optimizer
+from .optimizers import Adam, Flat, FlatTensors, _Elementwise, get_optimizer
 from .pcgrad import pcgrad_merge
 from .sparse_embedding import (
     MOMENT_DTYPES,
@@ -110,9 +131,10 @@ EVAL_GRAPH_MIN_BATCHES = 16
 
 def stacked_auto_conditions(cfg, layout, batch_size, device="cuda") -> bool:
     """True iff the automatic stacked container applies at ``batch_size``
-    (trainer.py:46-86, without meshes: ROADMAP A9): the two-phase step, the
-    pallas update (auto or explicit) with packed bf16 moments, 128-lane
-    physical rows, the unique-metadata headroom and a card to run on."""
+    (trainer.py:46-86; a mesh refuses the two-phase step, ROADMAP A9 part
+    2): the two-phase step, the pallas update (auto or explicit) with
+    packed bf16 moments, 128-lane physical rows, the unique-metadata
+    headroom and a card to run on."""
     mc = cfg.model_config
     if not (mc.extra.get("two_phase_embedding")
             and str(mc.extra.get("table_update", "auto")) in ("auto", "pallas")
@@ -189,9 +211,11 @@ class Trainer:
         (trainer.py:147-154) turns on ``torch.autograd.set_detect_anomaly``
         and checks every step's loss and probabilities on the host: either
         raises a FloatingPointError, as jax_debug_nans does; it runs every
-        step and eval batch eagerly, as the JAX trainer turns donation off."""
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet (ROADMAP A9)")
+        step and eval batch eagerly, as the JAX trainer turns donation off.
+
+        ``mesh``: a ``parallel.create_mesh`` mesh of ``model = 1``: the fit
+        runs data parallel over its ``data`` ranks (module docstring); this
+        process's rank holds its model on ``device``."""
         self.debug = bool(debug)
         if self.debug:
             torch.autograd.set_detect_anomaly(True)
@@ -202,6 +226,15 @@ class Trainer:
                     "plain versions of the kernels on the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        if mesh is not None and model_size(mesh) > 1:
+            raise NotImplementedError(
+                "a mesh with model > 1 row-shards the embedding table: ROADMAP A9 part 2")
+        self.mesh = mesh
+        #: this rank's view of the mesh's data dimension, or None
+        self._dp = data_group(mesh) if mesh is not None else None
+        #: whether the steps' batches are split over the ranks (else every
+        #: rank computes the whole batch); the fit sets it from its batch
+        self._dp_sharded = True
         self.model = model.to(self.device)
         self.cfg: ExperimentConfig = model.cfg
         self.layout = model.layout
@@ -249,6 +282,10 @@ class Trainer:
         # the side stream of the worker threads' uploads
         self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                                else None)
+        # gloo's collectives on CUDA tensors synchronise with the host, which
+        # a captured graph cannot hold: such a mesh runs eager steps
+        self._capturable = not (self._dp is not None and self.device.type == "cuda"
+                                and dist.get_backend(self._dp.group) == "gloo")
 
         mc = self.cfg.model_config
         self.task_name = mc.task_name
@@ -264,6 +301,21 @@ class Trainer:
             else model.REG_DNN_PREFIXES
         )
         self._resolve_knobs()
+        if mesh is not None:
+            self._refuse_under_mesh()
+            shard_variables(self.model.state_dict(), mesh)
+
+    def _refuse_under_mesh(self) -> None:
+        mc = self.cfg.model_config
+        if self.per_task or mc.use_cka_loss:
+            raise NotImplementedError(
+                "the per-task gradient methods (pcg, use_gradnorm, use_cagrad) and the CKA "
+                "loss under a mesh are ROADMAP A9 part 1b: each task's gradient, and CKA's "
+                "Gram sums, must be all-reduced before their non-linear merge")
+        if self.two_phase_embedding:
+            raise NotImplementedError(
+                "two_phase_embedding under a mesh is ROADMAP A9 part 2 (the row-sharded "
+                "table and its explicit exchange)")
 
     # ------------------------------------------------------------------
     # knob resolution (trainer.py:205-486)
@@ -439,13 +491,16 @@ class Trainer:
         return self
 
     def _use_flat_optimizer(self) -> bool:
-        """trainer.py:561-580 without meshes (refused): off with
+        """trainer.py:561-580: off with
         ``flat_optimizer: false``; on for the two-phase step and
         ``sparse_embedding_update``, whose table is not the dense
         optimizer's (the JAX trainer keeps the latter per tensor, as its
         masked transform does not ravel: elementwise, the same bits); else on
         while the embedding tables hold under 2^22 elements (the flat vector
-        would copy a larger table every step)."""
+        would copy a larger table every step).  The JAX trainer turns it off
+        under a mesh, where the table's row sharding must survive in the
+        optimizer state; the port's mesh replicates every tensor, and the
+        flat and per-tensor paths are bitwise equal, so the rule stays."""
         if not self.cfg.model_config.extra.get("flat_optimizer", True):
             return False
         if self.two_phase_embedding or self.sparse_embedding_update:
@@ -552,8 +607,21 @@ class Trainer:
     # ------------------------------------------------------------------
     # the dense step (trainer.py:668-715, 996-1107)
     # ------------------------------------------------------------------
+    def _shard(self):
+        """The data group when this step's batch is split over the ranks."""
+        return self._dp if self._dp is not None and self._dp_sharded else None
+
     def _data_loss(self, probs, y, dmask, weight):
         mc = self.cfg.model_config
+        dp = self._shard()
+        if self._escm and dp is not None:
+            # ESCM's entire-space loss is no sum over rows (its propensity
+            # reads the batch's click count and a mean): every rank takes
+            # it over the global batch, its cotangent flowing back to each
+            # rank's rows only; rank 0 alone reports it (_train_step_dense)
+            probs = all_gather_rows(probs, dp)
+            yw = all_gather_rows(torch.cat([y, weight[:, None]], dim=1), dp)
+            y, weight = yw[:, :-1], yw[:, -1]
         return multitask_loss(
             probs, y, weight, self.loss_names, self.task_name, self.num_domains,
             domain_mask=dmask if mc.masked_loss else None,
@@ -585,10 +653,14 @@ class Trainer:
         else:
             probs = self._forward(state, ids, dense, model_mask)
         data_loss = self._data_loss(probs, y, dmask, weight)
-        reg = l2_regularization(
-            params, mc.l2_reg_embedding, mc.l2_reg_dnn,
-            dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
-        total = data_loss + reg
+        if self._shard() is not None and self._dp.rank:
+            # the ranks' totals add up to the global one: the penalty once
+            total = data_loss
+        else:
+            reg = l2_regularization(
+                params, mc.l2_reg_embedding, mc.l2_reg_dnn,
+                dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
+            total = data_loss + reg
         if want_cka:
             last = inter.get("last_layer", inter.get("dnn_input"))
             if last is not None:
@@ -683,6 +755,11 @@ class Trainer:
             else:
                 total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
                 grads = dict(zip(params, _grads(total, list(params.values()))))
+        if self._dp is not None:
+            report = total.detach()
+            if self._escm and self._shard() is not None and self._dp.rank:
+                report = torch.zeros_like(report)  # the global loss, counted by rank 0
+            grads, total = self._reduce_grads(grads, report)
         if self.sparse_embedding_update:
             # the table leaves the dense optimizer; its touched physical rows
             # take SparseAdam from the dense gradient (trainer.py:1074-1094)
@@ -690,6 +767,8 @@ class Trainer:
             table = params.pop(_TABLE)
             F = len(self.layout.sparse_slots)
             rows = (ids[:, :F] + self._fused_offsets[None, :]).reshape(-1)
+            if self._shard() is not None:  # the rows the global batch touched
+                rows = all_gather_rows(rows, self._dp)
             if self._emb_pack_factor > 1:
                 rows = torch.div(rows, self._emb_pack_factor, rounding_mode="floor")
             with torch.no_grad():
@@ -697,6 +776,43 @@ class Trainer:
                     table, g_table, rows, self.table_opt, lr=self.cfg.optim_config.lr)
         self.opt_state = self.tx.step(params, grads, self.opt_state)
         return total.detach(), data_loss.detach(), probs.detach()
+
+    # ------------------------------------------------------------------
+    # data parallel (mesh.py, trainer.py:996-1107 under a mesh)
+    # ------------------------------------------------------------------
+    def _reduce_grads(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor):
+        """(the global gradients, the global loss) from this rank's: one
+        all-reduce SUM of the gradients concatenated in their order (the
+        flat optimizer's, which steps the reduced vector as it is) and the
+        loss.  The loss is a weighted sum over rows, so the sum of the
+        ranks' gradients is the global one, not their mean.  A replicated
+        batch takes rank 0's: the other ranks send zeros."""
+        names = list(grads)
+        flat = torch.cat([grads[k].reshape(-1) for k in names] + [loss.reshape(1)])
+        if not self._dp_sharded and self._dp.rank:
+            flat.zero_()
+        dist.all_reduce(flat, group=self._dp.group)
+        parts = flat[:-1].split([grads[k].numel() for k in names])
+        views = {k: p.view(grads[k].shape) for k, p in zip(names, parts)}
+        return FlatTensors(flat[:-1], views), flat[-1]
+
+    def _gather_batches(self, t: torch.Tensor) -> torch.Tensor:
+        """[steps, B / N, ...] rank rows of each batch -> the [steps, B, ...]
+        global batches, rank r's rows at ``[r B / N, (r + 1) B / N)``."""
+        out = all_gather_rows(t, self._dp).view(self._dp.world, *t.shape).transpose(0, 1)
+        return out.reshape(t.shape[0], -1, *t.shape[2:])
+
+    def _rank0_writes(self, write, directory: str) -> str:
+        """Run ``write`` (which returns ``directory``) on rank 0 alone, the
+        other ranks waiting at a barrier until it is done."""
+        if self._dp is None:
+            return write()
+        try:
+            if self._dp.rank == 0:
+                directory = write()
+        finally:
+            dist.barrier(group=self._dp.group)
+        return directory
 
     # ------------------------------------------------------------------
     # the two-phase step (trainer.py:745-962, device-metadata branch)
@@ -726,7 +842,9 @@ class Trainer:
         device (``host_metadata``) when the two-phase step reads host
         metadata; when it is not given it is built here from ``ids`` read
         back to the host, the one way a step synchronises (the fit always
-        passes it, from its host copy of the ids)."""
+        passes it, from its host copy of the ids).  Under a mesh the batch
+        is this rank's rows of the global batch (``parallel.multihost.
+        host_local_batch_to_global``), and the step is the global one."""
         if self.opt_state is None:
             self.init_state()
         if self.per_task == "gradnorm" and self.gn_state is None:
@@ -745,10 +863,11 @@ class Trainer:
         """The step without the reseed: what a captured graph holds."""
         self.model.train()
         try:
-            if self.two_phase_embedding:
-                out = self._train_step_two_phase(ids, dense, y, dmask, weight, meta)
-            else:
-                out = self._train_step_dense(ids, dense, y, dmask, weight)
+            with batch_shard(self._shard()):
+                if self.two_phase_embedding:
+                    out = self._train_step_two_phase(ids, dense, y, dmask, weight, meta)
+                else:
+                    out = self._train_step_dense(ids, dense, y, dmask, weight)
         except RuntimeError as e:  # anomaly detection's NaN out of a backward
             if self.debug and "nan" in str(e):
                 raise FloatingPointError(f"debug: {e}") from e
@@ -772,6 +891,8 @@ class Trainer:
         def body():
             s = torch.remainder(plan.epoch_step, steps)
             w = plan.w2d.index_select(0, s)[0]
+            if self._dp is not None:  # this rank's rows of the global batch
+                w = w[plan.rank_rows]
             if kind == "slice":
                 idx = plan.arg.index_select(0, s) + plan.arange_b
             else:
@@ -950,6 +1071,9 @@ class Trainer:
             print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
                   f"{steps_per_epoch} steps per epoch")
         rng_np = np.random.default_rng(self.seed)
+        # under a mesh a batch that divides by the ranks is split, else
+        # every rank computes all of it (shard_batch, mesh.py:116-129)
+        self._dp_sharded = self._dp is None or batch_size % self._dp.world == 0
         plan, ids, dense, y, dmask = staging.make_device_plan(
             self, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch, n, rng_np,
             epochs, initial_epoch, max_steps)
@@ -962,6 +1086,7 @@ class Trainer:
                              best_snapshot)
         finally:
             staging.close_plan(plan)
+            self._dp_sharded = True
             replays = self._graphs.replays
             self.graph_replays = {
                 "train": sum(v for k, v in replays.items() if k[0] != "eval"),
@@ -1034,6 +1159,8 @@ class Trainer:
                     plan, order, batch_order, ids, dense, y, dmask, batch_size, steps, n)
             if events:
                 events[1].record()
+            if probs_dev is not None and self._shard() is not None:
+                probs_dev = self._gather_batches(probs_dev)
             timing["issue_s"] = time.perf_counter() - clock
             clock = time.perf_counter()
             total_steps += steps
@@ -1058,7 +1185,8 @@ class Trainer:
                 if val_program is None:  # the validation set goes to the device once
                     val_ev = staging.prepare_eval_tensors(self, val[0], val[1], val[3],
                                                           batch_size)
-                    val_program = _EvalProgram(self, val_ev, None, self._graphs)
+                    val_program = _EvalProgram(self, val_ev, None,
+                                               self._graphs if self._capturable else None)
                     if self._use_device_eval():
                         val_metric = staging.prepare_metric_tensors(
                             self, val[2], val_ev.ids.shape[0] * batch_size)
@@ -1158,7 +1286,8 @@ class Trainer:
         captured forward replayed per batch from ``EVAL_GRAPH_MIN_BATCHES``
         batches on, eager forwards below."""
         best = self.best_variables if use_best else None
-        graphs = StepGraphs(self.device) if ev.ids.shape[0] >= EVAL_GRAPH_MIN_BATCHES else None
+        graphs = (StepGraphs(self.device)
+                  if ev.ids.shape[0] >= EVAL_GRAPH_MIN_BATCHES and self._capturable else None)
         return _EvalProgram(self, ev, best, graphs).run()
 
     def _predict_packed(self, ids, dense, dmask, batch_size: int) -> np.ndarray:
@@ -1181,7 +1310,8 @@ class Trainer:
         dmask = self._domain_mask_from(x)
         if not getattr(self, "_save_layer_output", False):
             return self._predict_packed(ids, dense, dmask, batch_size)
-        ev = staging.prepare_eval_tensors(self, ids, dense, dmask, batch_size)
+        # every rank computes all rows here: the intermediates stay whole
+        ev = staging.prepare_eval_tensors(self, ids, dense, dmask, batch_size, split=False)
         best = self.best_variables
         self.model.eval()
         outs, inters = [], {}
@@ -1255,6 +1385,8 @@ class Trainer:
         with torch.no_grad():
             self.model.load_state_dict(fresh.state_dict())
         del fresh
+        if self.mesh is not None:
+            shard_variables(self.model.state_dict(), self.mesh)
         self.seed = seed
         self.opt_state = self.table_opt = self.best_variables = self.gn_state = None
         self.history, self.batch_history = [], []
@@ -1296,10 +1428,14 @@ class Trainer:
     # checkpoints (train/checkpointing.py) and history
     # ------------------------------------------------------------------
     def save_training_state(self, path: str, epoch: Optional[int] = None) -> str:
-        return checkpointing.save_training_state(self, path, epoch)
+        """Under a mesh rank 0 writes, the others wait (``_rank0_writes``)."""
+        return self._rank0_writes(lambda: checkpointing.save_training_state(self, path, epoch),
+                                  checkpointing.state_ckpt_dir(self, path))
 
     def save_checkpoint(self, path: str) -> str:
-        return checkpointing.save_checkpoint(self, path)
+        """Under a mesh rank 0 writes, the others wait (``_rank0_writes``)."""
+        return self._rank0_writes(lambda: checkpointing.save_checkpoint(self, path),
+                                  checkpointing.model_ckpt_dir(self, path))
 
     def restore_checkpoint(self, path: str) -> "Trainer":
         return checkpointing.restore_checkpoint(self, path)
@@ -1357,8 +1493,11 @@ class _EvalProgram:
         return self.out
 
     def run(self) -> torch.Tensor:
-        """[steps * batch, heads] selected probabilities on the device."""
+        """[steps * batch, heads] selected probabilities on the device; under
+        a mesh that split the batches, every rank's in the global order."""
         out = self.collect()
+        if self.ev.split:
+            out = self.trainer._gather_batches(out)
         return self.trainer._selected(out.reshape(-1, out.shape[-1]))
 
 

@@ -78,7 +78,7 @@ def test_device_eval_flag_and_bundle_export(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,err,item", [
-    (["--data_parallel", "2"], NotImplementedError, "A9"),
+    (["--data_parallel", "2", "--model_parallel", "2"], NotImplementedError, "A9"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_flags_raise(flags, err, item, tmp_path, monkeypatch):

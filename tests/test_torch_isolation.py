@@ -45,7 +45,8 @@ def test_import_pulls_in_no_jax():
               "native", "data", "train.checkpointing", "train.device_metrics",
               "train.staging", "train.graphs", "utils.results", "utils.seeding",
               "train.pcgrad", "train.gradnorm", "train.cagrad", "train.cka",
-              "train.multi_seed", "train.sweep", "tools.probe_rows", "tools.timing"):
+              "train.multi_seed", "train.sweep", "tools.probe_rows", "tools.timing",
+              "parallel", "parallel.mesh", "parallel.multihost"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}
@@ -300,3 +301,11 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
     for fn in (ctrdataset, native.load_csv_columns):
         assert "device" not in inspect.signature(fn).parameters
+    # the mesh: create_mesh, and so --data_parallel, default to the card
+    from mmlrec_tpu_torch.parallel import create_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config", config, "--seed", "0", "--synthetic", "--data_parallel", "1"])
+    assert not torch.distributed.is_initialized()

@@ -327,8 +327,14 @@ def test_trainer_refuses_meshes_and_defaults_to_the_card(monkeypatch, tmp_path):
     cfg = tsyn.make_config(vocab=400, **KW)
     layout, x, y, _ = tsyn.make_data(cfg, n=64, seed=0, vocab=400)
     model = get_model("mmoe", layout, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(model, mesh=object(), device="cpu")
+    from mmlrec_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(device="cpu")  # a process group of one
+    try:
+        with pytest.raises(NotImplementedError, match="A9 part 2"):
+            Trainer(model, mesh=mesh, device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model)
