@@ -301,6 +301,27 @@ failure and carries on):
    form ``DP_RULE`` says, the ranks' losses equal, B5-B7 once a step a
    rank; and MMoE with BatchNorm without dropout, whose verdict by phase
    9's own form is reported, not held.
+20. (run after phase 19, printed with phase 15's lines) the row-sharded
+   table (``parallel/shard_embedding.py``, ``parallel/explicit_step.py``):
+   (a) the production recipe's 40 M-row table (16 x 2.5 M ids x emb 32,
+   P = 4, K = 65,536 ids a step) folded shard-major over four model shards
+   in one process; each shard's update runs in turn with its own window
+   (the stacked container in position space, uniform ids, and in slot
+   space, Zipf-1.1 ids, both by the gather route; the split container's
+   write-kernel update of packed bf16 and of f32 moments) and the
+   assembled shards are held against the single-chip update of the same
+   inputs (untouched rows bitwise, touched rows within 2 ulp), with each
+   shard's µs and launches; then B1, B2 and B3 in window mode on one
+   shard, its local ids negative before its window and past its rows
+   after, bitwise against their plain versions, with µs and byte bounds;
+   (b) two ranks on the one card over gloo as a (data 1, model 2) mesh:
+   the explicit two-phase fit of the flagship MMoE (vocab 2^16 a feature,
+   the stacked pallas container shard-major) and the dense fit with the
+   table row-sharded, 3 steps of 1024 each, rank 0's gathered training
+   state and the predictions against the same fits in one process on the
+   card; (c) one eager step of the explicit two-phase step (stacked pallas
+   container, metadata in the step) on a 1 x 1 NCCL mesh under
+   ``set_sync_debug_mode("error")``.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -4670,6 +4691,452 @@ def data_parallel(torch, K, card, flagship_staged, workdir):
             "world2_gloo": _dp_world2(torch, K, card, os.path.join(workdir, "dp"))}
 
 
+# phase 20: the row-sharded table
+SHARD_MODEL = 4  # (a): the 40 M-row container over four model shards
+MP_WORLD = 2  # (b): (data 1, model 2) over gloo on the one card
+MP_VOCAB, MP_BATCH, MP_STEPS = 1 << 16, 1024, 3
+MP_ARMS = {  # arm -> the model config's extra fields
+    "explicit, stacked pallas": dict(
+        two_phase_embedding=True, explicit_collective_embedding=True, table_update="pallas",
+        table_opt_dtype="bfloat16", table_container="stacked", dedup_route="gather",
+        update_space="position"),
+    "dense fit, model 2": {},
+}
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _max_ulp(torch, a, b) -> int:
+    """The largest distance in f32 ulps between two arrays of one sign
+    pattern (the int32 of their bits)."""
+    d = (a.contiguous().view(torch.int32).long() - b.contiguous().view(torch.int32).long()).abs()
+    return int(d.max()) if d.numel() else 0
+
+
+def _shard_views(sm, i, r):
+    """(table, monu) of shard i of a shard-major [2R, W] container."""
+    return sm[i * 2 * r:i * 2 * r + r], sm[i * 2 * r + r:(i + 1) * 2 * r]
+
+
+def _zipf_ids(torch, seed, batch, n_feat, vocab, pack):
+    rng = np.random.default_rng(seed)
+    local = (rng.zipf(1.1, (batch, n_feat)) - 1) % vocab
+    flat = (local + np.arange(n_feat) * vocab).reshape(-1).astype(np.int32)
+    flat = torch.from_numpy(flat).to(DEV)
+    return flat, torch.div(flat, pack, rounding_mode="floor")
+
+
+def _event_us(torch, fn) -> float:
+    """Device µs of one eager call, between two CUDA events."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3
+
+
+def row_sharded_updates(torch, K, card):
+    """Phase 20 (a): the production recipe's 40 M-row table (16 x 2.5 M ids x
+    emb 32, P = 4) row-sharded over ``SHARD_MODEL`` model shards in one
+    process, each shard's update run in turn with its own window, held
+    against the single-chip update of the same inputs; then the windowed
+    B1 / B2 / B3 launches of one shard alone against their plain versions."""
+    from mmlrec_tpu_torch.ops import cuda_build
+    from mmlrec_tpu_torch.ops import row_gather as G
+    from mmlrec_tpu_torch.ops import row_scatter as S
+    from mmlrec_tpu_torch.parallel import shard_embedding as SH
+    from mmlrec_tpu_torch.tools.timing import device_ms
+    from mmlrec_tpu_torch.train import sparse_embedding as SE
+
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(20)
+    P, n = 128 // FULL_EMB, SHARD_MODEL
+    V, W, B = FULL_FEATURES * FULL_VOCAB // P, 128, FLAGSHIP_BATCH
+    Kn, r = B * FULL_FEATURES, FULL_FEATURES * FULL_VOCAB // P // SHARD_MODEL
+    lr = 1e-3
+    ref = torch.empty((2 * V, W), dtype=torch.float32, device=dev)
+    ref[:V].normal_(0.0, 0.1, generator=g)
+    ref[V:] = SE.pack_monu(torch.randn((V, W), generator=g, device=dev) * 1e-2,
+                           torch.rand((V, W), generator=g, device=dev) * 1e-3)
+    sm = SE.fold_stacked_planes(ref[:V], ref[V:], n)  # the shard-major copy
+    mu_ref = torch.randn((V, W), generator=g, device=dev) * 1e-2
+    nu_ref = torch.rand((V, W), generator=g, device=dev) * 1e-3
+    mu_sm, nu_sm = mu_ref.clone(), nu_ref.clone()
+    torch.cuda.synchronize()
+    gib = torch.cuda.max_memory_allocated() / 2**30
+
+    def metadata(flat):
+        meta = SE.batch_step_metadata(flat.cpu().numpy()[None].astype(np.int64), P, V,
+                                      want_route=True)
+        return [torch.from_numpy(a[0]).to(dev) for a in meta]
+
+    def count(c):
+        return torch.tensor(c, dtype=torch.int32, device=dev)
+
+    arms, out = {}, {}
+    for arm in ("stacked, position space", "stacked, slot space", "split, packed bf16",
+                "split, f32"):
+        if arm.endswith("slot space"):
+            flat, phys = _zipf_ids(torch, 20, B, FULL_FEATURES, FULL_VOCAB, P)
+        else:
+            flat, phys = _ids_like_the_step(torch, g, B, FULL_FEATURES, FULL_VOCAB, P)
+        inv, rep, pids, pinv, nuniq, prep, *route = metadata(flat)
+        rkw = dict(zip(("accperm", "resid_pos", "resid_slot", "gdup_pos", "gdup_tgt"), route))
+        g_rows = torch.randn((Kn, FULL_EMB), generator=g, device=dev)
+        # the single-chip update
+        if arm == "stacked, position space":
+            pair = G.rows_gather_dual(ref.view(2, V, W), phys)
+            SE.two_phase_sparse_adam_unique(
+                ref, g_rows, flat, inv, rep, pids, pinv, SE.SparseAdamFoldedState(count(3)), lr,
+                pack_factor=P, n_real=nuniq, sup=pair[0], sup_c=pair[1], prep=prep, **rkw)
+        elif arm == "stacked, slot space":
+            pair = G.rows_gather_dual(ref.view(2, V, W), pids, n_real=nuniq)
+            SE.two_phase_sparse_adam_slot(ref, g_rows, flat, rep, pids, nuniq, pair[0], pair[1],
+                                          SE.SparseAdamFoldedState(count(3)), lr, *route,
+                                          pack_factor=P)
+        elif arm == "split, packed bf16":
+            SE.two_phase_sparse_adam_unique(
+                ref[:V], g_rows, flat, inv, rep, pids, pinv,
+                SE.SparseAdamPackedState(ref[V:], count(3)), lr, pack_factor=P, n_real=nuniq,
+                sup=ref[:V].index_select(0, phys.long()), prep=prep, **rkw)
+        else:
+            SE.two_phase_sparse_adam_unique(
+                ref[:V], g_rows, flat, inv, rep, pids, pinv,
+                SE.SparseAdamState(mu_ref, nu_ref, count(3)), lr, pack_factor=P, n_real=nuniq,
+                sup=ref[:V].index_select(0, phys.long()), prep=prep)
+        # each shard in turn, counted and timed
+        shard_us, launches, windows = [], [], []
+        for i in range(n):
+            t_i, m_i = _shard_views(sm, i, r)
+            if arm.startswith("stacked"):
+                space = arm.split(", ")[1].split()[0]
+
+                def update():
+                    SH.sharded_two_phase_sparse_adam_folded(
+                        sm[i * 2 * r:(i + 1) * 2 * r], g_rows, flat, inv, rep, pids, pinv,
+                        nuniq, prep, SE.SparseAdamFoldedState(count(3)), lr, i, pack_factor=P,
+                        update_space=space, **rkw)
+            elif arm == "split, packed bf16":
+                def update():
+                    SH.sharded_two_phase_sparse_adam_pallas(
+                        t_i, g_rows, flat, inv, rep, pids, pinv, nuniq, prep,
+                        SE.SparseAdamPackedState(m_i, count(3)), lr, i, pack_factor=P, **rkw)
+            else:
+                def update():
+                    SH.sharded_two_phase_sparse_adam_pallas(
+                        t_i, g_rows, flat, inv, rep, pids, pinv, nuniq, prep,
+                        SE.SparseAdamState(mu_sm[i * r:(i + 1) * r], nu_sm[i * r:(i + 1) * r],
+                                           count(3)), lr, i, pack_factor=P)
+            cuda_build.reset_launch_counts()
+            shard_us.append(_event_us(torch, update))
+            launches.append({k: v for k, v in cuda_build.launch_counts.items() if v})
+            windows.append(SH.owned_bounds(pids, nuniq, i, r).tolist())
+        # the shards against the single-chip arrays: both started equal, so a
+        # row that differs must be one the step touched, by at most 2 ulp
+        untouched, max_ulp = True, 0
+        touched = pids[:int(nuniq[0])].long()
+        for i in range(n):
+            t_i, m_i = _shard_views(sm, i, r)
+            pairs = [(t_i, ref[i * r:(i + 1) * r])]
+            if arm == "split, f32":
+                pairs += [(mu_sm[i * r:(i + 1) * r], mu_ref[i * r:(i + 1) * r]),
+                          (nu_sm[i * r:(i + 1) * r], nu_ref[i * r:(i + 1) * r])]
+            else:
+                pairs.append((m_i, ref[V + i * r:V + (i + 1) * r]))
+            for a, b in pairs:
+                if not _bits_equal(torch, a, b):
+                    rows = (a.view(torch.int32) != b.view(torch.int32)).any(1).nonzero()[:, 0]
+                    untouched = untouched and bool(torch.isin(rows + i * r, touched).all())
+                    max_ulp = max(max_ulp, _max_ulp(torch, a, b))
+        bitwise = max_ulp == 0
+        want = ({"rows_gather_dual": 1, "rows_write_dual": 1} if arm.startswith("stacked")
+                else {"rows_write": 1})
+        if not untouched or max_ulp > 2 or any(x != want for x in launches):
+            raise AssertionError(f"phase 20 (a), {arm}: the shards left the pin (max {max_ulp} "
+                                 f"ulp) or launched {launches}, expected {want} a shard")
+        log(f"[20] (a) {arm}, table [{V},{W}] over {n} model shards of {r} rows, K = {Kn} ids "
+            f"({int(nuniq[0])} distinct rows; windows {windows}): the assembled shards "
+            f"{'bitwise equal to' if bitwise else f'within {max_ulp} ulp of'} the single-chip "
+            f"update, untouched rows bitwise; launches a step a shard {launches[0]}; each "
+            f"shard's update {[round(u, 1) for u in shard_us]} us (one eager call, device "
+            f"events); peak {gib:.1f} GiB [{card}]")
+        arms[arm] = dict(bitwise=bitwise, max_ulp=max_ulp, shard_us=shard_us,
+                         launches_per_step_per_shard=launches[0], windows=windows,
+                         distinct_rows=int(nuniq[0]))
+    # the windowed kernels alone: shard 1 (its window starts past slot 0, its
+    # local ids run negative before it and past r after it), uniform ids
+    i = 1
+    flat, phys = _ids_like_the_step(torch, g, B, FULL_FEATURES, FULL_VOCAB, P)
+    _, _, pids, _, nuniq, _ = metadata(flat)[:6]
+    bounds = SH.owned_bounds(pids, nuniq, i, r)
+    lo, hi = bounds.tolist()
+    lpids = (pids - i * r).to(torch.int32)
+    outside = dict(negative=int((lpids < 0).sum()), past_the_shard=int((lpids >= r).sum()))
+    stacked = sm[i * 2 * r:(i + 1) * 2 * r].view(2, r, W)
+    clipped = lpids.clamp(0, r - 1)
+    got = G.rows_gather_dual(stacked, clipped, bounds=bounds)
+    if not _bits_equal(torch, got, G.rows_gather_dual_plain(stacked, clipped, bounds=bounds)):
+        raise AssertionError("phase 20: windowed rows_gather_dual differs from its plain version")
+    cnt, Kp = hi - lo, pids.shape[0]
+    win_ids = clipped[lo:hi].long()
+    values = torch.randn((2, Kp, W), generator=g, device=dev)
+    k_out, p_out = stacked.clone(), stacked.clone()
+    S.rows_write_dual(k_out, lpids, values, bounds=bounds)
+    S.rows_write_dual_plain(p_out, lpids, values, bounds=bounds)
+    torch.cuda.synchronize()
+    if not _bits_equal(torch, k_out, p_out):
+        raise AssertionError("phase 20: windowed rows_write_dual differs from its plain version")
+    ka, pa = (k_out[0], k_out[1]), (p_out[0], p_out[1])
+    S.rows_write(ka, lpids, (values[1], values[0]), bounds=bounds)
+    S.rows_write_plain(pa, lpids, (values[1], values[0]), bounds=bounds)
+    torch.cuda.synchronize()
+    if not _bits_equal(torch, k_out, p_out):
+        raise AssertionError("phase 20: windowed rows_write differs from its plain version")
+
+    def index_copy_each():
+        k_out[0].index_copy_(0, win_ids, values[0, lo:hi])
+        k_out[1].index_copy_(0, win_ids, values[1, lo:hi])
+
+    cases = {
+        "rows_gather_dual": dict(
+            run=lambda: G.rows_gather_dual(stacked, clipped, bounds=bounds),
+            plain=lambda: G.rows_gather_dual_plain(stacked, clipped, bounds=bounds),
+            plain_capturable=True, library=lambda: stacked.index_select(1, win_ids),
+            bytes=8 + 4 * cnt + 2 * 4 * W * cnt + 2 * 4 * W * Kp),
+        "rows_write_dual": dict(
+            run=lambda: S.rows_write_dual(k_out, lpids, values, bounds=bounds),
+            plain=lambda: S.rows_write_dual_plain(p_out, lpids, values, bounds=bounds),
+            plain_capturable=False, library=lambda: k_out.index_copy_(1, win_ids, values[:, lo:hi]),
+            bytes=8 + 4 * cnt + 2 * 2 * 4 * W * cnt),
+        "rows_write": dict(
+            run=lambda: S.rows_write(ka, lpids, (values[1], values[0]), bounds=bounds),
+            plain=lambda: S.rows_write_plain(pa, lpids, (values[1], values[0]), bounds=bounds),
+            plain_capturable=False, library=index_copy_each,
+            bytes=8 + 4 * cnt + 2 * 2 * 4 * W * cnt),
+    }
+    for name, c in cases.items():
+        ms = device_ms(c["run"])
+        plain_ms = _time(torch, c["plain"], c["plain_capturable"])
+        lib_ms = device_ms(c["library"])
+        bound_ms, bound_by = bound(c["bytes"], 0)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=c["bytes"], bitwise=True, window=[lo, hi],
+                         local_ids_outside=outside, launches_per_step_per_shard=1,
+                         shapes=f"shard {i} of {n}: [2, {r}, {W}], {Kp} slots")
+        log(f"[20] (a) {name} in window mode, shard {i} of {n} ([2, {r}, {W}], window "
+            f"[{lo}, {hi}) of {Kp} slots, local ids outside the shard {outside}): bitwise equal "
+            f"to the plain version; kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"library {lib_ms * 1e3:.2f} us; {c['bytes'] / 1e6:.2f} MB, bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}); 1 launch a step a shard [{card}]")
+    del ref, sm, mu_ref, nu_ref, mu_sm, nu_sm, k_out, p_out, stacked
+    torch.cuda.empty_cache()
+    return dict(arms=arms, windowed_kernels=out, peak_gib=gib)
+
+
+def _mp_model(name, layout, cfg, shards):
+    """The flagship's model on the CPU from ``_numpy_train_state``, a
+    stacked container refolded shard-major over ``shards``."""
+    from mmlrec_tpu_torch.convert import load_jax_variables
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.train.sparse_embedding import fold_stacked_planes
+
+    import torch
+
+    model = get_model(name, layout, cfg, device="cpu")
+    load_jax_variables(model, _numpy_train_state(model, seed=24))
+    fused = model.embeddings.fused
+    if fused.dual_container and shards > 1:
+        with torch.no_grad():
+            plane = fused.table[: fused.table.shape[0] // 2].clone()
+            fused.table.copy_(fold_stacked_planes(plane, torch.zeros_like(plane), shards))
+    return model
+
+
+def _mp_arm(arm, shards):
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+
+    extra = dict(MP_ARMS[arm])
+    if extra.get("table_container") == "stacked":
+        extra["stacked_shards"] = shards
+    cfg = aliexpress_like_config("mmoe", batch_size=MP_BATCH, **extra)
+    vocab = MP_VOCAB if extra else 100
+    layout, x, y, _ = make_data(cfg, n=MP_STEPS * MP_BATCH - 100, vocab=vocab, seed=25)
+    return cfg, layout, x, y
+
+
+def _mp_rank(rank, port, workdir, reports):
+    """Phase 20 (b): one of two ranks on the one card, over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from mmlrec_tpu_torch.ops import kernels as K
+    from mmlrec_tpu_torch.parallel import create_mesh
+    from mmlrec_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=MP_WORLD)
+        mesh = create_mesh(data=1, model=MP_WORLD, device="cpu")  # gloo, the tensors on the card
+        for arm in MP_ARMS:
+            cfg, layout, x, y = _mp_arm(arm, MP_WORLD)
+            tr = Trainer(_mp_model("mmoe", layout, cfg, MP_WORLD), seed=0, mesh=mesh,
+                         device=DEV).compile()
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(x, y, batch_size=MP_BATCH, epochs=1, verbose=0, shuffle=False)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            launches = _per_step(K, MP_STEPS)
+            pred = tr.predict(x, MP_BATCH)
+            state = tr.save_training_state(os.path.join(workdir, arm.replace(" ", "_")))
+            reports.put((rank, arm, dict(
+                losses=[h["loss"] for h in tr.history], fit_ms=fit_ms, launches_per_step=launches,
+                pred=pred, state=state, table_rows=int(tr.table.shape[0])), None))
+        dist.destroy_process_group()
+    except Exception as e:
+        reports.put((rank, None, None, f"{type(e).__name__}: {e}"))
+        raise
+
+
+def row_sharded_world2(torch, K, card, workdir):
+    """Phase 20 (b): (data 1, model 2) over gloo on the one card: the
+    explicit two-phase fit of the flagship MMoE (stacked pallas container,
+    shard-major) and the dense fit with the table row-sharded, 3 steps each,
+    against the same fits in one process on the card."""
+    import multiprocessing as mp
+    import queue
+
+    from mmlrec_tpu_torch.main import _free_port
+    from mmlrec_tpu_torch.train import Trainer, checkpointing
+    from mmlrec_tpu_torch.train.sparse_embedding import split_stacked_planes, unpack_monu_f32
+
+    ctx = mp.get_context("spawn")
+    reports = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mp_rank, args=(r, port, workdir, reports))
+             for r in range(MP_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < MP_WORLD * len(MP_ARMS):
+            try:
+                rank, arm, res, error = reports.get(timeout=5.0)
+            except queue.Empty:
+                if any(p.exitcode is not None and p.exitcode != 0 for p in procs):
+                    raise AssertionError("phase 20 (b): a rank died without a report")
+                continue
+            if error is not None:
+                raise AssertionError(f"phase 20 (b): rank {rank} failed: {error}")
+            got[(rank, arm)] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    out = {}
+    for arm in MP_ARMS:
+        cfg, layout, x, y = _mp_arm(arm, 1)
+        single = Trainer(_mp_model("mmoe", layout, cfg, 1), seed=0, device=DEV).compile()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single.fit(x, y, batch_size=MP_BATCH, epochs=1, verbose=0, shuffle=False)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        single_launches = _per_step(K, MP_STEPS)
+        pred = single.predict(x, MP_BATCH)
+        ranks = [got[(r, arm)] for r in range(MP_WORLD)]
+        saved = checkpointing.load_tensors(ranks[0]["state"], checkpointing.STATE_FILE, DEV)
+        table = single.table.detach()
+        diffs = {}
+        if single.two_phase_embedding:
+            plane, monu = split_stacked_planes(table, 1)
+            diffs["table"] = float((saved["params/embeddings.fused.table"] - plane).abs().max())
+            mu, nu = unpack_monu_f32(monu)
+            diffs["mu"] = float((saved["table_opt/mu"].float() - mu).abs().max())
+            diffs["nu"] = float((saved["table_opt/nu"].float() - nu).abs().max())
+        else:
+            diffs["table"] = float((saved["params/embeddings.fused.table"] - table).abs().max())
+            diffs["table_adam_mu"] = float((saved["opt_state/mu/embeddings.fused.table"]
+                                            - single.opt_state.mu["embeddings.fused.table"])
+                                           .abs().max())
+        diffs["dense"] = max(float((saved[f"params/{k}"] - v.detach()).abs().max())
+                             for k, v in single.model.named_parameters()
+                             if k != "embeddings.fused.table")
+        diffs["pred"] = float(np.abs(ranks[0]["pred"] - pred).max())
+        losses = [r["losses"][0] for r in ranks]
+        launches = ranks[0]["launches_per_step"]
+        ok = (len(set(losses)) == 1 and abs(losses[0] - single.history[-1]["loss"])
+              <= 1e-5 * abs(losses[0]) and np.array_equal(ranks[0]["pred"], ranks[1]["pred"])
+              and max(diffs.values()) <= 1e-5)
+        log(f"[20] (b) {arm}, (data 1, model 2) on one card over gloo, {MP_STEPS} steps of "
+            f"{MP_BATCH}: each rank holds {ranks[0]['table_rows']} table rows of "
+            f"{table.shape[0]}; epoch loss ranks {losses}, one process "
+            f"{single.history[-1]['loss']:.9g}; rank 0's gathered state and predictions vs the "
+            f"one process: max |diff| { {k: float(f'{v:.3g}') for k, v in diffs.items()} } "
+            f"(tol 1e-5); launches per step per rank { {k: round(v, 3) for k, v in launches.items()} } "
+            f"(one process {single_launches}); fit host ms {ranks[0]['fit_ms']:.1f} (world 2, "
+            f"gloo) vs {single_ms:.1f} (one process) [{card}]")
+        if not ok:
+            raise AssertionError(f"phase 20 (b), {arm}: the (data 1, model 2) fit differs from "
+                                 "the one process's, or the ranks differ")
+        out[arm] = dict(losses_by_rank=losses, loss_single=single.history[-1]["loss"],
+                        max_abs_diff=diffs, launches_per_step_per_rank=launches,
+                        launches_per_step_single=single_launches,
+                        fit_host_ms_world2=ranks[0]["fit_ms"], fit_host_ms_single=single_ms,
+                        table_rows_per_rank=ranks[0]["table_rows"])
+    return out
+
+
+def _sync_free_mesh_step(torch, card) -> dict:
+    """Phase 20 (c): one eager step of the explicit two-phase step (the
+    stacked pallas container, metadata in the step) on a 1 x 1 NCCL mesh
+    under ``set_sync_debug_mode("error")``."""
+    import torch.distributed as dist
+
+    from mmlrec_tpu_torch.parallel import create_mesh
+
+    cfg, layout, x, y = _mp_arm("explicit, stacked pallas", 1)
+    cfg.model_config.extra.update(device_metadata=True, dedup_route="auto")
+    mesh = create_mesh(data=1)  # NCCL, a process group of one
+    try:
+        from mmlrec_tpu_torch.train import Trainer
+
+        tr = Trainer(_mp_model("mmoe", layout, cfg, 1), seed=0, mesh=mesh, device=DEV).compile()
+        ids, dense = tr.pack_inputs(x)
+        batch = [torch.from_numpy(np.ascontiguousarray(a[:MP_BATCH])).to(DEV)
+                 for a in (ids, dense, tr._prepare_y(y))]
+        batch += [None, torch.ones(MP_BATCH, device=DEV)]
+        tr.train_step(*batch)  # the first step builds what it caches
+        _sync_free_step(torch, tr, batch)
+    finally:
+        dist.destroy_process_group()
+    log(f"[20] (c) one eager explicit two-phase step (stacked pallas, device metadata) on a "
+        f"1 x 1 NCCL mesh ran under set_sync_debug_mode('error') [{card}]")
+    return {"sync_free_eager_explicit_step": True}
+
+
+def row_sharded(torch, K, card, workdir):
+    """Phase 20: (a) the 40 M-row shards in one process, (b) world 2 over
+    gloo on the card, (c) the explicit step free of synchronising calls."""
+    t0 = time.perf_counter()
+    a = row_sharded_updates(torch, K, card)
+    b = row_sharded_world2(torch, K, card, os.path.join(workdir, "mp"))
+    c = _sync_free_mesh_step(torch, card)
+    log(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"shards_40m": a, "world2_gloo": b, **c, "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4732,6 +5199,7 @@ def main(argv=None) -> int:
     csv_path = csv_pipeline(torch, K, card, workdir, args.seed)
     probes = probe_kernels(torch, card)
     dp = data_parallel(torch, K, card, staged["dense_flagship"], workdir)
+    sharded = row_sharded(torch, K, card, workdir)
 
     launches = {name: flagship["launches"][name] for name in REPLACES
                 if name not in ROW_KERNELS + LIBRARY_KERNELS + tuple(PROBE_KERNELS)}
@@ -4780,6 +5248,18 @@ def main(argv=None) -> int:
             "world 1 (NCCL), flagship": dp["world1_nccl"]["launches_per_step"].get(name, 0.0),
             **{f"world 2 (gloo), {arm}, per rank": res["launches_per_step_per_rank"].get(name, 0.0)
                for arm, res in dp["world2_gloo"].items()}}
+    # phase 20: the row-sharded table: B1-B3 in window mode at 4 model shards,
+    # and launches a step a rank of the (data 1, model 2) fits
+    for name, res in sharded["shards_40m"]["windowed_kernels"].items():
+        kernels[name]["window_mode_phase20"] = res
+    for name in ("rows_gather_dual", "rows_write_dual", "rows_write"):
+        kernels[name]["launches_per_step_per_shard_phase20"] = {
+            arm: r["launches_per_step_per_shard"].get(name, 0)
+            for arm, r in sharded["shards_40m"]["arms"].items()}
+    for name in (*FORWARD_KERNELS, "rows_gather_dual", "rows_write_dual"):
+        kernels[name]["launches_per_step_per_rank_phase20"] = {
+            arm: r["launches_per_step_per_rank"].get(name, 0.0)
+            for arm, r in sharded["world2_gloo"].items()}
     kernels["embed_concat"]["phase14_dense_width_69"] = {
         k: task["varlen"][k] for k in ("embed_concat_dense_width", "embed_concat_vector_rows",
                                        "embed_concat_bitwise", "embed_concat_us")}
@@ -4810,6 +5290,7 @@ def main(argv=None) -> int:
     print(json.dumps({"csv_pipeline": csv_path, "card": card}), flush=True)
     print(json.dumps({"probes": probes, "card": card}), flush=True)
     print(json.dumps({"data_parallel": dp, "card": card}), flush=True)
+    print(json.dumps({"row_sharded": sharded, "card": card}), flush=True)
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

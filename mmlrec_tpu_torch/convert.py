@@ -6,12 +6,14 @@ The port names its parameters as the flax modules do, so the flax path
 ``embeddings.table_{name}``) and every leaf keeps its layout (``[K, in, out]`` kernels, the lane-packed
 ``[rows/P, 128]`` table, the stacked ``[2Vp, 128]`` container).  Trees are
 given as numpy arrays (or anything ``np.asarray`` takes); this module
-imports no JAX.
+imports no JAX.  ``table_to_ranks`` / ``ranks_to_table`` move a row-sharded
+table (the shard-major stacked container included) between JAX's global
+array and the rows each rank of a ``model > 1`` mesh holds.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -159,3 +161,21 @@ def load_jax_train_state(trainer, params: Mapping, table_opt: Optional[Mapping],
         loaded[field] = {k: tensor(flat[k]) for k in covered}
     load_state_(trainer.opt_state, loaded)  # in place: a flat state keeps its buffer
     return trainer
+
+
+def table_to_ranks(table, n_model: int) -> List[np.ndarray]:
+    """A JAX trainer's table state as the ranks of a ``model = n_model``
+    mesh hold it: each rank's contiguous rows, ``[R / n_model, W]``.  The
+    shard-major stacked ``[2Vp, W]`` container of a mesh trainer
+    (``stacked_shards = n_model``) splits the same way, rank m's rows being
+    its ``[table_m; monu_m]``; so do the split ``mu`` / ``nu`` / ``monu``
+    arrays.  ``np.asarray`` of a row-sharded JAX array gathers it."""
+    a = np.asarray(table)
+    if a.shape[0] % n_model:
+        raise ValueError(f"{a.shape[0]} rows do not divide by model = {n_model}")
+    return list(np.split(a, n_model))
+
+
+def ranks_to_table(parts: Sequence) -> np.ndarray:
+    """Inverse of ``table_to_ranks``: the ranks' rows in model order."""
+    return np.concatenate([np.asarray(p) for p in parts])

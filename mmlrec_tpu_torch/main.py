@@ -3,7 +3,7 @@ package's ``main.py`` (reference main.py:71-181) on PyTorch, on the card.
 
     python -m mmlrec_tpu_torch.main --config configs/msl/config_AE.json \
         [--synthetic] [--seed S | --seeds 0,2,4,8] [--vmap_seeds | --sweep_lrs 0.01,0.001]
-        [--device cuda|cpu] [--data_parallel N [--model_parallel 1]]
+        [--device cuda|cpu] [--data_parallel N [--model_parallel M]]
 
 For each seed: read the config's train and test CSV files
 (``data.ctrdataset``; with ``--synthetic``, synthetic data of the config's
@@ -24,13 +24,13 @@ plain versions of the kernels.
 decides), ``--sweep_lrs`` the (seed x lr) grid (``train/sweep.py``); each
 member appends its row with the suite's wall seconds (``run_vmapped_suite``).
 
-``--data_parallel N`` trains each seed data parallel over N ranks
-(``parallel/``, main.py:95-113): outside a process group the command starts
-the N processes itself (one card each with NCCL; ``--device cpu`` takes
-gloo), under ``torchrun`` it joins the group there is.  Rank 0 alone
-prints and writes the rows, checkpoints and pickles; ``--vmap_seeds`` and
-``--sweep_lrs`` run the plain seed loop.  ``--model_parallel`` above 1 (the
-row-sharded table) is ROADMAP A9 part 2.
+``--data_parallel N --model_parallel M`` trains each seed on an N x M mesh
+(``parallel/``, main.py:95-113): data parallel over N, the fused table
+row-sharded over M.  Outside a process group the command starts the N x M
+processes itself (one card each with NCCL; ``--device cpu`` takes gloo),
+under ``torchrun`` it joins the group there is.  Rank 0 alone prints and
+writes the rows, checkpoints and pickles; ``--vmap_seeds`` and
+``--sweep_lrs`` run the plain seed loop.
 """
 
 from __future__ import annotations
@@ -67,7 +67,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--config", type=str, required=True)
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data mesh axis size: N ranks (0 = no mesh)")
-    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="model mesh axis size: the fused table row-sharded over M ranks")
     p.add_argument("--synthetic", action="store_true",
                    help="use synthetic data with the config's schema")
     p.add_argument("--synthetic_rows", type=int, default=20000)
@@ -112,9 +113,6 @@ def load_dataset(cfg: ExperimentConfig, args) -> CTRDataset:
 
 
 def _refuse_unported(args) -> None:
-    if args.data_parallel and args.model_parallel > 1:
-        raise NotImplementedError("--model_parallel above 1 row-shards the embedding table: "
-                                  "ROADMAP A9 part 2")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to run the "
                            "plain versions of the kernels on the CPU")
@@ -152,7 +150,7 @@ def _spawn_ranks(args) -> List[Tuple[Dict, None]]:
     rank 0's rows, or RuntimeError with the first failure a rank reports."""
     import multiprocessing as mp
 
-    n = args.data_parallel
+    n = args.data_parallel * args.model_parallel
     if torch.device(args.device).type == "cuda" and n > torch.cuda.device_count():
         raise ValueError(f"mesh {n}x{args.model_parallel} on the card needs {n} cards (NCCL "
                          f"takes one rank a card), {torch.cuda.device_count()} are visible")
@@ -207,7 +205,7 @@ def run(args: argparse.Namespace) -> List[Tuple[Dict, object]]:
         return run_seeds(args, seeds, None)
     cuda = torch.device(args.device).type == "cuda"
     initialize_distributed(backend="nccl" if cuda else "gloo")  # under torchrun: its group
-    if not dist.is_initialized() and args.data_parallel > 1:
+    if not dist.is_initialized() and args.data_parallel * args.model_parallel > 1:
         return _spawn_ranks(args)
     created = not dist.is_initialized()
     if cuda and not created:
@@ -240,7 +238,7 @@ def run_seeds(args, seeds: List[int], mesh) -> List[Tuple[Dict, object]]:
         say(cfg.to_dict())
 
         ds = load_dataset(cfg, args)
-        resolve_table_container(cfg, ds.layout, device=args.device)
+        resolve_table_container(cfg, ds.layout, device=args.device, mesh=mesh)
         if mc.extra.get("table_container") == "stacked":
             say("table_container: stacked (auto: the packed-moment write path)")
         model = get_model(mc.model_name, ds.layout, cfg, generator=generator,
@@ -281,12 +279,12 @@ def run_seeds(args, seeds: List[int], mesh) -> List[Tuple[Dict, object]]:
             append_result_row(dc.test_result_path, row)
         out.append((row, trainer))
 
-        if args.export_bundle and lead:
+        if args.export_bundle and (lead or trainer._table_sharded()):
             from .serving import save_serving_bundle
 
             bundle_dir = os.path.join(args.export_bundle, model_type)
-            meta = save_serving_bundle(trainer, bundle_dir)
-            print(f"serving bundle -> {bundle_dir} (batch_mode={meta['batch_mode']})")
+            meta = save_serving_bundle(trainer, bundle_dir)  # gathers a row-sharded table
+            say(f"serving bundle -> {bundle_dir} (batch_mode={meta['batch_mode']})")
     return out
 
 

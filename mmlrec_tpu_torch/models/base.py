@@ -46,10 +46,6 @@ class RecModel(nn.Module):
         self.cfg = cfg
         self.init_std = init_std
         extra = self.mc.extra
-        if int(extra.get("stacked_shards", 1) or 1) > 1:
-            raise NotImplementedError(
-                "the shard-major stacked container (stacked_shards > 1) is "
-                "not ported yet (ROADMAP A9 part 2)")
         self.wide_linear: Optional[WideLinear] = None
         if extra.get("use_wide_linear"):
             self.wide_linear = self._make_wide_linear(generator)
@@ -92,7 +88,8 @@ class RecModel(nn.Module):
         return EmbeddingCollection(
             self.layout, generator=generator, init_std=self.init_std,
             # "stacked": the two-phase moment container folded into the
-            # table param (mmlrec_tpu/models/base.py:95-104)
+            # table param, shard-major over ``stacked_shards`` shards on a
+            # mesh with model > 1 (mmlrec_tpu/models/base.py:95-104)
             dual_container=str(extra.get("table_container", "split")) == "stacked",
             dual_shards=int(extra.get("stacked_shards", 1) or 1),
             # "auto" | "matmul" | "scatter" table cotangent, and the stack

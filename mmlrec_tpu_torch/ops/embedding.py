@@ -212,18 +212,32 @@ class FusedEmbedding(nn.Module):
         rows = _round_up(max(total, 1), 128 * self.pack_factor)
         shape = (rows // self.pack_factor, self.pack_factor * self.dim)
         init = _padded_normal_init(init_std, total, self.pack_factor, self.dim)
-        if dual_shards != 1:
-            raise NotImplementedError(
-                "the shard-major stacked container (stacked_shards > 1) is not "
-                "ported yet (ROADMAP A9 part 2)")
         self.dual_container = bool(dual_container)
+        self.dual_shards = int(dual_shards) if self.dual_container else 1
+        #: the row shard this rank holds under a mesh with model > 1
+        #: (``parallel.mesh.TableShard``, set by the trainer with the
+        #: shard as ``table``), or None: the whole table
+        self.shard = None
         if self.dual_container:
             # table_container="stacked" (embedding.py:245-276): [2Vp, W],
-            # table rows in [0, Vp) drawn exactly as the split table, the
-            # two-phase step's packed (mu, nu) container in [Vp, 2Vp) zeroed
-            fat = torch.zeros((2 * shape[0], shape[1]), dtype=torch.float32,
-                              device=generator.device)
-            fat[: shape[0]] = init(generator, shape)
+            # table rows drawn exactly as the split table, the two-phase
+            # step's packed (mu, nu) container zeroed; plane-major (table
+            # rows in [0, Vp)), or shard-major over ``dual_shards`` shards
+            # (the stacked container of a row-sharded table, rows
+            # [d 2r, (d + 1) 2r) holding [table_d; monu_d])
+            if shape[0] % self.dual_shards:
+                raise ValueError(
+                    f"stacked container over {self.dual_shards} shards needs the physical "
+                    f"row count {shape[0]} to divide evenly")
+            base = init(generator, shape)
+            if self.dual_shards > 1:
+                from ..train.sparse_embedding import fold_stacked_planes
+
+                fat = fold_stacked_planes(base, torch.zeros_like(base), self.dual_shards)
+            else:
+                fat = torch.zeros((2 * shape[0], shape[1]), dtype=torch.float32,
+                                  device=generator.device)
+                fat[: shape[0]] = base
             self.table = nn.Parameter(fat)
         else:
             self.table = nn.Parameter(init(generator, shape))
@@ -232,10 +246,13 @@ class FusedEmbedding(nn.Module):
         """Make a stacked container the split table: its table plane, the
         same bits, as the parameter ``[Vp, W]``; the moment plane goes."""
         if self.dual_container:
+            from ..train.sparse_embedding import split_stacked_planes
+
             with torch.no_grad():
-                plane = self.table[: self.phys_rows].clone()
+                shards = 1 if self.shard is not None else self.dual_shards
+                plane = split_stacked_planes(self.table.detach(), shards)[0].clone()
             self.table = nn.Parameter(plane, requires_grad=self.table.requires_grad)
-            self.dual_container = False
+            self.dual_container, self.dual_shards = False, 1
 
     @property
     def phys_rows(self) -> int:
@@ -260,6 +277,27 @@ class FusedEmbedding(nn.Module):
         in one pass (the embed-concat kernel on CUDA), differentiable w.r.t.
         the table and the dense block."""
         flat_ids = ids.to(torch.int32) + self.offsets[None, :]
+        if self.shard is not None:
+            # a row shard (model > 1): the rows from every shard by one
+            # all-reduce (``owned_rows``), then the kernel on them as a
+            # table of their own, each row read once
+            from ..parallel.shard_embedding import owned_rows
+            from .layers import current_batch_shard
+
+            rows = owned_rows(self.table[: self.phys_rows], flat_ids.reshape(-1), self.dim,
+                              self.pack_factor, self.shard, current_batch_shard())
+            local = torch.arange(rows.shape[0], dtype=torch.int32, device=ids.device)
+            return embed_concat(rows, local.view(ids.shape), dense)
+        if self.dual_shards > 1:
+            # the shard-major container held whole: physical row p lives at
+            # row (p // r) 2r + p % r (embedding.py:280-301)
+            from ..train.sparse_embedding import stacked_table_rows
+
+            P = self.pack_factor
+            phys = torch.div(flat_ids, P, rounding_mode="floor")
+            rows = stacked_table_rows(phys, self.phys_rows, self.dual_shards)
+            return embed_concat(self.table.view(-1, self.dim),
+                                rows * P + torch.remainder(flat_ids, P), dense)
         matmul_grad = None
         if (needs_grad(self.table) and torch.is_grad_enabled()
                 and self.table_grad_mode(ids.numel()) == "matmul"):

@@ -1,4 +1,4 @@
-"""Device mesh and data parallelism on ``torch.distributed`` (the port of
+"""Device mesh and the parallel fit on ``torch.distributed`` (the port of
 ``mmlrec_tpu/parallel/mesh.py``).
 
 The JAX package runs one process over a ``(data, model)`` mesh: ``jit``
@@ -7,14 +7,19 @@ a batch stays global by construction.  Here a mesh is one process per rank
 (a ``torch.distributed`` process group, ``DeviceMesh`` with the dims
 ``("data", "model")``), each rank runs the step on its rows of the global
 batch, and every computation that couples the rows is made global by hand:
-the gradients (one all-reduce SUM a step, ``Trainer``), BatchNorm and
-DomainBatchNorm statistics (``ops.layers.all_reduce_sum``), dropout masks
-(drawn for the global batch, ``ops.layers.dropout``), the staged dataset's
-row fetch (``distributed_take``) and the eval predictions (an all-gather).
+the gradients (one all-reduce SUM a step over ``data``, ``Trainer``),
+BatchNorm and DomainBatchNorm statistics (``ops.layers.all_reduce_sum``),
+dropout masks (drawn for the global batch, ``ops.layers.dropout``), the
+per-task gradients and CKA's Gram terms, the staged dataset's row fetch
+(``distributed_take``) and the eval predictions (an all-gather).
 
-Only ``model = 1`` trains: the row-sharded table of ``model > 1`` is
-ROADMAP A9 part 2, which the trainer refuses.  ``create_mesh`` takes any
-shape whose product is the world size.
+With ``model > 1`` the fused embedding table is row-sharded over the
+``model`` dimension (``shard_variables``, ``TableShard``): the rank of
+model index m holds rows ``[m R / M, (m + 1) R / M)`` of its R physical
+rows, and ranks that share a data index compute the same dense work on the
+same rows.  The table's exchange and updates are
+``parallel/shard_embedding.py`` and ``parallel/explicit_step.py``.
+``create_mesh`` takes any shape whose product is the world size.
 """
 
 from __future__ import annotations
@@ -97,6 +102,21 @@ def model_size(mesh) -> int:
     return mesh.size(mesh.mesh_dim_names.index("model"))
 
 
+class TableShard(NamedTuple):
+    """The fused table's row shard that this rank holds: model index
+    ``index`` of ``count`` shards, and the ``model`` process group the
+    lookups all-reduce over."""
+
+    index: int
+    count: int
+    group: object
+
+
+def table_shard(mesh) -> TableShard:
+    """This rank's view of the mesh's ``model`` dimension as a table shard."""
+    return TableShard(mesh.get_local_rank("model"), model_size(mesh), mesh.get_group("model"))
+
+
 def _is_embedding_table(name: str) -> bool:
     return any(k == "table" or k.startswith("table_") for k in name.split("."))
 
@@ -118,25 +138,32 @@ def variable_shardings(variables: Dict[str, torch.Tensor], mesh) -> Dict[str, tu
 
 
 def shard_variables(variables: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
-    """Place ``variables`` on the mesh in place and return them.  Every
-    rank draws them from the same seed; the replicated ones are then made
-    bitwise equal by one broadcast from rank 0 of their bytes (every dtype
-    at once).  A row-sharded table (``model > 1``) is ROADMAP A9 part 2."""
-    specs = variable_shardings(variables, mesh)
-    if any(specs.values()):
-        raise NotImplementedError("a row-sharded table (model > 1) is ROADMAP A9 part 2")
+    """Place ``variables`` on the mesh and return them.  Every rank draws
+    them from the same seed; they are then made bitwise equal by one
+    broadcast from rank 0 of their bytes (every dtype at once), in place.
+    With ``model > 1`` the fused table (``embeddings.fused.table``), row-
+    sharded by ``variable_shardings``, comes back as this rank's rows, a
+    copy (mesh.py:64-68); every other tensor stays replicated, the other
+    embedding tables included (the same values as their row shards would
+    hold)."""
     tensors = [t for t in variables.values() if t.numel()]
-    if dist.get_world_size() == 1 or not tensors:
-        return variables
-    with torch.no_grad():
-        flat = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
-        dist.broadcast(flat, src=0)
-        off = 0
-        for t in tensors:
-            nbytes = t.numel() * t.element_size()
-            t.copy_(flat[off:off + nbytes].view(t.dtype).view(t.shape))
-            off += nbytes
-    return variables
+    if dist.get_world_size() > 1 and tensors:
+        with torch.no_grad():
+            flat = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
+            dist.broadcast(flat, src=0)
+            off = 0
+            for t in tensors:
+                nbytes = t.numel() * t.element_size()
+                t.copy_(flat[off:off + nbytes].view(t.dtype).view(t.shape))
+                off += nbytes
+    specs = variable_shardings(variables, mesh)
+    shard = table_shard(mesh)
+    out = dict(variables)
+    for k, t in variables.items():
+        if specs[k] and k.endswith("fused.table"):
+            rows = t.shape[0] // shard.count
+            out[k] = t.detach()[shard.index * rows:(shard.index + 1) * rows].clone()
+    return out
 
 
 def distributed_take(local: torch.Tensor, idx: torch.Tensor, dp: DataGroup) -> torch.Tensor:

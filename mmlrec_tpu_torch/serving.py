@@ -146,11 +146,18 @@ def save_serving_bundle(model, path: str) -> Dict:
     the last epoch's weights) when its fit kept one, as the JAX function
     does.  Returns the bundle's meta dict, in the JAX bundle's schema.
     """
-    best = None
+    best, trainer = None, None
     if hasattr(model, "best_variables"):  # a Trainer
-        model, best = model.model, model.best_variables
+        trainer, model, best = model, model.model, model.best_variables
     cfg, layout = model.cfg, model.layout
-    state = {k: v.detach().cpu() for k, v in {**model.state_dict(), **(best or {})}.items()}
+    state = {**model.state_dict(), **(best or {})}
+    if trainer is not None and trainer._table_sharded():
+        # a row-sharded table's shards, gathered over ``model`` (every rank
+        # calls this): the bundle is the single-device one, rank 0 writes it
+        from .train.checkpointing import _map_table, _whole
+
+        state = _map_table(trainer, _whole, state)
+    state = {k: v.detach().cpu() for k, v in state.items()}
     fused = model.embeddings.fused
     if fused is not None and fused.dual_container:
         # the stacked training container carries the optimizer's moments in
@@ -160,7 +167,9 @@ def save_serving_bundle(model, path: str) -> Dict:
         cfg.model_config.extra["table_container"] = "split"
         cfg.model_config.extra.pop("stacked_shards", None)
         key = "embeddings.fused.table"
-        state[key] = state[key][: state[key].shape[0] // 2].clone()
+        from .train.sparse_embedding import split_stacked_planes
+
+        state[key] = split_stacked_planes(state[key], fused.dual_shards)[0].clone()
     mc, dc = cfg.model_config, cfg.data_config
     needs_mask = bool(mc.masked_loss) and mc.task_name in ("msl", "mtmsl")
     escm = mc.model_name in ("escm", "escm_dr")
@@ -180,6 +189,8 @@ def save_serving_bundle(model, path: str) -> Dict:
         "features": _feature_specs(layout),
         "config": cfg.to_dict(),
     }
+    if trainer is not None and trainer._table_sharded() and torch.distributed.get_rank():
+        return meta
     os.makedirs(path, exist_ok=True)
     torch.save(state, os.path.join(path, _PARAMS_FILE))
     with open(os.path.join(path, _META_FILE), "w") as f:

@@ -27,8 +27,8 @@ Ported, the whole of the JAX module at one shard:
   rows), with the scatter or the gather dedup route; and slot space
   (``two_phase_sparse_adam_slot``) on the stacked container.
 
-The shard-major layouts (``n_shards > 1``) are ROADMAP A9 part 2, the
-row-sharded table.
+The row-sharded table's shard-major stacked layout (``n_shards > 1``)
+is here too; its shard-local updates are ``parallel/shard_embedding.py``.
 
 Bit layout of a packed container lane: mu in the low 16 bits, nu in the
 high 16 (pinned by tests/test_sparse_embedding.py::test_monu_pack_bit_layout
@@ -150,30 +150,39 @@ def to_runtime_state(st, packed: bool):
     return st
 
 
-def _one_shard(n_shards: int) -> None:
-    if n_shards != 1:
-        raise NotImplementedError(
-            "the shard-major stacked layout (n_shards > 1) is not ported yet (ROADMAP A9 part 2)")
-
-
 def split_stacked_planes(fat: torch.Tensor, n_shards: int = 1):
-    """Folded [2Vp, W] container -> (table [Vp, W], monu [Vp, W]) views."""
-    _one_shard(n_shards)
-    Vp = fat.shape[0] // 2
-    return fat[:Vp], fat[Vp:]
+    """Folded [2Vp, W] container -> (table [Vp, W], monu [Vp, W])
+    (sparse_embedding.py:151-172).  ``n_shards == 1`` is the plane-major
+    layout (table rows in [0, Vp), the container in [Vp, 2Vp)): two views.
+    ``n_shards > 1`` is the shard-major layout of a row-sharded table:
+    rows [d 2r, (d + 1) 2r), r = Vp / n_shards, hold [table_d; monu_d], so
+    each rank of model index d holds its own stacked container; the planes
+    come back as copies."""
+    Vp, W = fat.shape[0] // 2, fat.shape[1]
+    if n_shards == 1:
+        return fat[:Vp], fat[Vp:]
+    v = fat.reshape(n_shards, 2, Vp // n_shards, W)
+    return v[:, 0].reshape(Vp, W), v[:, 1].reshape(Vp, W)
 
 
 def fold_stacked_planes(table: torch.Tensor, monu: torch.Tensor, n_shards: int = 1):
-    """Inverse of split_stacked_planes: (table, monu) -> [2Vp, W]."""
-    _one_shard(n_shards)
-    return torch.cat([table, monu])
+    """Inverse of split_stacked_planes: (table, monu) -> [2Vp, W] in the
+    plane-major (``n_shards == 1``) or the shard-major layout."""
+    if n_shards == 1:
+        return torch.cat([table, monu])
+    Vp, W = table.shape
+    r = Vp // n_shards
+    return torch.stack([table.reshape(n_shards, r, W), monu.reshape(n_shards, r, W)],
+                       dim=1).reshape(2 * Vp, W)
 
 
 def stacked_table_rows(phys: torch.Tensor, Vp: int, n_shards: int = 1):
-    """Physical table rows -> rows of the folded container (identity at one
-    shard)."""
-    _one_shard(n_shards)
-    return phys
+    """Physical table rows -> their rows in the folded container: the
+    identity at one shard, ``(p // r) 2r + p % r`` shard-major."""
+    if n_shards == 1:
+        return phys
+    r = Vp // n_shards
+    return torch.div(phys, r, rounding_mode="floor") * (2 * r) + torch.remainder(phys, r)
 
 
 def device_step_metadata(flat_ids: torch.Tensor, pack_factor: int, Kp: int, n_phys_rows: int):
@@ -604,6 +613,8 @@ def two_phase_sparse_adam_slot(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    bounds: Optional[torch.Tensor] = None,  # [2] int32: write slots [lo, hi) only
+    g_sum: Optional[torch.Tensor] = None,  # [K, D] the gradient sums, when given
 ) -> Tuple[torch.Tensor, SparseAdamFoldedState]:
     """Slot-space SparseAdam of the stacked container
     (sparse_embedding.py:689-809): the masked wide gradient and a [K, P]
@@ -614,7 +625,9 @@ def two_phase_sparse_adam_slot(
     same inputs; every other lane keeps its old bits through selects (so
     -0.0 and NaN payloads survive), and the pad slots, which hold the
     gather's poison, are never written (``n_real``).  One launch of the
-    dual write.  The container and the count are updated in place."""
+    dual write.  The container and the count are updated in place.  A row
+    shard (``parallel/shard_embedding.py``) passes its local ``pids``, its
+    window as ``bounds`` and, from the pipelined exchange, ``g_sum``."""
     if not isinstance(state, SparseAdamFoldedState):
         raise TypeError("slot space runs on the stacked container (SparseAdamFoldedState)")
     K, dim = g_rows.shape
@@ -624,7 +637,8 @@ def two_phase_sparse_adam_slot(
     Kp = pids.shape[0]
     count = state.count.add_(1)  # in place: a captured step reads it
     t = count.to(torch.float32)
-    g_sum = _gdup_sum(g_rows, gdup_pos, gdup_tgt)
+    if g_sum is None:
+        g_sum = _gdup_sum(g_rows, gdup_pos, gdup_tgt)
     rep_b = (rep > 0)[:, None]
     if P > 1:
         gw = torch.where(_own_mask(flat_ids, P, dim) & rep_b, g_sum.repeat(1, P), 0.0)
@@ -646,7 +660,8 @@ def two_phase_sparse_adam_slot(
     d_w = -lr * mu_hat_w / (_sqrt(nu_hat_w) + eps)
     new_t = torch.where(touched, sup_slot + d_w, sup_slot)
     new_monu = torch.where(touched, pack_monu_rounded(new_mu_w, new_nu_w), monu_slot)
-    rows_write_dual(table.view(2, Vp, W), pids, torch.stack([new_t, new_monu]), n_real=n_real)
+    rows_write_dual(table.view(2, Vp, W), pids, torch.stack([new_t, new_monu]), n_real=n_real,
+                    bounds=bounds)
     return table, SparseAdamFoldedState(count=count)
 
 
@@ -675,6 +690,9 @@ def two_phase_sparse_adam_unique(
     resid_slot: Optional[torch.Tensor] = None,  # [R_cap] (Kp = drop)
     gdup_pos: Optional[torch.Tensor] = None,  # [G_cap]
     gdup_tgt: Optional[torch.Tensor] = None,  # [G_cap] (K = drop)
+    bounds: Optional[torch.Tensor] = None,  # [2] int32: write slots [lo, hi) only
+    g_sum: Optional[torch.Tensor] = None,  # [K, D] the gradient sums, when given
+    sup_moments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # split [K, W] rows
 ) -> Tuple[torch.Tensor, object]:
     """SparseAdam of the touched rows with one update per physical row
     (sparse_embedding.py:812-1141).
@@ -696,6 +714,11 @@ def two_phase_sparse_adam_unique(
     scatter): the accumulated deltas added at the distinct rows ``pids``,
     pads included, with ``index_add_``.  ``table`` (and the moments) and the
     count are updated in place and returned with the state.
+
+    A row shard (``parallel/shard_embedding.py``) passes its local ``pids``,
+    its window as ``bounds`` (the write-kernel path), its old rows
+    (``sup``, ``sup_c``, ``sup_moments``: zeros where it owns no row) and,
+    from the pipelined exchange, ``g_sum``.
     """
     folded = isinstance(state, SparseAdamFoldedState)
     split = isinstance(state, SparseAdamState)
@@ -713,13 +736,15 @@ def two_phase_sparse_adam_unique(
     Kp = pids.shape[0]
     count = state.count.add_(1)  # in place: a captured step reads it
     t = count.to(torch.float32)
-    g_sum = (_gdup_sum(g_rows, gdup_pos, gdup_tgt) if gdup_pos is not None
-             else _segment_sum(g_rows, inv))
+    if g_sum is None:
+        g_sum = (_gdup_sum(g_rows, gdup_pos, gdup_tgt) if gdup_pos is not None
+                 else _segment_sum(g_rows, inv))
     r = rep[:, None]
     gids = torch.div(flat_ids, P, rounding_mode="floor") if P > 1 else flat_ids
     if split:
         return _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t,
-                             lr, P, b1, b2, eps, use_pallas, n_real, sup, prep)
+                             lr, P, b1, b2, eps, use_pallas, n_real, sup, prep, bounds,
+                             sup_moments)
     own_mask = _own_mask(flat_ids, P, dim) if P > 1 else None
 
     def own_sel(x):
@@ -775,7 +800,8 @@ def two_phase_sparse_adam_unique(
         else:
             accd = torch.zeros((2, Kp, W), dtype=torch.int32, device=table.device)
             accd.index_add_(1, pinv.long(), torch.stack([contrib_t_i, contrib_monu_i]))
-        rows_write_dual(table.view(2, Vp, W), pids, accd.view(torch.float32), n_real=n_real)
+        rows_write_dual(table.view(2, Vp, W), pids, accd.view(torch.float32), n_real=n_real,
+                        bounds=bounds)
         return table, SparseAdamFoldedState(count=count)
     if accperm is not None:
         acc_t = route(contrib_t_i).view(torch.float32)
@@ -785,12 +811,12 @@ def two_phase_sparse_adam_unique(
         acc2.index_add_(0, pinv.long(), torch.cat([contrib_t_i, contrib_monu_i], dim=1))
         acc2 = acc2.view(torch.float32)
         acc_t, acc_monu = acc2[:, :W], acc2[:, W:]
-    rows_write((table, state.monu), pids, (acc_t, acc_monu), n_real=n_real)
+    rows_write((table, state.monu), pids, (acc_t, acc_monu), n_real=n_real, bounds=bounds)
     return table, SparseAdamPackedState(monu=state.monu, count=count)
 
 
 def _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t, lr, P,
-                  b1, b2, eps, use_pallas, n_real, sup, prep):
+                  b1, b2, eps, use_pallas, n_real, sup, prep, bounds=None, sup_moments=None):
     """The update of split moments of dtype ``mdt`` (sparse_embedding.py:
     1085-1141): the narrow Adam chain at the logical rows, the moments'
     deltas as ``new.to(mdt).float() - old``.  With the write kernel, ONE f32
@@ -806,8 +832,9 @@ def _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t, 
     Kp = pids.shape[0]
     mdt = state.mu.dtype
     gl = gids.long()
-    sup_mu = state.mu.index_select(0, gl).float()
-    sup_nu = state.nu.index_select(0, gl).float()
+    if sup_moments is None:
+        sup_moments = (state.mu.index_select(0, gl), state.nu.index_select(0, gl))
+    sup_mu, sup_nu = (m.float() for m in sup_moments)
     if P > 1:
         sub = _sub_rows(flat_ids, P)
         mu_f = sup_mu.reshape(-1, dim).index_select(0, sub)
@@ -833,5 +860,5 @@ def _unique_split(table, g_sum, flat_ids, gids, r, pids, pinv, state, count, t, 
     acc3.index_add_(0, pinv.long(), contrib)
     rows_write((table, state.mu, state.nu), pids,
                (acc3[:, :W], acc3[:, W:2 * W].to(mdt), acc3[:, 2 * W:].to(mdt)),
-               n_real=n_real)
+               n_real=n_real, bounds=bounds)
     return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)

@@ -61,9 +61,10 @@ one runs; a larger dataset streams with a prefetch worker
 test metrics replay one captured forward per batch.  A fit synchronises
 once per epoch, for the loss and the collected probabilities.
 
-**Under a mesh** (``Trainer(mesh=parallel.create_mesh(data=N))``, one
-process per rank on ``torch.distributed``) the dense fit runs data
-parallel: parameters and buffers are broadcast from rank 0 once; a batch
+**Under a mesh** (``Trainer(mesh=parallel.create_mesh(data=N, model=M))``,
+one process per rank on ``torch.distributed``) the fit runs data
+parallel over ``data``: parameters and buffers are broadcast from rank 0
+once; a batch
 that divides by N is split, rank r taking rows ``[r B / N, (r + 1) B / N)``
 (the staged dataset row-sharded and fetched by ``distributed_take``, the
 streaming batches by ``shard_batch``), BatchNorm statistics and dropout
@@ -76,11 +77,24 @@ all-reduce takes rank 0's gradients.  Eval rows are split the same way and
 the probabilities all-gathered in order, so every rank holds the global
 predictions and decides the same best epoch and early stop; rank 0 writes
 the checkpoints.  With one rank every value equals the unsharded fit's.
-Still refused there, by name: the per-task methods and the CKA loss
-(ROADMAP A9 part 1b: each task's gradient, and CKA's Gram sums, must be
-all-reduced before their non-linear merge), and the two-phase step and
-``model > 1`` (part 2, the row-sharded table).
-The combinations the JAX trainer refuses raise its ValueError.
+The per-task methods stack each task's gradient and all-reduce the stack
+before their non-linear merge (GradNorm's losses with it), and CKA sums
+its Gram terms over the ranks before the normalisation; the penalty and
+the CKA term count once.
+
+With ``model = M > 1`` the fused table is row-sharded over ``model``
+(``parallel/mesh.py``): the rank of model index m holds rows
+``[m R / M, (m + 1) R / M)`` of the table, of its moments and of the
+stacked container (shard-major, ``stacked_shards = M``).  The two-phase
+step runs ``parallel/explicit_step.py`` on any mesh (the forward fetch's
+all-reduce over ``model``, the dense gradients' over ``data``, the
+exchange's all-gathers over ``data``, owner-local table updates); the
+dense fit reads the table through ``owned_rows`` and builds the shard's
+gradient owner-local from the data ranks' gathered ids and row
+cotangents, its penalty counted once per row.  Checkpoints gather the
+shards over ``model``, so rank 0 writes what one process would, and a
+serving bundle of such a trainer is the single-device bundle.  The mesh
+combinations the JAX trainer refuses raise its ValueErrors.
 """
 
 from __future__ import annotations
@@ -100,11 +114,11 @@ from ..models.base import RecModel
 from ..ops.embedding import fused_table_geometry, pack_factor_for
 from ..ops.layers import all_gather_rows, batch_shard
 from ..ops.row_gather import rows_gather_dual
-from ..parallel.mesh import data_group, model_size, shard_variables
+from ..parallel.mesh import data_group, model_size, shard_variables, table_shard
 from . import checkpointing, device_metrics, staging
 from .graphs import StepGraphs
 from .cagrad import cagrad_merge
-from .cka import cka_domain_loss
+from .cka import cka_domain_loss, cka_domain_loss_sharded
 from .gradnorm import gradnorm_update
 from .losses import l2_regularization, multitask_loss, per_task_losses
 from .metrics import get_metric_fns, regime_eval
@@ -129,18 +143,18 @@ _TABLE = "embeddings.fused.table"
 EVAL_GRAPH_MIN_BATCHES = 16
 
 
-def stacked_auto_conditions(cfg, layout, batch_size, device="cuda") -> bool:
+def stacked_auto_conditions(cfg, layout, batch_size, device="cuda", mesh=None) -> bool:
     """True iff the automatic stacked container applies at ``batch_size``
-    (trainer.py:46-86; a mesh refuses the two-phase step, ROADMAP A9 part
-    2): the two-phase step, the pallas update (auto or explicit) with
-    packed bf16 moments, 128-lane physical rows, the unique-metadata
-    headroom and a card to run on."""
+    (trainer.py:46-86): the two-phase step, the pallas update (auto or
+    explicit) with packed bf16 moments, no mesh or an explicit-collective
+    mesh whose ``model`` size divides the physical rows, 128-lane physical
+    rows, the unique-metadata headroom and a card to run on."""
     mc = cfg.model_config
     if not (mc.extra.get("two_phase_embedding")
             and str(mc.extra.get("table_update", "auto")) in ("auto", "pallas")
             and str(mc.extra.get("table_opt_dtype") or "") == "bfloat16"):
         return False
-    if mc.extra.get("explicit_collective_embedding"):
+    if bool(mc.extra.get("explicit_collective_embedding")) != (mesh is not None):
         return False
     geo = fused_table_geometry(layout)
     if geo is None:
@@ -148,27 +162,38 @@ def stacked_auto_conditions(cfg, layout, batch_size, device="cuda") -> bool:
     dim, P, phys_rows = geo
     if dim * P != 128:
         return False
+    if mesh is not None and phys_rows % model_size(mesh):
+        return False
     K = batch_size * len(layout.sparse_slots)
     if phys_rows <= -(-K // 256) * 256:
         return False
     return torch.device(device).type != "cpu"
 
 
-def resolve_table_container(cfg, layout, device="cuda") -> None:
+def resolve_table_container(cfg, layout, device="cuda", mesh=None) -> None:
     """Opt into ``table_container="stacked"`` when the pallas update with
     packed moments will engage, BEFORE the model is built (trainer.py:89-130):
     the container fixes the table's shape.  Decided at the config's
     ``train_batch_size`` on ``device``; a ``table_container`` the config sets
     always wins.  The opt-in is marked (``_table_container_auto``): only it
     may be undone, when a fit's batch breaks the headroom before any step
-    has run (``staging.resolve_table_update``).  Every shipped config keeps
-    f32 moments and so the split container."""
+    has run (``staging.resolve_table_update``).  On an explicit-collective
+    ``mesh`` a stacked container (opted into, or set) is shard-major over
+    the mesh's ``model`` size (``stacked_shards``).  Every shipped config
+    keeps f32 moments and so the split container."""
     mc = cfg.model_config
+    explicit_mesh = mesh is not None and mc.extra.get("explicit_collective_embedding")
     if mc.extra.get("table_container") is not None:
+        if (mc.extra["table_container"] == "stacked" and explicit_mesh
+                and mc.extra.get("stacked_shards") is None):
+            mc.extra["stacked_shards"] = model_size(mesh)
         return
-    if stacked_auto_conditions(cfg, layout, cfg.training_config.train_batch_size, device):
+    if stacked_auto_conditions(cfg, layout, cfg.training_config.train_batch_size, device,
+                               mesh):
         mc.extra["table_container"] = "stacked"
         mc.extra["_table_container_auto"] = True
+        if mesh is not None:
+            mc.extra["stacked_shards"] = model_size(mesh)
 
 
 def get_mask(domain_values, mask_values, num_domains) -> np.ndarray:
@@ -213,9 +238,10 @@ class Trainer:
         raises a FloatingPointError, as jax_debug_nans does; it runs every
         step and eval batch eagerly, as the JAX trainer turns donation off.
 
-        ``mesh``: a ``parallel.create_mesh`` mesh of ``model = 1``: the fit
-        runs data parallel over its ``data`` ranks (module docstring); this
-        process's rank holds its model on ``device``."""
+        ``mesh``: a ``parallel.create_mesh`` mesh: the fit runs data
+        parallel over its ``data`` ranks, the fused table row-sharded over
+        its ``model`` ranks (module docstring); this process's rank holds
+        its model, and its row shard of the table, on ``device``."""
         self.debug = bool(debug)
         if self.debug:
             torch.autograd.set_detect_anomaly(True)
@@ -226,15 +252,18 @@ class Trainer:
                     "plain versions of the kernels on the CPU")
             device = "cuda"
         self.device = torch.device(device)
-        if mesh is not None and model_size(mesh) > 1:
-            raise NotImplementedError(
-                "a mesh with model > 1 row-shards the embedding table: ROADMAP A9 part 2")
         self.mesh = mesh
         #: this rank's view of the mesh's data dimension, or None
         self._dp = data_group(mesh) if mesh is not None else None
         #: whether the steps' batches are split over the ranks (else every
         #: rank computes the whole batch); the fit sets it from its batch
         self._dp_sharded = True
+        #: the fused table's row shard this rank holds (``parallel.mesh.
+        #: TableShard``) on a mesh, None without one
+        self._table_shard = table_shard(mesh) if mesh is not None else None
+        #: the step's loss as reported, where it is not the total it
+        #: differentiates (the row shards' penalty, ``_loss_terms``)
+        self._report_total: Optional[torch.Tensor] = None
         self.model = model.to(self.device)
         self.cfg: ExperimentConfig = model.cfg
         self.layout = model.layout
@@ -302,20 +331,25 @@ class Trainer:
         )
         self._resolve_knobs()
         if mesh is not None:
-            self._refuse_under_mesh()
-            shard_variables(self.model.state_dict(), mesh)
+            self._place_on_mesh()
 
-    def _refuse_under_mesh(self) -> None:
-        mc = self.cfg.model_config
-        if self.per_task or mc.use_cka_loss:
-            raise NotImplementedError(
-                "the per-task gradient methods (pcg, use_gradnorm, use_cagrad) and the CKA "
-                "loss under a mesh are ROADMAP A9 part 1b: each task's gradient, and CKA's "
-                "Gram sums, must be all-reduced before their non-linear merge")
-        if self.two_phase_embedding:
-            raise NotImplementedError(
-                "two_phase_embedding under a mesh is ROADMAP A9 part 2 (the row-sharded "
-                "table and its explicit exchange)")
+    def _place_on_mesh(self) -> None:
+        """Broadcast the variables from rank 0 and, with ``model > 1``, keep
+        this rank's row shard of the fused table as the parameter
+        (``shard_variables``); the embedding then reads it through
+        ``owned_rows``."""
+        state = self.model.state_dict()
+        placed = shard_variables(state, self.mesh)
+        fused = self.model.embeddings.fused if hasattr(self.model, "embeddings") else None
+        if fused is None or placed.get(_TABLE) is state.get(_TABLE):  # replicated
+            self._table_shard = self._table_shard._replace(index=0, count=1, group=None)
+            return
+        fused.table = torch.nn.Parameter(placed[_TABLE], requires_grad=fused.table.requires_grad)
+        fused.shard = self._table_shard
+
+    def _table_sharded(self) -> bool:
+        """Whether this rank holds a row shard of the table (model > 1)."""
+        return self._table_shard is not None and self._table_shard.count > 1
 
     # ------------------------------------------------------------------
     # knob resolution (trainer.py:205-486)
@@ -381,12 +415,20 @@ class Trainer:
         if self._table_update_auto:
             self.table_update = (
                 "pallas"
-                if (self.two_phase_embedding
+                if (self.two_phase_embedding and self.mesh is None
                     and self._emb_dim * self._emb_pack_factor == 128
                     and self._moment_dtype in ("float32", "bfloat16")
                     and self.device.type == "cuda")
                 else "scatter"
             )
+        explicit = bool(extra.get("explicit_collective_embedding"))
+        # the pipelined exchange of the explicit mesh step (explicit_step.py:84-92)
+        self._exchange_chunks = int(extra.get("grad_exchange_chunks", 1) or 1) if explicit else 1
+        n_model = model_size(self.mesh) if self.mesh is not None else 1
+        if n_model > 1 and (self.sparse_embedding_update or self.per_task):
+            raise ValueError(
+                "sparse_embedding_update and the per-task gradient methods with a "
+                "row-sharded table (a mesh with model > 1) are not supported by the port")
         if not self.two_phase_embedding:
             # the dense-table fit reads none of the two-phase knobs
             if fused is not None and fused.dual_container:
@@ -394,6 +436,12 @@ class Trainer:
                     "table_container='stacked' folds the two-phase step's moments "
                     "into the table; the dense-table fit needs the split table")
             return
+        if (self.mesh is not None and self.table_update != "scatter"
+                and not (self.table_update == "pallas" and explicit)):
+            raise ValueError(
+                "table_update unique/pallas with a mesh requires the "
+                "explicit_collective_embedding path (pallas only); the GSPMD mesh path keeps "
+                "its own update")
         # bf16 moments ride the write kernel packed as (mu, nu) pairs in f32
         # lanes; f16 has no packed layout (trainer.py:302-321)
         self._packed_moments = self.table_update == "pallas" and self._moment_dtype == "bfloat16"
@@ -425,6 +473,23 @@ class Trainer:
                 "table_container='stacked' requires table_update='pallas' with packed bf16 "
                 f"moments (resolved: {self.table_update!r}, "
                 f"table_opt_dtype={self._moment_dtype!r})")
+        if self.table_container == "stacked" and self.mesh is not None:
+            # the shard-major layout of a row-sharded table (trainer.py:384-411)
+            if not explicit:
+                raise ValueError(
+                    "table_container='stacked' on a mesh requires the "
+                    "explicit_collective_embedding path (GSPMD keeps the split layout)")
+            if self._emb_phys_rows_static() % n_model:
+                raise ValueError(
+                    f"stacked container needs the physical row count "
+                    f"({self._emb_phys_rows_static()}) divisible by the 'model' axis "
+                    f"({n_model})")
+            declared = int(extra.get("stacked_shards", 1) or 1)
+            if declared != n_model:
+                raise ValueError(
+                    f"model was built with stacked_shards={declared} but the mesh 'model' "
+                    f"axis is {n_model}; set model_config.extra['stacked_shards'] to the "
+                    "mesh's 'model' size BEFORE building the model")
         self.pair_gather = _choice(mc, "pair_gather", "auto", ("auto", "split", "dual"))
         if self.pair_gather == "auto":
             self.pair_gather = "dual" if self.table_container == "stacked" else "split"
@@ -653,7 +718,11 @@ class Trainer:
         else:
             probs = self._forward(state, ids, dense, model_mask)
         data_loss = self._data_loss(probs, y, dmask, weight)
-        if self._shard() is not None and self._dp.rank:
+        sharded_table = state is None and self._table_sharded()
+        if sharded_table:
+            params = {k: v for k, v in params.items() if k != _TABLE}
+        lead = self._shard() is None or not self._dp.rank
+        if not lead:
             # the ranks' totals add up to the global one: the penalty once
             total = data_loss
         else:
@@ -664,7 +733,25 @@ class Trainer:
         if want_cka:
             last = inter.get("last_layer", inter.get("dnn_input"))
             if last is not None:
-                total = total + cka_domain_loss(last, dmask, alpha=0.5)
+                dp = self._shard()
+                if dp is None or dp.world == 1:
+                    total = total + cka_domain_loss(last, dmask, alpha=0.5)
+                else:  # the Gram terms of the global batch, the term counted once
+                    cka = cka_domain_loss_sharded(last, dmask, dp, alpha=0.5)
+                    total = total + (cka if lead else 0.0 * cka)
+        self._report_total = None
+        lam = self.cfg.model_config.l2_reg_embedding
+        if sharded_table and lam:
+            # the row shard's penalty on every rank: each rank's shard
+            # gradient is its own, never all-reduced, so each holds the
+            # penalty's gradient of its rows, once per row; the step reports
+            # the model ranks' penalties summed, on data rank 0 alone
+            pen = lam * torch.sum(torch.square(self.table))
+            with torch.no_grad():
+                whole = pen.detach().clone()
+                dist.all_reduce(whole, group=self._table_shard.group)
+                self._report_total = total.detach() + (whole if lead else 0.0)
+            total = total + pen
         return total, data_loss, probs
 
     def _per_task_totals(self, params, ids, dense, y, dmask, weight, state=None):
@@ -683,6 +770,8 @@ class Trainer:
         reg = l2_regularization(
             params, mc.l2_reg_embedding, mc.l2_reg_dnn,
             dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
+        if state is None and self._shard() is not None and self._dp.rank:
+            reg = 0.0  # the penalty once, on data rank 0
         frozen = probs.detach()
         heads = torch.arange(probs.shape[-1], device=probs.device)
         T = self.num_tasks
@@ -697,23 +786,49 @@ class Trainer:
         return totals, data_loss, probs
 
     def _per_task_grads(self, params, ids, dense, y, dmask, weight):
-        """(per-task gradient dicts, data loss, probs): one backward per
-        task total of ``_per_task_totals``."""
+        """(per-task gradient dicts, data loss, probs, GradNorm's task
+        losses or None): one backward per task total of
+        ``_per_task_totals``.  In a batch shard the tasks' gradients are
+        stacked as ``[T, N]`` and all-reduced in one SUM with the data loss
+        and GradNorm's ``[T]`` losses, so the merge sees the global batch's."""
         totals, data_loss, probs = self._per_task_totals(params, ids, dense, y, dmask, weight)
         names, tensors = list(params), list(params.values())
         T = len(totals)
         task_grads = [dict(zip(names, _grads(total, tensors, retain=i < T - 1)))
                       for i, total in enumerate(totals)]
-        return task_grads, data_loss, probs
+        dp = self._shard()
+        if dp is None:
+            return task_grads, data_loss, probs, None
+        with torch.no_grad():
+            stack = torch.stack([torch.cat([g.reshape(-1) for g in tg.values()])
+                                 for tg in task_grads])
+            extra = [data_loss.detach().reshape(1)]
+            if self.per_task == "gradnorm":
+                extra.append(self._task_losses(probs.detach(), y, dmask, weight))
+            flat = torch.cat([stack.reshape(-1)] + extra)
+            dist.all_reduce(flat, group=dp.group)
+            n = stack.numel()
+            stack = flat[:n].view(T, -1)
+            sizes = [t.numel() for t in tensors]
+            task_grads = [{k: p.view(t.shape) for k, p, t in zip(names, row.split(sizes), tensors)}
+                          for row in stack]
+            loss_vec = flat[n + 1:] if self.per_task == "gradnorm" else None
+        return task_grads, flat[n], probs, loss_vec
 
-    def _gradnorm_terms(self, task_grads, probs, y, dmask, weight, st):
+    def _task_losses(self, probs, y, dmask, weight) -> torch.Tensor:
+        """GradNorm's per-task losses ``L_i`` [T] of the batch."""
+        mc = self.cfg.model_config
+        return per_task_losses(probs, y, weight, self.loss_names, self.task_name,
+                               self.num_domains, domain_mask=dmask if mc.masked_loss else None)
+
+    def _gradnorm_terms(self, task_grads, probs, y, dmask, weight, st, loss_vec=None):
         """GradNorm's step as a function (trainer.py:1025-1044): (the summed
         gradients of ``w_i * L_i``, its loss ``sum(w * L)``, the new weights,
-        the first losses) from the state ``st``, which it does not move."""
+        the first losses) from the state ``st``, which it does not move;
+        ``loss_vec`` (the global batch's losses) replaces the batch's own."""
         mc = self.cfg.model_config
-        loss_vec = per_task_losses(probs, y, weight, self.loss_names, self.task_name,
-                                   self.num_domains,
-                                   domain_mask=dmask if mc.masked_loss else None)
+        if loss_vec is None:
+            loss_vec = self._task_losses(probs, y, dmask, weight)
         w = st["task_weights"]
         init_losses = torch.where(st["gn_step"] == 0, loss_vec, st["initial_losses"])
         scaled = [{k: w[i] * g for k, g in tg.items()} for i, tg in enumerate(task_grads)]
@@ -723,7 +838,7 @@ class Trainer:
             lr=float(mc.extra.get("gradnorm_lr", 0.025)))
         return grads, torch.sum(w * loss_vec), new_w, init_losses
 
-    def _merge_task_grads(self, task_grads, data_loss, probs, y, dmask, weight):
+    def _merge_task_grads(self, task_grads, data_loss, probs, y, dmask, weight, loss_vec=None):
         """(merged gradients, the step's loss) of the per-task method
         (trainer.py:1025-1066): GradNorm sums the gradients of ``w_i * L_i``
         and moves its weights in place (its loss ``sum(w * L)``); CAGrad and
@@ -736,7 +851,7 @@ class Trainer:
             return pcgrad_merge(task_grads), data_loss
         st = self.gn_state
         grads, total, new_w, init_losses = self._gradnorm_terms(
-            task_grads, probs, y, dmask, weight, st)
+            task_grads, probs, y, dmask, weight, st, loss_vec)
         st["task_weights"].copy_(new_w)
         st["initial_losses"].copy_(init_losses)
         st["gn_step"].add_(1)
@@ -744,22 +859,33 @@ class Trainer:
 
     def _train_step_dense(self, ids, dense, y, dmask, weight):
         params = dict(self.model.named_parameters())
+        merged = False  # the per-task merge of a batch shard is global already
         with torch.enable_grad():
             if self.per_task:
-                task_grads, data_loss, probs = self._per_task_grads(
+                task_grads, data_loss, probs, loss_vec = self._per_task_grads(
                     params, ids, dense, y, dmask, weight)
+                merged = self._shard() is not None
                 probs = probs.detach()
                 with torch.no_grad():
                     grads, total = self._merge_task_grads(
-                        task_grads, data_loss, probs, y, dmask, weight)
+                        task_grads, data_loss, probs, y, dmask, weight, loss_vec)
             else:
                 total, data_loss, probs = self._loss_terms(params, ids, dense, y, dmask, weight)
                 grads = dict(zip(params, _grads(total, list(params.values()))))
-        if self._dp is not None:
+        if self._dp is not None and not merged:
             report = total.detach()
+            if self._table_sharded() and self._report_total is not None:
+                report = self._report_total
             if self._escm and self._shard() is not None and self._dp.rank:
                 report = torch.zeros_like(report)  # the global loss, counted by rank 0
-            grads, total = self._reduce_grads(grads, report)
+            if self._table_sharded():
+                # the shard's gradient is global already (owned_rows): only
+                # the replicated parameters take the all-reduce over data
+                g_table = grads.pop(_TABLE)
+                reduced, total = self._reduce_grads(grads, report)
+                grads = {k: g_table if k == _TABLE else reduced[k] for k in params}
+            else:
+                grads, total = self._reduce_grads(grads, report)
         if self.sparse_embedding_update:
             # the table leaves the dense optimizer; its touched physical rows
             # take SparseAdam from the dense gradient (trainer.py:1074-1094)
@@ -804,14 +930,15 @@ class Trainer:
 
     def _rank0_writes(self, write, directory: str) -> str:
         """Run ``write`` (which returns ``directory``) on rank 0 alone, the
-        other ranks waiting at a barrier until it is done."""
-        if self._dp is None:
+        other ranks waiting at a barrier until it is done; with a row-sharded
+        table on every rank, whose shards it gathers, rank 0 alone writing."""
+        if self.mesh is None:
             return write()
         try:
-            if self._dp.rank == 0:
+            if self._table_sharded() or dist.get_rank() == 0:
                 directory = write()
         finally:
-            dist.barrier(group=self._dp.group)
+            dist.barrier()
         return directory
 
     # ------------------------------------------------------------------
@@ -827,6 +954,8 @@ class Trainer:
         reg = l2_regularization(
             self.rest_params(), mc.l2_reg_embedding, mc.l2_reg_dnn,
             dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
+        if self._shard() is not None and self._dp.rank:
+            reg = 0.0  # the dense penalty once, on data rank 0; rep partitions the rows' term
         if mc.l2_reg_embedding:
             flat_rows = rows.reshape(-1, rows.shape[-1])
             reg = reg + mc.l2_reg_embedding * torch.sum(rep[:, None] * torch.square(flat_rows))
@@ -916,10 +1045,19 @@ class Trainer:
         write-kernel and unique ones, plus the gather route's five lists
         (staging.py:720-725)."""
         F = len(self.layout.sparse_slots)
-        flat = (np.asarray(ids)[:, :F].astype(np.int64) + self._host_offsets).reshape(1, -1)
-        return tuple(self._to_device(a[0]) for a in staging.step_metadata(self, flat))
+        return self._flat_metadata(np.asarray(ids)[:, :F].astype(np.int64) + self._host_offsets)
+
+    def _flat_metadata(self, flat: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """``host_metadata`` of fused logical ids (the mesh step's: the
+        global batch's, gathered)."""
+        return tuple(self._to_device(a[0])
+                     for a in staging.step_metadata(self, np.asarray(flat).reshape(1, -1)))
 
     def _train_step_two_phase(self, ids, dense, y, dmask, weight, meta=None):
+        if self.mesh is not None:
+            from ..parallel.explicit_step import mesh_two_phase_step
+
+            return mesh_two_phase_step(self, ids, dense, y, dmask, weight, meta)
         table = self.table
         B, F = ids.shape[0], len(self.layout.sparse_slots)
         P, D, W = self._emb_pack_factor, self._emb_dim, table.shape[1]
@@ -1383,10 +1521,15 @@ class Trainer:
         fresh = get_model(self.model_name, self.layout, self.cfg, generator=gen,
                           device=gen.device)
         with torch.no_grad():
+            if self._table_sharded():  # the whole table back, then this rank's rows
+                fused = self.model.embeddings.fused
+                fused.shard = None
+                fused.table = torch.nn.Parameter(torch.empty_like(fresh.embeddings.fused.table),
+                                                 requires_grad=fused.table.requires_grad)
             self.model.load_state_dict(fresh.state_dict())
         del fresh
         if self.mesh is not None:
-            shard_variables(self.model.state_dict(), self.mesh)
+            self._place_on_mesh()
         self.seed = seed
         self.opt_state = self.table_opt = self.best_variables = self.gn_state = None
         self.history, self.batch_history = [], []

@@ -77,6 +77,65 @@ def fit_arrays(tr, x, y, batch=64, epochs=1, **kw):
     return out
 
 
+# the JAX explicit-collective tests' shapes (tests/test_explicit_collectives.py,
+# tests/test_mesh_stacked.py): the two-phase step, and the write-kernel
+# update with packed bf16 moments in the split or the stacked container
+TWO_PHASE = dict(two_phase_embedding=True)
+EXPLICIT = dict(two_phase_embedding=True, explicit_collective_embedding=True)
+PACKED = dict(EXPLICIT, table_update="pallas", table_opt_dtype="bfloat16", vocab=400)
+STACKED = dict(PACKED, table_container="stacked", dedup_route="gather")
+
+
+def sharded_setup(model_name="mmoe", task="mtl", mesh=None, n=ROWS, **extra):
+    """``port_setup`` for the row-sharded table's cases: a stacked container
+    is built shard-major over the mesh's ``model`` size (``stacked_shards``),
+    its table the first Vp rows of the numpy draw and its moments zero, as a
+    fresh container's are; ``mesh`` None is the one-process fit."""
+    from mmlrec_tpu_torch.models import get_model
+    from mmlrec_tpu_torch.parallel.mesh import model_size
+    from mmlrec_tpu_torch.synthetic import make_config, make_data
+    from mmlrec_tpu_torch.train import Trainer
+    from mmlrec_tpu_torch.train.sparse_embedding import fold_stacked_planes, split_stacked_planes
+
+    if extra.get("table_container") == "stacked" and mesh is not None:
+        extra["stacked_shards"] = model_size(mesh)
+    cfg = make_config(task_name=task, model_name=model_name, **{**SIZES, **extra})
+    layout, x, y, dmask = make_data(cfg, n=n, seed=0, vocab=extra.get("vocab", 100))
+    model = get_model(model_name, layout, cfg, device="cpu")
+    with torch.no_grad():
+        for name, a in numpy_params(model).items():
+            model.get_parameter(name).copy_(torch.from_numpy(a))
+        fused = model.embeddings.fused
+        if fused.dual_container:  # the draw's first Vp rows are the table, in any layout
+            plane = split_stacked_planes(fused.table, 1)[0].clone()
+            fused.table.copy_(fold_stacked_planes(plane, torch.zeros_like(plane),
+                                                  fused.dual_shards))
+    tr = Trainer(model, seed=0, mesh=mesh, device="cpu").compile(metrics=[])
+    return tr, x, y, dmask
+
+
+def whole_state(tr, prefix="state/"):
+    """``state_arrays`` with a row-sharded table gathered over ``model``
+    (every rank calls it) and a stacked container cut to its table plane."""
+    from mmlrec_tpu_torch.train import checkpointing
+
+    out = {}
+    for k, v in tr.model.state_dict().items():
+        if k == "embeddings.fused.table":
+            v = checkpointing._split_variables(tr, {k: v})[k]
+        out[prefix + k] = v.detach().cpu().numpy().copy()
+    return out
+
+
+def sharded_fit(tr, x, y, batch=64, epochs=1, **kw):
+    """``fit_arrays`` of a trainer whose table may be row-sharded."""
+    tr.fit(x, y, batch_size=batch, epochs=epochs, verbose=0, shuffle=False, **kw)
+    out = whole_state(tr)
+    out["losses"] = np.asarray([h["loss"] for h in tr.history])
+    out["pred"] = tr.predict(x, batch)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # spawning
 # ---------------------------------------------------------------------------
@@ -287,7 +346,8 @@ def case_take():
 
 
 def case_refusals():
-    """create_mesh's shapes and errors, and what a mesh trainer refuses."""
+    """create_mesh's shapes and errors, and the mesh combinations the JAX
+    trainer refuses, with its ValueErrors."""
     from mmlrec_tpu_torch.parallel import create_mesh
 
     world = dist.get_world_size()
@@ -296,19 +356,146 @@ def case_refusals():
     out["shape"] = np.asarray(mesh.shape)
     out["names"] = np.asarray(mesh.mesh_dim_names)
     out["default_shape"] = np.asarray(create_mesh(model=2, device="cpu").shape)
+    stacked = dict(two_phase_embedding=True, table_update="pallas", table_opt_dtype="bfloat16",
+                   table_container="stacked", vocab=400)
     for name, call in (("bad_product", lambda: create_mesh(data=world + 1, model=2,
                                                             device="cpu")),
-                       ("model_2", lambda: port_setup(mesh=mesh)),
-                       ("pcg", lambda: port_setup("pcg", mesh=_mesh())),
-                       ("gradnorm", lambda: port_setup(mesh=_mesh(), use_gradnorm=True)),
-                       ("cka", lambda: port_setup(task="msl", mesh=_mesh(), use_cka_loss=True)),
-                       ("two_phase", lambda: port_setup(mesh=_mesh(), two_phase_embedding=True))):
+                       ("model_2", lambda: port_setup(mesh=mesh, two_phase_embedding=True,
+                                                      table_update="pallas")),
+                       ("pcg", lambda: port_setup("escm", mesh=_mesh(), use_cagrad=True)),
+                       ("gradnorm", lambda: port_setup(mesh=mesh, **stacked,
+                                                       explicit_collective_embedding=True,
+                                                       stacked_shards=1)),
+                       ("cka", lambda: port_setup(mesh=mesh, **stacked)),
+                       ("two_phase", lambda: port_setup(mesh=_mesh(), two_phase_embedding=True,
+                                                        table_update="unique",
+                                                        explicit_collective_embedding=True))):
         try:
             call()
             out[name] = np.asarray("no error")
         except (ValueError, NotImplementedError) as e:
             out[name] = np.asarray(f"{type(e).__name__}: {e}")
     return out
+
+
+def _mesh_model(model=2):
+    """A (world / model, model) mesh: the table row-sharded over ``model``."""
+    from mmlrec_tpu_torch.parallel import create_mesh
+
+    return create_mesh(data=dist.get_world_size() // model, model=model, device="cpu")
+
+
+def _sharded_case(**extra):
+    tr, x, y, _ = sharded_setup(mesh=_mesh_model(), **extra)
+    return sharded_fit(tr, x, y)
+
+
+def case_sh_explicit():
+    """The explicit two-phase step (scatter update) on the mesh."""
+    return _sharded_case(**EXPLICIT)
+
+
+def case_sh_gspmd():
+    """The two-phase step on the mesh without the explicit flag (JAX's
+    GSPMD path): the same exchange with the plain sharded update."""
+    return _sharded_case(**TWO_PHASE)
+
+
+def case_sh_dense():
+    """The dense-table fit with the table row-sharded (model 2)."""
+    return _sharded_case()
+
+
+L2 = dict(l2_reg_embedding=1e-2, l2_reg_dnn=1e-3)  # penalties a model rank must not repeat
+
+
+def case_sh_explicit_l2():
+    """The explicit step with both L2 penalties: the dense one on data rank
+    0, the touched rows' one partitioned by each data rank's ``rep``."""
+    return _sharded_case(**EXPLICIT, **L2)
+
+
+def case_sh_dense_l2():
+    """The dense model-2 fit with both L2 penalties: each shard's rows once."""
+    return _sharded_case(**L2)
+
+
+def case_sh_chunked():
+    """The explicit step with the pipelined exchange (4 tiles)."""
+    return _sharded_case(**EXPLICIT, grad_exchange_chunks=4)
+
+
+def case_sh_stream():
+    """The explicit step on the streaming path."""
+    tr, x, y, _ = sharded_setup(mesh=_mesh_model(), **EXPLICIT)
+    tr._device_data_bytes_cap = 0
+    return sharded_fit(tr, x, y)
+
+
+def case_sh_packed_gather():
+    """The write-kernel update of packed moments, gather dedup route."""
+    return _sharded_case(**PACKED, dedup_route="gather")
+
+
+def case_sh_packed_scatter():
+    """The same with the scatter dedup route."""
+    return _sharded_case(**PACKED, dedup_route="scatter")
+
+
+def case_sh_split_f32():
+    """The write-kernel update of split f32 moments."""
+    return _sharded_case(**dict(PACKED, table_opt_dtype="float32"))
+
+
+def case_sh_devmeta():
+    """The write-kernel update with the metadata built in the step from
+    the gathered ids."""
+    return _sharded_case(**PACKED, device_metadata=True)
+
+
+def case_sh_stacked():
+    """The stacked container, shard-major, position space."""
+    return _sharded_case(**STACKED, update_space="position")
+
+
+def case_sh_stacked_slot():
+    """The stacked container, slot space."""
+    return _sharded_case(**STACKED, update_space="slot")
+
+
+def case_sh_stacked_ckpt():
+    """The stacked fit, then its training state and checkpoint, written by
+    rank 0 from the shards every rank gathers."""
+    tr, x, y, _ = sharded_setup(mesh=_mesh_model(), **STACKED, update_space="position")
+    out = sharded_fit(tr, x, y)
+    ckpt = os.environ["DP_CKPT"]
+    out["state_dir"] = np.asarray(tr.save_training_state(ckpt))
+    out["ckpt_dir"] = np.asarray(tr.save_checkpoint(ckpt))
+    return out
+
+
+def case_task_pcg():
+    """PCGrad with both L2 penalties (``reg / T`` a task, counted once)."""
+    tr, x, y, _ = port_setup("pcg", mesh=_mesh(), l2_reg_embedding=1e-3, l2_reg_dnn=1e-3)
+    return fit_arrays(tr, x, y)
+
+
+def case_task_gradnorm():
+    tr, x, y, _ = port_setup(mesh=_mesh(), use_gradnorm=True)
+    out = fit_arrays(tr, x, y)
+    out.update({f"gn/{k}": v.numpy() for k, v in tr.gn_state.items()})
+    out["state_dir"] = np.asarray(tr.save_training_state(os.environ["DP_CKPT"]))
+    return out
+
+
+def case_task_cagrad():
+    tr, x, y, _ = port_setup(mesh=_mesh(), use_cagrad=True)
+    return fit_arrays(tr, x, y)
+
+
+def case_task_cka():
+    tr, x, y, _ = port_setup(task="msl", mesh=_mesh(), use_cka_loss=True)
+    return fit_arrays(tr, x, y)
 
 
 def _worker(rank, world, port, out_dir, cases):

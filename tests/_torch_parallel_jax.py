@@ -34,13 +34,14 @@ def _flat(tree, prefix=""):
     return out
 
 
-def jax_mesh_fit(world, model_name="mmoe", task="mtl", optimizer="adam", n=ROWS, **extra):
-    """JAX's mesh fit from the port's numpy init: (state by port name,
-    losses, predictions)."""
+def jax_mesh_fit(world, model_name="mmoe", task="mtl", optimizer="adam", n=ROWS, model=1,
+                 **extra):
+    """JAX's ``(world / model, model)`` mesh fit from the port's numpy init:
+    (state by port name, losses, predictions)."""
     port, *_ = port_setup(model_name, task, optimizer=optimizer, n=8, **extra)
     cfg = jsyn.make_config(task_name=task, model_name=model_name, **{**SIZES, **extra})
     layout, x, y, _ = jsyn.make_data(cfg, n=n, seed=0)
-    mesh = jax_create_mesh(data=world, model=1, devices=jax.devices()[:world])
+    mesh = jax_create_mesh(data=world // model, model=model, devices=jax.devices()[:world])
     jtr = JaxTrainer(jax_get_model(model_name, layout, cfg), seed=0, mesh=mesh).compile(
         optimizer=optimizer, metrics=[])
     ids, dense = jtr.pack_inputs(x)

@@ -78,13 +78,22 @@ def test_device_eval_flag_and_bundle_export(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,err,item", [
-    (["--data_parallel", "2", "--model_parallel", "2"], NotImplementedError, "A9"),
+    # a row-sharded table under the two-phase step's write-kernel update
+    # without the explicit exchange: JAX's ValueError, raised by the ranks
+    (["--data_parallel", "1", "--model_parallel", "2"], RuntimeError,
+     "rank [01] failed: ValueError: table_update unique/pallas with a mesh requires the "
+     "explicit_collective_embedding"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_flags_raise(flags, err, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = cut_config("configs/example_synthetic_msl.json", tmp_path)
+    if "--model_parallel" in flags:
+        raw = json.loads(open(cfg).read())
+        raw["model_config"].update(two_phase_embedding=True, table_update="pallas")
+        with open(cfg, "w") as f:
+            json.dump(raw, f)
     with pytest.raises(err, match=item):
         main(["--config", cfg, "--seed", "0", "--synthetic", "--device", "cpu", *flags])
     assert not (tmp_path / "results").exists()

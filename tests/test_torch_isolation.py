@@ -46,7 +46,8 @@ def test_import_pulls_in_no_jax():
               "train.staging", "train.graphs", "utils.results", "utils.seeding",
               "train.pcgrad", "train.gradnorm", "train.cagrad", "train.cka",
               "train.multi_seed", "train.sweep", "tools.probe_rows", "tools.timing",
-              "parallel", "parallel.mesh", "parallel.multihost"):
+              "parallel", "parallel.mesh", "parallel.multihost", "parallel.shard_embedding",
+              "parallel.explicit_step"):
         assert f"mmlrec_tpu_torch.{m}" in out
     on_disk = {".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
                for f in PORT.rglob("*.py")}
@@ -308,4 +309,15 @@ def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):
         create_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--config", config, "--seed", "0", "--synthetic", "--data_parallel", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # the row-sharded table's mesh
+        main(["--config", config, "--seed", "0", "--synthetic", "--data_parallel", "1",
+              "--model_parallel", "2"])
     assert not torch.distributed.is_initialized()
+    # the explicit step's trainer on a model > 1 mesh: a mesh object does not
+    # make the trainer leave the card
+    from mmlrec_tpu_torch.train import Trainer
+
+    two_phase = make_config(emb=4, n_sparse=3, n_dense=2, hidden=(8,), tower=(4,), gate=(4,),
+                            two_phase_embedding=True, explicit_collective_embedding=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_model("mmoe", layout, two_phase, device="cpu"), mesh=object())

@@ -216,15 +216,16 @@ def test_serving_bundle_matches_jax_bundle(tmp_path, task_name, kw):
 
 
 def test_unported_options_are_refused():
-    """What stays refused: the shard-major stacked container names its
-    ROADMAP item (A9), sparse features of non-uniform dims raise the
+    """What stays refused: a shard-major stacked container whose physical
+    rows do not divide by its shards raises the JAX package's ValueError,
+    sparse features of non-uniform dims raise the
     ValueError of the JAX package's failed stack.  A behaviour sequence, the
     parameterised activations and the wide logit build."""
     from mmlrec_tpu_torch.features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
 
     tl, *_ = tsyn.make_data(tsyn.make_config(**SMALL), n=8)
-    cfg = tsyn.make_config(**SMALL, table_container="stacked", stacked_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    cfg = tsyn.make_config(**SMALL, table_container="stacked", stacked_shards=1021)
+    with pytest.raises(ValueError, match="to divide evenly"):
         get_model("mmoe", tl, cfg, device="cpu")
     varlen = [SparseFeat("s0", 50, 4), VarLenSparseFeat(SparseFeat("h", 50, 4), maxlen=3)]
     model = get_model("star", FeatureLayout(varlen), tsyn.make_config(**SMALL), device="cpu")

@@ -278,7 +278,8 @@ def test_registry_names_and_refusals():
     """Every name of the JAX registry builds, on a layout with a behaviour
     sequence too; sparse features of non-uniform dims raise the ValueError
     of the JAX package's failed stack (tests/test_torch_varlen.py holds both
-    against JAX); the shard-major stacked container names ROADMAP A9."""
+    against JAX); a shard-major stacked container whose physical rows do
+    not divide by its shards raises the JAX package's ValueError."""
     from mmlrec_tpu_torch.features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY) and UNPORTED == ()
@@ -296,9 +297,9 @@ def test_registry_names_and_refusals():
         "embeddings.fused.table", "embeddings.table_hist"]
     with pytest.raises(ValueError, match="same shape"):
         get_model("sharedbottom", mixed, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="to divide evenly"):
         get_model("sharedbottom", layout, tsyn.make_config(
-            **SMALL, table_container="stacked", stacked_shards=2), device="cpu")
+            **SMALL, table_container="stacked", stacked_shards=1021), device="cpu")
     for kw in ({"dnn_activation": "prelu"}, {"dnn_activation": "dice"},
                {"use_wide_linear": True}):
         get_model("sharedbottom", layout, tsyn.make_config(**SMALL, **kw), device="cpu")

@@ -1,7 +1,8 @@
 """The port's CLI with ``--data_parallel`` on the CPU: the command starts
 its gloo ranks itself (main.py:95-113), rank 0 writes the one row, and the
 row's metrics match the command without a mesh; the suite flags run the
-plain seed loop under a mesh; what still refuses names its ROADMAP part."""
+plain seed loop under a mesh; what the JAX trainer refuses on a mesh
+fails the ranks with its ValueError."""
 
 import csv
 import json
@@ -53,6 +54,28 @@ def test_data_parallel_cli_matches_the_plain_command(tmp_path, monkeypatch):
         assert dp[k] == pytest.approx(plain[k], abs=1e-4), k
 
 
+def test_model_parallel_cli_matches_the_plain_command(tmp_path, monkeypatch):
+    """``--data_parallel 2 --model_parallel 2 --device cpu`` starts four
+    ranks, the table row-sharded over two of them, on a two-phase config
+    (config_AE.json's: the scatter update on a mesh, as JAX's GSPMD path);
+    rank 0 writes one row whose AUCs and log-losses match the command
+    without a mesh within 1e-4."""
+    monkeypatch.chdir(tmp_path)
+    with open(os.path.join(ROOT, "configs/msl/config_AE.json")) as f:
+        raw = json.load(f)
+    raw["training_config"].update(epochs=1, train_batch_size=512, test_batch_size=512)
+    raw["save_config"]["save"] = False
+    cfg = tmp_path / "ae.json"
+    cfg.write_text(json.dumps(raw))
+    mesh, = _run(str(cfg), "--seed", "0", "--data_parallel", "2", "--model_parallel", "2")
+    assert len(_rows(tmp_path, raw)) == 1
+    plain, = _run(str(cfg), "--seed", "0")
+    keys = [k for k in plain if k.startswith(("auc", "log_loss", "total_auc"))]
+    assert keys and set(mesh) == set(plain)
+    for k in keys:
+        assert mesh[k] == pytest.approx(plain[k], abs=1e-4), k
+
+
 def test_data_parallel_suite_flags_run_the_plain_loop(tmp_path, monkeypatch):
     """With a mesh, ``--vmap_seeds --seeds 0,2`` trains the seeds one after
     the other (one row each, no suite wall time), as main.py:109-113 does;
@@ -71,18 +94,25 @@ def test_data_parallel_suite_flags_run_the_plain_loop(tmp_path, monkeypatch):
 
 
 def test_data_parallel_refusals_name_their_part(tmp_path, monkeypatch):
-    """``--model_parallel`` above 1 is part 2; a per-task method under the
-    mesh fails its ranks (the trainer names part 1b); two ranks on one card
-    over NCCL raise ValueError before any rank starts."""
+    """What the JAX trainer refuses on a mesh fails the ranks with its
+    ValueError: ``--model_parallel 2`` with the unique update (only the
+    explicit exchange's pallas update runs on a mesh), and a per-task
+    method on ESCM's entire-space loss; two ranks on one card over NCCL
+    raise ValueError before any rank starts."""
     monkeypatch.chdir(tmp_path)
     cfg, raw = _config(tmp_path, epochs=1)
-    with pytest.raises(NotImplementedError, match="A9 part 2"):
-        _run(cfg, "--seed", "0", "--data_parallel", "2", "--model_parallel", "2")
-    raw["model_config"]["model_name"] = "pcg"
-    pcg = tmp_path / "pcg.json"
-    pcg.write_text(json.dumps(raw))
-    with pytest.raises(RuntimeError, match="failed: NotImplementedError.*A9 part 1b"):
-        _run(str(pcg), "--seed", "0", "--data_parallel", "2")
+    unique = tmp_path / "unique.json"
+    unique.write_text(json.dumps({**raw, "model_config": {
+        **raw["model_config"], "two_phase_embedding": True, "table_update": "unique",
+        "explicit_collective_embedding": True}}))
+    with pytest.raises(RuntimeError, match="failed: ValueError: table_update unique/pallas with "
+                                           "a mesh requires"):
+        _run(str(unique), "--seed", "0", "--data_parallel", "1", "--model_parallel", "2")
+    raw["model_config"].update(model_name="escm", use_cagrad=True)
+    escm = tmp_path / "escm.json"
+    escm.write_text(json.dumps(raw))
+    with pytest.raises(RuntimeError, match="failed: ValueError: per-task gradient methods"):
+        _run(str(escm), "--seed", "0", "--data_parallel", "2")
     assert not (tmp_path / raw["data_config"]["test_result_path"]).exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

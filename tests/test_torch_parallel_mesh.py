@@ -29,17 +29,25 @@ def dp(tmp_path_factory):
 def test_mesh_shapes_and_refusals(dp):
     """create_mesh(data=2, model=2) over 4 ranks, data defaulting to world //
     model, ValueError for 3 x 2 (tests/test_sharding.py::test_mesh_shapes);
-    a mesh trainer refuses model > 1 and the two-phase step (ROADMAP A9 part
-    2), the per-task methods and CKA (part 1b)."""
+    a mesh trainer raises the JAX trainer's ValueErrors (trainer.py:282-291,
+    384-411): the write-kernel or unique update without the explicit
+    exchange (model 2: "model_2"; unique on the explicit path: "two_phase"),
+    the stacked container without it ("cka") or built with another
+    ``stacked_shards`` than the mesh's ``model`` ("gradnorm"), and a
+    per-task method on ESCM ("pcg")."""
     runs, _ = dp
     got = runs["refusals"][0]
     assert tuple(got["shape"]) == (2, 2) and tuple(got["default_shape"]) == (2, 2)
     assert tuple(got["names"]) == ("data", "model")
     assert str(got["bad_product"]) == "ValueError: mesh 5x2 != 4 processes"
-    for name in ("model_2", "two_phase"):
-        assert str(got[name]).startswith("NotImplementedError") and "A9 part 2" in str(got[name])
-    for name in ("pcg", "gradnorm", "cka"):
-        assert str(got[name]).startswith("NotImplementedError") and "A9 part 1b" in str(got[name])
+    want = {"model_2": "table_update unique/pallas with a mesh requires the "
+                       "explicit_collective_embedding path",
+            "two_phase": "table_update unique/pallas with a mesh requires",
+            "cka": "table_update unique/pallas with a mesh requires",
+            "gradnorm": "model was built with stacked_shards=1 but the mesh 'model' axis is 2",
+            "pcg": "per-task gradient methods (pcg/gradnorm/cagrad) are not defined for ESCM"}
+    for name, text in want.items():
+        assert str(got[name]).startswith("ValueError: " + text), str(got[name])
 
 
 def test_create_mesh_and_mesh_trainer_default_to_the_card(monkeypatch):

@@ -103,8 +103,12 @@ def test_stacked_plane_folds_match_jax():
     np.testing.assert_array_equal(bottom.numpy(), np.asarray(jbottom))
     ids = torch.arange(5, dtype=torch.int32)
     assert T.stacked_table_rows(ids, 64) is ids
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.split_stacked_planes(fat, n_shards=2)
+    # two shards: the shard-major layout, as JAX's
+    fat2 = T.fold_stacked_planes(torch.from_numpy(table), torch.from_numpy(monu), n_shards=2)
+    np.testing.assert_array_equal(fat2.numpy(), np.asarray(J.fold_stacked_planes(table, monu, 2)))
+    top2, bottom2 = T.split_stacked_planes(fat2, n_shards=2)
+    np.testing.assert_array_equal(top2.numpy(), table)
+    np.testing.assert_array_equal(bottom2.numpy(), monu)
 
 
 def _update_case(P, container, monu_gather="xla", seed=3):
