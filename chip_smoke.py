@@ -321,7 +321,16 @@ failure and carries on):
    state and the predictions against the same fits in one process on the
    card; (c) one eager step of the explicit two-phase step (stacked pallas
    container, metadata in the step) on a 1 x 1 NCCL mesh under
-   ``set_sync_debug_mode("error")``.
+   ``set_sync_debug_mode("error")``; (d) two ranks on the one card over
+   gloo as a (data 1, model 2) mesh at the flagship's msl widths (vocab
+   2^16 a feature, sigmoid DNNs, 3 steps of 4096): ``pcg``, MMoE with
+   GradNorm, with CAGrad, with ``sparse_embedding_update``, and the CKA
+   fit, rank 0's training state restored and held against the same fit in
+   one process on the card (``sparse_embedding_update`` bitwise, the others
+   by phase 9's rule with the table held as a dense weight, GradNorm's
+   weights atol 1e-6), B5-B7 once a step a rank, and one eager step a
+   rank under ``set_sync_debug_mode("error")`` with gloo's own collectives
+   exempted.
 
 Launches of a replayed CUDA graph are counted once per replay (the
 wrappers count at capture, ``cuda_build.captured_launches``), so every
@@ -4494,6 +4503,43 @@ def _dp_rank(rank, port, workdir, reports):
         raise
 
 
+def _run_ranks(target, workdir, n_reports, tag, world=2):
+    """Start ``world`` spawned ranks of ``target`` (phases 19 and 20: two
+    ranks on the one card over gloo) and collect their ``n_reports``
+    reports {(rank, arm): result}; stops every rank."""
+    import multiprocessing as mp
+    import queue
+
+    from mmlrec_tpu_torch.main import _free_port
+
+    ctx = mp.get_context("spawn")
+    reports = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, workdir, reports))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < n_reports:
+            try:
+                rank, arm, res, error = reports.get(timeout=5.0)
+            except queue.Empty:
+                if any(p.exitcode is not None and p.exitcode != 0 for p in procs):
+                    raise AssertionError(f"phase {tag}: a rank died without a report")
+                continue
+            if error is not None:
+                raise AssertionError(f"phase {tag}: rank {rank} failed: {error}")
+            got[(rank, arm)] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return got
+
+
 def _replayed_kernels(torch, tr, x, y, batch):
     """(device µs, kernels and copies) a replayed step: ``torch.profiler``
     over the second epoch of a 2-epoch graph fit (the first one captures)."""
@@ -4610,37 +4656,9 @@ def _dp_world2(torch, K, card, workdir):
     a card), the flagship-width MMoE with BatchNorm and STAR with
     DomainBatchNorm, 3 steps each (``DP_ARMS``): every rank against the
     single-process fit of the same global batches by phase 9's rule."""
-    import multiprocessing as mp
-    import queue
-
-    from mmlrec_tpu_torch.main import _free_port
     from mmlrec_tpu_torch.train import checkpointing
 
-    ctx = mp.get_context("spawn")
-    reports = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_dp_rank, args=(r, port, workdir, reports))
-             for r in range(DP_WORLD)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        while len(got) < DP_WORLD * len(DP_ARMS):
-            try:
-                rank, arm, res, error = reports.get(timeout=5.0)
-            except queue.Empty:
-                if any(p.exitcode is not None and p.exitcode != 0 for p in procs):
-                    raise AssertionError("phase 19 (b): a rank died without a report")
-                continue
-            if error is not None:
-                raise AssertionError(f"phase 19 (b): rank {rank} failed: {error}")
-            got[(rank, arm)] = res
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.terminate()
-                p.join()
+    got = _run_ranks(_dp_rank, workdir, DP_WORLD * len(DP_ARMS), "19 (b)", DP_WORLD)
     out = {}
     for arm, (name, dropout, held) in DP_ARMS.items():
         cfg, batch, layout, x, y = _dp_arm_data(name, dropout)
@@ -5011,38 +5029,10 @@ def row_sharded_world2(torch, K, card, workdir):
     explicit two-phase fit of the flagship MMoE (stacked pallas container,
     shard-major) and the dense fit with the table row-sharded, 3 steps each,
     against the same fits in one process on the card."""
-    import multiprocessing as mp
-    import queue
-
-    from mmlrec_tpu_torch.main import _free_port
     from mmlrec_tpu_torch.train import Trainer, checkpointing
     from mmlrec_tpu_torch.train.sparse_embedding import split_stacked_planes, unpack_monu_f32
 
-    ctx = mp.get_context("spawn")
-    reports = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_mp_rank, args=(r, port, workdir, reports))
-             for r in range(MP_WORLD)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        while len(got) < MP_WORLD * len(MP_ARMS):
-            try:
-                rank, arm, res, error = reports.get(timeout=5.0)
-            except queue.Empty:
-                if any(p.exitcode is not None and p.exitcode != 0 for p in procs):
-                    raise AssertionError("phase 20 (b): a rank died without a report")
-                continue
-            if error is not None:
-                raise AssertionError(f"phase 20 (b): rank {rank} failed: {error}")
-            got[(rank, arm)] = res
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.terminate()
-                p.join()
+    got = _run_ranks(_mp_rank, workdir, MP_WORLD * len(MP_ARMS), "20 (b)")
     out = {}
     for arm in MP_ARMS:
         cfg, layout, x, y = _mp_arm(arm, 1)
@@ -5098,6 +5088,201 @@ def row_sharded_world2(torch, K, card, workdir):
     return out
 
 
+# (d): the per-task methods, sparse_embedding_update and the CKA loss with the
+# table row-sharded, (data 1, model 2) over gloo: arm -> (registry name, the
+# model config's extra fields); the flagship's msl widths, sigmoid DNNs (phase
+# 9's rule), MP_STEPS steps of FLAGSHIP_BATCH (the last partial)
+MP_TASK_ARMS = {"pcg": ("pcg", {}), "gradnorm": ("mmoe", dict(use_gradnorm=True)),
+                "cagrad": ("mmoe", dict(use_cagrad=True)),
+                "sparse_embedding_update": ("mmoe", dict(sparse_embedding_update=True)),
+                "cka": ("mmoe", dict(use_cka_loss=True))}
+# the arms held bitwise against the one process: their sums keep its order.
+# The others are held by phase 9's rule with the table counted with the
+# dense weights (phase 16's form: dense and table entries together at most
+# 1e-4 over 1e-6) and no table entry over MP_TASK_TABLE_ATOL: the merges sum
+# each dot product as a replicated part plus the shards' part, and a table
+# lane whose merged gradient nearly cancels turns that rounding into a
+# visible part of its Adam step, as a dense weight does.  The H100 read 10
+# (CAGrad) of 8,388,608 table entries up to 7.1e-6 apart after 3 steps, and
+# 2 of pcg's up to 9.5e-6 while one process projected by direct dots; the
+# dense ones under 2e-7: the bound is some 5x the worst reading, 1/60 of
+# 3 x lr.
+MP_TASK_BITWISE = ("sparse_embedding_update",)
+MP_TASK_TABLE_ATOL = 5e-5
+# the collectives a step calls, as torch.distributed names them
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+               "reduce_scatter_tensor", "reduce_scatter_single", "broadcast")
+
+
+def _mp_task_arm(arm):
+    from mmlrec_tpu_torch.synthetic import aliexpress_like_config, make_data
+
+    name, extra = MP_TASK_ARMS[arm]
+    cfg = aliexpress_like_config(name, masked_loss=True, dnn_activation="sigmoid", **extra)
+    layout, x, y, _ = make_data(cfg, n=MP_STEPS * FLAGSHIP_BATCH - FLAGSHIP_BATCH // 4,
+                                vocab=MP_VOCAB, seed=26)
+    return name, cfg, layout, x, y
+
+
+def _first_batch(torch, tr, x, y, batch):
+    ids, dense = tr.pack_inputs(x)
+    parts = [torch.from_numpy(np.ascontiguousarray(a[:batch])).to(DEV)
+             for a in (ids, dense, tr._prepare_y(y), tr._domain_mask_from(x))]
+    return parts + [torch.ones(batch, device=DEV)]
+
+
+def _sync_free_gloo_step(torch, tr, batch) -> None:
+    """One eager step under ``set_sync_debug_mode("error")`` on a gloo mesh:
+    gloo moves a CUDA tensor through the host, so each collective call runs
+    with the mode off (its own copies exempted, NCCL's would need none);
+    anything else in the step that reads a device value on the host
+    raises."""
+    import torch.distributed as dist
+
+    saved = {n: getattr(dist, n) for n in COLLECTIVES if hasattr(dist, n)}
+
+    def exempt(fn):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    for n, fn in saved.items():
+        setattr(dist, n, exempt(fn))
+    try:
+        _sync_free_step(torch, tr, batch)
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def _mp_task_rank(rank, port, workdir, reports):
+    """Phase 20 (d): one of two ranks on the one card, over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from mmlrec_tpu_torch.ops import kernels as K
+    from mmlrec_tpu_torch.parallel import create_mesh
+    from mmlrec_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=MP_WORLD)
+        mesh = create_mesh(data=1, model=MP_WORLD, device="cpu")  # gloo, the tensors on the card
+        for arm in MP_TASK_ARMS:
+            name, cfg, layout, x, y = _mp_task_arm(arm)
+            tr = Trainer(_mp_model(name, layout, cfg, MP_WORLD), seed=0, mesh=mesh,
+                         device=DEV).compile()
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(x, y, batch_size=FLAGSHIP_BATCH, epochs=1, verbose=0, shuffle=False)
+            torch.cuda.synchronize()
+            fit_ms = (time.perf_counter() - t0) * 1e3
+            launches = _per_step(K, MP_STEPS)
+            backwards = {k: v / MP_STEPS for k, v in K.backward_counts.items() if v}
+            pred = tr.predict(x, FLAGSHIP_BATCH)
+            state = tr.save_training_state(os.path.join(workdir, arm))
+            _sync_free_gloo_step(torch, tr, _first_batch(torch, tr, x, y, FLAGSHIP_BATCH))
+            reports.put((rank, arm, dict(
+                losses=[h["loss"] for h in tr.history], fit_ms=fit_ms, launches_per_step=launches,
+                backwards_per_step=backwards, pred=pred, state=state,
+                table_rows=int(tr.table.shape[0])), None))
+        dist.destroy_process_group()
+    except Exception as e:
+        reports.put((rank, None, None, f"{type(e).__name__}: {e}"))
+        raise
+
+
+def row_sharded_tasks(torch, K, card, workdir):
+    """Phase 20 (d): the per-task methods, sparse_embedding_update and the
+    msl CKA fit at (data 1, model 2) over gloo on the one card, each arm
+    against the same fit in one process on the card: bitwise where the
+    sums keep the one process's order (``MP_TASK_BITWISE``), else by phase
+    9's rule with the table counted with the dense weights and none of its
+    entries over ``MP_TASK_TABLE_ATOL``; B5-B7 launches a step a rank; one
+    eager step of each rank sync-free (its collectives exempted,
+    ``_sync_free_gloo_step``)."""
+    from mmlrec_tpu_torch.train import Trainer, checkpointing
+
+    t0 = time.perf_counter()
+    got = _run_ranks(_mp_task_rank, workdir, MP_WORLD * len(MP_TASK_ARMS), "20 (d)")
+    ranks_s = time.perf_counter() - t0
+    out = {}
+    for arm in MP_TASK_ARMS:
+        name, cfg, layout, x, y = _mp_task_arm(arm)
+        single = Trainer(_mp_model(name, layout, cfg, 1), seed=0, device=DEV).compile()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        single.fit(x, y, batch_size=FLAGSHIP_BATCH, epochs=1, verbose=0, shuffle=False)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t1) * 1e3
+        single_launches = _per_step(K, MP_STEPS)
+        pred = single.predict(x, FLAGSHIP_BATCH)
+        ranks = [got[(r, arm)] for r in range(MP_WORLD)]
+
+        def restored_on(dev):  # rank 0's training state in a one-process trainer
+            tr = Trainer(_mp_model(name, layout, cfg, 1), seed=0, device=dev).compile()
+            tr.init_state()
+            checkpointing.restore_training_state(tr, ranks[0]["state"])
+            return tr
+
+        on_card = restored_on(DEV)
+        differs = [k for k in _held_bitwise(torch, on_card, single) if k != "history"]
+        pred_bitwise = np.array_equal(ranks[0]["pred"].view(np.int32), pred.view(np.int32))
+        lr = cfg.optim_config.lr
+        worst, verdict = _card_vs_cpu_state(single, restored_on("cpu"), set(), lr,
+                                            table_atol=MP_TASK_TABLE_ATOL)
+        over = worst["dense_entries_over_1e_6"] + worst["table_entries_over_1e_6"]
+        entries = worst["dense_entries"] + worst["table_entries"]
+        gn = None
+        if single.gn_state is not None:
+            gn = float((on_card.gn_state["task_weights"]
+                        - single.gn_state["task_weights"]).abs().max())
+        losses = [r["losses"][0] for r in ranks]
+        launches = ranks[0]["launches_per_step"]
+        held_bitwise = arm in MP_TASK_BITWISE
+        bitwise = not differs and pred_bitwise and losses[0] == single.history[-1]["loss"]
+        log(f"[20] (d) {arm}, (data 1, model 2) on one card over gloo, {MP_STEPS} steps of "
+            f"{FLAGSHIP_BATCH} (msl, sigmoid DNNs), each rank {ranks[0]['table_rows']} table "
+            f"rows of {single.table.shape[0]}: epoch loss ranks {losses}, one process "
+            f"{single.history[-1]['loss']:.9g}; rank 0's restored state and predictions vs the "
+            f"one process: {'bitwise equal' if bitwise else 'not bitwise (' + str(differs[:6]) + (', predictions' if not pred_bitwise else '') + ')'}"
+            f"{' (held bitwise)' if held_bitwise else ''}; phase 9's rule, the table "
+            f"counted with the dense weights: {verdict}; dense and table together {over} of {entries} entries over "
+            f"1e-6 (tol {int(1e-4 * entries)}); GradNorm "
+            f"weights max |diff| {gn}; launches per step per rank "
+            f"{ {k: round(v, 3) for k, v in launches.items()} } (one process "
+            f"{ {k: round(v, 3) for k, v in single_launches.items()} }), plain backwards "
+            f"{ranks[0]['backwards_per_step']}; one eager step a rank ran under "
+            f"set_sync_debug_mode('error') (gloo's collectives exempted); fit host ms "
+            f"{ranks[0]['fit_ms']:.1f} (world 2, gloo) vs {single_ms:.1f} (one process) [{card}]")
+        if (len(set(losses)) != 1 or not np.array_equal(ranks[0]["pred"], ranks[1]["pred"])
+                or (held_bitwise and not bitwise) or worst["failed"] or over > 1e-4 * entries
+                or (gn is not None and gn > 1e-6)
+                or any(launches.get(k) != 1.0 for k in FORWARD_KERNELS)):
+            raise AssertionError(f"phase 20 (d), {arm}: the (data 1, model 2) fit left the one "
+                                 "process's bits or phase 9's rule, the ranks differ, or B5-B7 "
+                                 "did not run once a step")
+        out[arm] = dict(**worst, bitwise_equal=bitwise, held_bitwise=held_bitwise,
+                        not_bitwise=differs[:20], losses_by_rank=losses,
+                        loss_single=single.history[-1]["loss"], gradnorm_weights_max_diff=gn,
+                        launches_per_step_per_rank=launches,
+                        launches_per_step_single=single_launches,
+                        backwards_per_step_per_rank=ranks[0]["backwards_per_step"],
+                        fit_host_ms_world2=ranks[0]["fit_ms"], fit_host_ms_single=single_ms,
+                        table_rows_per_rank=ranks[0]["table_rows"], sync_free_eager_step=True)
+    log(f"[20] (d) took {time.perf_counter() - t0:.1f} s, the two ranks {ranks_s:.1f} s [{card}]")
+    return out
+
+
 def _sync_free_mesh_step(torch, card) -> dict:
     """Phase 20 (c): one eager step of the explicit two-phase step (the
     stacked pallas container, metadata in the step) on a 1 x 1 NCCL mesh
@@ -5128,13 +5313,17 @@ def _sync_free_mesh_step(torch, card) -> dict:
 
 def row_sharded(torch, K, card, workdir):
     """Phase 20: (a) the 40 M-row shards in one process, (b) world 2 over
-    gloo on the card, (c) the explicit step free of synchronising calls."""
+    gloo on the card, (c) the explicit step free of synchronising calls,
+    (d) the per-task methods, sparse_embedding_update and CKA at world 2
+    over gloo."""
     t0 = time.perf_counter()
     a = row_sharded_updates(torch, K, card)
     b = row_sharded_world2(torch, K, card, os.path.join(workdir, "mp"))
     c = _sync_free_mesh_step(torch, card)
+    d = row_sharded_tasks(torch, K, card, os.path.join(workdir, "mp_tasks"))
     log(f"[20] phase 20 took {time.perf_counter() - t0:.1f} s [{card}]")
-    return {"shards_40m": a, "world2_gloo": b, **c, "seconds": time.perf_counter() - t0}
+    return {"shards_40m": a, "world2_gloo": b, **c, "tasks_world2_gloo": d,
+            "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None) -> int:
@@ -5260,6 +5449,10 @@ def main(argv=None) -> int:
         kernels[name]["launches_per_step_per_rank_phase20"] = {
             arm: r["launches_per_step_per_rank"].get(name, 0.0)
             for arm, r in sharded["world2_gloo"].items()}
+    for name in FORWARD_KERNELS:
+        kernels[name]["launches_per_step_per_rank_phase20_d"] = {
+            arm: r["launches_per_step_per_rank"].get(name, 0.0)
+            for arm, r in sharded["tasks_world2_gloo"].items()}
     kernels["embed_concat"]["phase14_dense_width_69"] = {
         k: task["varlen"][k] for k in ("embed_concat_dense_width", "embed_concat_vector_rows",
                                        "embed_concat_bitwise", "embed_concat_us")}

@@ -32,9 +32,12 @@ The updates:
   window of the sorted unique rows (``owned_bounds``);
 * ``sharded_two_phase_sparse_adam_folded``: the stacked container, in
   position space (B1 pair gather of the clipped local ids, B2 write of the
-  window) or slot space (B1 pair gather of the window, B2 write of it).
+  window) or slot space (B1 pair gather of the window, B2 write of it);
+* ``sharded_sparse_adam_row_update``: ``sparse_embedding_update``'s row
+  update of the dense-table fit, from the shard's gradient, which
+  ``owned_rows`` builds global and owner-local.
 
-The last two ARE the one-shard updates (``two_phase_sparse_adam_unique``,
+The two write-kernel updates ARE the one-shard updates (``two_phase_sparse_adam_unique``,
 ``two_phase_sparse_adam_slot``), given the shard's old rows (zeros where it
 owns none), its local ``pids`` and its window (``bounds``): per owned lane
 the op chain is the one-shard update's on the same inputs, and a slot
@@ -65,6 +68,7 @@ from ..train.sparse_embedding import (
     _segment_sum,
     _sub_rows,
     _widen,
+    sparse_adam_rows,
 )
 
 
@@ -307,6 +311,43 @@ def sharded_two_phase_sparse_adam_folded(
         sup_c=torch.where(owned[:, None], pair[1], 0.0), prep=prep,
         **dict(zip(("accperm", "resid_pos", "resid_slot", "gdup_pos", "gdup_tgt"), route)),
         **common)
+
+
+def sharded_sparse_adam_row_update(
+    table_shard: torch.Tensor,
+    g_shard: torch.Tensor,  # [r, W] the shard's gradient, global (``owned_rows``)
+    rows: torch.Tensor,  # [K] the global batch's physical rows (duplicates OK)
+    state: SparseAdamState,  # this shard's moments
+    lr: float,
+    shard_index: int,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+) -> Tuple[torch.Tensor, SparseAdamState]:
+    """``sparse_adam_row_update`` on a shard: the owned rows of the table
+    and its moments are set to the one-chip update's values, the others
+    are dropped, and the count moves on every shard.
+
+    ``index_copy_`` of different values to one row is undefined on the
+    card, so a dropped position is sent to the first owned position's row
+    and computes that row's values, the same bits; when the shard owns no
+    row every position writes row 0's own values back.  No boolean mask
+    and no host read: the step stays capturable.  In place; returns (table
+    shard, state)."""
+    if not isinstance(state, SparseAdamState):
+        raise TypeError("sparse_embedding_update takes split moments (SparseAdamState)")
+    r = table_shard.shape[0]
+    local = rows.long() - shard_index * r
+    owned = (local >= 0) & (local < r)
+    some = owned.any()
+    first = torch.argmax(owned.to(torch.int32)).reshape(1)  # 0 when none is owned
+    target = torch.where(owned, local, torch.where(some, local.index_select(0, first), 0))
+    count = state.count.add_(1)
+    new = sparse_adam_rows(table_shard, g_shard, target, state, count.to(torch.float32), lr,
+                           b1, b2, eps)
+    for arr, value in zip((table_shard, state.mu, state.nu), new):
+        arr.index_copy_(0, target, torch.where(some, value, arr.index_select(0, target)))
+    return table_shard, SparseAdamState(mu=state.mu, nu=state.nu, count=count)
 
 
 class _OwnedRows(torch.autograd.Function):

@@ -12,15 +12,20 @@ steps of gradient descent at ``opt_lr`` on softmax logits from zeros.  The
 gradient of that [K] objective is written out (``_objective_grad``), so
 the step is plain tensor ops without a host read, as a captured step
 needs.
+
+A split gradient (``group``: the tensors named in ``sharded`` are row
+shards over it, ``pcgrad.py`` says how): ``GG`` is the replicated part
+plus the shards' part summed over ``group``, and so is ``||G^T w||^2``
+(two all-reduces).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from .pcgrad import flatten, unflatten
+from .pcgrad import flatten, gram, sq_norms, unflatten
 
 
 def _objective_grad(theta: torch.Tensor, GG: torch.Tensor, lin: torch.Tensor,
@@ -34,12 +39,14 @@ def _objective_grad(theta: torch.Tensor, GG: torch.Tensor, lin: torch.Tensor,
 
 
 def cagrad_merge(task_grads: List[Dict[str, torch.Tensor]], alpha: float = 0.5,
-                 opt_steps: int = 25, opt_lr: float = 0.5) -> Dict[str, torch.Tensor]:
-    """Per-task gradient dicts -> the merged gradient dict."""
+                 opt_steps: int = 25, opt_lr: float = 0.5, sharded: Sequence[str] = (),
+                 group: Optional[object] = None) -> Dict[str, torch.Tensor]:
+    """Per-task gradient dicts -> the merged gradient dict; with ``group``,
+    of a split gradient (module docstring)."""
     like = task_grads[0]
     G = torch.stack([flatten(g) for g in task_grads])  # [K, P]
     K = G.shape[0]
-    GG = G @ G.T
+    GG = gram(task_grads, sharded, group)
     c = alpha * torch.sqrt(torch.mean(GG) + 1e-8)
     lin = GG @ torch.full((K,), 1.0 / K, dtype=G.dtype, device=G.device)
     theta = torch.zeros((K,), dtype=G.dtype, device=G.device)
@@ -47,6 +54,7 @@ def cagrad_merge(task_grads: List[Dict[str, torch.Tensor]], alpha: float = 0.5,
         theta = theta - opt_lr * _objective_grad(theta, GG, lin, c)
     w = torch.softmax(theta, dim=0)
     gw = w @ G
-    lmbda = c / torch.sqrt(torch.sum(gw * gw) + 1e-8)
+    gw_sq = sq_norms([unflatten(gw, like)], sharded, group)[0]
+    lmbda = c / torch.sqrt(gw_sq + 1e-8)
     d = (torch.mean(G, dim=0) + lmbda * gw) / (1.0 + alpha ** 2)
     return unflatten(d, like)

@@ -538,19 +538,25 @@ def sparse_adam_row_update(
     write equal values).  ``table``, the moments and the count are updated
     in place and returned with the state."""
     count = state.count.add_(1)  # in place: a captured step reads it
-    t = count.to(torch.float32)
-    mdt = state.mu.dtype
     rows = flat_ids.long()
+    new = sparse_adam_rows(table, g_table, rows, state, count.to(torch.float32), lr, b1, b2, eps)
+    for arr, value in zip((table, state.mu, state.nu), new):
+        arr.index_copy_(0, rows, value)
+    return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)
+
+
+def sparse_adam_rows(table, g_table, rows, state: SparseAdamState, t, lr, b1, b2, eps):
+    """(table, mu, nu) rows [K, W] after SparseAdam's step ``t`` at the
+    physical ``rows``: the moments read and returned in their dtype, the
+    math in f32 (``sparse_adam_row_update``)."""
+    mdt = state.mu.dtype
     g = g_table.index_select(0, rows)
     mu_rows = b1 * state.mu.index_select(0, rows).float() + (1.0 - b1) * g
     nu_rows = b2 * state.nu.index_select(0, rows).float() + (1.0 - b2) * g * g
     mu_hat = mu_rows / (1.0 - b1 ** t)
     nu_hat = nu_rows / (1.0 - b2 ** t)
     update = lr * mu_hat / (_sqrt(nu_hat) + eps)
-    table.index_copy_(0, rows, table.index_select(0, rows) - update)
-    state.mu.index_copy_(0, rows, mu_rows.to(mdt))
-    state.nu.index_copy_(0, rows, nu_rows.to(mdt))
-    return table, SparseAdamState(mu=state.mu, nu=state.nu, count=count)
+    return table.index_select(0, rows) - update, mu_rows.to(mdt), nu_rows.to(mdt)
 
 
 def two_phase_sparse_adam(

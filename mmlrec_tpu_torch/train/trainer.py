@@ -91,10 +91,17 @@ all-reduce over ``model``, the dense gradients' over ``data``, the
 exchange's all-gathers over ``data``, owner-local table updates); the
 dense fit reads the table through ``owned_rows`` and builds the shard's
 gradient owner-local from the data ranks' gathered ids and row
-cotangents, its penalty counted once per row.  Checkpoints gather the
-shards over ``model``, so rank 0 writes what one process would, and a
-serving bundle of such a trainer is the single-device bundle.  The mesh
-combinations the JAX trainer refuses raise its ValueErrors.
+cotangents, its penalty counted once per row.  That gradient is global
+already, so it stays out of the all-reduce over ``data``, in the plain
+step and in the per-task methods' stack (each task's backward runs the
+all-gather, in task order on every rank); the per-task merges sum the
+shards' part of each dot product and norm over ``model``
+(``pcgrad.py``), and ``sparse_embedding_update`` sets each shard's owned
+rows (``parallel.shard_embedding.sharded_sparse_adam_row_update``).
+Checkpoints gather the shards (the table, its moments, the dense
+optimizer's state of it) over ``model``, so rank 0 writes what one process
+would, and a serving bundle of such a trainer is the single-device bundle.
+The mesh combinations the JAX trainer refuses raise its ValueErrors.
 """
 
 from __future__ import annotations
@@ -425,10 +432,6 @@ class Trainer:
         # the pipelined exchange of the explicit mesh step (explicit_step.py:84-92)
         self._exchange_chunks = int(extra.get("grad_exchange_chunks", 1) or 1) if explicit else 1
         n_model = model_size(self.mesh) if self.mesh is not None else 1
-        if n_model > 1 and (self.sparse_embedding_update or self.per_task):
-            raise ValueError(
-                "sparse_embedding_update and the per-task gradient methods with a "
-                "row-sharded table (a mesh with model > 1) are not supported by the port")
         if not self.two_phase_embedding:
             # the dense-table fit reads none of the two-phase knobs
             if fused is not None and fused.dual_container:
@@ -767,11 +770,18 @@ class Trainer:
         mc = self.cfg.model_config
         model_mask = dmask if (mc.masked_loss and dmask is not None) else None
         probs = self._forward(state, ids, dense, model_mask)
+        sharded_table = state is None and self._table_sharded()
+        if sharded_table:
+            params = {k: v for k, v in params.items() if k != _TABLE}
         reg = l2_regularization(
             params, mc.l2_reg_embedding, mc.l2_reg_dnn,
             dnn_prefixes=self._reg_dnn_prefixes, l2_linear=mc.l2_reg_linear)
         if state is None and self._shard() is not None and self._dp.rank:
             reg = 0.0  # the penalty once, on data rank 0
+        if sharded_table and mc.l2_reg_embedding:
+            # the row shard's penalty on every rank, as _loss_terms adds it:
+            # the shard's gradient is never all-reduced over data
+            reg = reg + mc.l2_reg_embedding * torch.sum(torch.square(self.table))
         frozen = probs.detach()
         heads = torch.arange(probs.shape[-1], device=probs.device)
         T = self.num_tasks
@@ -790,17 +800,22 @@ class Trainer:
         losses or None): one backward per task total of
         ``_per_task_totals``.  In a batch shard the tasks' gradients are
         stacked as ``[T, N]`` and all-reduced in one SUM with the data loss
-        and GradNorm's ``[T]`` losses, so the merge sees the global batch's."""
+        and GradNorm's ``[T]`` losses, so the merge sees the global batch's.
+        A row shard of the table is left out of that SUM: each task's
+        backward builds its gradient global already (``owned_rows``, whose
+        all-gather over data each of the T backwards runs, in task order on
+        every rank)."""
         totals, data_loss, probs = self._per_task_totals(params, ids, dense, y, dmask, weight)
-        names, tensors = list(params), list(params.values())
+        names = list(params)
         T = len(totals)
-        task_grads = [dict(zip(names, _grads(total, tensors, retain=i < T - 1)))
+        task_grads = [dict(zip(names, _grads(total, list(params.values()), retain=i < T - 1)))
                       for i, total in enumerate(totals)]
         dp = self._shard()
         if dp is None:
             return task_grads, data_loss, probs, None
         with torch.no_grad():
-            stack = torch.stack([torch.cat([g.reshape(-1) for g in tg.values()])
+            summed = [k for k in names if not (k == _TABLE and self._table_sharded())]
+            stack = torch.stack([torch.cat([tg[k].reshape(-1) for k in summed])
                                  for tg in task_grads])
             extra = [data_loss.detach().reshape(1)]
             if self.per_task == "gradnorm":
@@ -808,12 +823,19 @@ class Trainer:
             flat = torch.cat([stack.reshape(-1)] + extra)
             dist.all_reduce(flat, group=dp.group)
             n = stack.numel()
-            stack = flat[:n].view(T, -1)
-            sizes = [t.numel() for t in tensors]
-            task_grads = [{k: p.view(t.shape) for k, p, t in zip(names, row.split(sizes), tensors)}
-                          for row in stack]
+            sizes = [params[k].numel() for k in summed]
+            task_grads = [
+                {**tg, **{k: p.view(params[k].shape) for k, p in zip(summed, row.split(sizes))}}
+                for tg, row in zip(task_grads, flat[:n].view(T, -1))]
             loss_vec = flat[n + 1:] if self.per_task == "gradnorm" else None
         return task_grads, flat[n], probs, loss_vec
+
+    def _split_gradient(self) -> dict:
+        """The merges' arguments for a gradient whose table part is this
+        rank's row shard (``pcgrad.py``): none without one."""
+        if not self._table_sharded():
+            return {}
+        return dict(sharded=(_TABLE,), group=self._table_shard.group)
 
     def _task_losses(self, probs, y, dmask, weight) -> torch.Tensor:
         """GradNorm's per-task losses ``L_i`` [T] of the batch."""
@@ -835,7 +857,7 @@ class Trainer:
         grads = {k: sum(sg[k] for sg in scaled) for k in scaled[0]}
         new_w, _ = gradnorm_update(
             w, loss_vec, init_losses, scaled, alpha=float(mc.extra.get("gradnorm_alpha", 1.5)),
-            lr=float(mc.extra.get("gradnorm_lr", 0.025)))
+            lr=float(mc.extra.get("gradnorm_lr", 0.025)), **self._split_gradient())
         return grads, torch.sum(w * loss_vec), new_w, init_losses
 
     def _merge_task_grads(self, task_grads, data_loss, probs, y, dmask, weight, loss_vec=None):
@@ -844,11 +866,12 @@ class Trainer:
         and moves its weights in place (its loss ``sum(w * L)``); CAGrad and
         PCGrad merge, their loss the data loss."""
         mc = self.cfg.model_config
+        split = self._split_gradient()
         if self.per_task == "cagrad":
-            return cagrad_merge(task_grads, alpha=float(mc.extra.get("cagrad_alpha", 0.5))), \
-                data_loss
+            return cagrad_merge(task_grads, alpha=float(mc.extra.get("cagrad_alpha", 0.5)),
+                                **split), data_loss
         if self.per_task == "pcgrad":
-            return pcgrad_merge(task_grads), data_loss
+            return pcgrad_merge(task_grads, **split), data_loss
         st = self.gn_state
         grads, total, new_w, init_losses = self._gradnorm_terms(
             task_grads, probs, y, dmask, weight, st, loss_vec)
@@ -898,8 +921,15 @@ class Trainer:
             if self._emb_pack_factor > 1:
                 rows = torch.div(rows, self._emb_pack_factor, rounding_mode="floor")
             with torch.no_grad():
-                _, self.table_opt = sparse_adam_row_update(
-                    table, g_table, rows, self.table_opt, lr=self.cfg.optim_config.lr)
+                if self._table_sharded():  # this rank's rows of them
+                    from ..parallel.shard_embedding import sharded_sparse_adam_row_update
+
+                    _, self.table_opt = sharded_sparse_adam_row_update(
+                        table, g_table, rows, self.table_opt, self.cfg.optim_config.lr,
+                        self._table_shard.index)
+                else:
+                    _, self.table_opt = sparse_adam_row_update(
+                        table, g_table, rows, self.table_opt, lr=self.cfg.optim_config.lr)
         self.opt_state = self.tx.step(params, grads, self.opt_state)
         return total.detach(), data_loss.detach(), probs.detach()
 

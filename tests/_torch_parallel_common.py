@@ -128,11 +128,14 @@ def whole_state(tr, prefix="state/"):
 
 
 def sharded_fit(tr, x, y, batch=64, epochs=1, **kw):
-    """``fit_arrays`` of a trainer whose table may be row-sharded."""
+    """``fit_arrays`` of a trainer whose table may be row-sharded, with
+    GradNorm's state (``gn/``) where it has one."""
     tr.fit(x, y, batch_size=batch, epochs=epochs, verbose=0, shuffle=False, **kw)
     out = whole_state(tr)
     out["losses"] = np.asarray([h["loss"] for h in tr.history])
     out["pred"] = tr.predict(x, batch)
+    if tr.gn_state is not None:
+        out.update({f"gn/{k}": v.numpy().copy() for k, v in tr.gn_state.items()})
     return out
 
 
@@ -471,6 +474,112 @@ def case_sh_stacked_ckpt():
     ckpt = os.environ["DP_CKPT"]
     out["state_dir"] = np.asarray(tr.save_training_state(ckpt))
     out["ckpt_dir"] = np.asarray(tr.save_checkpoint(ckpt))
+    return out
+
+
+# the per-task methods, CKA and sparse_embedding_update with the table
+# row-sharded: model config fields by case (tests/test_torch_parallel_sharded.py)
+TASKS = {"sh_pcg_l2": dict(model_name="pcg", **L2), "sh_gradnorm": dict(use_gradnorm=True),
+         "sh_cagrad": dict(use_cagrad=True), "sh_seu": dict(sparse_embedding_update=True),
+         "sh_cka": dict(task="msl", use_cka_loss=True)}
+
+
+def case_sh_pcg_l2():
+    """PCGrad with both L2 penalties: the dense one on data rank 0, the row
+    shard's on every rank."""
+    return _sharded_case(**TASKS["sh_pcg_l2"])
+
+
+def case_sh_gradnorm():
+    return _sharded_case(**TASKS["sh_gradnorm"])
+
+
+def case_sh_cagrad():
+    return _sharded_case(**TASKS["sh_cagrad"])
+
+
+def case_sh_seu():
+    """sparse_embedding_update: each shard's rows take SparseAdam."""
+    return _sharded_case(**TASKS["sh_seu"])
+
+
+def case_sh_cka():
+    """The msl CKA fit, its table row-sharded."""
+    return _sharded_case(**TASKS["sh_cka"])
+
+
+SEU_GRADNORM = dict(sparse_embedding_update=True, use_gradnorm=True)
+
+
+def case_sh_seu_gradnorm_ckpt():
+    """sparse_embedding_update with GradNorm, then the training state
+    (the SparseAdam moment shards gathered) written by rank 0."""
+    from mmlrec_tpu_torch.train import checkpointing
+
+    tr, x, y, _ = sharded_setup(mesh=_mesh_model(), **SEU_GRADNORM)
+    out = sharded_fit(tr, x, y)
+    for m in ("mu", "nu"):
+        out[f"table_opt/{m}"] = checkpointing._whole(tr, getattr(tr.table_opt, m)).numpy().copy()
+    ckpt = os.path.join(os.environ["DP_CKPT"], "seu_gradnorm")  # beside sh_stacked_ckpt's
+    out["state_dir"] = np.asarray(tr.save_training_state(ckpt))
+    return out
+
+
+def merge_inputs(rng_seed=5):
+    """Two tasks' gradients of three tensors for the merges over a split
+    gradient: ``table`` [8, 4] is row-split over two model ranks and task
+    0's rows 4..7 are zero (the second shard sees none of that task), task
+    1's ``b`` is zero (a tensor one task does not reach)."""
+    rng = np.random.default_rng(rng_seed)
+    grads = [{"a": rng.normal(size=(5, 3)), "table": rng.normal(size=(8, 4)),
+              "b": rng.normal(size=(7,))} for _ in range(2)]
+    grads[0]["table"][4:] = 0.0
+    grads[1]["b"][:] = 0.0
+    return [{k: torch.from_numpy(v.astype(np.float32)) for k, v in g.items()} for g in grads]
+
+
+MERGE_GRADNORM = dict(weights=[1.3, 0.7], task_losses=[0.6, 0.4], initial_losses=[0.7, 0.5])
+
+
+def merge_outputs(task_grads, **split):
+    """PCGrad's and CAGrad's merges and GradNorm's update of ``task_grads``
+    as arrays."""
+    from mmlrec_tpu_torch.train.cagrad import cagrad_merge
+    from mmlrec_tpu_torch.train.gradnorm import gradnorm_update
+    from mmlrec_tpu_torch.train.pcgrad import pcgrad_merge
+
+    out = {f"pcgrad/{k}": v.numpy() for k, v in pcgrad_merge(task_grads, **split).items()}
+    out.update({f"cagrad/{k}": v.numpy() for k, v in cagrad_merge(task_grads, **split).items()})
+    gn = {k: torch.tensor(v) for k, v in MERGE_GRADNORM.items()}
+    new_w, norms = gradnorm_update(gn["weights"], gn["task_losses"], gn["initial_losses"],
+                                   task_grads, **split)
+    out.update({"gradnorm/weights": new_w.numpy(), "gradnorm/norms": norms.numpy()})
+    return out
+
+
+def case_sh_merges():
+    """The three merges on this rank's half of ``table`` (``merge_inputs``)
+    with the other tensors whole, over the mesh's model group."""
+    from mmlrec_tpu_torch.parallel.mesh import table_shard
+
+    shard = table_shard(_mesh_model())
+    rows = slice(4 * shard.index, 4 * shard.index + 4)
+    local = [{**g, "table": g["table"][rows]} for g in merge_inputs()]
+    return merge_outputs(local, sharded=("table",), group=shard.group)
+
+
+def case_sh_task_refusals():
+    """What the JAX trainer refuses with the per-task methods stays refused
+    with the table row-sharded: ESCM's entire-space loss and the two-phase
+    step (trainer.py:190-198, 488-495), with its ValueErrors."""
+    out = {}
+    for name, kw in (("escm", dict(model_name="escm", use_gradnorm=True)),
+                     ("two_phase", dict(model_name="pcg", **EXPLICIT))):
+        try:
+            sharded_setup(mesh=_mesh_model(), **kw)
+            out[name] = np.asarray("no error")
+        except ValueError as e:
+            out[name] = np.asarray(f"ValueError: {e}")
     return out
 
 

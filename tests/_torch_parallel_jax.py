@@ -37,7 +37,8 @@ def _flat(tree, prefix=""):
 def jax_mesh_fit(world, model_name="mmoe", task="mtl", optimizer="adam", n=ROWS, model=1,
                  **extra):
     """JAX's ``(world / model, model)`` mesh fit from the port's numpy init:
-    (state by port name, losses, predictions)."""
+    (state by port name, GradNorm's state (``gn/``) where it has one,
+    losses, predictions)."""
     port, *_ = port_setup(model_name, task, optimizer=optimizer, n=8, **extra)
     cfg = jsyn.make_config(task_name=task, model_name=model_name, **{**SIZES, **extra})
     layout, x, y, _ = jsyn.make_data(cfg, n=n, seed=0)
@@ -52,6 +53,9 @@ def jax_mesh_fit(world, model_name="mmoe", task="mtl", optimizer="adam", n=ROWS,
     v = jax.device_get(jtr.variables)
     state = {f"state/{k}": a for k, a in {**_flat(v["params"]),
                                            **_flat(v.get("batch_stats", {}))}.items()}
+    st = jax.device_get(jtr._train_state)
+    state.update({f"gn/{k}": np.asarray(st[k])
+                  for k in ("task_weights", "initial_losses", "gn_step") if k in st})
     return dict(state, losses=np.asarray([h["loss"] for h in jtr.history]),
                 pred=jtr.predict(x, batch_size=64))
 
@@ -68,9 +72,11 @@ def single_fit(case):
 
 
 def close(got, want, what):
+    """Losses (GradNorm's first losses too) rtol 1e-5, every other value
+    atol 1e-6."""
     assert set(got) == set(want), what
     for k in want:
-        if k == "losses":
+        if k in ("losses", "gn/initial_losses"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=f"{what}: {k}")
         else:
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=f"{what}: {k}")

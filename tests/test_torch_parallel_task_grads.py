@@ -44,7 +44,7 @@ def _state(got):
 def test_task_fit_matches_jax_mesh_fit(runs, case):
     got, jax_runs = runs
     ranks_equal([_state(g) for g in got[case]])
-    close(_state(got[case][0]), jax_runs[case], case)
+    close({k: v for k, v in got[case][0].items() if k != "state_dir"}, jax_runs[case], case)
 
 
 @pytest.mark.parametrize("case", list(KW))

@@ -348,6 +348,51 @@ def test_sharded_folded_update(update_space, pack_factor):
     assert int(jcnt) == 3
 
 
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_sharded_sparse_adam_row_update(moments, n):
+    """``sharded_sparse_adam_row_update`` on n shards, two steps: the
+    batch's rows hold duplicates, each shard sees rows it does not own, and
+    the last shard owns none of them; the assembled shards equal the
+    one-chip ``sparse_adam_row_update`` bitwise (the count moving on every
+    shard), and JAX's at its tolerances."""
+    rng = np.random.default_rng(7)
+    mdt = TE.MOMENT_DTYPES[moments]
+    table = rng.normal(size=(VP, DIM)).astype(np.float32) * 0.1
+    mu = rng.normal(size=table.shape).astype(np.float32) * 1e-2
+    nu = rng.random(table.shape).astype(np.float32) * 1e-3
+    r = VP // n
+    steps = [(rng.integers(0, (n - 1) * r, K), rng.normal(size=table.shape).astype(np.float32))
+             for _ in range(2)]
+    for rows, _ in steps:
+        rows[:6] = rows[6]  # a run of duplicates
+    one_t = _t(table)
+    one = TE.SparseAdamState(_t(mu).to(mdt), _t(nu).to(mdt), torch.tensor(0, dtype=torch.int32))
+    shards = [(t, TE.SparseAdamState(a.to(mdt), b.to(mdt), torch.tensor(0, dtype=torch.int32)))
+              for t, a, b in zip(*(_shards(_t(x), n) for x in (table, mu, nu)))]
+    jt = jnp.asarray(table)
+    js = JE.SparseAdamState(mu=jnp.asarray(mu).astype(moments), nu=jnp.asarray(nu).astype(moments),
+                            count=jnp.int32(0))
+    for rows, g in steps:
+        TE.sparse_adam_row_update(one_t, _t(g), _t(rows), one, 1e-2)
+        for i, (t, st) in enumerate(shards):
+            TS.sharded_sparse_adam_row_update(t, _t(g)[i * r:(i + 1) * r], _t(rows), st, 1e-2, i)
+        jt, js = JE.sparse_adam_row_update(jt, jnp.asarray(g), jnp.asarray(rows), js, lr=1e-2)
+    got = {"table": torch.cat([t for t, _ in shards]),
+           "mu": torch.cat([st.mu for _, st in shards]), "nu": torch.cat([st.nu for _, st in shards])}
+    for name, want in (("table", one_t), ("mu", one.mu), ("nu", one.nu)):
+        np.testing.assert_array_equal(got[name].view(torch.int16 if moments == "bfloat16"
+                                                     and name != "table" else torch.int32),
+                                      want.view(torch.int16 if moments == "bfloat16"
+                                                and name != "table" else torch.int32),
+                                      err_msg=name)
+    assert [int(st.count) for _, st in shards] == [2] * n and int(one.count) == 2
+    np.testing.assert_array_equal(got["table"][(n - 1) * r:].numpy(), table[(n - 1) * r:])
+    for name, want in (("table", jt), ("mu", js.mu), ("nu", js.nu)):
+        _near_jax(got[name].float().numpy(), np.asarray(want.astype(jnp.float32)), name,
+                  bf16=moments == "bfloat16" and name != "table")
+
+
 @pytest.mark.parametrize("pack_factor", [1, 16])
 def test_shard_major_container_forward_reads_the_table_plane(pack_factor):
     """A stacked container built shard-major (``stacked_shards = 4``) and held
