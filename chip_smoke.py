@@ -46,11 +46,13 @@ failure and carries on):
 6. the row kernels B1-B4 of the two-phase step and the library functions
    B8-B10 against their plain versions at the step shapes of phase 8 (a
    [2, 10,000,000, 128] f32 container, K = 65,536 ids, the unique-row
-   window with tail pads one past the last row): bitwise on every slot,
-   every row a write leaves alone untouched, and a guard region after each
-   array intact; B10 also against B3's kernel, with n_real and with a
-   [lo, hi) window; B8 as (add, set) on (table, monu), as all-add on three
-   arrays, and one array at a time in every pair of element types (f32 or
+   window with tail pads one past the last row): bitwise on every slot
+   (B1 with ``n_real``: on the window's slots, and through its launch into
+   a sentinel-filled output no byte outside the window stored, as under
+   Mosaic), every row a write leaves alone untouched, and a guard region
+   after each array intact; B10 also against B3's kernel, with n_real and
+   with a [lo, hi) window; B8 as (add, set) on (table, monu), as all-add on
+   three arrays, and one array at a time in every pair of element types (f32 or
    bf16 deltas into a bf16 or an f32 array, "set" on bf16 and on f32) with
    NaN, infinities, denormals and ties among rows and deltas and n_real
    short of K: on the wide path at the step shape (timed on replay, and
@@ -313,7 +315,9 @@ failure and carries on):
    inputs (untouched rows bitwise, touched rows within 2 ulp), with each
    shard's µs and launches; then B1, B2 and B3 in window mode on one
    shard, its local ids negative before its window and past its rows
-   after, bitwise against their plain versions, with µs and byte bounds;
+   after, bitwise against their plain versions (B1 on the window's slots,
+   and no byte outside the window stored), with µs (B1 and its library
+   call also cold: four batches' windows in turn) and byte bounds;
    (b) two ranks on the one card over gloo as a (data 1, model 2) mesh:
    the explicit two-phase fit of the flagship MMoE (vocab 2^16 a feature,
    the stacked pallas container shard-major) and the dense fit with the
@@ -1148,6 +1152,7 @@ def check_row_kernels(torch, card):
     from mmlrec_tpu_torch.ops import row_gather as G
     from mmlrec_tpu_torch.ops import row_scatter as S
     from mmlrec_tpu_torch.tools.timing import device_ms
+    from mmlrec_tpu_torch.tools.tune_kernels import check_gather_window
     from mmlrec_tpu_torch.train.sparse_embedding import device_step_metadata
 
     dev = torch.device(DEV)
@@ -1175,16 +1180,16 @@ def check_row_kernels(torch, card):
 
     results = {}
 
-    # ---- B1: dual gather, the stacked step's phase 1 (no window) and the
-    # slot-space form (unique rows, n_real window, poison on the pads)
+    # ---- B1: dual gather, the stacked step's phase 1 (no window: the whole
+    # output) and the slot-space form (unique rows, n_real window: nothing
+    # stored on the pads)
     got = G.rows_gather_dual(base, phys)
     if not same_bits(got, G.rows_gather_dual_plain(base, phys)):
         raise AssertionError("rows_gather_dual differs from its plain version")
-    win = G.rows_gather_dual(base, pids, n_real=nuniq)
-    if not same_bits(win, G.rows_gather_dual_plain(base, pids, n_real=nuniq)):
-        raise AssertionError("rows_gather_dual (windowed) differs from its plain version")
-    if not torch.isnan(win[:, n:]).all():
-        raise AssertionError("rows_gather_dual: pad slots are not poisoned")
+    check_gather_window(base, pids, "rows_gather_dual with n_real", n_real=nuniq)
+    log(f"[6] rows_gather_dual with n_real: the window [0, {n}) of {K} slots bitwise equal to "
+        f"the plain version; no byte of the {K - n} slots outside it stored (a sentinel-filled "
+        f"output) [{card}]")
     results["rows_gather_dual"] = dict(
         run=lambda: G.rows_gather_dual(base, phys),
         plain=lambda: G.rows_gather_dual_plain(base, phys), plain_capturable=True,
@@ -4768,6 +4773,7 @@ def row_sharded_updates(torch, K, card):
     from mmlrec_tpu_torch.ops import row_scatter as S
     from mmlrec_tpu_torch.parallel import shard_embedding as SH
     from mmlrec_tpu_torch.tools.timing import device_ms
+    from mmlrec_tpu_torch.tools.tune_kernels import check_gather_window
     from mmlrec_tpu_torch.train import sparse_embedding as SE
 
     dev = torch.device(DEV)
@@ -4896,9 +4902,7 @@ def row_sharded_updates(torch, K, card):
     outside = dict(negative=int((lpids < 0).sum()), past_the_shard=int((lpids >= r).sum()))
     stacked = sm[i * 2 * r:(i + 1) * 2 * r].view(2, r, W)
     clipped = lpids.clamp(0, r - 1)
-    got = G.rows_gather_dual(stacked, clipped, bounds=bounds)
-    if not _bits_equal(torch, got, G.rows_gather_dual_plain(stacked, clipped, bounds=bounds)):
-        raise AssertionError("phase 20: windowed rows_gather_dual differs from its plain version")
+    check_gather_window(stacked, clipped, "phase 20: windowed rows_gather_dual", bounds=bounds)
     cnt, Kp = hi - lo, pids.shape[0]
     win_ids = clipped[lo:hi].long()
     values = torch.randn((2, Kp, W), generator=g, device=dev)
@@ -4919,12 +4923,34 @@ def row_sharded_updates(torch, K, card):
         k_out[0].index_copy_(0, win_ids, values[0, lo:hi])
         k_out[1].index_copy_(0, win_ids, values[1, lo:hi])
 
+    # B1 with its source rows cold: shard 1's windows of four batches in
+    # turn (134 MB of rows and outputs, beyond the 50 MB L2), as a step
+    # finds them; the library call on the same windows' rows
+    cold = [(clipped, bounds)]
+    for _ in range(3):
+        _, _, c_pids, _, c_nuniq, _ = metadata(
+            _ids_like_the_step(torch, g, B, FULL_FEATURES, FULL_VOCAB, P)[0])[:6]
+        c_bounds = SH.owned_bounds(c_pids, c_nuniq, i, r)
+        cold.append(((c_pids - i * r).clamp(0, r - 1).to(torch.int32), c_bounds))
+        check_gather_window(stacked, cold[-1][0], "phase 20: windowed rows_gather_dual",
+                            bounds=c_bounds)
+    cold_rows = [ids[b[0]:b[1]].long() for ids, b in ((ids, b.tolist()) for ids, b in cold)]
+    turns = itertools.cycle(range(len(cold)))
+
+    def cold_run():
+        ids, b = cold[next(turns)]
+        return G.rows_gather_dual(stacked, ids, bounds=b)
+
+    def cold_library():
+        return stacked.index_select(1, cold_rows[next(turns)])
+
+    cold_ms, cold_lib_ms = device_ms(cold_run), device_ms(cold_library)
     cases = {
         "rows_gather_dual": dict(
             run=lambda: G.rows_gather_dual(stacked, clipped, bounds=bounds),
             plain=lambda: G.rows_gather_dual_plain(stacked, clipped, bounds=bounds),
             plain_capturable=True, library=lambda: stacked.index_select(1, win_ids),
-            bytes=8 + 4 * cnt + 2 * 4 * W * cnt + 2 * 4 * W * Kp),
+            bytes=8 + 4 * cnt + 2 * 2 * 4 * W * cnt),
         "rows_write_dual": dict(
             run=lambda: S.rows_write_dual(k_out, lpids, values, bounds=bounds),
             plain=lambda: S.rows_write_dual_plain(p_out, lpids, values, bounds=bounds),
@@ -4945,10 +4971,17 @@ def row_sharded_updates(torch, K, card):
                          bound_by=bound_by, bytes=c["bytes"], bitwise=True, window=[lo, hi],
                          local_ids_outside=outside, launches_per_step_per_shard=1,
                          shapes=f"shard {i} of {n}: [2, {r}, {W}], {Kp} slots")
+        held, cold_note = "", ""
+        if name == "rows_gather_dual":
+            held = " in the window, nothing stored outside it"
+            out[name].update(cold_ms=cold_ms, library_cold_ms=cold_lib_ms,
+                             cold_windows=[b.tolist() for _, b in cold])
+            cold_note = (f"; cold (four batches' windows in turn, beyond the L2): kernel "
+                         f"{cold_ms * 1e3:.2f} us, library {cold_lib_ms * 1e3:.2f} us")
         log(f"[20] (a) {name} in window mode, shard {i} of {n} ([2, {r}, {W}], window "
             f"[{lo}, {hi}) of {Kp} slots, local ids outside the shard {outside}): bitwise equal "
-            f"to the plain version; kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-            f"library {lib_ms * 1e3:.2f} us; {c['bytes'] / 1e6:.2f} MB, bound "
+            f"to the plain version{held}; kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+            f"library {lib_ms * 1e3:.2f} us{cold_note}; {c['bytes'] / 1e6:.2f} MB, bound "
             f"{bound_ms * 1e3:.2f} us ({bound_by}); 1 launch a step a shard [{card}]")
     del ref, sm, mu_ref, nu_ref, mu_sm, nu_sm, k_out, p_out, stacked
     torch.cuda.empty_cache()

@@ -28,11 +28,12 @@
 // The first four are pure row copies: each touched row is read once and written
 // once, so each is bound by memory traffic (a 512-byte row per id and plane
 // at the production width of 128 f32 lanes).  On the TPU each row was one
-// DMA issued by the scalar core; here one warp moves one slot's rows, its 32
-// lanes on neighbouring 16-byte words (a 512-byte row is one uint4 per
-// lane), and a block of 8 warps takes 8 consecutive slots.  Duplicate ids are
-// legal in the gathers (reads do not race); the writes rely on the
-// caller's contract that ids are unique inside the window.
+// DMA issued by the scalar core.  Here the writes give one warp a slot, its
+// 32 lanes on neighbouring 16-byte words (a 512-byte row is one uint4 per
+// lane), and a block of 8 warps takes 8 consecutive slots; the gather's
+// design is set out at rows_gather_kernel.  Duplicate ids are legal in the
+// gathers (reads do not race); the writes rely on the caller's contract that
+// ids are unique inside the window.
 //
 // rows_update is bound by bytes too (old row and delta read, new row written).
 // A group of lanes takes a slot (a whole warp for a 128-wide f32 row, half a
@@ -50,8 +51,10 @@
 //
 // Windows: the gathers and writes take the window [lo, hi) from DEVICE
 // memory (lo_p / hi_p; a null pointer means 0 / K), so the host never waits
-// for the step's unique-row count.  A gather writes the poison pattern
-// (NaN, or int-min for integers) outside the window and for an id outside
+// for the step's unique-row count.  A gather stores nothing outside the
+// window (those slots of its output stay as torch.empty left them, as the
+// TPU kernel leaves them uninitialised: pallas_gather.py:186-192), and
+// writes the poison pattern (NaN, or int-min for integers) for an id outside
 // [0, rows) after wrapping a negative id once, as jnp.take's fill mode does.
 // A write drops every slot outside the window, and every id outside
 // [0, rows) after the same wrap, BEFORE the id is used as an address: the
@@ -75,6 +78,25 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSlotsPerBlock = kThreads / 32;  // one warp per slot
 constexpr int kMaxArrays = 8;
+
+// Row groups a warp of rows_gather_kernel takes a pass (1, 2, 4, 8, 16 or
+// 32): each lane keeps planes x this many loads in flight before its first
+// store.  ops/row_gather.py mirrors it as _GATHER_SLOTS_PER_PASS.
+#ifndef MMLREC_GATHER_SLOTS_PER_PASS
+#define MMLREC_GATHER_SLOTS_PER_PASS 4
+#endif
+constexpr int kGatherPass = MMLREC_GATHER_SLOTS_PER_PASS;
+static_assert(kGatherPass >= 1 && kGatherPass <= 32 &&
+                  (kGatherPass & (kGatherPass - 1)) == 0,
+              "a power of two from 1 to 32 row groups a pass");
+// 1: the gather's stores are streaming stores (st.global.cs, evict first);
+// 0: default write-back stores.  tools/tune_kernels.py --only gather times
+// both (each with 2-16 row groups a pass and 2-8 blocks an SM); streaming
+// stores with 4 groups and 8 blocks an SM came out fastest over B1's full
+// and window modes and B4, by about 1% (PERF.md, PR 17).
+#ifndef MMLREC_GATHER_STREAMING_STORES
+#define MMLREC_GATHER_STREAMING_STORES 1
+#endif
 
 // Elements a lane owns on the wide path of rows_update where a bf16 operand
 // takes part (4, 8 or 16); ops/row_scatter.py mirrors it as _LANE_ELEMS.
@@ -151,29 +173,144 @@ __device__ __forceinline__ void warp_fill(char* dst, long long bytes,
   }
 }
 
-// out[p, k] = src[p, ids[k]] for every plane p, slot k in [lo, hi) and id
-// inside the table; the poison pattern everywhere else.
+// The poison of unit e of a row: the 32-bit pattern in every word, and for
+// byte units byte e % 4 of it (little-endian, rows start on an element).
+template <typename T>
+__device__ __forceinline__ T poison_unit(uint32_t p, long long e);
+template <>
+__device__ __forceinline__ uint4 poison_unit<uint4>(uint32_t p, long long) {
+  return make_uint4(p, p, p, p);
+}
+template <>
+__device__ __forceinline__ uint32_t poison_unit<uint32_t>(uint32_t p, long long) {
+  return p;
+}
+template <>
+__device__ __forceinline__ unsigned char poison_unit<unsigned char>(uint32_t p,
+                                                                    long long e) {
+  return static_cast<unsigned char>(p >> (8 * (e & 3)));
+}
+
+template <typename T>
+__device__ __forceinline__ void gather_store(T* p, T v) {
+#if MMLREC_GATHER_STREAMING_STORES
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// out[p, k] = src[p, ids[k]] for every plane p and slot k in [lo, hi) (the
+// poison row for an id outside the table); no other slot is stored.
+//
+// Replaces ops/pallas_gather.py::pallas_rows_gather_dual (:171; 2 planes,
+// the [lo, hi) window of n_real / bounds) and ::pallas_rows_gather_hbm (:90;
+// 1 plane, no window).  Bound by bytes: the window's ids, and each of its
+// rows read once and written once (2 x 512 B a slot at 128 f32 lanes).
+// What a warp moves per chain of dependent loads (the window, the ids, then
+// the rows) decides the time, so:
+//
+// * the grid is sized to the card, not to K (the wrapper passes the blocks,
+//   a few per SM), and its warps stride over [lo, hi) alone: a shard's
+//   launch does no work for slots outside its window;
+// * a pass of a warp takes kGatherPass row groups: their ids are loaded
+//   first, one per lane, and broadcast with __shfl_sync; then every load of
+//   both planes of all of them is issued on the read-only path (__ldg; out
+//   never aliases src, as the wrapper checks) before the first store, so a
+//   lane has 2 x kGatherPass 16-byte loads in flight;
+// * a row takes 2^lane_shift neighbouring lanes, the fewest that cover it in
+//   one access each (at most a warp, looping over wider rows), so a narrow
+//   row leaves no lane idle: a group of 32 >> lane_shift rows fills the warp.
+//   At 512 B a row a lane moves one uint4 a plane a row group.  A warp's
+//   pass is min(kGatherPass, 2^lane_shift) groups, at most 32 slots, so one
+//   id per lane suffices.
+//
+// T is the widest unit every address allows (uint4, uint32_t or a byte; one
+// body each, chosen once per launch); row offsets are 64-bit (a plane of the
+// 40 M-row container is 5.1 GB).
+template <typename T, int PLANES>
+__device__ __forceinline__ void gather_rows(
+    const T* __restrict__ src, T* __restrict__ out, long long rows,
+    long long row_units, long long src_plane, long long out_plane,
+    int lane_shift, uint32_t poison, const int* __restrict__ ids, int lo,
+    int hi) {
+  const int lane = threadIdx.x & 31;
+  const int lanes = 1 << lane_shift;          // lanes a row
+  const int group_rows = 32 >> lane_shift;    // rows a group
+  const int row_in_group = lane >> lane_shift;
+  const int sub = lane & (lanes - 1);
+  const int groups = kGatherPass < lanes ? kGatherPass : lanes;
+  const int per_pass = groups * group_rows;  // slots a pass, at most 32
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const long long warps = (static_cast<long long>(gridDim.x) * kThreads) >> 5;
+  for (long long base = lo + warp * per_pass; base < hi; base += warps * per_pass) {
+    // no id is read at or past hi (<= the slot count)
+    const int mine = (lane < per_pass && base + lane < hi) ? __ldg(ids + base + lane) : 0;
+    long long r[kGatherPass];  // the source row; -1 the poison; -2 not stored
+#pragma unroll
+    for (int j = 0; j < kGatherPass; ++j) {
+      const int q = j * group_rows + row_in_group;
+      const int id = __shfl_sync(0xffffffffu, mine, q & 31);
+      r[j] = (j < groups && base + q < hi) ? resolve(id, rows) : -2;
+    }
+    for (long long e = sub; e < row_units; e += lanes) {
+      T v[kGatherPass][PLANES];
+#pragma unroll
+      for (int j = 0; j < kGatherPass; ++j) {
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p) {
+          v[j][p] = r[j] >= 0 ? __ldg(src + p * src_plane + r[j] * row_units + e)
+                              : poison_unit<T>(poison, e);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGatherPass; ++j) {
+        if (r[j] == -2) continue;
+        const long long slot = base + j * group_rows + row_in_group;
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p)
+          gather_store(out + p * out_plane + slot * row_units + e, v[j][p]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void gather_unit(
+    const char* src, char* out, long long rows, long long row_bytes,
+    long long src_plane, long long out_plane, int planes, int lane_shift,
+    uint32_t poison, const int* ids, int lo, int hi) {
+  const long long u = sizeof(T);
+  const T* s = reinterpret_cast<const T*>(src);
+  T* o = reinterpret_cast<T*>(out);
+  if (planes == 2) {
+    gather_rows<T, 2>(s, o, rows, row_bytes / u, src_plane / u, out_plane / u,
+                      lane_shift, poison, ids, lo, hi);
+  } else {
+    gather_rows<T, 1>(s, o, rows, row_bytes / u, src_plane / u, out_plane / u,
+                      lane_shift, poison, ids, lo, hi);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 rows_gather_kernel(const char* __restrict__ src, char* __restrict__ out,
                    long long rows, long long row_bytes, long long src_plane,
                    long long out_plane, int planes, long long unit,
-                   uint32_t poison, const int* __restrict__ ids, int n_slots,
-                   const int* lo_p, const int* hi_p) {
-  const int slot = blockIdx.x * kSlotsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (slot >= n_slots) return;  // whole warps leave together
+                   int lane_shift, uint32_t poison, const int* __restrict__ ids,
+                   int n_slots, const int* lo_p, const int* hi_p) {
   int lo, hi;
   read_window(lo_p, hi_p, n_slots, lo, hi);
-  const long long r =
-      (slot >= lo && slot < hi) ? resolve(ids[slot], rows) : -1;
-  for (int p = 0; p < planes; ++p) {
-    char* dst = out + p * out_plane + static_cast<long long>(slot) * row_bytes;
-    if (r >= 0) {
-      warp_copy(dst, src + p * src_plane + r * row_bytes, row_bytes, unit,
-                lane);
-    } else {
-      warp_fill(dst, row_bytes, unit, poison, lane);
-    }
+  if (lo < 0) lo = 0;
+  if (hi > n_slots) hi = n_slots;
+  if (unit == 16) {
+    gather_unit<uint4>(src, out, rows, row_bytes, src_plane, out_plane, planes,
+                       lane_shift, poison, ids, lo, hi);
+  } else if (unit == 4) {
+    gather_unit<uint32_t>(src, out, rows, row_bytes, src_plane, out_plane,
+                          planes, lane_shift, poison, ids, lo, hi);
+  } else {
+    gather_unit<unsigned char>(src, out, rows, row_bytes, src_plane, out_plane,
+                               planes, lane_shift, poison, ids, lo, hi);
   }
 }
 
@@ -255,8 +392,8 @@ __device__ __forceinline__ long long round16(long long x) {
 // ids outside the table are written there directly), and then stores the
 // whole chunk as one contiguous stretch, every thread on the 16 bytes after
 // its neighbour's.  rows_gather_kernel above is the other design of the same
-// gather (one warp copies one row through registers); the two are timed side
-// by side.
+// gather (rows through registers, many loads in flight a lane); the two are
+// timed side by side.
 __global__ void __launch_bounds__(kThreads)
 row_gather_staged_kernel(const char* __restrict__ table, char* __restrict__ out,
                          long long rows, long long row_bytes, long long unit,
@@ -636,15 +773,24 @@ unsigned blocks_for(int n_slots) {
 
 extern "C" {
 
+// `blocks` persistent blocks (the wrapper sizes them to the card); `unit`
+// 16, 4 or 1 divides row_bytes and both planes' sizes.
 int mmlrec_rows_gather(const void* src, void* out, long long rows,
                        long long row_bytes, long long src_plane,
                        long long out_plane, int planes, long long unit,
                        unsigned poison, const int* ids, int n_slots,
-                       const int* lo_p, const int* hi_p, void* stream) {
-  rows_gather_kernel<<<blocks_for(n_slots), kThreads, 0,
+                       const int* lo_p, const int* hi_p, int blocks,
+                       void* stream) {
+  if ((unit != 16 && unit != 4 && unit != 1) || (planes != 1 && planes != 2) ||
+      blocks < 1 || row_bytes % unit || src_plane % unit || out_plane % unit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int lane_shift = 0;  // the fewest lanes (a power of two) that cover a row
+  while ((1LL << lane_shift) < row_bytes / unit && lane_shift < 5) ++lane_shift;
+  rows_gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const char*>(src), static_cast<char*>(out), rows, row_bytes,
-      src_plane, out_plane, planes, unit, poison, ids, n_slots, lo_p, hi_p);
+      src_plane, out_plane, planes, unit, lane_shift, poison, ids, n_slots,
+      lo_p, hi_p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,18 +17,27 @@ version; tensors on one CUDA device launch a kernel of
 
 All are bound by bytes on the H100: every gathered row is read once and
 written once (2 x 512 B per id for the dual gather at 128 lanes).  Design
-of ``rows_gather_kernel`` (the first two): one warp per slot, 16-byte loads
-and stores on neighbouring addresses; the window is read from device
-memory, so the caller never synchronises on the step's unique-row count.
-``row_gather`` is the other design of the single-array gather, as it is in
-the JAX package: a block brings a chunk of rows into shared memory with
-``cp.async`` and stores the chunk as one contiguous stretch.  Pure data
-movement: bit-identical to the plain versions, poison pattern included.
+of ``rows_gather_kernel`` (the first two): a grid sized to the card
+(``gather_grid``: a few blocks an SM) whose warps stride over the window
+alone; a warp's pass loads its slots' ids, one per lane, then issues every
+16-byte load of both planes of ``_GATHER_SLOTS_PER_PASS`` rows before its
+first store.  The window is read from device memory, so the caller never
+synchronises on the step's unique-row count.  As under Mosaic
+(pallas_gather.py:186-192), the kernel stores nothing outside the window:
+those slots of its output hold whatever ``torch.empty`` left there, and no
+caller reads them (``tests/test_torch_gather_window.py``).  The plain
+version poisons them, as JAX's reference path does, so that a CPU test
+that consumes one fails loudly.  ``row_gather`` is the other design of the
+single-array gather, as it is in the JAX package: a block brings a chunk
+of rows into shared memory with ``cp.async`` and stores the chunk as one
+contiguous stretch.  Pure data movement: bit-identical to the plain
+versions inside the window, poison pattern included.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -40,7 +49,7 @@ _p, _i, _ll, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uin
 # every list ends with the stream: a pointer left to ctypes' default conversion
 # would be cut to 32 bits
 LIBRARY = cuda_build.CudaLibrary("row_kernels.cu", {
-    "mmlrec_rows_gather": [_p, _p, _ll, _ll, _ll, _ll, _i, _ll, _u, _p, _i, _p, _p, _p],
+    "mmlrec_rows_gather": [_p, _p, _ll, _ll, _ll, _ll, _i, _ll, _u, _p, _i, _p, _p, _i, _p],
     "mmlrec_rows_write": [_p, _p, _i, _p, _p, _p],
     "mmlrec_row_gather_staged": [_p, _p, _ll, _ll, _ll, _u, _p, _i, _i, _p],
     "mmlrec_rows_write_pipelined": [_p, _p, _i, _i, _i, _p, _p, _p],
@@ -49,6 +58,30 @@ LIBRARY = cuda_build.CudaLibrary("row_kernels.cu", {
 launch_counts.update(rows_gather_dual=0, rows_gather_hbm=0, row_gather=0)
 
 _GATHER_DTYPES = (torch.float32, torch.int32)
+_GATHER_SLOTS_PER_PASS = 4  # kGatherPass (MMLREC_GATHER_SLOTS_PER_PASS) in the CUDA source
+_GATHER_BLOCKS_PER_SM = 8  # blocks of rows_gather_kernel an SM (tools/tune_kernels.py)
+_GATHER_WARPS = 8  # kThreads / 32 in the CUDA source
+
+
+def gather_grid(n_slots: int, row_units: int, sms: int) -> int:
+    """Blocks of a ``rows_gather_kernel`` launch: as many as cover the
+    ``n_slots`` slots in one pass of every warp, at most
+    ``_GATHER_BLOCKS_PER_SM`` a streaming multiprocessor (the warps stride
+    over the rest).  A row of
+    ``row_units`` units takes the fewest lanes (a power of two, at most 32)
+    that cover it, and a pass of a warp takes ``min(_GATHER_SLOTS_PER_PASS,
+    lanes)`` groups of ``32 / lanes`` rows, as the C entry computes them."""
+    lanes = 1
+    while lanes < row_units and lanes < 32:
+        lanes *= 2
+    per_pass = min(_GATHER_SLOTS_PER_PASS, lanes) * (32 // lanes)
+    per_block = _GATHER_WARPS * per_pass
+    return max(1, min(-(-n_slots // per_block), sms * _GATHER_BLOCKS_PER_SM))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _poison(dtype: torch.dtype):
@@ -116,7 +149,16 @@ def _check_ids(name: str, ids: torch.Tensor) -> None:
         raise TypeError(f"{name}: ids must be a 1-D int32 tensor, got {ids.dtype}{list(ids.shape)}")
 
 
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the bytes of two contiguous tensors overlap."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
 def _gather_launch(name, src, ids, out, planes, n_real=None, bounds=None):
+    """Launch rows_gather_kernel into ``out`` (contiguous, [planes, K, W]
+    or [K, W]): slots in the window get their rows, no other byte of
+    ``out`` is stored."""
     K = ids.shape[0]
     rows, W = src.shape[-2], src.shape[-1]
     row_bytes = W * src.element_size()
@@ -124,13 +166,16 @@ def _gather_launch(name, src, ids, out, planes, n_real=None, bounds=None):
     out_plane = K * row_bytes
     if K == 0 or row_bytes == 0:
         return out
+    if _overlap(src, out):  # the kernel reads src through the read-only path
+        raise ValueError(f"{name}: the output must not overlap the source")
     ids = ids.contiguous()
     lo_p, hi_p = window_pointers(n_real, bounds)
     unit = _unit(row_bytes, src.data_ptr(), out.data_ptr())
+    blocks = gather_grid(K, row_bytes // unit, _sm_count(src.device.index))
     cuda_build.launch(
         LIBRARY, name, LIBRARY.load().mmlrec_rows_gather, src.data_ptr(),
         out.data_ptr(), rows, row_bytes, src_plane, out_plane, planes, unit,
-        _poison_bits(src.dtype), ids.data_ptr(), K, lo_p, hi_p,
+        _poison_bits(src.dtype), ids.data_ptr(), K, lo_p, hi_p, blocks,
         device=src.device)
     return out
 
@@ -140,7 +185,9 @@ def _gather_launch(name, src, ids, out, planes, n_real=None, bounds=None):
 # ----------------------------------------------------------------------
 def rows_gather_dual_plain(stacked, ids, *, n_real=None, bounds=None):
     """``jnp.take(stacked, ids, axis=1)``, poisoned outside the window
-    (the reference path of pallas_gather.py:215-222)."""
+    (the reference path of pallas_gather.py:215-222, which poisons where
+    Mosaic leaves the slots uninitialised, so that a CPU test that consumes
+    one fails loudly)."""
     got = take_fill(stacked, ids, 1)
     if n_real is None and bounds is None:
         return got
@@ -160,8 +207,10 @@ def rows_gather_dual(
 ) -> torch.Tensor:
     """stacked [2, V, W], ids [K] int32 -> pairs [2, K, W]; duplicates
     allowed.  ``n_real`` ([1] int32) or ``bounds`` ([2] int32 (lo, hi))
-    restrict the fetch to slots in the window; every other slot holds the
-    poison (NaN / int-min).  Replaces
+    restrict the fetch to slots in the window.  The slots outside it are
+    undefined, as under Mosaic (pallas_gather.py:186-192): the kernel
+    stores nothing there, the plain version fills the poison (NaN /
+    int-min); callers must not consume them.  Replaces
     ``mmlrec_tpu/ops/pallas_gather.py::pallas_rows_gather_dual`` (:171)."""
     name = "rows_gather_dual"
     cuda_build.check_dtype(name, stacked, _GATHER_DTYPES, "stacked")

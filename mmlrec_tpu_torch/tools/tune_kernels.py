@@ -32,9 +32,20 @@ inside one process, on one card (CUDA-graph replay, median device time):
   of them tail pads: f32 and bf16 deltas into a bf16 array, bf16 deltas into
   an f32 array, and the bf16 "set"; each lane run with as many lanes per
   slot as the row needs, and 8 elements a lane also with a whole warp per
-  slot (half of its lanes idle at this width).
+  slot (half of its lanes idle at this width);
+* ``rows_gather_kernel`` (B1, B4) with ``MMLREC_GATHER_SLOTS_PER_PASS`` row
+  groups a pass of a warp (2, 4, 8, 16), default or streaming stores
+  (``MMLREC_GATHER_STREAMING_STORES``) and 2, 4 or 8 blocks an SM (the
+  wrapper's ``_GATHER_BLOCKS_PER_SM``), at the step's shapes: B1 on the
+  ``[2, 10,000,000, 128]`` container with K = 65,536 uniform ids, B1 in
+  window mode on shard 1 of 4 (``[2, 2,500,000, 128]``, the sorted unique
+  rows' local ids and the shard's ``bounds``: ~16,300 of 65,536 slots) and
+  B4 on one plane, each held against the plain version (B1's window on its
+  slots, and no byte outside it stored) and beside an empty kernel on its
+  own grid; P3 and P4 (``tools/probe_rows.py``) on the same arrays and ids
+  as the yardstick that moves the same bytes.
 
-    python -m mmlrec_tpu_torch.tools.tune_kernels [--only embed|score|update]
+    python -m mmlrec_tpu_torch.tools.tune_kernels [--only embed|score|update|gather]
 
 Prints one line per variant and one JSON line last; the constants in the
 sources are the values this tool found fastest.  Needs one CUDA device;
@@ -44,6 +55,7 @@ exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -54,6 +66,7 @@ from ..ops import cuda_build
 from ..ops import kernels as K
 from ..ops import row_gather as G
 from ..ops import row_scatter as S
+from . import probe_rows
 from .timing import device_ms
 
 EMBED_TILE_ROWS = (4, 8, 16)
@@ -75,6 +88,10 @@ SCORE_VARIANTS = (  # name, least lanes a row, rows a group (0: the rule), threa
     ("scalar body (a warp per row, 4-byte loads)", 1, 0, 256, False),
 )
 SCORE_SHAPES = ((4096, 2, 64), (4096, 2, 128), (1000, 2, 64), (8192, 1, 64))
+GATHER_PASSES = (2, 4, 8, 16)  # MMLREC_GATHER_SLOTS_PER_PASS
+GATHER_STORES = (0, 1)  # MMLREC_GATHER_STREAMING_STORES
+GATHER_BLOCKS_PER_SM = (2, 4, 8)
+GATHER_SENTINEL = -0x21524111  # 0xDEADBEEF: the output before a windowed launch
 UPDATE_FORMS = (  # name, array dtype, delta dtype, mode
     ("f32_into_bf16", torch.bfloat16, torch.float32, "add"),
     ("bf16_into_bf16", torch.bfloat16, torch.bfloat16, "add"),
@@ -210,9 +227,107 @@ def tune_rows_update(libraries, g):
     return out
 
 
+def check_gather_window(stacked, ids, what, **window):
+    """B1 in window mode on the card: the window's slots bitwise the plain
+    version's, and, through the kernel's launch into an output filled with
+    ``GATHER_SENTINEL``, no byte outside the window stored (the TPU
+    kernel's contract: pallas_gather.py:186-192).  Returns (lo, hi)."""
+    k, w = ids.shape[0], stacked.shape[2]
+    lo, hi = (int(v) for v in G.window(k, device=ids.device, **window))
+    plain = G.rows_gather_dual_plain(stacked, ids, **window)[:, lo:hi].contiguous()
+    got = G.rows_gather_dual(stacked, ids, **window)[:, lo:hi].contiguous()
+    marked = torch.full((2, k, w), GATHER_SENTINEL, dtype=torch.int32, device=ids.device)
+    G._gather_launch("rows_gather_dual", stacked, ids, marked.view(stacked.dtype), 2, **window)
+    torch.cuda.synchronize()
+    if not (_same_bits(got, plain) and torch.equal(marked[:, lo:hi], plain.view(torch.int32))):
+        raise AssertionError(f"{what}: the window [{lo}, {hi}) differs from the plain version")
+    outside = torch.cat([marked[:, :lo], marked[:, hi:]], dim=1)
+    if not (outside == GATHER_SENTINEL).all():
+        raise AssertionError(f"{what}: a byte outside the window [{lo}, {hi}) was stored")
+    return lo, hi
+
+
+def tune_rows_gather(libraries, g):
+    from ..parallel.shard_embedding import owned_bounds
+    from ..train.sparse_embedding import device_step_metadata
+
+    dev = torch.device("cuda")
+    n_feat, vocab, pack, batch, W, shards = 16, 2_500_000, 4, 4096, 128, 4
+    V, k = n_feat * vocab // pack, batch * n_feat
+    r = V // shards
+    stacked = torch.empty((2, V, W), device=dev).normal_(generator=g)
+    local = torch.randint(0, vocab, (batch, n_feat), generator=g, device=dev, dtype=torch.int32)
+    flat = (local + torch.arange(n_feat, device=dev, dtype=torch.int32)[None] * vocab).reshape(-1)
+    phys = torch.div(flat, pack, rounding_mode="floor")
+    shard = stacked.view(-1, W)[:2 * r].view(2, r, W)
+    windows = []  # shard 1's (local ids, bounds) of four batches
+    for _ in range(4):
+        _, _, pids, _, nuniq, _ = device_step_metadata(flat, pack, k, V)
+        # shard 1: its local ids run negative before its window
+        windows.append(((pids - r).clamp(0, r - 1).to(torch.int32),
+                        owned_bounds(pids, nuniq, 1, r)))
+        local = torch.randint(0, vocab, (batch, n_feat), generator=g, device=dev,
+                              dtype=torch.int32)
+        flat = (local + torch.arange(n_feat, device=dev, dtype=torch.int32)[None]
+                * vocab).reshape(-1)
+    lpids, bounds = windows[0]
+    lo, hi = bounds.tolist()
+    u = int(torch.unique(phys).numel())
+    turn = itertools.cycle(windows)
+
+    def window_cold():  # four batches' rows in turn: 134 MB, beyond the 50 MB L2
+        ids, b = next(turn)
+        return G.rows_gather_dual(shard, ids, bounds=b)
+
+    uses = {  # name: (run, plain, bytes)
+        "b1_full": (lambda: G.rows_gather_dual(stacked, phys),
+                    lambda: G.rows_gather_dual_plain(stacked, phys), 4 * k + 2 * 4 * W * (u + k)),
+        "b1_window": (lambda: G.rows_gather_dual(shard, lpids, bounds=bounds), None,
+                      8 + 4 * (hi - lo) + 2 * 2 * 4 * W * (hi - lo)),
+        "b1_window_cold": (window_cold, None, 8 + 4 * (hi - lo) + 2 * 2 * 4 * W * (hi - lo)),
+        "b4": (lambda: G.rows_gather_hbm(stacked[1], phys),
+               lambda: G.rows_gather_hbm_plain(stacked[1], phys), 4 * k + 4 * W * (u + k)),
+    }
+    default = (G.LIBRARY, G._GATHER_SLOTS_PER_PASS, G._GATHER_BLOCKS_PER_SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    variants = [(p, st, b) for p in GATHER_PASSES for st in GATHER_STORES
+                for b in GATHER_BLOCKS_PER_SM]
+    out = {"shapes": f"stacked [2, {V}, {W}], K = {k} ({u} distinct rows); window "
+                     f"[{lo}, {hi}) of shard 1 of {shards} [2, {r}, {W}]",
+           "bytes": {name: use[2] for name, use in uses.items()}, "variants": {}}
+    for passes, streaming, blocks in _in_turns(variants):
+        G.LIBRARY = libraries[passes, streaming]
+        G._GATHER_SLOTS_PER_PASS, G._GATHER_BLOCKS_PER_SM = passes, blocks
+        name = (f"{passes} groups a pass, {'streaming' if streaming else 'default'} stores, "
+                f"{blocks} blocks an SM")
+        entry = out["variants"].setdefault(name, {"grid": G.gather_grid(k, W // 4, sms), "us": {},
+                                                  "empty_kernel_us": []})
+        for use, (run, plain, _) in uses.items():
+            if use == "b1_window_cold":
+                pass  # the same launches as b1_window, on the batches checked below
+            elif plain is None:
+                for ids, b in windows:
+                    check_gather_window(shard, ids, f"{name}: {use}", bounds=b)
+            elif not _same_bits(run(), plain()):
+                raise AssertionError(f"rows_gather, {name}, {use}: differs from the plain version")
+            entry["us"].setdefault(use, []).append(device_ms(run) * 1e3)
+        entry["empty_kernel_us"].append(device_ms(lambda: K.empty_launch(entry["grid"], 256)) * 1e3)
+    G.LIBRARY, G._GATHER_SLOTS_PER_PASS, G._GATHER_BLOCKS_PER_SM = default
+    rows = [ids[b[0]:b[1]].long() for ids, b in ((i, b.tolist()) for i, b in windows)]
+    cold_rows = itertools.cycle(rows)
+    yardsticks = {"p4_pairs_gather": lambda: probe_rows.pairs_gather(stacked, phys),
+                  "p3_rows_gather": lambda: probe_rows.rows_gather(stacked[1], phys),
+                  "index_select_window": lambda: shard.index_select(1, rows[0]),
+                  "index_select_window_cold": lambda: shard.index_select(1, next(cold_rows))}
+    out["yardsticks_us"] = {name: device_ms(run) * 1e3 for name, run in yardsticks.items()}
+    del stacked, shard
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("embed", "score", "update"), default=None)
+    ap.add_argument("--only", choices=("embed", "score", "update", "gather"), default=None)
     only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device is available", file=sys.stderr)
@@ -220,7 +335,7 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    embed, score, update = {}, {}, {}
+    embed, score, update, gather = {}, {}, {}, {}
     if only in (None, "embed"):
         embed = {r: cuda_build.CudaLibrary("recsys_kernels.cu", K.LIBRARY.signatures,
                                            defines=(f"-DMMLREC_EMBED_TILE_ROWS={r}",))
@@ -235,10 +350,16 @@ def main(argv=None) -> int:
         update = {n: cuda_build.CudaLibrary("row_kernels.cu", G.LIBRARY.signatures,
                                             defines=(f"-DMMLREC_UPDATE_LANE_ELEMS={n}",))
                   for n in sorted({elems for _, elems, _ in UPDATE_VARIANTS})}
-    libraries = [*embed.values(), *score.values(), *update.values()]
+    if only in (None, "gather"):
+        gather = {(p, st): cuda_build.CudaLibrary(
+            "row_kernels.cu", G.LIBRARY.signatures,
+            defines=(f"-DMMLREC_GATHER_SLOTS_PER_PASS={p}",
+                     f"-DMMLREC_GATHER_STREAMING_STORES={st}"))
+            for p in GATHER_PASSES for st in GATHER_STORES}
+    libraries = [*embed.values(), *score.values(), *update.values(), *gather.values()]
     paths = cuda_build.build_all(libraries)
     kernels = ("embed_concat_kernel", "multihead_score_vector_kernel",
-               "multihead_score_scalar_kernel", "rows_update_kernel")
+               "multihead_score_scalar_kernel", "rows_update_kernel", "rows_gather_kernel")
     for lib, path in zip(libraries, paths):
         entry = ""  # ptxas names the entry function, then its registers and spills
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -257,6 +378,8 @@ def main(argv=None) -> int:
         result["multihead_score"] = tune_multihead_score(score, g)
     if update:
         result["rows_update"] = tune_rows_update(update, g)
+    if gather:
+        result["rows_gather"] = tune_rows_gather(gather, g)
     for rows, entry in result.get("embed_concat", {}).items():
         print(f"embed_concat, {rows} rows a tile: {entry} [{card}]", flush=True)
     for batch, entry in result.get("embed_concat_by_batch", {}).items():
@@ -266,6 +389,12 @@ def main(argv=None) -> int:
             print(f"multihead_score {shape}, {name}: {entry} [{card}]", flush=True)
     for name, entry in result.get("rows_update", {}).items():
         print(f"rows_update, {name}: {entry} [{card}]", flush=True)
+    if gather:
+        rg = result["rows_gather"]
+        print(f"rows_gather: {rg['shapes']}; bytes {rg['bytes']}; P3 / P4 and index_select on "
+              f"the same arrays {rg['yardsticks_us']} us [{card}]", flush=True)
+        for name, entry in rg["variants"].items():
+            print(f"rows_gather, {name}: {entry} [{card}]", flush=True)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -405,14 +405,15 @@ def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, steps_p
 
     The dataset is staged when its bytes x 2 are under
     ``trainer._device_data_bytes_cap`` (4 GB).  Block mode (``shuffle=
-    "block"``) permutes the rows once, pads the tail with row 0 at weight
-    0, stages the weights once and, with host metadata, builds every
-    batch's metadata once per fit: the batches are fixed and only their
-    order changes.  The port's streaming path runs block mode the same way
-    (pre-shuffled rows, the batch order drawn each epoch), where the JAX
-    streaming loop keeps the data order; so both paths give one fit.  The
-    thread-ahead pool serves full-shuffle two-phase fits with host metadata
-    over more than one epoch (staging.py:489-515)."""
+    "block"``) exists on the staged path only, as in JAX
+    (staging.py:437-444): it permutes the rows once, pads the tail with
+    row 0 at weight 0, stages the weights once and, with host metadata,
+    builds every batch's metadata once per fit: the batches are fixed and
+    only their order changes.  A streamed ``shuffle="block"`` fit takes
+    the rows in data order, as ``shuffle=False`` does, and draws nothing
+    (trainer.py:1538).  The thread-ahead pool serves full-shuffle
+    two-phase fits with host metadata over more than one epoch
+    (staging.py:489-515)."""
     plan = Plan()
     plan.steps = steps_per_epoch
     dataset_bytes = ids.nbytes + dense.nbytes + y.nbytes
@@ -425,6 +426,8 @@ def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, steps_p
         plan.rank_rows = batch_rows(batch_size, dp)
         plan.use_device_data = (plan.rank_rows is not None and dataset_bytes * 2
                                 < trainer._device_data_bytes_cap * dp.world)
+    if not plan.use_device_data:
+        return plan, ids, dense, y, dmask
     plan.block_mode = shuffle == "block"
     host_meta = trainer.two_phase_embedding and not trainer.device_metadata
     if plan.block_mode:
@@ -435,8 +438,6 @@ def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, steps_p
         pad_tail = steps_per_epoch * batch_size - n
         if pad_tail:
             plan.block_w[-1, batch_size - pad_tail:] = 0.0
-    if not plan.use_device_data:
-        return plan, ids, dense, y, dmask
     dev = trainer.device
     plan.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
     plan.loss = torch.zeros(steps_per_epoch, dtype=torch.float32, device=dev)
@@ -629,23 +630,21 @@ def run_gather_epoch(trainer, plan: Plan, prep, batch_size, steps_this_epoch):
     return None, idx_full[:take], take, spans
 
 
-def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_this_epoch,
-                        block_w=None):
+def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_this_epoch):
     """Streaming path (staging.py:691-754), for a dataset over the cap: a
     single prefetch worker builds each batch (host slicing, the two-phase
     host metadata, the upload from pinned memory on a side stream) up to
     ``prefetch_batches`` ahead; one worker keeps the batch order, so the
-    fit equals the synchronous loop's.  ``order`` holds each step's rows
-    (padded with row 0 at weight 0); ``block_w`` the block mode's weights.
-    Returns (losses, probs, weights) device tensors and the spans."""
+    fit equals the synchronous loop's.  ``order`` holds the epoch's rows;
+    the last partial batch is padded with row 0 at weight 0.  Returns
+    (losses, probs, weights) device tensors and the spans."""
     host_meta = trainer.two_phase_embedding and not trainer.device_metadata
 
     def make_batch(s):
         idx = order[s * batch_size:(s + 1) * batch_size]
-        weight = np.ones(batch_size, np.float32) if block_w is None else block_w[s]
+        weight = np.ones(batch_size, np.float32)
         pad = batch_size - len(idx)
         if pad:
-            weight = weight.copy()
             weight[len(idx):] = 0.0
             idx = np.concatenate([idx, np.zeros(pad, np.int64)])
         idx_r, weight_r = (idx, weight) if trainer.mesh is None else shard_batch(

@@ -1174,9 +1174,10 @@ class Trainer:
 
         Each call draws its epoch orders from ``np.random.default_rng(seed)``
         as the JAX fit does: ``permutation(n)`` per epoch, the identity with
-        ``shuffle=False``, or with ``shuffle="block"`` one permutation of
-        the rows per fit and one of the batch order per epoch; the last
-        partial batch is padded with row 0 at weight 0.  The dataset is
+        ``shuffle=False``, or with ``shuffle="block"`` on the staged path
+        one permutation of the rows per fit and one of the batch order per
+        epoch (streamed, ``"block"`` takes the data order, as in JAX); the
+        last partial batch is padded with row 0 at weight 0.  The dataset is
         staged on the device when its bytes x 2 are under 4 GB, else it
         streams (``train/staging.py``).  ``validation_split`` takes the tail
         of the data, before any shuffling; ``validation_data`` is ``(x,
@@ -1324,7 +1325,7 @@ class Trainer:
                 probs_dev = plan.probs[:steps] if self.metric_fns else None
             else:
                 valid, host_rows, take, spans, loss_vec, probs_dev = self._streaming_epoch(
-                    plan, order, batch_order, ids, dense, y, dmask, batch_size, steps, n)
+                    order, ids, dense, y, dmask, batch_size, steps, n)
             if events:
                 events[1].record()
             if probs_dev is not None and self._shard() is not None:
@@ -1343,7 +1344,7 @@ class Trainer:
             logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
             if self.metric_fns:
                 probs_all = self._selected(probs_dev.reshape(-1, probs_dev.shape[-1])).cpu().numpy()
-                probs_all = probs_all[valid] if valid is not None else probs_all[:take]
+                probs_all = probs_all[valid] if valid is not None else probs_all[:len(host_rows)]
                 y_all = y[host_rows]
                 logs.update(regime_eval(self.metric_fns, y_all, probs_all, self.task_name,
                                         self.num_domains))
@@ -1401,26 +1402,18 @@ class Trainer:
                 self.throughput_examples_per_s = examples_seen / train_time
         self.best_variables = best_snapshot
 
-    def _streaming_epoch(self, plan, order, batch_order, ids, dense, y, dmask, batch_size,
-                         steps, n):
-        """One epoch on the streaming path; block mode takes its fixed
-        batches in ``batch_order``, as on the staged path."""
-        block_w = valid = None
-        if plan.block_mode:
-            rows = np.arange(plan.steps * batch_size).reshape(plan.steps, batch_size)
-            rows = rows[batch_order].reshape(-1)
-            block_w = plan.block_w[batch_order]
-            valid = block_w.reshape(-1) > 0
-            host_rows = rows[valid]
-            order = np.where(rows < n, rows, 0)  # a pad is row 0 at weight 0
-            take = int(valid.sum())
-        else:
-            take = min(n, steps * batch_size)
-            host_rows = order[:take]
+    def _streaming_epoch(self, order, ids, dense, y, dmask, batch_size, steps, n):
+        """One epoch on the streaming path, in ``order`` (data order for
+        ``shuffle="block"``, as the JAX streaming loop takes it).  The train
+        metrics see every row of every batch, the last batch's pads (row 0)
+        included, as JAX's do (staging.py:748-752)."""
+        take = min(n, steps * batch_size)
+        host_rows = np.zeros(steps * batch_size, np.int64)
+        host_rows[:take] = order[:take]
         losses, probs, spans = staging.run_streaming_epoch(
-            self, order, ids, dense, y, dmask, batch_size, steps, block_w)
+            self, order, ids, dense, y, dmask, batch_size, steps)
         probs_dev = torch.stack(probs) if probs else None
-        return valid, host_rows, take, spans, torch.stack(losses), probs_dev
+        return None, host_rows, take, spans, torch.stack(losses), probs_dev
 
     def _batch_curve(self, probs_all, y_all, spans) -> Dict[str, float]:
         """The reference's per-batch train metrics (basemodel.py:316-331,

@@ -75,11 +75,16 @@ def _state(tr):
     return out, [{k: v for k, v in h.items() if k != "epoch_s"} for h in tr.history]
 
 
-def _assert_bitwise(a, b, what):
+def _assert_bitwise(a, b, what, train_metrics=True):
+    """Every tensor and log bitwise; without ``train_metrics`` the logs'
+    train metrics are left out (the losses and val_ keys stay)."""
     (sa, ha), (sb, hb) = a, b
     assert sa.keys() == sb.keys(), what
     for k in sa:
         assert torch.equal(sa[k], sb[k]), f"{what}: {k}"
+    if not train_metrics:
+        ha, hb = ([{k: v for k, v in h.items() if k == "loss" or k.startswith("val_")}
+                   for h in logs] for logs in (ha, hb))
     assert ha == hb, what
 
 
@@ -88,9 +93,23 @@ def _fit(tr, x, y, **kw):
     return tr
 
 
+def _streamed(mode, shuffle):
+    tr, x, y = _trainer(mode)
+    tr._device_data_bytes_cap = 0  # force the streaming loop
+    return _state(_fit(tr, x, y, shuffle=shuffle))
+
+
 @pytest.mark.parametrize("shuffle", [True, "block"])
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_staged_equals_streaming_bitwise(mode, shuffle):
+    """The staged paths against each other, and the streaming fit against
+    the staged one: every tensor and loss bitwise.  The streaming fit's
+    train metrics also count the last batch's pads, as JAX's streaming
+    loop does (staging.py:748-752; test_streaming_fit_matches_jax), so they
+    are left out of that comparison.  ``shuffle="block"`` streams in data
+    order, as the JAX streaming loop does (trainer.py:1538): its streaming
+    arm is held against the streaming ``shuffle=False`` fit, logs included,
+    the equality JAX has."""
     runs = {}
     # scan_steps 3 (two chunks an epoch) for the dense kind only: the
     # two-phase kinds run the same chunk loop
@@ -98,13 +117,17 @@ def test_staged_equals_streaming_bitwise(mode, shuffle):
         tr, x, y = _trainer(mode, scan_steps=scan)
         runs[f"staged scan_steps={scan}"] = _state(_fit(tr, x, y, shuffle=shuffle))
         assert tr.graph_replays == {"train": 0, "eval": 0}  # the CPU replays nothing
-    tr, x, y = _trainer(mode)
-    tr._device_data_bytes_cap = 0  # force the streaming loop
-    runs["streaming"] = _state(_fit(tr, x, y, shuffle=shuffle))
+    streaming = _streamed(mode, shuffle)
+    if shuffle == "block":
+        _assert_bitwise(streaming, _streamed(mode, False),
+                        f"{mode}, streaming shuffle=block vs shuffle=False")
     base = runs.pop("staged scan_steps=0")
     assert len(base[1]) == 2 and "auc" in base[1][-1]
     for name, run in runs.items():
         _assert_bitwise(run, base, f"{mode}, shuffle={shuffle}, {name}")
+    if shuffle is True:
+        _assert_bitwise(streaming, base, f"{mode}, shuffle=True, streaming",
+                        train_metrics=False)
 
 
 def test_staged_path_takes_batches_on_the_device(monkeypatch):
@@ -151,6 +174,37 @@ def test_block_mode_scanned_fit_matches_jax(jax_side, scan):
     tr.fit(*rows, batch_size=64, epochs=2, shuffle="block", verbose=0)
     dense_t._assert_same_history(tr, jtr, 2)
     dense_t._assert_same_params(tr, jtr.variables["params"])
+
+
+@pytest.mark.parametrize("jax_side,shuffle", [("dense", "block"), ("f32_two_phase", "block"),
+                                               ("dense", True)])
+def test_streaming_fit_matches_jax(jax_side, shuffle):
+    """The fit over the cap (a cap of 0 bytes on both sides), two epochs of
+    3 batches, the last of 40 rows, at the dense fit's tolerances.  With
+    ``shuffle="block"`` JAX's streaming loop takes the rows in data order
+    and draws nothing (trainer.py:1538), so the port's must too; either
+    way the train metrics count the last batch's pads (staging.py:748-752)."""
+    if jax_side == "dense":
+        jtr, x, y = dense_t._jax_side(1)
+        tr = dense_t._port_trainer(1, dense_t._state_of(jtr))
+    else:
+        jtr, x, y = f32_t._jax_side("pallas", 1)
+        cfg = tsyn.make_config(vocab=f32_t.VOCAB[1], table_update="pallas", **f32_t.KW)
+        layout, *_ = tsyn.make_data(cfg, n=8, seed=0, vocab=f32_t.VOCAB[1])
+        tr = Trainer(get_model("mmoe", layout, cfg, device="cpu"), seed=0,
+                     device="cpu").compile()
+        load_jax_train_state(tr, *f32_t._state_of(jtr))
+    assert tr.cfg.model_config.dnn_dropout == 0
+    jtr._device_data_bytes_cap = tr._device_data_bytes_cap = 0
+    rows = (dense_t._rows(x, 160, 328), y[160:328])
+    jtr.fit(*rows, batch_size=64, epochs=2, shuffle=shuffle, verbose=0)
+    tr.fit(*rows, batch_size=64, epochs=2, shuffle=shuffle, verbose=0)
+    dense_t._assert_same_history(tr, jtr, 2)
+    dense_t._assert_same_params(tr, jtr.variables["params"])
+    if jax_side != "dense":
+        table = jtr.variables["params"]["embeddings"]["fused"]["table"]
+        np.testing.assert_allclose(tr.table.detach().numpy(), np.asarray(table), rtol=0,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "adagrad", "rmsprop", "sgd"])
