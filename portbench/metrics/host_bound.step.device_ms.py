@@ -1,0 +1,8 @@
+"""``step.device_ms`` in a host-bound training cell, where it moves
+``host_bound.train_examples_per_s``: the same reader."""
+
+from portbench.run import metric_module
+
+_BASE = metric_module("step.device_ms")
+UNIT, LAYER, SOURCE, read = _BASE.UNIT, _BASE.LAYER, _BASE.SOURCE, _BASE.read
+MOVES = "host_bound.train_examples_per_s"
