@@ -2532,7 +2532,9 @@ def _fit_once(torch, K, tr, x, y, batch, epochs, **fit_kw) -> dict:
                 graph_replays=tr.graph_replays,
                 launches_per_step={k: v / steps for k, v in K.launch_counts.items() if v},
                 losses=[h["loss"] for h in tr.history],
-                host_ms_by_epoch=[{k: v * 1e3 for k, v in t.items()} for t in tr.fit_timing])
+                host_ms_by_epoch=[{k: t[k] * 1e3 for k in ("prep_s", "issue_s", "sync_s",
+                                                            "steps_device_s") if k in t}
+                                  for t in tr.fit_timing])
 
 
 def _replayed_step_device_ms(torch, tr, x, y, batch, **fit_kw):

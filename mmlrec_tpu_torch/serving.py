@@ -12,6 +12,13 @@ The JAX bundle ships the traced program (``predict.jaxexport``, StableHLO)
 and loads without model code.  PyTorch runs eagerly, so ``load`` rebuilds
 the model from the config in ``meta.json`` and loads the weights into it;
 the batch dimension is free, as in the JAX bundle's symbolic mode.
+
+Under a profiler each ``predict`` is one span ``mmlrec.serve.predict``
+holding ``mmlrec.serve.pack`` (the columns packed, the domain mask, the
+padding) and, once a batch, ``mmlrec.serve.copy_in`` (the copies to the
+device), ``mmlrec.serve.forward`` (the model's launches issued) and
+``mmlrec.serve.copy_out`` (the wait for the device and the copy back);
+``utils/spans.py``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from .config import ExperimentConfig
 from .features import DenseFeat, FeatureLayout, SparseFeat, VarLenSparseFeat
+from .utils.spans import span
 
 _PARAMS_FILE = "params.pt"
 _META_FILE = "meta.json"
@@ -230,44 +238,43 @@ class ServingBundle:
     def _run(self, ids: np.ndarray, dense: np.ndarray, dmask) -> np.ndarray:
         dev = self.device
         with torch.inference_mode():
-            mask = None
-            if self.meta["needs_mask"]:
-                mask = torch.from_numpy(dmask).to(dev)
-            probs = self.model(
-                torch.from_numpy(ids).to(dev), torch.from_numpy(dense).to(dev), mask)
-            if self.meta["model_name"] in ("escm", "escm_dr"):
-                probs = probs[:, [0, 2]]  # [pCTR, pCTCVR] (reference basemodel.py:438-441)
-            return probs.cpu().numpy()
+            with span("mmlrec.serve.copy_in"):
+                mask = None
+                if self.meta["needs_mask"]:
+                    mask = torch.from_numpy(dmask).to(dev)
+                ids_d, dense_d = torch.from_numpy(ids).to(dev), torch.from_numpy(dense).to(dev)
+            with span("mmlrec.serve.forward"):
+                probs = self.model(ids_d, dense_d, mask)
+            with span("mmlrec.serve.copy_out"):
+                if self.meta["model_name"] in ("escm", "escm_dr"):
+                    probs = probs[:, [0, 2]]  # [pCTR, pCTCVR] (reference basemodel.py:438-441)
+                return probs.cpu().numpy()
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """[N, num_heads] float64 probabilities (Trainer.predict contract,
         reference basemodel.py:395-457)."""
-        ids, dense = _pack_from_schema(self.meta["packing"], x)
-        dmask = _domain_mask_from_meta(self.meta, x)
-        n = len(ids)
-
-        if self.meta["batch_mode"] == "fixed":
-            batch_size = self.meta["batch_size"]
-        if batch_size is None:  # one call, any batch
-            return self._run(ids, dense, dmask)[:n].astype(np.float64)
-
-        steps = (n - 1) // batch_size + 1
-        pad = steps * batch_size - n
-
-        def pad_rows(a):
-            if a is None:
-                return None
-            if pad:
-                a = np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
-            return a
-
-        ids, dense, dmask = pad_rows(ids), pad_rows(dense), pad_rows(dmask)
-        outs = [
-            self._run(
-                ids[s * batch_size : (s + 1) * batch_size],
-                dense[s * batch_size : (s + 1) * batch_size],
-                None if dmask is None else dmask[s * batch_size : (s + 1) * batch_size],
-            )
-            for s in range(steps)
-        ]
-        return np.concatenate(outs)[:n].astype(np.float64)
+        with span("mmlrec.serve.predict"):
+            with span("mmlrec.serve.pack"):
+                ids, dense = _pack_from_schema(self.meta["packing"], x)
+                dmask = _domain_mask_from_meta(self.meta, x)
+                n = len(ids)
+                if self.meta["batch_mode"] == "fixed":
+                    batch_size = self.meta["batch_size"]
+                if batch_size is not None:
+                    steps = (n - 1) // batch_size + 1
+                    pad = steps * batch_size - n
+                    if pad:  # the last row repeated
+                        ids, dense, dmask = [
+                            None if a is None else np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                            for a in (ids, dense, dmask)]
+            if batch_size is None:  # one call, any batch
+                return self._run(ids, dense, dmask)[:n].astype(np.float64)
+            outs = [
+                self._run(
+                    ids[s * batch_size : (s + 1) * batch_size],
+                    dense[s * batch_size : (s + 1) * batch_size],
+                    None if dmask is None else dmask[s * batch_size : (s + 1) * batch_size],
+                )
+                for s in range(steps)
+            ]
+            return np.concatenate(outs)[:n].astype(np.float64)

@@ -15,9 +15,11 @@ The generators the step draws its dropout masks and gates from (one, or
 one per member of a stacked suite: ``layers.MemberGenerators``) are
 registered with each graph: a replay takes each generator's seed and
 offset at the time of the replay, so the trainer's reseed before each step
-gives a replayed step the draws of the eager one.  ``capture_s`` sums the
-host seconds of the first runs (eager warm-up and capture).  The wrappers' launch counts are
-recorded at capture and added on every replay (``cuda_build``).
+gives a replayed step the draws of the eager one.  ``captures`` counts the
+graphs captured and ``capture_s`` sums the host seconds of their first runs
+(eager warm-up and capture), each under the span ``mmlrec.fit.capture``.
+The wrappers' launch counts are recorded at capture and added on every
+replay (``cuda_build``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple, Union
 import torch
 
 from ..ops import cuda_build
+from ..utils.spans import span
 
 
 class StepGraphs:
@@ -40,6 +43,8 @@ class StepGraphs:
         self.graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, dict]] = {}
         #: replays since construction, by key
         self.replays: Dict[Hashable, int] = {}
+        #: graphs captured since construction (a discarded key's again)
+        self.captures = 0
         #: host seconds of the captures (each with its eager warm-up run)
         self.capture_s = 0.0
 
@@ -59,21 +64,23 @@ class StepGraphs:
             cuda_build.add_launches(launches)
             self.replays[key] = self.replays.get(key, 0) + 1
             return
-        clock = time.perf_counter()
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            body()
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            if gen.device.type == "cuda":
-                graph.register_generator_state(gen)
-        with cuda_build.captured_launches() as launches:
-            # thread_local: the fit's worker threads keep uploading meanwhile
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with span("mmlrec.fit.capture"):
+            clock = time.perf_counter()
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
                 body()
-        self.graphs[key] = (graph, launches)
-        self.replays.setdefault(key, 0)
-        self.capture_s += time.perf_counter() - clock
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                if gen.device.type == "cuda":
+                    graph.register_generator_state(gen)
+            with cuda_build.captured_launches() as launches:
+                # thread_local: the fit's worker threads keep uploading meanwhile
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    body()
+            self.graphs[key] = (graph, launches)
+            self.replays.setdefault(key, 0)
+            self.captures += 1
+            self.capture_s += time.perf_counter() - clock

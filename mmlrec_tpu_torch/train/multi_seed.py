@@ -35,7 +35,8 @@ table, and a per-row step whose traffic grows with S), so one ``Trainer``
 fits the seeds one after another (``reset_for_seed``).  Each member is
 bitwise a solo run.  JAX's reason for this mode was one compile for the
 whole suite; here each fit captures its step graphs anew, and the suite
-prints what the captures cost per seed (``capture_s``).
+prints what the captures cost per seed (``capture_s``, from each fit's
+``fit_timing``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.layers import MemberGenerators
+from ..utils.spans import span, timed
 from . import device_metrics, staging
 from .cagrad import cagrad_merge
 from .graphs import StepGraphs
@@ -89,8 +91,9 @@ class SeedSuiteTrainer:
         self.best_variables: Optional[Dict[str, torch.Tensor]] = None
         #: per member, host seconds its fit spent capturing (sequential mode)
         self.capture_s: List[float] = []
-        #: per epoch of the last stacked fit: host seconds of prep, issue and
-        #: sync, and on the card the device span of the epoch's steps
+        #: per epoch of the last stacked fit, ``Trainer.fit_timing``'s keys
+        #: (``staging.TIMING_KEYS``; no metadata: ``meta_s`` is 0), and on
+        #: the card the device span of the epoch's steps
         self.fit_timing: List[Dict[str, float]] = []
         self.graph_replays: Dict[str, int] = {"train": 0, "eval": 0}
         self._seq_best: List = []
@@ -124,13 +127,13 @@ class SeedSuiteTrainer:
                validation_data=validation_data, verbose=max(verbose - 1, 0))
         self.histories[si] = list(tr.history)
         self._seq_best[si] = tr.best_variables
-        self.capture_s[si] = tr.graph_capture_s
+        self.capture_s[si] = sum(t["capture_s"] for t in tr.fit_timing)
         if verbose:
             last = tr.history[-1] if tr.history else {}
             print(f"{self.labels[si]}: {len(tr.history)} epochs, "
                   f"loss {last.get('loss', float('nan')):.4f}"
                   + (f", val_auc {last['val_auc']:.4f}" if "val_auc" in last else "")
-                  + f", its graphs captured in {tr.graph_capture_s:.3f} s")
+                  + f", its graphs captured in {self.capture_s[si]:.3f} s")
 
     def _fit_sequential(self, x, y, batch_size, epochs, validation_data, verbose):
         """The seeds one after another on the one trainer, each from
@@ -287,40 +290,50 @@ class SeedSuiteTrainer:
         if self.sequential:
             return self._fit_sequential(x, y, batch_size, epochs, validation_data, verbose)
         oc, dev, S = tr.cfg.optim_config, self.device, len(self.seeds)
-        ids, dense = tr.pack_inputs(x)
-        y2 = tr._prepare_y(y)
-        dmask = tr._domain_mask_from(x)
-        n = len(ids)
-        steps = (n - 1) // batch_size + 1
-        padded = steps * batch_size
-        val = None
-        if validation_data is not None:
-            vx, vy = validation_data[:2]
-            val = (*tr.pack_inputs(vx), tr._prepare_y(vy), tr._domain_mask_from(vx))
+        # the fit's set-up, as Trainer.fit's: the inputs packed, the
+        # members' state, the dataset and the validation set staged
+        with span("mmlrec.fit.stage"):
+            with span("mmlrec.fit.pack"):
+                ids, dense = tr.pack_inputs(x)
+                y2 = tr._prepare_y(y)
+                dmask = tr._domain_mask_from(x)
+                val = None
+                if validation_data is not None:
+                    vx, vy = validation_data[:2]
+                    val = (*tr.pack_inputs(vx), tr._prepare_y(vy), tr._domain_mask_from(vx))
+            n = len(ids)
+            steps = (n - 1) // batch_size + 1
+            padded = steps * batch_size
 
-        self._params, self._buffers = self._init_state()
-        self._tx = self._member_optimizer()
-        self._opt_state = self._tx.init(self._params)
-        self.gn_state = None
-        if tr.per_task == "gradnorm":
-            T = tr.num_tasks
-            self.gn_state = {"task_weights": torch.ones((S, T), device=dev),
-                             "initial_losses": torch.ones((S, T), device=dev),
-                             "gn_step": torch.zeros((S,), dtype=torch.int32, device=dev)}
-        self._masters = [torch.Generator().manual_seed(s + 1) for s in self.seeds]
-        self._gens = MemberGenerators(torch.Generator(device=dev) for _ in self.seeds)
-        # the template model draws per member from now on (its trainer takes
-        # no solo step in stacked mode)
-        tr.model.set_dropout_generator(self._gens)
-        rngs = [np.random.default_rng(s) for s in self.seeds]
+            self._params, self._buffers = self._init_state()
+            self._tx = self._member_optimizer()
+            self._opt_state = self._tx.init(self._params)
+            self.gn_state = None
+            if tr.per_task == "gradnorm":
+                T = tr.num_tasks
+                self.gn_state = {"task_weights": torch.ones((S, T), device=dev),
+                                 "initial_losses": torch.ones((S, T), device=dev),
+                                 "gn_step": torch.zeros((S,), dtype=torch.int32, device=dev)}
+            self._masters = [torch.Generator().manual_seed(s + 1) for s in self.seeds]
+            self._gens = MemberGenerators(torch.Generator(device=dev) for _ in self.seeds)
+            # the template model draws per member from now on (its trainer takes
+            # no solo step in stacked mode)
+            tr.model.set_dropout_generator(self._gens)
+            rngs = [np.random.default_rng(s) for s in self.seeds]
 
-        plan = staging.Plan()
-        plan.staged = staging.stage_dataset(tr, ids, dense, y2, dmask)
-        plan.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
-        plan.arg = torch.zeros(steps, S, batch_size, dtype=torch.int64, device=dev)
-        plan.w2d = staging.to_device(tr, (np.arange(padded) < n).astype(np.float32)
-                                     .reshape(steps, batch_size))
-        plan.loss = torch.zeros(steps, S, device=dev)
+            plan = staging.Plan()
+            plan.staged = staging.stage_dataset(tr, ids, dense, y2, dmask)
+            plan.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
+            plan.arg = torch.zeros(steps, S, batch_size, dtype=torch.int64, device=dev)
+            plan.w2d = staging.to_device(tr, (np.arange(padded) < n).astype(np.float32)
+                                         .reshape(steps, batch_size))
+            plan.loss = torch.zeros(steps, S, device=dev)
+            val_ev = val_metric = None
+            if val is not None:
+                val_ev = staging.prepare_eval_tensors(tr, val[0], val[1], val[3], batch_size)
+                if tr._use_device_eval():
+                    val_metric = staging.prepare_metric_tensors(tr, val[2],
+                                                                val_ev.ids.shape[0] * batch_size)
         graphs = StepGraphs(dev, self._gens)
         body = self._stacked_body(plan, steps, batch_size)
         scan = tr._scan_steps
@@ -328,12 +341,6 @@ class SeedSuiteTrainer:
         best_auc, stop_count = np.zeros(S), np.zeros(S, np.int64)
         stopped = np.zeros(S, bool)
         best = None
-        val_ev = val_metric = None
-        if val is not None:
-            val_ev = staging.prepare_eval_tensors(tr, val[0], val[1], val[3], batch_size)
-            if tr._use_device_eval():
-                val_metric = staging.prepare_metric_tensors(tr, val[2],
-                                                            val_ev.ids.shape[0] * batch_size)
         self.histories = [[] for _ in self.seeds]
         self.fit_timing = []
         val_program = None
@@ -343,82 +350,86 @@ class SeedSuiteTrainer:
                 if tr._gate_warmup_epochs:
                     tr._gate_warmup_active = epoch < tr._gate_warmup_epochs
                     tr.model.set_gate_noise_off(tr._gate_warmup_active)
-                clock = time.perf_counter()
-                idx3 = np.zeros((steps, S, batch_size), np.int64)
-                for si, rng in enumerate(rngs):
-                    # the stream a solo Trainer(seed) fit draws
-                    flat = np.zeros(padded, np.int64)
-                    flat[:n] = rng.permutation(n)
-                    idx3[:, si] = flat.reshape(steps, batch_size)
-                plan.arg.copy_(staging.to_device(tr, idx3))
-                timing = {"prep_s": time.perf_counter() - clock}
-                clock = time.perf_counter()
-                events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                          if dev.type == "cuda" else None)
-                if events:
-                    events[0].record()
-                plan.epoch_step.zero_()
-                key = ("suite", batch_size, tr._gate_warmup_active)
-                for _ in range(steps):
-                    self._reseed()
-                    if scan and not tr.debug:
-                        graphs.run(key, body)
-                    else:
-                        body()
-                if events:
-                    events[1].record()
-                timing["issue_s"] = time.perf_counter() - clock
-                clock = time.perf_counter()
-                losses = plan.loss.cpu().numpy()  # the epoch's first sync
-                timing["sync_s"] = time.perf_counter() - clock
+                timing = dict.fromkeys(staging.TIMING_KEYS, 0.0)
+                self.fit_timing.append(timing)
+                captured = (graphs.captures, graphs.capture_s)
+                with timed(timing, "prep_s", "mmlrec.fit.prep_wait"):
+                    idx3 = np.zeros((steps, S, batch_size), np.int64)
+                    for si, rng in enumerate(rngs):
+                        # the stream a solo Trainer(seed) fit draws
+                        flat = np.zeros(padded, np.int64)
+                        flat[:n] = rng.permutation(n)
+                        idx3[:, si] = flat.reshape(steps, batch_size)
+                    with timed(timing, "upload_s", "mmlrec.fit.worker.upload"):
+                        plan.arg.copy_(staging.to_device(tr, idx3))
+                with timed(timing, "issue_s", "mmlrec.fit.issue"):
+                    events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                              if dev.type == "cuda" else None)
+                    if events:
+                        events[0].record()
+                    plan.epoch_step.zero_()
+                    key = ("suite", batch_size, tr._gate_warmup_active)
+                    for _ in range(steps):
+                        self._reseed()
+                        if scan and not tr.debug:
+                            graphs.run(key, body)
+                        else:
+                            body()
+                    if events:
+                        events[1].record()
+                with timed(timing, "sync_s", "mmlrec.fit.sync"):
+                    losses = plan.loss.cpu().numpy()  # the epoch's first sync
                 if events:
                     timing["steps_device_s"] = events[0].elapsed_time(events[1]) / 1e3
-                self.fit_timing.append(timing)
                 epoch_time = time.time() - t0
                 logs = [{"loss": float(losses[:, si].sum()) / max(n, 1), "epoch_s": epoch_time}
                         for si in range(S)]
                 if tr.metric_fns:
-                    probs_all = plan.probs.movedim(1, 0).reshape(S, padded, -1)
-                    if tr._escm:
-                        probs_all = probs_all[..., [0, 2]]
-                    probs_all = probs_all.cpu().numpy()
-                    for si in range(S):
-                        rows = idx3[:, si].reshape(-1)[:n]
-                        logs[si].update(regime_eval(tr.metric_fns, y2[rows], probs_all[si, :n],
-                                                    tr.task_name, tr.num_domains))
+                    with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
+                        probs_all = plan.probs.movedim(1, 0).reshape(S, padded, -1)
+                        if tr._escm:
+                            probs_all = probs_all[..., [0, 2]]
+                        probs_all = probs_all.cpu().numpy()
+                        for si in range(S):
+                            rows = idx3[:, si].reshape(-1)[:n]
+                            logs[si].update(regime_eval(tr.metric_fns, y2[rows], probs_all[si, :n],
+                                                        tr.task_name, tr.num_domains))
                 was_stopped = stopped.copy()
                 if val is not None:
-                    if val_program is None:  # one program, replayed every epoch
-                        val_program = _EvalProgram(tr, val_ev, None, graphs, forward=(
-                            self._stacked_forward({**self._params, **self._buffers})))
-                    out = val_program.collect()
-                    pv = out.movedim(1, 0).reshape(S, -1, out.shape[-1])
-                    if tr._escm:
-                        pv = pv[..., [0, 2]]
-                    improved = np.zeros(S, bool)
-                    for si in range(S):
-                        if val_metric is not None:
-                            res = {k: float(v) for k, v in device_metrics.regime_metrics(
-                                tr.metric_fns, val_metric[0], pv[si], val_metric[1],
-                                tr.task_name, tr.num_domains).items()}
+                    with timed(timing, "val_s", "mmlrec.fit.validate"):
+                        if val_program is None:  # one program, replayed every epoch
+                            val_program = _EvalProgram(tr, val_ev, None, graphs, forward=(
+                                self._stacked_forward({**self._params, **self._buffers})))
+                        out = val_program.collect()
+                        pv = out.movedim(1, 0).reshape(S, -1, out.shape[-1])
+                        if tr._escm:
+                            pv = pv[..., [0, 2]]
+                        improved = np.zeros(S, bool)
+                        for si in range(S):
+                            if val_metric is not None:
+                                res = {k: float(v) for k, v in device_metrics.regime_metrics(
+                                    tr.metric_fns, val_metric[0], pv[si], val_metric[1],
+                                    tr.task_name, tr.num_domains).items()}
+                            else:
+                                preds = pv[si].cpu().numpy()[:len(val[0])].astype(np.float64)
+                                res = regime_eval(tr.metric_fns, val[2], preds, tr.task_name,
+                                                  tr.num_domains)
+                            logs[si].update({f"val_{k}": v for k, v in res.items()})
+                            auc = res.get("auc", 0.0)
+                            if not was_stopped[si] and auc > best_auc[si]:
+                                best_auc[si], stop_count[si], improved[si] = auc, 0, True
+                            elif not was_stopped[si]:
+                                stop_count[si] += 1
+                        current = {**self._params, **self._buffers}
+                        if best is None:  # the first epoch's snapshot, as multi_seed.py:370-379
+                            best = {k: v.detach().clone() for k, v in current.items()}
                         else:
-                            preds = pv[si].cpu().numpy()[:len(val[0])].astype(np.float64)
-                            res = regime_eval(tr.metric_fns, val[2], preds, tr.task_name,
-                                              tr.num_domains)
-                        logs[si].update({f"val_{k}": v for k, v in res.items()})
-                        auc = res.get("auc", 0.0)
-                        if not was_stopped[si] and auc > best_auc[si]:
-                            best_auc[si], stop_count[si], improved[si] = auc, 0, True
-                        elif not was_stopped[si]:
-                            stop_count[si] += 1
-                    current = {**self._params, **self._buffers}
-                    if best is None:  # the first epoch's snapshot, as multi_seed.py:370-379
-                        best = {k: v.detach().clone() for k, v in current.items()}
-                    else:
-                        for si in np.flatnonzero(improved):
-                            for k, v in current.items():
-                                best[k][si].copy_(v[si].detach())
-                    stopped |= stop_count >= oc.early_stop
+                            for si in np.flatnonzero(improved):
+                                for k, v in current.items():
+                                    best[k][si].copy_(v[si].detach())
+                        stopped |= stop_count >= oc.early_stop
+                timing["captures"] = graphs.captures - captured[0]
+                timing["capture_s"] = graphs.capture_s - captured[1]
                 for si in range(S):
                     # a member that stopped in an EARLIER epoch is done (a solo
                     # fit would have broken out); the epoch where its patience

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import batch_rows, distributed_take, shard_batch
+from ..utils.spans import enabled as span_on, timed
 from .sparse_embedding import SparseAdamPackedState, batch_step_metadata, to_split_state
 
 
@@ -543,6 +544,12 @@ def prepare_mask_tensor(trainer, test_mask, total: int):
 # ---------------------------------------------------------------------------
 
 
+#: the keys of each epoch's ``Trainer.fit_timing`` entry, every one present
+#: (0 where its phase did not run); on the card also ``steps_device_s``
+TIMING_KEYS = ("prep_s", "meta_s", "upload_s", "issue_s", "sync_s", "metrics_s", "val_s",
+               "captures", "capture_s")
+
+
 def drive_steps(trainer, kind: str, plan: Plan, batch_size: int, steps_this_epoch: int) -> None:
     """Run one epoch's steps on the staged path: chunks of ``scan_steps``
     graph replays (the whole epoch for ``true``), or eager steps for 0, in
@@ -588,28 +595,43 @@ def run_block_epoch(trainer, plan: Plan, batch_size, steps_per_epoch, steps_this
     return valid, host_rows, int(valid.sum()), spans
 
 
-def fs_host_prep(trainer, ids, n, batch_size, order_e, steps_e):
+class HostPrep(NamedTuple):
+    """A full-shuffle epoch's host prep: its padded row indices, the real
+    rows among them, their upload, and the host seconds of building the
+    metadata (``meta_s``) and of the upload (``upload_s``)."""
+
+    idx: np.ndarray
+    take: int
+    upload: Upload
+    host: dict
+
+
+def fs_host_prep(trainer, ids, n, batch_size, order_e, steps_e, on=None) -> HostPrep:
     """Full-shuffle epoch host prep (staging.py:757-780): the padded index
     vector and, for the two-phase step with host metadata, the epoch's
     metadata stacks, encoded and uploaded from the calling thread (the
     worker, when threaded ahead) so the copies ride during the previous
-    epoch's steps."""
+    epoch's steps.  ``on``: the span gate the submitting thread read."""
     padded_e = steps_e * batch_size
     idx_e = np.zeros(padded_e, np.int64)
     take_e = min(n, padded_e)
     idx_e[:take_e] = order_e[:take_e]
     arrays = [idx_e.reshape(steps_e, batch_size)]
+    host = {"meta_s": 0.0, "upload_s": 0.0}
     if trainer.two_phase_embedding and not trainer.device_metadata:
-        meta = step_metadata(trainer, flat_ids(trainer, ids[idx_e], steps_e))
-        arrays += [upload_form(a) for a in encode_meta(trainer, meta)]
-    return idx_e, take_e, upload_async(trainer, arrays)
+        with timed(host, "meta_s", "mmlrec.fit.worker.metadata", on):
+            meta = step_metadata(trainer, flat_ids(trainer, ids[idx_e], steps_e))
+            arrays += [upload_form(a) for a in encode_meta(trainer, meta)]
+    with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
+        up = upload_async(trainer, arrays)
+    return HostPrep(idx_e, take_e, up, host)
 
 
-def run_gather_epoch(trainer, plan: Plan, prep, batch_size, steps_this_epoch):
+def run_gather_epoch(trainer, plan: Plan, prep: HostPrep, batch_size, steps_this_epoch):
     """One full-shuffle epoch over the staged dataset (staging.py:658-688):
     the step takes its rows by the epoch's shuffled indices; the weights
     are built on the device from ``take``."""
-    idx_full, take, up = prep
+    idx_full, take, up, _ = prep
     L = steps_this_epoch
     idx2d, *meta = claim(up)
     _rows_into(plan.arg, L, idx2d)
@@ -630,15 +652,18 @@ def run_gather_epoch(trainer, plan: Plan, prep, batch_size, steps_this_epoch):
     return None, idx_full[:take], take, spans
 
 
-def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_this_epoch):
+def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_this_epoch,
+                        timing):
     """Streaming path (staging.py:691-754), for a dataset over the cap: a
     single prefetch worker builds each batch (host slicing, the two-phase
     host metadata, the upload from pinned memory on a side stream) up to
     ``prefetch_batches`` ahead; one worker keeps the batch order, so the
     fit equals the synchronous loop's.  ``order`` holds the epoch's rows;
     the last partial batch is padded with row 0 at weight 0.  Returns
-    (losses, probs, weights) device tensors and the spans."""
+    (losses, probs, weights) device tensors and the spans; adds the
+    batches' metadata and upload seconds to ``timing``."""
     host_meta = trainer.two_phase_embedding and not trainer.device_metadata
+    on = span_on()
 
     def make_batch(s):
         idx = order[s * batch_size:(s + 1) * batch_size]
@@ -651,16 +676,22 @@ def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_
             (idx, weight), trainer.mesh)  # this rank's rows, or the whole batch
         arrays = [ids[idx_r], dense[idx_r], y[idx_r],
                   dmask[idx_r] if dmask is not None else None, weight_r]
+        host = {"meta_s": 0.0, "upload_s": 0.0}
         if host_meta:
-            arrays += [a[0] for a in step_metadata(trainer, flat_ids(trainer, ids[idx], 1))]
-        return weight, upload_async(trainer, arrays)
+            with timed(host, "meta_s", "mmlrec.fit.worker.metadata", on):
+                arrays += [a[0] for a in step_metadata(trainer, flat_ids(trainer, ids[idx], 1))]
+        with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
+            up = upload_async(trainer, arrays)
+        return weight, up, host
 
     losses, probs, spans = [], [], []
     depth = max(int(trainer._prefetch_batches), 1)
     with ThreadPoolExecutor(max_workers=1) as pool:
         pending = deque(pool.submit(make_batch, s) for s in range(min(depth, steps_this_epoch)))
         for s in range(steps_this_epoch):
-            weight, up = pending.popleft().result()
+            weight, up, host = pending.popleft().result()
+            for key, seconds in host.items():
+                timing[key] += seconds
             if s + depth < steps_this_epoch:
                 pending.append(pool.submit(make_batch, s + depth))
             batch = claim(up)

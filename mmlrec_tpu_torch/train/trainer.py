@@ -122,6 +122,7 @@ from ..ops.embedding import fused_table_geometry, pack_factor_for
 from ..ops.layers import all_gather_rows, batch_shard
 from ..ops.row_gather import rows_gather_dual
 from ..parallel.mesh import data_group, model_size, shard_variables, table_shard
+from ..utils.spans import enabled as span_on, span, timed
 from . import checkpointing, device_metrics, staging
 from .graphs import StepGraphs
 from .cagrad import cagrad_merge
@@ -290,14 +291,16 @@ class Trainer:
         self.throughput_examples_per_s: Optional[float] = None
         #: CUDA-graph replays of the last fit's steps and validation batches
         self.graph_replays: Dict[str, int] = {"train": 0, "eval": 0}
-        #: host seconds the last fit spent on its captures (``StepGraphs``)
-        self.graph_capture_s = 0.0
-        #: per epoch of the last fit, host seconds spent on the epoch's
-        #: indices and metadata (waiting for the worker included), on issuing
-        #: its steps, and on the loss read that waits for the card; on the
-        #: card also ``steps_device_s``, the card's time between two events
-        #: around the epoch's steps (their device time when the host keeps
-        #: ahead of the card, else waits for the host included)
+        #: per epoch of the last fit, ``staging.TIMING_KEYS``: host seconds
+        #: spent waiting for the epoch's indices and metadata (``prep_s``),
+        #: building and uploading them wherever that ran (``meta_s``,
+        #: ``upload_s``), issuing its steps, on the loss read that waits for
+        #: the card, on its train metrics and its validation, and the graphs
+        #: it captured with their host seconds; on the card also
+        #: ``steps_device_s``, the card's time between two events around the
+        #: epoch's steps (their device time when the host keeps ahead of the
+        #: card, else waits for the host included).  Each phase also opens
+        #: a profiler span (``utils/spans.py``).
         self.fit_timing: List[Dict[str, float]] = []
         # (epochs done, best val_auc, epochs without a new best, best
         # snapshot) of the last fit, which save_training_state records
@@ -1205,47 +1208,51 @@ class Trainer:
         oc = self.cfg.optim_config
         batch_size = batch_size or 256
         self._meta_codec = "unset"  # per fit: it follows this fit's K and Kp
-        if self.two_phase_embedding:
-            staging.resolve_table_update(self, batch_size)
-        ids, dense = self.pack_inputs(x)
-        y = self._prepare_y(y)
-        dmask = self._domain_mask_from(x)
-        n = len(ids)
+        # the fit's set-up, everything before its first epoch: the inputs
+        # packed, the first fit's state (or a resume's), the dataset staged
+        with span("mmlrec.fit.stage"):
+            if self.two_phase_embedding:
+                staging.resolve_table_update(self, batch_size)
+            with span("mmlrec.fit.pack"):
+                ids, dense = self.pack_inputs(x)
+                y = self._prepare_y(y)
+                dmask = self._domain_mask_from(x)
+                n = len(ids)
 
-        val = None
-        if validation_data is not None:
-            vx, vy = validation_data[:2]
-            val = (*self.pack_inputs(vx), self._prepare_y(vy), self._domain_mask_from(vx))
-        elif validation_split and 0.0 < validation_split < 1.0:
-            split = int(n * (1.0 - validation_split))
-            val = (ids[split:], dense[split:], y[split:],
-                   dmask[split:] if dmask is not None else None)
-            ids, dense, y = ids[:split], dense[:split], y[:split]
-            dmask = dmask[:split] if dmask is not None else None
-            n = split
+                val = None
+                if validation_data is not None:
+                    vx, vy = validation_data[:2]
+                    val = (*self.pack_inputs(vx), self._prepare_y(vy), self._domain_mask_from(vx))
+                elif validation_split and 0.0 < validation_split < 1.0:
+                    split = int(n * (1.0 - validation_split))
+                    val = (ids[split:], dense[split:], y[split:],
+                           dmask[split:] if dmask is not None else None)
+                    ids, dense, y = ids[:split], dense[:split], y[:split]
+                    dmask = dmask[:split] if dmask is not None else None
+                    n = split
 
-        if self.opt_state is None:
-            self.init_state()
-        if self.per_task == "gradnorm":
-            self.reset_gradnorm()
-        best_auc, early_stop_count, best_snapshot = 0.0, 0, None
-        if resume_from is not None:
-            self._progress = checkpointing.restore_training_state(self, resume_from)
-            initial_epoch, best_auc, early_stop_count, best_snapshot = self._progress
+            if self.opt_state is None:
+                self.init_state()
+            if self.per_task == "gradnorm":
+                self.reset_gradnorm()
+            best_auc, early_stop_count, best_snapshot = 0.0, 0, None
+            if resume_from is not None:
+                self._progress = checkpointing.restore_training_state(self, resume_from)
+                initial_epoch, best_auc, early_stop_count, best_snapshot = self._progress
+                if verbose:
+                    print(f"resumed from {resume_from} at epoch {initial_epoch}")
+            steps_per_epoch = (n - 1) // batch_size + 1
+            max_steps = self.cfg.training_config.max_steps or 0
             if verbose:
-                print(f"resumed from {resume_from} at epoch {initial_epoch}")
-        steps_per_epoch = (n - 1) // batch_size + 1
-        max_steps = self.cfg.training_config.max_steps or 0
-        if verbose:
-            print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
-                  f"{steps_per_epoch} steps per epoch")
-        rng_np = np.random.default_rng(self.seed)
-        # under a mesh a batch that divides by the ranks is split, else
-        # every rank computes all of it (shard_batch, mesh.py:116-129)
-        self._dp_sharded = self._dp is None or batch_size % self._dp.world == 0
-        plan, ids, dense, y, dmask = staging.make_device_plan(
-            self, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch, n, rng_np,
-            epochs, initial_epoch, max_steps)
+                print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
+                      f"{steps_per_epoch} steps per epoch")
+            rng_np = np.random.default_rng(self.seed)
+            # under a mesh a batch that divides by the ranks is split, else
+            # every rank computes all of it (shard_batch, mesh.py:116-129)
+            self._dp_sharded = self._dp is None or batch_size % self._dp.world == 0
+            plan, ids, dense, y, dmask = staging.make_device_plan(
+                self, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch, n, rng_np,
+                epochs, initial_epoch, max_steps)
         self._graphs = StepGraphs(self.device, self._dropout_gen)
         self.fit_timing = []
         try:
@@ -1260,7 +1267,6 @@ class Trainer:
             self.graph_replays = {
                 "train": sum(v for k, v in replays.items() if k[0] != "eval"),
                 "eval": sum(v for k, v in replays.items() if k[0] == "eval")}
-            self.graph_capture_s = self._graphs.capture_s
             self._graphs = None
         if self.cfg.save_config.save:
             try:
@@ -1277,8 +1283,9 @@ class Trainer:
         train_time = 0.0
         val_program = val_metric = None
         fs_future = None
-        fs_prep = (lambda order_e, steps_e: staging.fs_host_prep(
-            self, ids, n, batch_size, order_e, steps_e))
+        fs_prep = (lambda order_e, steps_e, on=None: staging.fs_host_prep(
+            self, ids, n, batch_size, order_e, steps_e, on))
+        graphs = self._graphs
         for epoch in range(initial_epoch, epochs):
             t0 = time.time()
             if self._gate_warmup_epochs:
@@ -1296,88 +1303,95 @@ class Trainer:
             batch_order = None
             if plan.block_mode:
                 batch_order = rng_np.permutation(steps_per_epoch)[:steps]
-            clock = time.perf_counter()
+            timing = dict.fromkeys(staging.TIMING_KEYS, 0.0)
+            self.fit_timing.append(timing)
+            captured = (graphs.captures, graphs.capture_s)
             prep = None
-            if plan.use_device_data and not plan.block_mode:
-                if plan.fs_pool is None:
-                    prep = fs_prep(order, steps)
+            with timed(timing, "prep_s", "mmlrec.fit.prep_wait"):
+                if plan.use_device_data and not plan.block_mode:
+                    if plan.fs_pool is None:
+                        prep = fs_prep(order, steps)
+                    else:
+                        prep = fs_prep(order, steps) if fs_future is None else fs_future.result()
+                        fs_future = None
+                        if epoch + 1 < epochs:
+                            fs_future = plan.fs_pool.submit(fs_prep, rng_np.permutation(n),
+                                                            steps_per_epoch, span_on())
+            if prep is not None:
+                timing.update(prep.host)  # built for this epoch, wherever it ran
+            with timed(timing, "issue_s", "mmlrec.fit.issue"):
+                events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                          if self.device.type == "cuda" else None)
+                if events:
+                    events[0].record()
+                if plan.use_device_data:
+                    plan.epoch_step.zero_()
+                    if plan.block_mode:
+                        valid, host_rows, take, spans = staging.run_block_epoch(
+                            self, plan, batch_size, steps_per_epoch, steps, batch_order)
+                    else:
+                        valid, host_rows, take, spans = staging.run_gather_epoch(
+                            self, plan, prep, batch_size, steps)
+                    loss_vec = plan.loss[:steps]
+                    probs_dev = plan.probs[:steps] if self.metric_fns else None
                 else:
-                    prep = fs_prep(order, steps) if fs_future is None else fs_future.result()
-                    fs_future = None
-                    if epoch + 1 < epochs:
-                        fs_future = plan.fs_pool.submit(fs_prep, rng_np.permutation(n),
-                                                        steps_per_epoch)
-            timing = {"prep_s": time.perf_counter() - clock}
-            clock = time.perf_counter()
-            events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                      if self.device.type == "cuda" else None)
-            if events:
-                events[0].record()
-            if plan.use_device_data:
-                plan.epoch_step.zero_()
-                if plan.block_mode:
-                    valid, host_rows, take, spans = staging.run_block_epoch(
-                        self, plan, batch_size, steps_per_epoch, steps, batch_order)
-                else:
-                    valid, host_rows, take, spans = staging.run_gather_epoch(
-                        self, plan, prep, batch_size, steps)
-                loss_vec = plan.loss[:steps]
-                probs_dev = plan.probs[:steps] if self.metric_fns else None
-            else:
-                valid, host_rows, take, spans, loss_vec, probs_dev = self._streaming_epoch(
-                    order, ids, dense, y, dmask, batch_size, steps, n)
-            if events:
-                events[1].record()
-            if probs_dev is not None and self._shard() is not None:
-                probs_dev = self._gather_batches(probs_dev)
-            timing["issue_s"] = time.perf_counter() - clock
-            clock = time.perf_counter()
+                    valid, host_rows, take, spans, loss_vec, probs_dev = self._streaming_epoch(
+                        order, ids, dense, y, dmask, batch_size, steps, n, timing)
+                if events:
+                    events[1].record()
+                if probs_dev is not None and self._shard() is not None:
+                    probs_dev = self._gather_batches(probs_dev)
             total_steps += steps
             examples_seen += take
-            epoch_loss = float(loss_vec.sum())  # the epoch's first sync
-            timing["sync_s"] = time.perf_counter() - clock
+            with timed(timing, "sync_s", "mmlrec.fit.sync"):
+                epoch_loss = float(loss_vec.sum())  # the epoch's first sync
             if events:
                 timing["steps_device_s"] = events[0].elapsed_time(events[1]) / 1e3
-            self.fit_timing.append(timing)
             epoch_time = time.time() - t0
             train_time += epoch_time
             logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
             if self.metric_fns:
-                probs_all = self._selected(probs_dev.reshape(-1, probs_dev.shape[-1])).cpu().numpy()
-                probs_all = probs_all[valid] if valid is not None else probs_all[:len(host_rows)]
-                y_all = y[host_rows]
-                logs.update(regime_eval(self.metric_fns, y_all, probs_all, self.task_name,
-                                        self.num_domains))
-                if self.cfg.model_config.extra.get("batch_metric_curves"):
-                    logs.update(self._batch_curve(probs_all, y_all, spans))
+                with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
+                    probs_all = self._selected(
+                        probs_dev.reshape(-1, probs_dev.shape[-1])).cpu().numpy()
+                    probs_all = (probs_all[valid] if valid is not None
+                                 else probs_all[:len(host_rows)])
+                    y_all = y[host_rows]
+                    logs.update(regime_eval(self.metric_fns, y_all, probs_all, self.task_name,
+                                            self.num_domains))
+                    if self.cfg.model_config.extra.get("batch_metric_curves"):
+                        logs.update(self._batch_curve(probs_all, y_all, spans))
             if val is not None:
-                if val_program is None:  # the validation set goes to the device once
-                    val_ev = staging.prepare_eval_tensors(self, val[0], val[1], val[3],
-                                                          batch_size)
-                    val_program = _EvalProgram(self, val_ev, None,
-                                               self._graphs if self._capturable else None)
-                    if self._use_device_eval():
-                        val_metric = staging.prepare_metric_tensors(
-                            self, val[2], val_ev.ids.shape[0] * batch_size)
-                probs_val = val_program.run()
-                if val_metric is not None:
-                    val_result = {k: float(v) for k, v in device_metrics.regime_metrics(
-                        self.metric_fns, val_metric[0], probs_val, val_metric[1],
-                        self.task_name, self.num_domains).items()}
-                else:
-                    preds = probs_val.cpu().numpy()[:len(val[0])].astype(np.float64)
-                    val_result = regime_eval(self.metric_fns, val[2], preds,
-                                             self.task_name, self.num_domains)
-                logs.update({f"val_{k}": v for k, v in val_result.items()})
-                auc = val_result.get("auc", 0.0)
-                if auc > best_auc:
-                    best_auc, early_stop_count = auc, 0
-                    # the steps update parameters and BatchNorm statistics in
-                    # place: the snapshot owns its copy
-                    best_snapshot = {k: v.detach().clone()
-                                     for k, v in self.model.state_dict().items()}
-                else:
-                    early_stop_count += 1
+                with timed(timing, "val_s", "mmlrec.fit.validate"):
+                    if val_program is None:  # the validation set goes to the device once
+                        val_ev = staging.prepare_eval_tensors(self, val[0], val[1], val[3],
+                                                              batch_size)
+                        val_program = _EvalProgram(self, val_ev, None,
+                                                   graphs if self._capturable else None)
+                        if self._use_device_eval():
+                            val_metric = staging.prepare_metric_tensors(
+                                self, val[2], val_ev.ids.shape[0] * batch_size)
+                    probs_val = val_program.run()
+                    if val_metric is not None:
+                        val_result = {k: float(v) for k, v in device_metrics.regime_metrics(
+                            self.metric_fns, val_metric[0], probs_val, val_metric[1],
+                            self.task_name, self.num_domains).items()}
+                    else:
+                        preds = probs_val.cpu().numpy()[:len(val[0])].astype(np.float64)
+                        val_result = regime_eval(self.metric_fns, val[2], preds,
+                                                 self.task_name, self.num_domains)
+                    logs.update({f"val_{k}": v for k, v in val_result.items()})
+                    auc = val_result.get("auc", 0.0)
+                    if auc > best_auc:
+                        best_auc, early_stop_count = auc, 0
+                        # the steps update parameters and BatchNorm statistics in
+                        # place: the snapshot owns its copy
+                        best_snapshot = {k: v.detach().clone()
+                                         for k, v in self.model.state_dict().items()}
+                    else:
+                        early_stop_count += 1
+            timing["captures"] = graphs.captures - captured[0]
+            timing["capture_s"] = graphs.capture_s - captured[1]
             self.history.append(logs)
             self._progress = (epoch + 1, best_auc, early_stop_count, best_snapshot)
             self.best_variables = best_snapshot
@@ -1402,16 +1416,17 @@ class Trainer:
                 self.throughput_examples_per_s = examples_seen / train_time
         self.best_variables = best_snapshot
 
-    def _streaming_epoch(self, order, ids, dense, y, dmask, batch_size, steps, n):
+    def _streaming_epoch(self, order, ids, dense, y, dmask, batch_size, steps, n, timing):
         """One epoch on the streaming path, in ``order`` (data order for
         ``shuffle="block"``, as the JAX streaming loop takes it).  The train
         metrics see every row of every batch, the last batch's pads (row 0)
-        included, as JAX's do (staging.py:748-752)."""
+        included, as JAX's do (staging.py:748-752).  The batches' metadata
+        and upload seconds go into ``timing``."""
         take = min(n, steps * batch_size)
         host_rows = np.zeros(steps * batch_size, np.int64)
         host_rows[:take] = order[:take]
         losses, probs, spans = staging.run_streaming_epoch(
-            self, order, ids, dense, y, dmask, batch_size, steps)
+            self, order, ids, dense, y, dmask, batch_size, steps, timing)
         probs_dev = torch.stack(probs) if probs else None
         return None, host_rows, take, spans, torch.stack(losses), probs_dev
 
