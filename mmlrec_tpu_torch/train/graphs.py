@@ -17,7 +17,8 @@ registered with each graph: a replay takes each generator's seed and
 offset at the time of the replay, so the trainer's reseed before each step
 gives a replayed step the draws of the eager one.  ``captures`` counts the
 graphs captured and ``capture_s`` sums the host seconds of their first runs
-(eager warm-up and capture), each under the span ``mmlrec.fit.capture``.
+(eager warm-up and capture), each under the span ``capture_span``
+(``mmlrec.fit.capture`` by default).
 The wrappers' launch counts are recorded at capture and added on every
 replay (``cuda_build``).
 """
@@ -35,8 +36,10 @@ from ..utils.spans import span
 
 class StepGraphs:
     def __init__(self, device: torch.device,
-                 generator: Union[torch.Generator, Sequence[torch.Generator], None] = None):
+                 generator: Union[torch.Generator, Sequence[torch.Generator], None] = None,
+                 capture_span: str = "mmlrec.fit.capture"):
         self.device = torch.device(device)
+        self.capture_span = capture_span
         self.generators = ([] if generator is None else
                            [generator] if isinstance(generator, torch.Generator)
                            else list(generator))
@@ -64,7 +67,7 @@ class StepGraphs:
             cuda_build.add_launches(launches)
             self.replays[key] = self.replays.get(key, 0) + 1
             return
-        with span("mmlrec.fit.capture"):
+        with span(self.capture_span):
             clock = time.perf_counter()
             current = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
