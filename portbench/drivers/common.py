@@ -38,10 +38,11 @@ def experiment_config(spec: Dict):
 
 def layout(d: Dims):
     """The program's feature layout of the configuration: the sparse columns
-    (the scene last) with the assumed vocabulary, then the dense ones."""
+    (the scene last), each with its assumed vocabulary, then the dense
+    ones."""
     from mmlrec_tpu_torch.features import DenseFeat, FeatureLayout, SparseFeat
 
-    return FeatureLayout([SparseFeat(c, d.vocab, d.emb) for c in d.sparse]
+    return FeatureLayout([SparseFeat(c, v, d.emb) for c, v in zip(d.sparse, d.vocabs)]
                          + [DenseFeat(c, 1) for c in d.dense])
 
 

@@ -7,19 +7,21 @@ model, exports it with ``save_serving_bundle`` into ``TMPDIR``, loads the
 bundle back on the card, draws the pool of rows and the requests, and
 warms the bundle on requests that span the sizes the window sends.  The
 window sends request after request for ``--seconds``; a request's latency
-runs from the call to its probabilities back on the host as numpy.  After
-the window the reference scores a sample of the answered requests drawn
-from the seed, the largest among them, on the same weights and rows.
+runs from the call to its probabilities back on the host as numpy.  The
+window keeps the answers of a sample of the answered requests drawn from
+the seed, and of the largest; after it the reference scores them on the
+same weights and rows.
 """
 
 from __future__ import annotations
 
+import random
 import shutil
 import sys
 import tempfile
 import time
 from types import SimpleNamespace
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +59,7 @@ def run(ctx) -> Dict:
     ctx.note("exported and loaded the serving bundle")
     req = mix["requests"]
     pool_rows = int(mix["pool_rows"])
-    pool, _ = gen.rows(spec["experiment"], d.vocab, mix, pool_rows, ctx.seed, "pool", dev)
+    pool, _ = gen.rows(spec["experiment"], d.vocabs, mix, pool_rows, ctx.seed, "pool", dev)
     sizes = gen.request_sizes(req, ctx.seed)
     offsets = gen.request_offsets(sizes, pool_rows, ctx.seed)
     requests = [common.column_slice(pool, int(o), int(o + s)) for o, s in zip(offsets, sizes)]
@@ -67,9 +69,11 @@ def run(ctx) -> Dict:
         bundle.predict(requests[i])
 
     ctx.note(f"drew the pool and warmed {len(warm)} request sizes")
+    kept = Sample(int(mix["checked_requests"]), sizes, ctx.seed)
+    rows_of = sizes.tolist()
     common.settle()
     setup_s = time.perf_counter() - ctx.t0
-    latencies, answers, sent, failed = [], [], 0, 0
+    latencies, sent, failed, served_rows = [], 0, 0, 0
     with tracing.profiled(ctx.trace) as box:
         with tracing.window():
             start = time.perf_counter()
@@ -80,27 +84,25 @@ def run(ctx) -> Dict:
                     probs = bundle.predict(requests[i])
                 except Exception as e:  # a failed request is counted and judged
                     failed += 1
-                    answers.append(None)
                     print(f"request {sent} failed: {type(e).__name__}: {e}", file=sys.stderr)
                 else:
                     latencies.append(time.perf_counter() - clock)
-                    answers.append(probs)
+                    served_rows += rows_of[i]
+                    kept.offer(sent, probs)
                 sent += 1
             wall = time.perf_counter() - start
-    served_rows = int(sum(sizes[k % len(sizes)] for k in range(sent)
-                          if answers[k] is not None))
     device = common.device_info(dev, ctx.chips)
     del bundle
     common.free(dev)
 
     ctx.note(f"window {wall:.3f} s, {sent} requests; bundle freed")
-    checked = int(mix["checked_requests"])
-    numbers = check(ctx, d, dense, pool, sizes, offsets, answers, checked)
+    answers = kept.answers()
+    numbers = check(ctx, d, dense, pool, sizes, offsets, answers)
     numbers["failed_requests"] = float(failed)
     e2e = {"setup_s": setup_s, "serve_examples_per_s": served_rows / wall,
            "serve_p95_ms": 1e3 * float(np.percentile(latencies, 95)) if latencies else None}
     out = dict(e2e=e2e, attempted=sent, failed=failed, numbers=numbers, device=device,
-               trace=box["trace"], judged=(d, dense, pool, sizes, offsets, answers, checked))
+               trace=box["trace"], judged=(d, dense, pool, sizes, offsets, answers))
     if box["trace"] is not None:
         out["layer_ctx"] = SimpleNamespace(
             trace=box["trace"], requests=sent, examples=served_rows, rate=served_rows / wall,
@@ -120,25 +122,51 @@ def reference_probs(d, dense, table, ids, block: torch.Tensor, tf32: bool = Fals
         return family(d.model_name).forward(dense, x, d)
 
 
-def sample(answers, sizes, checked: int, seed: int):
-    """The answered requests the check reads: ``checked`` drawn from the
-    seed, the largest answered one among them."""
-    done = [k for k, a in enumerate(answers) if a is not None]
-    if not done:
-        return []
-    rng = np.random.default_rng(gen.stream_seed(seed, "order") + 1)
-    pick = set(rng.choice(done, size=min(checked, len(done)), replace=False).tolist())
-    pick.add(max(done, key=lambda k: sizes[k % len(sizes)]))
-    return sorted(pick)
+class Sample:
+    """The answers the check reads, kept while the window runs: ``size``
+    answered requests drawn uniformly from the seed (reservoir sampling,
+    Vitter's algorithm R) and the first answered request of the largest
+    size.  The window holds no other answer: holding every one grew the
+    heap by about 0.7 GB a window, and the requests then read slower and
+    less steadily (p95 1.53 against 0.98 ms on an H100's host, with twice
+    the spread between runs)."""
+
+    def __init__(self, size: int, sizes: np.ndarray, seed: int):
+        self.size = size
+        self.rows = sizes.tolist()
+        self.rng = random.Random(gen.stream_seed(seed, "order") + 1)
+        self.slots: List[Tuple[int, np.ndarray]] = []
+        self.seen = 0
+        self.largest: Optional[Tuple[int, int, np.ndarray]] = None
+
+    def offer(self, k: int, answer: np.ndarray) -> None:
+        """Request ``k`` answered ``answer``."""
+        if len(self.slots) < self.size:
+            self.slots.append((k, answer))
+        else:
+            j = self.rng.randrange(self.seen + 1)
+            if j < self.size:
+                self.slots[j] = (k, answer)
+        self.seen += 1
+        rows = self.rows[k % len(self.rows)]
+        if self.largest is None or rows > self.largest[0]:
+            self.largest = (rows, k, answer)
+
+    def answers(self) -> Dict[int, np.ndarray]:
+        """{request: answer} of the sample, the largest among them."""
+        out = dict(self.slots)
+        if self.largest is not None:
+            out[self.largest[1]] = self.largest[2]
+        return dict(sorted(out.items()))
 
 
-def check(ctx, d, dense, pool, sizes, offsets, answers, checked,
+def check(ctx, d, dense, pool, sizes, offsets, answers: Dict[int, np.ndarray],
           control: bool = False) -> Dict[str, float]:
-    """The widest gap between the sampled answers and the reference's
-    probabilities; with ``control``, the reference in TF32 takes the
-    program's place."""
+    """The widest gap between the sampled ``answers`` ({request: answer})
+    and the reference's probabilities; with ``control``, the reference in
+    TF32 takes the program's place."""
     dev = ctx.device
-    picks = sample(answers, sizes, checked, ctx.seed)
+    picks = sorted(answers)
     spans = [(int(offsets[k % len(sizes)]), int(offsets[k % len(sizes)] + sizes[k % len(sizes)]))
              for k in picks]
     ids = [common.fused_ids(pool, d, lo, hi).to(dev) for lo, hi in spans]

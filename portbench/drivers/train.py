@@ -60,8 +60,8 @@ def prelude(ctx) -> SimpleNamespace:
     batch = int(tc.train_batch_size)
     n = int(mix["train_batches"]) * batch
     val_rows = int(mix["val_rows"])
-    x, y = gen.rows(spec["experiment"], d.vocab, mix, n, ctx.seed, "train", dev)
-    val = gen.rows(spec["experiment"], d.vocab, mix, val_rows, ctx.seed, "val", dev) \
+    x, y = gen.rows(spec["experiment"], d.vocabs, mix, n, ctx.seed, "train", dev)
+    val = gen.rows(spec["experiment"], d.vocabs, mix, val_rows, ctx.seed, "val", dev) \
         if val_rows else None
     ctx.note(f"drew {n} training and {val_rows} validation rows")
 

@@ -9,6 +9,8 @@ from portbench.metrics import layers
 UNIT, LAYER, SOURCE = "%", layers.SERVE, "program_counter"
 MOVES = "serve_p95_ms"
 SPAN = "mmlrec.serve.replay"
+#: read on the card only: the port captures no graph on the CPU
+CARD_ONLY = True
 
 
 def read(c):

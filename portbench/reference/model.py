@@ -5,6 +5,15 @@ name>.py`` with ``param_shapes(dims)`` and ``forward(params, x)``, where
 ``x`` is the DNN input ``cat(embedding rows flattened, dense)``; it is
 found by the configuration's ``model_name``.
 
+What a family reads from ``dims`` (``reference/dims.py::Dims``): the
+input's shapes (``input_dim``, ``heads``, ``emb``), ``widths`` (the four
+``*_dnn_hidden_units`` of the older families), ``num_experts``, and any
+key of the configuration's own ``experiment.model_config`` from
+``model_config`` (PLE's ``specific_expert_num``, ``shared_expert_num``
+and ``num_levels``, the ``dnn_hidden_units`` of STAR, PEPNet, APG, MLP
+and Cross-Stitch, HMoE's ``task_weight_hidden_units``).  The module
+``arith/families/<model name>.py`` reads the same.
+
 The parameter names are those of the program's state dict (its
 checkpoint format): the benchmark draws the values under those names and
 hands the same values to both sides."""

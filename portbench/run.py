@@ -95,12 +95,17 @@ def metric_module(name: str):
 
 def scaled(spec: Dict, mix: Dict, scale: Optional[Dict]) -> Tuple[Dict, Dict]:
     """Copies of a configuration file and a mix with a test's smaller sizes
-    (``vocab``, ``batch``, ``train_batches``, ``val_rows``, ``pool_rows``,
-    ``requests``)."""
+    (``vocab``, each slot's vocabulary capped at it, ``batch``,
+    ``train_batches``, ``val_rows``, ``pool_rows``, ``requests``)."""
     spec, mix = copy.deepcopy(spec), copy.deepcopy(mix)
     for key, value in (scale or {}).items():
         if key == "vocab":
-            spec["assumed"]["vocabulary_size"] = value
+            assumed = spec["assumed"]
+            if "vocabulary_sizes" in assumed:
+                assumed["vocabulary_sizes"] = {c: min(int(v), value)
+                                               for c, v in assumed["vocabulary_sizes"].items()}
+            else:
+                assumed["vocabulary_size"] = value
         elif key == "batch":
             spec["experiment"]["training_config"]["train_batch_size"] = value
         elif key == "requests":

@@ -1,6 +1,8 @@
 """The per-layer metrics that read the program's own spans and epoch
 counters: each cell traced at a small size reads every one of its metrics
-of the kind as a finite value; a program that records no such span or key
+of the kind as a finite value (on the CPU those that do not declare
+``CARD_ONLY``, such as the share of graph replays: the CPU captures no
+graph; on the card those too); a program that records no such span or key
 (the port before them) gives no value, never a 0."""
 
 import json
@@ -19,8 +21,10 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 PROGRAM = [m for m in BENCH["per_layer"] if m["source"] == "program_counter"]
 
 
-def _program_metrics(workload):
-    return [m["name"] for m in PROGRAM if workload in m.get("workloads", [])]
+def _program_metrics(workload, card=False):
+    """The cell's metrics of the kind; off the card, those a CPU run reads."""
+    return [m["name"] for m in PROGRAM if workload in m.get("workloads", [])
+            and (card or not getattr(run.metric_module(m["name"]), "CARD_ONLY", False))]
 
 
 @pytest.mark.parametrize("workload", sorted(SCALES))
@@ -68,3 +72,13 @@ def test_on_the_card_the_fit_captures_its_graphs(card):
                      scale=SCALES["ae.train"])
     assert r["correct"], r["checks"]
     assert r["metrics"]["fit.graph_captures"]["value"] >= 1
+
+
+@pytest.mark.card
+def test_on_the_card_serving_replays_its_graphs(card):
+    r = run.run_cell("ae.serve", 2**31 + 17, SECONDS, True, device="cuda",
+                     scale=SCALES["ae.serve"])
+    assert r["correct"], r["checks"]
+    names = _program_metrics("ae.serve", card=True)
+    assert "serve.graph_replay_share" in names
+    assert all(r["metrics"][n]["value"] > 0 for n in names), r["metrics"]

@@ -1,10 +1,11 @@
 """Each cell at a size the CPU tests can hold: the same configurations,
-mixes and code paths, fewer ids, rows and requests."""
+mixes and code paths, fewer ids, rows and requests.  A cell's sizes are
+its own file ``scales/<workload>.json`` (the keys of ``run.scaled``), so
+a cell added as new files brings its CPU tests' sizes with it."""
 
-SCALES = {
-    "recipe40m.zipf": {"vocab": 16384, "batch": 256, "train_batches": 4},
-    "ae.train": {"vocab": 16384, "batch": 256, "train_batches": 4, "val_rows": 512},
-    "ae.serve": {"vocab": 16384, "pool_rows": 8192,
-                 "requests": {"sizes": 64, "max_rows": 1024}},
-}
+import json
+from pathlib import Path
+
+SCALES = {p.stem: json.loads(p.read_text())
+          for p in sorted((Path(__file__).parent / "scales").glob("*.json"))}
 SECONDS = 1.0

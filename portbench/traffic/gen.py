@@ -3,7 +3,8 @@ of parameters for it.
 
 The draws copy ``chip_smoke.py::_recipe_data``: per sparse feature Zipf(a)
 ids (numpy's rejection sampler: ``X = floor(U^(-1/(a-1)))`` accepted with
-probability ``T / b`` against its envelope) taken modulo the vocabulary, or
+probability ``T / b`` against its envelope) taken modulo the feature's own
+vocabulary, or
 uniform ids; dense values U(0, 1) or N(0, 1); labels Bernoulli(p).  They
 run on the device the run uses, from generators seeded by ``(seed,
 stream)``, in a few large calls: a million rows of Zipf ids take a few
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import math
 import statistics
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,14 +56,22 @@ def zipf(shape: Tuple[int, ...], a: float, gen: torch.Generator) -> torch.Tensor
     return torch.cat(out)[:n].reshape(shape)
 
 
-def ids(kind: Dict, n: int, features: int, vocab: int, gen: torch.Generator) -> torch.Tensor:
-    """[features, n] int32 ids in [0, vocab)."""
+def ids(kind: Dict, n: int, vocabs: Sequence[int], gen: torch.Generator) -> torch.Tensor:
+    """[features, n] int32 ids, feature i's in [0, vocabs[i]).  Features
+    that share one vocabulary take it in one draw."""
+    features = len(vocabs)
+    shared = len(set(vocabs)) == 1
     if kind["kind"] == "zipf":
         x = zipf((features, n), float(kind["a"]), gen)
-        return torch.remainder(x - 1.0, float(vocab)).to(torch.int32)
+        mod = float(vocabs[0]) if shared else torch.tensor(
+            vocabs, dtype=torch.float64, device=gen.device)[:, None]
+        return torch.remainder(x - 1.0, mod).to(torch.int32)
     if kind["kind"] == "uniform":
-        return torch.randint(0, vocab, (features, n), generator=gen, device=gen.device,
-                             dtype=torch.int32)
+        if shared:
+            return torch.randint(0, vocabs[0], (features, n), generator=gen, device=gen.device,
+                                 dtype=torch.int32)
+        return torch.stack([torch.randint(0, v, (n,), generator=gen, device=gen.device,
+                                          dtype=torch.int32) for v in vocabs])
     raise ValueError(f"unknown id distribution {kind['kind']!r}")
 
 
@@ -80,18 +89,21 @@ def sparse_columns(exp: Dict) -> Tuple[List[str], Optional[str]]:
     return cols, scene
 
 
-def rows(exp: Dict, vocab: int, mix: Dict, n: int, seed: int, stream: str,
-         device) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+def rows(exp: Dict, vocab: Union[int, Sequence[int]], mix: Dict, n: int, seed: int,
+         stream: str, device) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
     """``n`` rows of the config's schema: ({column: contiguous numpy
     array}, labels [n, label columns] float32, or None for a mix without
-    labels)."""
+    labels).  ``vocab``: the ids of every sparse slot, or each slot's in
+    the order of ``sparse_columns`` (the scene's values come from the
+    config's ``mask_values``)."""
     dc = exp["data_config"]
     gen = generator(seed, stream, device)
     cols, scene = sparse_columns(exp)
-    plain = [c for c in cols if c != scene]
+    vocabs = [vocab] * len(cols) if isinstance(vocab, int) else list(vocab)
+    plain = [(c, v) for c, v in zip(cols, vocabs) if c != scene]
     x: Dict[str, np.ndarray] = {}
-    drawn = ids(mix["ids"], n, len(plain), vocab, gen).cpu().numpy()
-    for i, c in enumerate(plain):
+    drawn = ids(mix["ids"], n, [v for _, v in plain], gen).cpu().numpy()
+    for i, (c, _) in enumerate(plain):
         x[c] = drawn[i]
     if scene:
         codes = torch.randint(0, int(dc["num_domains"]), (n,), generator=gen, device=device)
