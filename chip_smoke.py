@@ -4517,11 +4517,11 @@ def _run_ranks(target, workdir, n_reports, tag, world=2):
     import multiprocessing as mp
     import queue
 
-    from mmlrec_tpu_torch.main import _free_port
+    from mmlrec_tpu_torch.parallel.multihost import free_port
 
     ctx = mp.get_context("spawn")
     reports = ctx.Queue()
-    port = _free_port()
+    port = free_port()
     procs = [ctx.Process(target=target, args=(r, port, workdir, reports))
              for r in range(world)]
     for p in procs:

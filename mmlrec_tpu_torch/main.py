@@ -38,8 +38,6 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
-import queue
-import socket
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -50,7 +48,7 @@ from .config import ExperimentConfig
 from .data import CTRDataset, ctrdataset, get_test_mask
 from .models import get_model
 from .parallel import create_mesh
-from .parallel.multihost import initialize_distributed
+from .parallel.multihost import initialize_distributed, spawn_ranks
 from .train import Trainer, resolve_table_container
 from .train.metrics import masked_test_metrics
 from .utils import append_result_row, set_seed
@@ -118,71 +116,23 @@ def _refuse_unported(args) -> None:
                            "plain versions of the kernels on the CPU")
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(arg_values: Dict, rank: int, world: int, port: int, results) -> None:
-    """One rank of a ``--data_parallel`` run the CLI started: join the group,
-    run, and send (rank, rows or None, error or None) back: rank 0's rows,
-    or the failure of any rank."""
-    args = argparse.Namespace(**arg_values)
-    cuda = torch.device(args.device).type == "cuda"
-    try:
-        if cuda:
-            torch.cuda.set_device(rank)
-        initialize_distributed(f"localhost:{port}", world, rank,
-                               backend="nccl" if cuda else "gloo")
-        rows = [row for row, _ in run(args)]
-        results.put((rank, rows if rank == 0 else None, None))
-    except Exception as e:  # reported by the parent, which raises it
-        results.put((rank, None, f"{type(e).__name__}: {e}"))
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+def _rank_run(arg_values: Dict, rank: int, world: int) -> Optional[List[Dict]]:
+    """One rank of a ``--data_parallel`` run the CLI started: rank 0's
+    rows, None on the other ranks."""
+    rows = [row for row, _ in run(argparse.Namespace(**arg_values))]
+    return rows if rank == 0 else None
 
 
 def _spawn_ranks(args) -> List[Tuple[Dict, None]]:
     """Start ``--data_parallel`` processes, one per rank, and wait for them;
     rank 0's rows, or RuntimeError with the first failure a rank reports."""
-    import multiprocessing as mp
-
     n = args.data_parallel * args.model_parallel
-    if torch.device(args.device).type == "cuda" and n > torch.cuda.device_count():
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda and n > torch.cuda.device_count():
         raise ValueError(f"mesh {n}x{args.model_parallel} on the card needs {n} cards (NCCL "
                          f"takes one rank a card), {torch.cuda.device_count()} are visible")
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(vars(args), rank, n, port, results))
-             for rank in range(n)]
-    for p in procs:
-        p.start()
-    reports: Dict[int, Tuple] = {}
-    try:
-        while len(reports) < n:  # drained before any join
-            try:
-                rank, rows, error = results.get(timeout=1.0)
-            except queue.Empty:
-                lost = [r for r, p in enumerate(procs) if p.exitcode is not None
-                        and r not in reports]
-                if lost:
-                    raise RuntimeError(f"--data_parallel {n}: rank(s) {lost} ended without "
-                                       "a report") from None
-                continue
-            reports[rank] = (rows, error)
-            if error is not None:
-                raise RuntimeError(f"--data_parallel {n}: rank {rank} failed: {error}")
-    finally:
-        for p in procs:
-            p.join(timeout=0 if len(reports) < n else None)
-            if p.is_alive():
-                p.terminate()
-                p.join()
-    return [(row, None) for row in reports[0][0]]
+    rows = spawn_ranks(_rank_run, vars(args), n, cuda, f"--data_parallel {n}")
+    return [(row, None) for row in rows]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:

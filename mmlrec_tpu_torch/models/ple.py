@@ -7,6 +7,7 @@ import torch
 
 from ..ops.kernels import gated_expert_mix
 from ..ops.layers import MLP, Dense, StackedDense, StackedMLP
+from ..utils.spans import span
 from .base import RecModel
 
 
@@ -21,6 +22,11 @@ class PLE(RecModel):
     expert mix twice per level.  The per-task gates are the mix at batch
     ``B * T`` with one task over ``spec + shared`` experts; the shared gate
     is the mix at one task over ``T * spec + shared`` experts.
+
+    Each level runs inside a ``mmlrec.model.cgc`` span (``utils/spans.py``):
+    a profiler range in an eager forward while a profiler records, the
+    shared no-op otherwise; a replayed graph runs no host code, so its
+    levels show only by kernel name in the device trace.
     """
 
     # reference ple.py:57-59 (specific_gate_dnn), :74-76 (shared_gate_dnn),
@@ -61,7 +67,6 @@ class PLE(RecModel):
     def forward(self, ids, dense, domain_mask=None, *, rows=None,
                 return_intermediates: bool = False):
         mc, T = self.mc, self.num_tasks
-        spec, shared = mc.specific_expert_num, mc.shared_expert_num
         dnn_input, _ = self.embed_inputs(ids, dense, rows)
         B = dnn_input.shape[0]
         inter = {"dnn_input": dnn_input}
@@ -69,32 +74,41 @@ class PLE(RecModel):
         # to dnn_input at level 0 (reference ple.py:162)
         inputs = dnn_input[:, None, :].expand(B, T + 1, dnn_input.shape[-1])
         for level in range(mc.num_levels):
-            sub = lambda name: getattr(self, f"{name}_{level}")  # noqa: E731
-            # the specific experts are task-major: expert k serves task k // spec
-            spec_out = sub("specific_experts")(
-                inputs[:, :T].repeat_interleave(spec, dim=1))  # [B, T*spec, h]
-            shared_out = sub("shared_experts")(
-                inputs[:, T:].expand(B, shared, inputs.shape[-1]))  # [B, shared, h]
-            h = spec_out.shape[-1]
-
-            # per-task gates over the task's own and the shared experts
-            gate_h = sub("specific_gate_dnn")(inputs[:, :T]) if self.has_gate_dnn else inputs[:, :T]
-            gate_logits = sub("specific_gate_final")(gate_h).contiguous()  # [B, T, spec+shared]
-            per_task_experts = torch.cat(
-                [spec_out.reshape(B, T, spec, h),
-                 shared_out[:, None].expand(B, T, shared, h)], dim=2)  # [B, T, spec+shared, h]
-            task_outs = gated_expert_mix(
-                gate_logits.view(B * T, 1, spec + shared),
-                per_task_experts.view(B * T, spec + shared, h)).view(B, T, h)
-
-            # the shared gate over all experts
-            sgate_h = sub("shared_gate_dnn")(inputs[:, T]) if self.has_gate_dnn else inputs[:, T]
-            sgate_logits = sub("shared_gate_final")(sgate_h).contiguous()  # [B, T*spec+shared]
-            all_experts = torch.cat([spec_out, shared_out], dim=1)
-            shared_mix = gated_expert_mix(sgate_logits[:, None, :], all_experts)  # [B, 1, h]
-
-            inputs = torch.cat([task_outs, shared_mix], dim=1)
-            inter[f"ple_output_{level}"] = inputs
+            with span("mmlrec.model.cgc"):
+                inputs = self._cgc(level, inputs, inter)
         probs = self.tower_scores(inputs[:, :T], domain_mask, inter,
                                   wide=self.wide_logit(ids, dense))
         return (probs, inter) if return_intermediates else probs
+
+    def _cgc(self, level: int, inputs: torch.Tensor, inter: dict) -> torch.Tensor:
+        """One CGC level: [B, T + 1, d] lanes in, [B, T + 1, h] out."""
+        mc, T = self.mc, self.num_tasks
+        spec, shared = mc.specific_expert_num, mc.shared_expert_num
+        B = inputs.shape[0]
+        sub = lambda name: getattr(self, f"{name}_{level}")  # noqa: E731
+        # the specific experts are task-major: expert k serves task k // spec
+        spec_out = sub("specific_experts")(
+            inputs[:, :T].repeat_interleave(spec, dim=1))  # [B, T*spec, h]
+        shared_out = sub("shared_experts")(
+            inputs[:, T:].expand(B, shared, inputs.shape[-1]))  # [B, shared, h]
+        h = spec_out.shape[-1]
+
+        # per-task gates over the task's own and the shared experts
+        gate_h = sub("specific_gate_dnn")(inputs[:, :T]) if self.has_gate_dnn else inputs[:, :T]
+        gate_logits = sub("specific_gate_final")(gate_h).contiguous()  # [B, T, spec+shared]
+        per_task_experts = torch.cat(
+            [spec_out.reshape(B, T, spec, h),
+             shared_out[:, None].expand(B, T, shared, h)], dim=2)  # [B, T, spec+shared, h]
+        task_outs = gated_expert_mix(
+            gate_logits.view(B * T, 1, spec + shared),
+            per_task_experts.view(B * T, spec + shared, h)).view(B, T, h)
+
+        # the shared gate over all experts
+        sgate_h = sub("shared_gate_dnn")(inputs[:, T]) if self.has_gate_dnn else inputs[:, T]
+        sgate_logits = sub("shared_gate_final")(sgate_h).contiguous()  # [B, T*spec+shared]
+        all_experts = torch.cat([spec_out, shared_out], dim=1)
+        shared_mix = gated_expert_mix(sgate_logits[:, None, :], all_experts)  # [B, 1, h]
+
+        inputs = torch.cat([task_outs, shared_mix], dim=1)
+        inter[f"ple_output_{level}"] = inputs
+        return inputs

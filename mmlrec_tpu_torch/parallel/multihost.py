@@ -6,12 +6,15 @@ these helpers set up is what any mesh stands on, on one host or several.
 Each process joins the group (``initialize_distributed``), builds the same
 mesh (``create_mesh``) and feeds its local shard of each global batch
 (``host_local_batch_to_global``); the trainer's collectives do the rest.
+``spawn_ranks`` starts such processes on one host, one a card.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+import queue
+import socket
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -76,3 +79,70 @@ def local_batch_size(global_batch_size: int) -> int:
     """This process's share of a global batch."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     return global_batch_size // world
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on, for the group's
+    coordinator."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_entry(work: Callable, payload: Any, rank: int, world: int, port: int,
+                cuda: bool, results) -> None:
+    """One rank of ``spawn_ranks``: join the group, run ``work(payload,
+    rank, world)`` and send (rank, its outcome, error or None) back."""
+    try:
+        if cuda:
+            torch.cuda.set_device(rank)
+        initialize_distributed(f"localhost:{port}", world, rank,
+                               backend="nccl" if cuda else "gloo")
+        results.put((rank, work(payload, rank, world), None))
+    except Exception as e:  # reported by the parent, which raises it
+        results.put((rank, None, f"{type(e).__name__}: {e}"))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(work: Callable, payload: Any, world: int, cuda: bool, label: str) -> Any:
+    """Start ``world`` processes on this host, rank r on card r over NCCL
+    (``cuda``) or over gloo on the CPU, each running ``work(payload, rank,
+    world)`` (a module-level function, since the processes are spawned),
+    and wait for them.  Returns rank 0's outcome; raises RuntimeError,
+    prefixed with ``label``, with the first failure a rank reports or when
+    a rank ends without a report."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_entry, args=(work, payload, rank, world, port, cuda,
+                                                   results))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    reports: Dict[int, Any] = {}
+    try:
+        while len(reports) < world:  # drained before any join
+            try:
+                rank, out, error = results.get(timeout=1.0)
+            except queue.Empty:
+                lost = [r for r, p in enumerate(procs) if p.exitcode is not None
+                        and r not in reports]
+                if lost:
+                    raise RuntimeError(f"{label}: rank(s) {lost} ended without "
+                                       "a report") from None
+                continue
+            reports[rank] = out
+            if error is not None:
+                raise RuntimeError(f"{label}: rank {rank} failed: {error}")
+    finally:
+        for p in procs:
+            p.join(timeout=0 if len(reports) < world else None)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return reports[0]
