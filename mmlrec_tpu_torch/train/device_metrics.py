@@ -15,12 +15,16 @@ model's device and only the scalars come back.
   mtmsl sums task-major blocks of D heads, mtl averages the columns.
 * ``masked_test_metrics_device``: the final per-head masked LogLoss and
   AUC of ``metrics.masked_test_metrics`` (reference main.py:134-172).
+* ``exact_train_stats``: the epoch's train AUC and accuracy as exact int64
+  counts, which ``metrics.regime_from_counts`` turns into the floats
+  ``regime_eval`` gives, bit for bit.
 
-Sums and prefix sums run in float32, as the JAX functions' do, so values
-may differ from scikit-learn's float64 in the last ~1e-6.  ``logloss`` as a
-compiled metric has no device form here (scikit-learn's 2-D ``log_loss``
-normalises rows): the trainer validates on the host whenever it is asked
-for.  Plain PyTorch: no kernel of the JAX package runs here.
+Apart from ``exact_train_stats``, sums and prefix sums run in float32, as
+the JAX functions' do, so values may differ from scikit-learn's float64 in
+the last ~1e-6.  ``logloss`` as a compiled metric has no device form here
+(scikit-learn's 2-D ``log_loss`` normalises rows): the trainer validates
+on the host whenever it is asked for.  Plain PyTorch: no kernel of the JAX
+package runs here.
 """
 
 from __future__ import annotations
@@ -31,6 +35,15 @@ import torch
 
 #: metric names ``regime_metrics`` computes on the device
 SUPPORTED = ("auc", "acc", "accuracy", "mse")
+
+#: the most rows ``exact_train_stats`` takes: the host's float64 rank sums
+#: (under N^2 / 2) are exact up to 2^53, and the counts ride to the host
+#: as float64 beside the loss
+EXACT_ROWS = 1 << 26
+
+#: numpy's float32 sum adds fewer than this many terms left to right; from
+#: 8 on its pairwise sum regroups them
+_SEQUENTIAL_TERMS = 8
 
 
 def supports(metric_names: Iterable[str]) -> bool:
@@ -145,3 +158,72 @@ def regime_metrics(metric_names: Iterable[str], y: torch.Tensor, preds: torch.Te
         else:
             raise ValueError(f"{name!r} has no device form (see supports())")
     return out
+
+
+def _summed(preds: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Columns ``lo:hi`` of ``preds`` added left to right, the order of
+    numpy's ``np.sum(preds[:, lo:hi], axis=-1)`` under 8 terms."""
+    out = preds[:, lo]
+    for j in range(lo + 1, hi):
+        out = out + preds[:, j]
+    return out
+
+
+def _regime_columns(y: torch.Tensor, preds: torch.Tensor, task_name: str, num_domains: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y_eff, p_eff), [rows, C] each, as ``metrics.regime_eval`` forms them."""
+    if task_name == "msl":
+        return y[:, :1], _summed(preds, 0, preds.shape[1])[:, None]
+    if task_name == "mtmsl":
+        D, H = num_domains, preds.shape[1]
+        return y[:, [0, D]], torch.stack([_summed(preds, 0, D), _summed(preds, D, H)], dim=-1)
+    return y, preds
+
+
+def counts_exactly(task_name: str, num_domains: int, heads: int, label_columns: int,
+                   rows: int) -> bool:
+    """Whether ``exact_train_stats`` over ``rows`` rows of ``heads``
+    predictions is bitwise ``regime_eval``: every regime sum under 8 terms
+    (numpy's order is then left to right) and at most ``EXACT_ROWS`` rows."""
+    if rows > EXACT_ROWS:
+        return False
+    if task_name == "msl":
+        return heads < _SEQUENTIAL_TERMS
+    if task_name == "mtmsl":
+        return (0 < num_domains < heads and label_columns > num_domains
+                and max(num_domains, heads - num_domains) < _SEQUENTIAL_TERMS)
+    return label_columns == heads
+
+
+def exact_train_stats(y: torch.Tensor, preds: torch.Tensor, weights: torch.Tensor,
+                      task_name: str, num_domains: int) -> torch.Tensor:
+    """The statistics of ``regime_eval``'s AUC and accuracy over the rows of
+    weight > 0, as exact int64 counts.
+
+    ``y`` [rows, T] labels, ``preds`` [rows, heads] f32 (already column
+    selected), ``weights`` [rows] (0 marks a pad row).  Returns
+    ``[2U, n_pos, n_neg, nans]`` for each regime column and then
+    ``[hits, entries]``: U is the Mann-Whitney statistic, the sum over
+    positives (label 1) of the negatives (any other label) scored below
+    plus half those tied, so 2U = sum over positives of (negatives before
+    the score's tie group + negatives up to its end), the two ends found by
+    ``searchsorted`` in the sorted scores; ``nans`` counts NaN scores
+    (``rankdata`` then gives NaN); ``hits`` counts entries whose label
+    equals ``p > 0.5``, over ``entries`` = rows x columns, as
+    ``metrics.accuracy`` flattens them.  ``counts_exactly`` says where
+    these are ``regime_eval``'s."""
+    y_eff, p_eff = _regime_columns(y, preds, task_name, num_domains)
+    live = weights > 0
+    scores = torch.where(live[:, None], p_eff, 0.0).T.contiguous()  # [C, rows]
+    labels = y_eff.T
+    pos = live & (labels == 1)
+    neg = live & (labels != 1)
+    ordered, order = torch.sort(scores, dim=1)
+    neg_before = torch.nn.functional.pad(torch.cumsum(neg.gather(1, order).long(), 1), (1, 0))
+    ends = (neg_before.gather(1, torch.searchsorted(ordered, scores, side="left"))
+            + neg_before.gather(1, torch.searchsorted(ordered, scores, side="right")))
+    per_column = torch.stack([
+        torch.sum(ends * pos, dim=1), pos.sum(dim=1), neg.sum(dim=1),
+        (live & torch.isnan(scores)).sum(dim=1)], dim=1)
+    hits = (live[:, None] & (y_eff == (p_eff > 0.5))).sum()
+    return torch.cat([per_column.reshape(-1), torch.stack([hits, live.sum() * p_eff.shape[1]])])

@@ -7,9 +7,11 @@ metrics the JAX package binds, with scikit-learn's conventions, so that the
 port needs no scikit-learn:
 
 * ``roc_auc_score``: the rank statistic (Mann-Whitney U) with average ranks
-  for ties; a 2-D target is the macro mean over its columns; a column with
-  one class warns and gives NaN, as scikit-learn (1.9) does, so that an
-  epoch whose validation slice lacks a class does not end the fit;
+  for ties, ranked in float64 whatever the scores' dtype (scikit-learn
+  counts in float64 too); a 2-D target is the macro mean over its
+  columns; a column with one class warns and gives NaN, as scikit-learn
+  (1.9) does, so that an epoch whose validation slice lacks a class does
+  not end the fit;
 * ``log_loss``: the predictions clipped to ``[eps, 1 - eps]``, ``eps`` the
   machine epsilon of their dtype, and the arithmetic in that dtype; 1-D
   binary labels take the classes ``[1 - p, p]``; a 2-D binary-indicator
@@ -18,26 +20,43 @@ port needs no scikit-learn:
   a prediction outside [0, 1] raises ValueError;
 * ``mean_squared_error``: the mean over rows and columns;
 * ``accuracy``: labels against predictions thresholded at 0.5, flattened.
+
+``regime_from_counts`` gives ``regime_eval``'s AUC and accuracy from the
+exact counts of ``device_metrics.exact_train_stats``, bit for bit: the
+rank sums here are exact in float64, so both end in the same division.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Iterable, Sequence
 
 import numpy as np
 from scipy.stats import rankdata
+
+
+#: the compiled metrics ``regime_from_counts`` gives
+COUNTED = ("auc", "acc", "accuracy")
+
+
+def _one_class(n_pos: int, n_neg: int) -> bool:
+    """True, with scikit-learn's warning, where a class is absent."""
+    if n_pos and n_neg:
+        return False
+    warnings.warn("Only one class is present in y_true. ROC AUC score is not defined "
+                  "in that case.", RuntimeWarning, stacklevel=4)
+    return True
 
 
 def _auc_1d(y_true: np.ndarray, y_score: np.ndarray) -> float:
     pos = y_true == 1
     n_pos = int(pos.sum())
     n_neg = int(len(y_true) - n_pos)
-    if n_pos == 0 or n_neg == 0:
-        warnings.warn("Only one class is present in y_true. ROC AUC score is not defined "
-                      "in that case.", RuntimeWarning, stacklevel=3)
+    if _one_class(n_pos, n_neg):
         return float("nan")
-    ranks = rankdata(y_score)  # average ranks: a tie counts one half
+    # average ranks (a tie counts one half) in float64, where their sums are
+    # exact: a SciPy that keeps float32 scores' dtype would round them
+    ranks = rankdata(np.asarray(y_score, np.float64))
     return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
 
@@ -127,6 +146,23 @@ def regime_eval(
         else:
             out[name] = float(fn(y, preds))
     return out
+
+
+def regime_from_counts(names: Iterable[str], counts: Sequence[int]) -> Dict[str, float]:
+    """``regime_eval``'s values of the metrics ``names`` (each in
+    ``COUNTED``, in their order) from ``device_metrics.exact_train_stats``'s
+    ``counts``: a column's AUC is U / (n_pos n_neg), NaN with a NaN score or
+    (warning) one class, the macro mean over columns; accuracy is hits /
+    entries."""
+    *columns, hits, entries = (int(c) for c in counts)
+    aucs = []
+    for two_u, n_pos, n_neg, nans in zip(*[iter(columns)] * 4):
+        if _one_class(n_pos, n_neg) or nans:
+            aucs.append(float("nan"))
+        else:
+            aucs.append((two_u / 2) / (n_pos * n_neg))
+    return {name: float(np.mean(aucs)) if name == "auc" else hits / entries
+            for name in names}
 
 
 def masked_test_metrics(

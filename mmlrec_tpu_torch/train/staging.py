@@ -545,9 +545,11 @@ def prepare_mask_tensor(trainer, test_mask, total: int):
 
 
 #: the keys of each epoch's ``Trainer.fit_timing`` entry, every one present
-#: (0 where its phase did not run); on the card also ``steps_device_s``
-TIMING_KEYS = ("prep_s", "meta_s", "upload_s", "issue_s", "sync_s", "metrics_s", "val_s",
-               "captures", "capture_s")
+#: (0 where its phase did not run); on the card also ``steps_device_s``.
+#: ``metrics_device`` is 1.0 in an epoch whose train metrics were counted
+#: on the device
+TIMING_KEYS = ("prep_s", "meta_s", "upload_s", "issue_s", "sync_s", "metrics_s",
+               "metrics_device", "val_s", "captures", "capture_s")
 
 
 def drive_steps(trainer, kind: str, plan: Plan, batch_size: int, steps_this_epoch: int) -> None:

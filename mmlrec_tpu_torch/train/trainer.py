@@ -59,7 +59,9 @@ host metadata of the next epoch is built on a worker while the current
 one runs; a larger dataset streams with a prefetch worker
 (``prefetch_batches``).  Validation, ``predict``, ``evaluate`` and the
 test metrics replay one captured forward per batch.  A fit synchronises
-once per epoch, for the loss and the collected probabilities.
+once per epoch, for the loss and the epoch's train metrics: their exact
+counts on the device where they are bitwise the host's (``_train_counts``),
+else the collected probabilities.
 
 **Under a mesh** (``Trainer(mesh=parallel.create_mesh(data=N, model=M))``,
 one process per rank on ``torch.distributed``) the fit runs data
@@ -129,7 +131,7 @@ from .cagrad import cagrad_merge
 from .cka import cka_domain_loss, cka_domain_loss_sharded
 from .gradnorm import gradnorm_update
 from .losses import l2_regularization, multitask_loss, per_task_losses
-from .metrics import get_metric_fns, regime_eval
+from .metrics import COUNTED, get_metric_fns, regime_eval, regime_from_counts
 from .optimizers import Adam, Flat, FlatTensors, _Elementwise, get_optimizer
 from .pcgrad import pcgrad_merge
 from .sparse_embedding import (
@@ -1341,16 +1343,26 @@ class Trainer:
                     events[1].record()
                 if probs_dev is not None and self._shard() is not None:
                     probs_dev = self._gather_batches(probs_dev)
+                # the train metrics' counts follow the steps on the device
+                stats = self._train_counts(plan, probs_dev) if self.metric_fns else None
             total_steps += steps
             examples_seen += take
-            with timed(timing, "sync_s", "mmlrec.fit.sync"):
-                epoch_loss = float(loss_vec.sum())  # the epoch's first sync
+            with timed(timing, "sync_s", "mmlrec.fit.sync"):  # the epoch's first sync
+                if stats is None:
+                    epoch_loss = float(loss_vec.sum())
+                else:  # one copy: float64 holds the counts exactly (EXACT_ROWS)
+                    epoch_loss, *counts = torch.cat([loss_vec.sum().reshape(1).double(),
+                                                     stats.double()]).tolist()
             if events:
                 timing["steps_device_s"] = events[0].elapsed_time(events[1]) / 1e3
             epoch_time = time.time() - t0
             train_time += epoch_time
             logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
-            if self.metric_fns:
+            if stats is not None:
+                with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
+                    logs.update(regime_from_counts(self.metric_fns, counts))
+                timing["metrics_device"] = 1.0
+            elif self.metric_fns:
                 with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
                     probs_all = self._selected(
                         probs_dev.reshape(-1, probs_dev.shape[-1])).cpu().numpy()
@@ -1429,6 +1441,29 @@ class Trainer:
             self, order, ids, dense, y, dmask, batch_size, steps, timing)
         probs_dev = torch.stack(probs) if probs else None
         return None, host_rows, take, spans, torch.stack(losses), probs_dev
+
+    def _train_counts(self, plan, probs_dev) -> Optional[torch.Tensor]:
+        """The epoch's train AUC and accuracy as exact counts, enqueued on
+        the device (``device_metrics.exact_train_stats`` over the staged
+        labels of the rows the steps read, by ``plan.arg`` and the weights
+        ``plan.w2d``), where the fit can see they are bitwise what
+        ``regime_eval`` gives on the host: the rows staged on this one
+        device, only counted metrics, no per-batch curves, and a regime sum
+        in numpy's order (``device_metrics.counts_exactly``).  None
+        elsewhere: the host path."""
+        if not (plan.use_device_data and self._dp is None
+                and set(self.metric_fns) <= set(COUNTED)
+                and not self.cfg.model_config.extra.get("batch_metric_curves")):
+            return None
+        steps, batch = probs_dev.shape[:2]
+        probs = self._selected(probs_dev.reshape(steps * batch, -1))
+        if not device_metrics.counts_exactly(self.task_name, self.num_domains, probs.shape[1],
+                                             plan.staged.y.shape[1], steps * batch):
+            return None
+        idx = plan.arg[:steps, None] + plan.arange_b if plan.block_mode else plan.arg[:steps]
+        return device_metrics.exact_train_stats(
+            plan.staged.y.index_select(0, idx.reshape(-1)), probs, plan.w2d[:steps].reshape(-1),
+            self.task_name, self.num_domains)
 
     def _batch_curve(self, probs_all, y_all, spans) -> Dict[str, float]:
         """The reference's per-batch train metrics (basemodel.py:316-331,

@@ -55,11 +55,11 @@ MODES = {
 N = 330  # 6 batches of 64, the last of 10 rows: a ragged tail
 
 
-def _trainer(mode, metrics=("auc",), seed=0, **extra):
-    kw = {**MODES[mode], **extra}
+def _trainer(mode, metrics=("auc",), seed=0, n=N, **extra):
+    kw = {**BASE, **MODES[mode], **extra}
     vocab = kw.pop("vocab")
-    cfg = tsyn.make_config(vocab=vocab, **BASE, **kw)
-    layout, x, y, _ = tsyn.make_data(cfg, n=N, seed=0, vocab=vocab)
+    cfg = tsyn.make_config(vocab=vocab, **kw)
+    layout, x, y, _ = tsyn.make_data(cfg, n=n, seed=0, vocab=vocab)
     model = get_model("mmoe", layout, cfg, generator=make_generator(seed), device="cpu")
     return Trainer(model, seed=0, device="cpu").compile(metrics=list(metrics)), x, y
 
@@ -128,6 +128,50 @@ def test_staged_equals_streaming_bitwise(mode, shuffle):
     if shuffle is True:
         _assert_bitwise(streaming, base, f"{mode}, shuffle=True, streaming",
                         train_metrics=False)
+
+
+# (fit kind, task_name, metrics, model_config extras): the staged fit's
+# train metrics counted on the device where every compiled metric is
+# counted and no per-batch curve is asked for, else on the host
+TRAIN_METRICS_CASES = {
+    "mtl": ("host_meta", "mtl", ("auc", "acc"), {}),
+    "msl": ("dense", "msl", ("auc", "accuracy"), {}),
+    "logloss": ("dense", "mtl", ("auc", "acc", "logloss"), {}),
+    "batch_curves": ("dense", "mtl", ("auc",), dict(batch_metric_curves=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_METRICS_CASES))
+def test_train_metrics_on_the_device_equal_the_host_bitwise(case):
+    """A staged ``shuffle=False`` fit over whole batches (no pad rows)
+    against the same fit streamed, whose train metrics ``regime_eval``
+    computes on the host over the same rows: every tensor and log bitwise,
+    train metrics included; ``fit_timing``'s ``metrics_device`` is 1.0 in
+    each staged epoch of the counted cases and 0.0 elsewhere."""
+    mode, task_name, metrics, extra = TRAIN_METRICS_CASES[case]
+    runs = {}
+    for path in ("staged", "streamed"):
+        tr, x, y = _trainer(mode, metrics, n=320, task_name=task_name, **extra)
+        if path == "streamed":
+            tr._device_data_bytes_cap = 0
+        runs[path] = _state(_fit(tr, x, y, shuffle=False))
+        on_device = path == "staged" and case in ("mtl", "msl")
+        assert [t["metrics_device"] for t in tr.fit_timing] == [float(on_device)] * 2, path
+    _assert_bitwise(runs["staged"], runs["streamed"], f"{case}: staged vs streamed")
+    assert set(metrics) <= set(runs["staged"][1][-1])
+
+
+def test_block_mode_train_metrics_on_the_device_skip_the_pads():
+    """Block mode over a ragged tail (pad rows at weight 0, the batches in a
+    drawn order): the counted AUC and accuracy equal the host's of the same
+    fit, which ``logloss`` sends to the host path."""
+    logs = []
+    for metrics in (("auc", "acc"), ("auc", "acc", "logloss")):
+        tr, x, y = _trainer("host_meta_scatter", metrics)
+        _fit(tr, x, y, shuffle="block", epochs=3)
+        assert [t["metrics_device"] for t in tr.fit_timing] == [float(len(metrics) == 2)] * 3
+        logs.append([{k: h[k] for k in ("loss", "auc", "acc")} for h in tr.history])
+    assert logs[0] == logs[1]
 
 
 def test_staged_path_takes_batches_on_the_device(monkeypatch):
