@@ -41,21 +41,20 @@ prints what the captures cost per seed (``capture_s``, from each fit's
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..ops.layers import MemberGenerators
-from ..utils.spans import span, timed
-from . import device_metrics, staging
+from ..utils.spans import timed
+from . import device_metrics, fit_loop, staging
 from .cagrad import cagrad_merge
 from .graphs import StepGraphs
-from .metrics import regime_eval
 from .optimizers import Flat
 from .pcgrad import pcgrad_merge
-from .trainer import Trainer, _EvalProgram, _grads, _order_masked_row
+from .fit_loop import _EvalProgram
+from .trainer import EVAL_GRAPH_MIN_BATCHES, Trainer, _grads, _order_masked_row
 
 
 class SeedSuiteTrainer:
@@ -91,11 +90,13 @@ class SeedSuiteTrainer:
         self.best_variables: Optional[Dict[str, torch.Tensor]] = None
         #: per member, host seconds its fit spent capturing (sequential mode)
         self.capture_s: List[float] = []
-        #: per epoch of the last stacked fit, ``Trainer.fit_timing``'s keys
-        #: (``staging.TIMING_KEYS``; no metadata: ``meta_s`` is 0), and on
-        #: the card the device span of the epoch's steps
+        #: per epoch of the last stacked fit, as for ``Trainer.fit`` (one
+        #: epoch loop: ``train/fit_loop.py``), ``staging.TIMING_KEYS``, no
+        #: metadata (``meta_s`` 0), on the card the steps' device span
         self.fit_timing: List[Dict[str, float]] = []
         self.graph_replays: Dict[str, int] = {"train": 0, "eval": 0}
+        #: member 0's examples a second in the last stacked fit
+        self.throughput_examples_per_s: Optional[float] = None
         self._seq_best: List = []
 
     def _draw(self, seed: int):
@@ -248,14 +249,6 @@ class SeedSuiteTrainer:
                              in_dims=(0, None, None, None))
         return lambda ids, dense, dmask: fn(variables, ids, dense, dmask)
 
-    def _stacked_probs(self, ev, variables, graphs) -> torch.Tensor:
-        """[S, steps * batch, heads] selected probabilities on the device."""
-        out = _EvalProgram(self.tr, ev, None, graphs, forward=self._stacked_forward(variables)
-                           ).collect()
-        S = out.shape[1]
-        probs = out.movedim(1, 0).reshape(S, -1, out.shape[-1])
-        return probs[..., [0, 2]] if self.tr._escm else probs
-
     def _stacked_body(self, plan, steps: int, B: int):
         """The suite's staged step: at ``s = epoch_step % steps`` member m
         takes the rows ``arg[s, m]`` of the shared staged dataset."""
@@ -289,171 +282,36 @@ class SeedSuiteTrainer:
         batch_size = batch_size or tr.cfg.training_config.train_batch_size
         if self.sequential:
             return self._fit_sequential(x, y, batch_size, epochs, validation_data, verbose)
-        oc, dev, S = tr.cfg.optim_config, self.device, len(self.seeds)
-        # the fit's set-up, as Trainer.fit's: the inputs packed, the
-        # members' state, the dataset and the validation set staged
-        with span("mmlrec.fit.stage"):
-            with span("mmlrec.fit.pack"):
-                ids, dense = tr.pack_inputs(x)
-                y2 = tr._prepare_y(y)
-                dmask = tr._domain_mask_from(x)
-                val = None
-                if validation_data is not None:
-                    vx, vy = validation_data[:2]
-                    val = (*tr.pack_inputs(vx), tr._prepare_y(vy), tr._domain_mask_from(vx))
-            n = len(ids)
-            steps = (n - 1) // batch_size + 1
-            padded = steps * batch_size
-
-            self._params, self._buffers = self._init_state()
-            self._tx = self._member_optimizer()
-            self._opt_state = self._tx.init(self._params)
-            self.gn_state = None
-            if tr.per_task == "gradnorm":
-                T = tr.num_tasks
-                self.gn_state = {"task_weights": torch.ones((S, T), device=dev),
-                                 "initial_losses": torch.ones((S, T), device=dev),
-                                 "gn_step": torch.zeros((S,), dtype=torch.int32, device=dev)}
-            self._masters = [torch.Generator().manual_seed(s + 1) for s in self.seeds]
-            self._gens = MemberGenerators(torch.Generator(device=dev) for _ in self.seeds)
-            # the template model draws per member from now on (its trainer takes
-            # no solo step in stacked mode)
-            tr.model.set_dropout_generator(self._gens)
-            rngs = [np.random.default_rng(s) for s in self.seeds]
-
-            plan = staging.Plan()
-            plan.staged = staging.stage_dataset(tr, ids, dense, y2, dmask)
-            plan.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
-            plan.arg = torch.zeros(steps, S, batch_size, dtype=torch.int64, device=dev)
-            plan.w2d = staging.to_device(tr, (np.arange(padded) < n).astype(np.float32)
-                                         .reshape(steps, batch_size))
-            plan.loss = torch.zeros(steps, S, device=dev)
-            val_ev = val_metric = None
-            if val is not None:
-                val_ev = staging.prepare_eval_tensors(tr, val[0], val[1], val[3], batch_size)
-                if tr._use_device_eval():
-                    val_metric = staging.prepare_metric_tensors(tr, val[2],
-                                                                val_ev.ids.shape[0] * batch_size)
-        graphs = StepGraphs(dev, self._gens)
-        body = self._stacked_body(plan, steps, batch_size)
-        scan = tr._scan_steps
-
-        best_auc, stop_count = np.zeros(S), np.zeros(S, np.int64)
-        stopped = np.zeros(S, bool)
-        best = None
-        self.histories = [[] for _ in self.seeds]
-        self.fit_timing = []
-        val_program = None
-        try:
-            for epoch in range(epochs):
-                t0 = time.time()
-                if tr._gate_warmup_epochs:
-                    tr._gate_warmup_active = epoch < tr._gate_warmup_epochs
-                    tr.model.set_gate_noise_off(tr._gate_warmup_active)
-                timing = dict.fromkeys(staging.TIMING_KEYS, 0.0)
-                self.fit_timing.append(timing)
-                captured = (graphs.captures, graphs.capture_s)
-                with timed(timing, "prep_s", "mmlrec.fit.prep_wait"):
-                    idx3 = np.zeros((steps, S, batch_size), np.int64)
-                    for si, rng in enumerate(rngs):
-                        # the stream a solo Trainer(seed) fit draws
-                        flat = np.zeros(padded, np.int64)
-                        flat[:n] = rng.permutation(n)
-                        idx3[:, si] = flat.reshape(steps, batch_size)
-                    with timed(timing, "upload_s", "mmlrec.fit.worker.upload"):
-                        plan.arg.copy_(staging.to_device(tr, idx3))
-                with timed(timing, "issue_s", "mmlrec.fit.issue"):
-                    events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                              if dev.type == "cuda" else None)
-                    if events:
-                        events[0].record()
-                    plan.epoch_step.zero_()
-                    key = ("suite", batch_size, tr._gate_warmup_active)
-                    for _ in range(steps):
-                        self._reseed()
-                        if scan and not tr.debug:
-                            graphs.run(key, body)
-                        else:
-                            body()
-                    if events:
-                        events[1].record()
-                with timed(timing, "sync_s", "mmlrec.fit.sync"):
-                    losses = plan.loss.cpu().numpy()  # the epoch's first sync
-                if events:
-                    timing["steps_device_s"] = events[0].elapsed_time(events[1]) / 1e3
-                epoch_time = time.time() - t0
-                logs = [{"loss": float(losses[:, si].sum()) / max(n, 1), "epoch_s": epoch_time}
-                        for si in range(S)]
-                if tr.metric_fns:
-                    with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
-                        probs_all = plan.probs.movedim(1, 0).reshape(S, padded, -1)
-                        if tr._escm:
-                            probs_all = probs_all[..., [0, 2]]
-                        probs_all = probs_all.cpu().numpy()
-                        for si in range(S):
-                            rows = idx3[:, si].reshape(-1)[:n]
-                            logs[si].update(regime_eval(tr.metric_fns, y2[rows], probs_all[si, :n],
-                                                        tr.task_name, tr.num_domains))
-                was_stopped = stopped.copy()
-                if val is not None:
-                    with timed(timing, "val_s", "mmlrec.fit.validate"):
-                        if val_program is None:  # one program, replayed every epoch
-                            val_program = _EvalProgram(tr, val_ev, None, graphs, forward=(
-                                self._stacked_forward({**self._params, **self._buffers})))
-                        out = val_program.collect()
-                        pv = out.movedim(1, 0).reshape(S, -1, out.shape[-1])
-                        if tr._escm:
-                            pv = pv[..., [0, 2]]
-                        improved = np.zeros(S, bool)
-                        for si in range(S):
-                            if val_metric is not None:
-                                res = {k: float(v) for k, v in device_metrics.regime_metrics(
-                                    tr.metric_fns, val_metric[0], pv[si], val_metric[1],
-                                    tr.task_name, tr.num_domains).items()}
-                            else:
-                                preds = pv[si].cpu().numpy()[:len(val[0])].astype(np.float64)
-                                res = regime_eval(tr.metric_fns, val[2], preds, tr.task_name,
-                                                  tr.num_domains)
-                            logs[si].update({f"val_{k}": v for k, v in res.items()})
-                            auc = res.get("auc", 0.0)
-                            if not was_stopped[si] and auc > best_auc[si]:
-                                best_auc[si], stop_count[si], improved[si] = auc, 0, True
-                            elif not was_stopped[si]:
-                                stop_count[si] += 1
-                        current = {**self._params, **self._buffers}
-                        if best is None:  # the first epoch's snapshot, as multi_seed.py:370-379
-                            best = {k: v.detach().clone() for k, v in current.items()}
-                        else:
-                            for si in np.flatnonzero(improved):
-                                for k, v in current.items():
-                                    best[k][si].copy_(v[si].detach())
-                        stopped |= stop_count >= oc.early_stop
-                timing["captures"] = graphs.captures - captured[0]
-                timing["capture_s"] = graphs.capture_s - captured[1]
-                for si in range(S):
-                    # a member that stopped in an EARLIER epoch is done (a solo
-                    # fit would have broken out); the epoch where its patience
-                    # runs out is still logged, as the solo loop logs it
-                    if val is None or not was_stopped[si]:
-                        self.histories[si].append(logs[si])
-                if verbose:
-                    line = " | ".join(
-                        f"{self.labels[si]}: loss {logs[si]['loss']:.4f}"
-                        + (f" val_auc {logs[si].get('val_auc', float('nan')):.4f}"
-                           if val is not None else "")
-                        for si in range(S))
-                    print(f"Epoch {epoch + 1}/{epochs} - {epoch_time:.1f}s - {line}")
-                if epoch_callback is not None:
-                    epoch_callback(epoch, self)
-                if val is not None and stopped.all():
-                    break
-        finally:
-            self.graph_replays = {
-                "train": sum(v for k, v in graphs.replays.items() if k[0] != "eval"),
-                "eval": sum(v for k, v in graphs.replays.items() if k[0] == "eval")}
+        best = fit_loop.fit(tr, self, x, y, batch_size, epochs, 0.0, validation_data, verbose,
+                            epoch_callback, lambda *data: self._start(batch_size, *data))
         self.variables = {k: v.detach() for k, v in {**self._params, **self._buffers}.items()}
         self.best_variables = best if best is not None else self.variables
         return self
+
+    def _start(self, batch_size, ids, dense, y, dmask, val) -> fit_loop.FitRun:
+        """The members' stacked state and the suite's epoch source."""
+        tr, dev, S = self.tr, self.device, len(self.seeds)
+        self._params, self._buffers = self._init_state()
+        self._tx = self._member_optimizer()
+        self._opt_state = self._tx.init(self._params)
+        self.gn_state = None
+        if tr.per_task == "gradnorm":
+            T = tr.num_tasks
+            self.gn_state = {"task_weights": torch.ones((S, T), device=dev),
+                             "initial_losses": torch.ones((S, T), device=dev),
+                             "gn_step": torch.zeros((S,), dtype=torch.int32, device=dev)}
+        self._masters = [torch.Generator().manual_seed(s + 1) for s in self.seeds]
+        self._gens = MemberGenerators(torch.Generator(device=dev) for _ in self.seeds)
+        # the template model draws per member from now on (its trainer takes
+        # no solo step in stacked mode)
+        tr.model.set_dropout_generator(self._gens)
+        self.histories = [[] for _ in self.seeds]
+        state = {**self._params, **self._buffers}
+        graphs = StepGraphs(dev, self._gens)
+        return fit_loop.FitRun(
+            _StackedSource(self, graphs, ids, dense, y, dmask, batch_size), graphs,
+            self.histories, lambda: state, stacked=True, labels=self.labels,
+            forward=self._stacked_forward(state))
 
     def member_variables(self, i: int, best: bool = False) -> Dict[str, torch.Tensor]:
         """Member ``i``'s state by state-dict key after a stacked fit (its
@@ -462,16 +320,15 @@ class SeedSuiteTrainer:
         return {k: v[i] for k, v in stacked.items()}
 
     # ------------------------------------------------------------------
-    def _eval_tensors(self, x, batch_size):
+    def _best_probs(self, x, batch_size):
+        """The eval tensors of ``x`` and each member's [S, steps * batch,
+        heads] selected probabilities from its best variables, on the device."""
         tr = self.tr
         ids, dense = tr.pack_inputs(x)
-        return staging.prepare_eval_tensors(tr, ids, dense, tr._domain_mask_from(x), batch_size)
-
-    def _eval_graphs(self, ev):
-        from .trainer import EVAL_GRAPH_MIN_BATCHES
-
-        return (StepGraphs(self.device) if ev.ids.shape[0] >= EVAL_GRAPH_MIN_BATCHES
-                else None)
+        ev = staging.prepare_eval_tensors(tr, ids, dense, tr._domain_mask_from(x), batch_size)
+        graphs = StepGraphs(self.device) if ev.ids.shape[0] >= EVAL_GRAPH_MIN_BATCHES else None
+        return ev, _EvalProgram(tr, ev, None, graphs,
+                                forward=self._stacked_forward(self.best_variables)).members()
 
     def predict(self, x, batch_size: int = 256) -> np.ndarray:
         """[S, N, heads] float64 predictions from each member's best
@@ -483,8 +340,7 @@ class SeedSuiteTrainer:
                 tr.best_variables = self._seq_best[si]
                 preds.append(tr.predict(x, batch_size=batch_size))
             return np.stack(preds)
-        ev = self._eval_tensors(x, batch_size)
-        probs = self._stacked_probs(ev, self.best_variables, self._eval_graphs(ev))
+        ev, probs = self._best_probs(x, batch_size)
         return probs.cpu().numpy()[:, :ev.n].astype(np.float64)
 
     def masked_test_metrics_device(self, x, y, test_mask, batch_size: int = 256):
@@ -498,14 +354,54 @@ class SeedSuiteTrainer:
                 tr.best_variables = self._seq_best[si]
                 rows.append(tr.masked_test_metrics_device(x, y, test_mask, batch_size))
             return rows
-        ev = self._eval_tensors(x, batch_size)
+        ev, probs = self._best_probs(x, batch_size)
         total = ev.ids.shape[0] * batch_size
         y_dev, w_dev = staging.prepare_metric_tensors(tr, tr._prepare_y(y), total)
         tm_dev = staging.prepare_mask_tensor(tr, test_mask, total)
-        probs = self._stacked_probs(ev, self.best_variables, self._eval_graphs(ev))
         rows = []
         for p in probs:
             out = device_metrics.masked_test_metrics_device(y_dev, p, w_dev, tm_dev,
                                                             tr.task_name, tr.num_domains)
             rows.append(_order_masked_row({k: float(v) for k, v in out.items()}))
         return rows
+
+
+class _StackedSource(staging.Plan):
+    """The stacked suite's epoch source: each epoch every member's
+    permutation of the shared staged rows, drawn from its own
+    ``default_rng(seed)`` as its solo fit draws it, into ``arg`` [steps, S,
+    B]; then each batch one stacked step (``_stacked_body``)."""
+
+    def __init__(self, suite: SeedSuiteTrainer, graphs: StepGraphs, ids, dense, y, dmask,
+                 batch_size):
+        tr, S = suite.tr, len(suite.seeds)
+        super().__init__(tr, y, batch_size, None, (S,))
+        self.suite, self.graphs, self.members = suite, graphs, S
+        self.rngs = [np.random.default_rng(s) for s in suite.seeds]
+        steps = self.steps
+        self.staged = staging.stage_dataset(tr, ids, dense, y, dmask)
+        self.arg = torch.zeros(steps, S, batch_size, dtype=torch.int64, device=tr.device)
+        self.w2d = staging.to_device(tr, (np.arange(steps * batch_size) < self.n)
+                                     .astype(np.float32).reshape(steps, batch_size))
+        self.body = suite._stacked_body(self, steps, batch_size)
+
+    def prepare(self, epoch, steps, timing) -> None:
+        self.flat = np.zeros((self.members, steps * self.batch), np.int64)
+        for flat, rng in zip(self.flat, self.rngs):  # the stream a solo Trainer(seed) fit draws
+            flat[:self.n] = rng.permutation(self.n)
+        idx3 = np.ascontiguousarray(self.flat.reshape(-1, steps, self.batch).transpose(1, 0, 2))
+        with timed(timing, "upload_s", "mmlrec.fit.worker.upload"):
+            self.arg.copy_(staging.to_device(self.trainer, idx3))
+
+    def run(self, steps, timing) -> staging.EpochResult:
+        tr, B, n = self.trainer, self.batch, self.n
+        self.epoch_step.zero_()
+        key = ("suite", B, tr._gate_warmup_active)
+        for _ in range(steps):
+            self.suite._reseed()
+            if tr._scan_steps and not tr.debug:
+                self.graphs.run(key, self.body)
+            else:
+                self.body()
+        rows = tuple((slice(0, n), flat[:n]) for flat in self.flat)
+        return self._result(steps, rows, n, [(min(B, n - s * B),) * 2 for s in range(steps)])

@@ -12,14 +12,13 @@ Everything between the host arrays and the step:
   route's lists included), with the upload compaction codec
   (``MetaCodec``: uint16 positions, uint8 masks, decoded on the device
   after the per-step slice);
-* ``make_device_plan``: staged or streaming, block mode, the per-fit
-  buffers the step reads by its device step index, and the thread-ahead
-  pool that builds epoch e+1's index vector and metadata on a worker while
-  epoch e runs (``fs_host_prep``);
-* the epoch runners: ``run_gather_epoch`` (full shuffle), ``run_block_epoch``
-  (fixed batches in a new order each epoch), both through ``drive_steps``,
-  and ``run_streaming_epoch`` for a dataset over the cap, whose batches a
-  prefetch worker builds in order.
+* ``make_device_plan``: the fit's data path as its epoch source for
+  ``train/fit_loop.py``: ``BlockSource`` (fixed batches, a new order each
+  epoch) or ``ShuffleSource`` (full shuffle, epoch e+1's indices and
+  metadata built on a worker while epoch e runs: ``fs_host_prep``) over the
+  staged dataset and the per-fit buffers the step reads (``Plan``), or
+  ``StreamSource`` for a dataset over the cap, batches built by a
+  prefetch worker.
 
 ``drive_steps`` is where ``scan_steps`` acts.  The JAX package runs L steps
 as one ``lax.scan`` dispatch; here a step reads its batch, weights and
@@ -372,108 +371,275 @@ def slice_dedup(trainer, dedup2d, s: torch.Tensor) -> Optional[tuple]:
 
 
 # ---------------------------------------------------------------------------
-# the fit plan (staging.py:407-518, single device)
+# the fit's data paths: one epoch source each (staging.py:407-518)
 # ---------------------------------------------------------------------------
 
 
-class Plan:
-    """What ``make_device_plan`` decided and staged for one fit.
+class EpochResult(NamedTuple):
+    """An epoch of S members (1 but for a stacked suite): ``loss`` [steps,
+    S] and ``probs`` [steps, S, B, heads] (or None) on the device; per
+    member ``rows`` = (the flattened probabilities the host's train metrics
+    read, their rows of the source's ``y``); a member's real rows ``take``;
+    each batch's (probabilities, real rows) among those read, ``spans``;
+    ``counted`` = (the staged labels, per member (label rows, weights))
+    where one device stages the whole dataset, else None."""
 
-    On the staged path the step reads, at ``epoch_step``: ``arg`` (the
-    epoch's [steps, B] row indices, or its [steps] batch starts in block
-    mode), ``w2d`` [steps, B] and ``dedup`` (the encoded metadata stacks);
-    it writes ``loss`` [steps] and ``probs`` [steps, B, H].  These buffers
-    live as long as the fit: a captured step reads their addresses."""
+    loss: torch.Tensor
+    probs: Optional[torch.Tensor]
+    rows: tuple
+    take: int
+    spans: list
+    counted: Optional[tuple]
 
-    use_device_data = block_mode = False
+
+class EpochSource:
+    """A fit's data path.  Each epoch ``prepare(epoch, steps, timing)``
+    makes its draws from ``rng`` and ``run(steps, timing)`` issues its steps
+    and returns an ``EpochResult``, ``timing`` the epoch's ``fit_timing``."""
+
+    def __init__(self, trainer, y, batch_size: int, rng):
+        self.trainer, self.y, self.batch, self.rng = trainer, y, batch_size, rng
+        self.n = len(y)
+        self.steps = (self.n - 1) // batch_size + 1
+
+    def close(self) -> None:
+        """Stop the worker a source may run."""
+
+
+class Plan(EpochSource):
+    """A staged path's per-fit buffers, which a captured step reads at
+    ``epoch_step``: ``arg`` (the epoch's [steps, B] row indices, or [steps]
+    batch starts in block mode), ``w2d`` [steps, B] and ``dedup`` (the
+    encoded metadata stacks); it writes ``loss`` [steps], ``probs``."""
+
     staged = None  # Staged, or RankStaged under a mesh
     #: under a mesh, this rank's rows of a global batch (``batch_rows``)
     rank_rows: Optional[slice] = None
-    block_w = block_w_dev = block_dedup = fs_pool = None
-    arg = w2d = loss = probs = epoch_step = arange_b = arange_all = None
-    dedup: Optional[tuple] = None
-    steps = 0
+    arg = probs = arange_b = dedup = None
+
+    def __init__(self, trainer, y, batch_size, rng, members: tuple = ()):
+        super().__init__(trainer, y, batch_size, rng)
+        dev = trainer.device
+        if trainer._dp is not None:
+            self.rank_rows = batch_rows(batch_size, trainer._dp)
+        self.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.loss = torch.zeros(self.steps, *members, dtype=torch.float32, device=dev)
+        self.w2d = torch.zeros(self.steps, batch_size, dtype=torch.float32, device=dev)
+
+    def _result(self, steps, rows, take, spans) -> EpochResult:
+        """One member's, unless ``loss`` has a member axis."""
+        loss = self.loss[:steps]
+        probs = self.probs[:steps] if self.trainer.metric_fns else None
+        one = loss.dim() == 1
+        counted = None
+        if probs is not None and isinstance(self.staged, Staged):
+            idx = self.arg[:steps]  # the staged row of each probability
+            if self.arange_b is not None:  # block mode's batch starts
+                idx = idx[:, None] + self.arange_b
+            w = self.w2d[:steps].reshape(-1)
+            counted = (self.staged.y, tuple((i.reshape(-1), w) for i in
+                                            ([idx] if one else idx.unbind(1))))
+        if one:
+            loss, probs = loss[:, None], None if probs is None else probs.unsqueeze(1)
+        return EpochResult(loss, probs, rows, take, spans, counted)
+
+
+class BlockSource(Plan):
+    """``shuffle="block"`` (staging.py:437-444, 625-655): the rows permuted
+    once, the tail padded with row 0 at weight 0, the weights and, with
+    host metadata, every batch's metadata staged once a fit; each epoch a
+    new batch order, by which one index take each reorders them."""
+
+    def __init__(self, trainer, ids, dense, y, dmask, batch_size, rng):
+        pre = rng.permutation(len(ids))
+        ids, dense, y = ids[pre], dense[pre], y[pre]
+        dmask = dmask[pre] if dmask is not None else None
+        super().__init__(trainer, y, batch_size, rng)
+        steps, dev = self.steps, trainer.device
+        self.block_w = np.ones((steps, batch_size), np.float32)
+        pad_tail = steps * batch_size - self.n
+        if pad_tail:
+            self.block_w[-1, batch_size - pad_tail:] = 0.0
+
+        def padded(a):
+            return np.concatenate([a, np.repeat(a[:1], pad_tail, 0)]) if pad_tail else a
+
+        self.staged = stage_dataset(trainer, padded(ids), padded(dense), padded(y),
+                                    padded(dmask) if dmask is not None else None)
+        self.block_w_dev = to_device(trainer, self.block_w)
+        self.arg = torch.zeros(steps, dtype=torch.int64, device=dev)
+        self.arange_b = torch.arange(batch_size, dtype=torch.int64, device=dev)
+        self.block_dedup = None
+        if trainer.two_phase_embedding and not trainer.device_metadata:
+            meta = encode_meta(trainer, step_metadata(trainer, flat_ids(trainer, padded(ids),
+                                                                        steps)))
+            self.block_dedup = tuple(to_device(trainer, upload_form(a)) for a in meta)
+            self.dedup = tuple(_buffer_like(trainer, steps, a) for a in self.block_dedup)
+
+    def prepare(self, epoch, steps, timing) -> None:
+        self.batch_order = self.rng.permutation(self.steps)[:steps]
+
+    def run(self, steps, timing) -> EpochResult:
+        tr, B, batch_order = self.trainer, self.batch, self.batch_order
+        self.epoch_step.zero_()
+        order = to_device(tr, batch_order.astype(np.int64))
+        _rows_into(self.arg, steps, order * B)
+        _rows_into(self.w2d, steps, self.block_w_dev.index_select(0, order))
+        if self.block_dedup is not None:
+            for buf, a in zip(self.dedup, self.block_dedup):
+                _rows_into(buf, steps, a.index_select(0, order))
+        drive_steps(tr, "slice", self, B, steps)
+        valid = self.block_w[batch_order].reshape(-1) > 0
+        host_rows = (np.arange(self.steps * B).reshape(self.steps, B)
+                     [batch_order].reshape(-1)[valid])
+        spans = [(int(c), int(c)) for c in self.block_w[batch_order].sum(axis=1)]
+        return self._result(steps, ((valid, host_rows),), int(valid.sum()), spans)
+
+
+class ShuffleSource(Plan):
+    """A full shuffle, or the data order (staging.py:658-688): each epoch's
+    row indices and host metadata from ``fs_host_prep``; with ``epochs`` a
+    worker builds epoch e+1's while e runs, its permutation drawn at
+    submission, in the synchronous loop's order (staging.py:489-515)."""
+
+    def __init__(self, trainer, ids, dense, y, dmask, batch_size, rng, shuffle, epochs):
+        super().__init__(trainer, y, batch_size, rng)
+        self.ids, self.shuffle, self.epochs = ids, shuffle, epochs
+        self.staged = stage_dataset(trainer, ids, dense, y, dmask)
+        self.arg = torch.zeros(self.steps, batch_size, dtype=torch.int64,
+                               device=trainer.device)
+        self.arange_all = torch.arange(self.steps * batch_size, device=trainer.device)
+        self.pool = ThreadPoolExecutor(max_workers=1) if epochs else None
+        self.ahead = None
+
+    def prepare(self, epoch, steps, timing) -> None:
+        if self.ahead is not None:
+            self.prep, self.ahead = self.ahead.result(), None
+        else:
+            order = self.rng.permutation(self.n) if self.shuffle else np.arange(self.n)
+            self.prep = fs_host_prep(self.trainer, self.ids, self.n, self.batch, order, steps)
+        if self.pool is not None and epoch + 1 < self.epochs:
+            self.ahead = self.pool.submit(fs_host_prep, self.trainer, self.ids, self.n,
+                                          self.batch, self.rng.permutation(self.n),
+                                          self.steps, span_on())
+        timing.update(self.prep.host)  # built for this epoch, wherever it ran
+
+    def run(self, steps, timing) -> EpochResult:
+        tr, B = self.trainer, self.batch
+        idx_full, take, up, _ = self.prep
+        self.epoch_step.zero_()
+        idx2d, *meta = claim(up)
+        _rows_into(self.arg, steps, idx2d)
+        _rows_into(self.w2d, steps, (self.arange_all[:steps * B] < take).to(torch.float32)
+                   .view(steps, B))
+        if meta:
+            if self.dedup is None or any(b.shape[1:] != a.shape[1:]
+                                         for b, a in zip(self.dedup, meta)):
+                # the first stacks, or route lists that outgrew the floor (a
+                # later epoch of a full shuffle may need wider ones): new
+                # buffers, on which the step is captured anew
+                self.dedup = tuple(_buffer_like(tr, self.steps, a) for a in meta)
+                tr._graphs.discard("gather")
+            for buf, a in zip(self.dedup, meta):
+                _rows_into(buf, steps, a)
+        drive_steps(tr, "gather", self, B, steps)
+        spans = [(min(B, take - s * B),) * 2 for s in range(steps)]
+        return self._result(steps, ((slice(0, take), idx_full[:take]),), take, spans)
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+
+
+class StreamSource(EpochSource):
+    """A dataset over the cap (staging.py:691-754), in a new permutation an
+    epoch, or in data order for ``shuffle`` False or ``"block"``
+    (trainer.py:1538).  One prefetch worker builds the batches (slices,
+    host metadata, pinned upload on a side stream) ``prefetch_batches``
+    ahead, in order; the last one's pads (row 0, weight 0) count in the
+    train metrics, as JAX's do (staging.py:748-752)."""
+
+    def __init__(self, trainer, ids, dense, y, dmask, batch_size, rng, shuffle):
+        super().__init__(trainer, y, batch_size, rng)
+        self.ids, self.dense, self.dmask, self.shuffle = ids, dense, dmask, shuffle
+
+    def prepare(self, epoch, steps, timing) -> None:
+        self.order = (self.rng.permutation(self.n) if self.shuffle is True
+                      else np.arange(self.n))
+
+    def run(self, steps, timing) -> EpochResult:
+        tr, B, order, ids = self.trainer, self.batch, self.order, self.ids
+        host_meta = tr.two_phase_embedding and not tr.device_metadata
+        on = span_on()
+
+        def make_batch(s):
+            idx = order[s * B:(s + 1) * B]
+            weight = np.ones(B, np.float32)
+            pad = B - len(idx)
+            if pad:
+                weight[len(idx):] = 0.0
+                idx = np.concatenate([idx, np.zeros(pad, np.int64)])
+            idx_r, weight_r = (idx, weight) if tr.mesh is None else shard_batch(
+                (idx, weight), tr.mesh)  # this rank's rows, or the whole batch
+            arrays = [ids[idx_r], self.dense[idx_r], self.y[idx_r],
+                      self.dmask[idx_r] if self.dmask is not None else None, weight_r]
+            host = {"meta_s": 0.0, "upload_s": 0.0}
+            if host_meta:
+                with timed(host, "meta_s", "mmlrec.fit.worker.metadata", on):
+                    arrays += [a[0] for a in step_metadata(tr, flat_ids(tr, ids[idx], 1))]
+            with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
+                up = upload_async(tr, arrays)
+            return weight, up, host
+
+        losses, probs, spans = [], [], []
+        depth = max(int(tr._prefetch_batches), 1)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = deque(pool.submit(make_batch, s) for s in range(min(depth, steps)))
+            for s in range(steps):
+                weight, up, host = pending.popleft().result()
+                for key, seconds in host.items():
+                    timing[key] += seconds
+                if s + depth < steps:
+                    pending.append(pool.submit(make_batch, s + depth))
+                batch = claim(up)
+                tr._reseed()
+                total, _, p = tr._step_on_batch(*batch[:5], meta=batch[5:] or None)
+                losses.append(total)
+                if tr.metric_fns:
+                    probs.append(p)
+                spans.append((len(weight), int(weight.sum())))
+        take = min(self.n, steps * B)
+        rows = np.zeros(steps * B, np.int64)
+        rows[:take] = order[:take]
+        return EpochResult(torch.stack(losses).unsqueeze(1),
+                           torch.stack(probs).unsqueeze(1) if probs else None,
+                           ((slice(None), rows),), take, spans, None)
 
 
 def _buffer_like(trainer, rows: int, a: torch.Tensor) -> torch.Tensor:
     return torch.zeros((rows,) + tuple(a.shape[1:]), dtype=a.dtype, device=trainer.device)
 
 
-def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch,
-                     n, rng_np, epochs, initial_epoch, max_steps):
-    """Decide the fit path and stage what it needs; returns (plan, ids,
-    dense, y, dmask), the arrays pre-shuffled in block mode.
-
-    The dataset is staged when its bytes x 2 are under
-    ``trainer._device_data_bytes_cap`` (4 GB).  Block mode (``shuffle=
-    "block"``) exists on the staged path only, as in JAX
-    (staging.py:437-444): it permutes the rows once, pads the tail with
-    row 0 at weight 0, stages the weights once and, with host metadata,
-    builds every batch's metadata once per fit: the batches are fixed and
-    only their order changes.  A streamed ``shuffle="block"`` fit takes
-    the rows in data order, as ``shuffle=False`` does, and draws nothing
-    (trainer.py:1538).  The thread-ahead pool serves full-shuffle
-    two-phase fits with host metadata over more than one epoch
-    (staging.py:489-515)."""
-    plan = Plan()
-    plan.steps = steps_per_epoch
+def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, rng, epochs,
+                     initial_epoch, max_steps) -> EpochSource:
+    """The fit's data path, decided once, as its epoch source: staged when
+    the dataset's bytes x 2 are under ``trainer._device_data_bytes_cap``
+    (4 GB; a mesh's batch must divide by its ranks, staging.py:427-437), in
+    blocks or shuffled (the worker for two-phase fits of epochs > 1 without
+    ``max_steps``), else streamed."""
     dataset_bytes = ids.nbytes + dense.nbytes + y.nbytes
-    dp = trainer._dp
-    if dp is None:
-        plan.use_device_data = dataset_bytes * 2 < trainer._device_data_bytes_cap
-    else:
-        # the staged rows are split n ways, and the fetch splits the batch
-        # (staging.py:427-437)
-        plan.rank_rows = batch_rows(batch_size, dp)
-        plan.use_device_data = (plan.rank_rows is not None and dataset_bytes * 2
-                                < trainer._device_data_bytes_cap * dp.world)
-    if not plan.use_device_data:
-        return plan, ids, dense, y, dmask
-    plan.block_mode = shuffle == "block"
-    host_meta = trainer.two_phase_embedding and not trainer.device_metadata
-    if plan.block_mode:
-        pre = rng_np.permutation(n)
-        ids, dense, y = ids[pre], dense[pre], y[pre]
-        dmask = dmask[pre] if dmask is not None else None
-        plan.block_w = np.ones((steps_per_epoch, batch_size), np.float32)
-        pad_tail = steps_per_epoch * batch_size - n
-        if pad_tail:
-            plan.block_w[-1, batch_size - pad_tail:] = 0.0
-    dev = trainer.device
-    plan.epoch_step = torch.zeros(1, dtype=torch.int64, device=dev)
-    plan.loss = torch.zeros(steps_per_epoch, dtype=torch.float32, device=dev)
-    plan.w2d = torch.zeros(steps_per_epoch, batch_size, dtype=torch.float32, device=dev)
-    if plan.block_mode:
-        pad_tail = steps_per_epoch * batch_size - n
-
-        def padded(a):
-            return np.concatenate([a, np.repeat(a[:1], pad_tail, 0)]) if pad_tail else a
-
-        plan.staged = stage_dataset(trainer, padded(ids), padded(dense), padded(y),
-                                    padded(dmask) if dmask is not None else None)
-        plan.block_w_dev = to_device(trainer, plan.block_w)
-        plan.arg = torch.zeros(steps_per_epoch, dtype=torch.int64, device=dev)
-        plan.arange_b = torch.arange(batch_size, dtype=torch.int64, device=dev)
-        if host_meta:
-            meta = encode_meta(trainer, step_metadata(
-                trainer, flat_ids(trainer, padded(ids), steps_per_epoch)))
-            plan.block_dedup = tuple(to_device(trainer, upload_form(a)) for a in meta)
-            plan.dedup = tuple(_buffer_like(trainer, steps_per_epoch, a)
-                               for a in plan.block_dedup)
-    else:
-        plan.staged = stage_dataset(trainer, ids, dense, y, dmask)
-        plan.arg = torch.zeros(steps_per_epoch, batch_size, dtype=torch.int64, device=dev)
-        plan.arange_all = torch.arange(steps_per_epoch * batch_size, device=dev)
-    if (not plan.block_mode and shuffle is True and trainer.two_phase_embedding
-            and not max_steps and trainer._prefetch_batches > 0 and epochs - initial_epoch > 1):
-        plan.fs_pool = ThreadPoolExecutor(max_workers=1)
-    return plan, ids, dense, y, dmask
-
-
-def close_plan(plan: Plan) -> None:
-    if plan.fs_pool is not None:
-        plan.fs_pool.shutdown(wait=True, cancel_futures=True)
-        plan.fs_pool = None
+    cap, dp = trainer._device_data_bytes_cap, trainer._dp
+    staged = (dataset_bytes * 2 < cap if dp is None
+              else batch_rows(batch_size, dp) is not None and dataset_bytes * 2 < cap * dp.world)
+    if not staged:
+        return StreamSource(trainer, ids, dense, y, dmask, batch_size, rng, shuffle)
+    if shuffle == "block":
+        return BlockSource(trainer, ids, dense, y, dmask, batch_size, rng)
+    ahead = (shuffle is True and trainer.two_phase_embedding and not max_steps
+             and trainer._prefetch_batches > 0 and epochs - initial_epoch > 1)
+    return ShuffleSource(trainer, ids, dense, y, dmask, batch_size, rng, shuffle,
+                         epochs if ahead else None)
 
 
 # ---------------------------------------------------------------------------
@@ -540,7 +706,7 @@ def prepare_mask_tensor(trainer, test_mask, total: int):
 
 
 # ---------------------------------------------------------------------------
-# epoch executors (staging.py:594-780)
+# the steps and the epochs' host prep (staging.py:594-780)
 # ---------------------------------------------------------------------------
 
 
@@ -577,26 +743,6 @@ def _rows_into(buffer: torch.Tensor, steps: int, values: torch.Tensor) -> None:
     buffer[:steps].copy_(values)
 
 
-def run_block_epoch(trainer, plan: Plan, batch_size, steps_per_epoch, steps_this_epoch,
-                    batch_order):
-    """One epoch in block mode: the batches' composition is fixed, their
-    order new; the staged weights and metadata stacks are reordered on the
-    device by one index take each (staging.py:625-655)."""
-    L = steps_this_epoch
-    order = to_device(trainer, batch_order.astype(np.int64))
-    _rows_into(plan.arg, L, order * batch_size)
-    _rows_into(plan.w2d, L, plan.block_w_dev.index_select(0, order))
-    if plan.block_dedup is not None:
-        for buf, a in zip(plan.dedup, plan.block_dedup):
-            _rows_into(buf, L, a.index_select(0, order))
-    drive_steps(trainer, "slice", plan, batch_size, L)
-    valid = plan.block_w[batch_order].reshape(-1) > 0
-    host_rows = (np.arange(steps_per_epoch * batch_size).reshape(steps_per_epoch, batch_size)
-                 [batch_order].reshape(-1)[valid])
-    spans = [(int(c), int(c)) for c in plan.block_w[batch_order].sum(axis=1)]
-    return valid, host_rows, int(valid.sum()), spans
-
-
 class HostPrep(NamedTuple):
     """A full-shuffle epoch's host prep: its padded row indices, the real
     rows among them, their upload, and the host seconds of building the
@@ -627,81 +773,3 @@ def fs_host_prep(trainer, ids, n, batch_size, order_e, steps_e, on=None) -> Host
     with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
         up = upload_async(trainer, arrays)
     return HostPrep(idx_e, take_e, up, host)
-
-
-def run_gather_epoch(trainer, plan: Plan, prep: HostPrep, batch_size, steps_this_epoch):
-    """One full-shuffle epoch over the staged dataset (staging.py:658-688):
-    the step takes its rows by the epoch's shuffled indices; the weights
-    are built on the device from ``take``."""
-    idx_full, take, up, _ = prep
-    L = steps_this_epoch
-    idx2d, *meta = claim(up)
-    _rows_into(plan.arg, L, idx2d)
-    _rows_into(plan.w2d, L, (plan.arange_all[:L * batch_size] < take).to(torch.float32)
-               .view(L, batch_size))
-    if meta:
-        if plan.dedup is None or any(b.shape[1:] != a.shape[1:]
-                                     for b, a in zip(plan.dedup, meta)):
-            # the first stacks, or route lists that outgrew the floor (a
-            # later epoch of a full shuffle may need wider ones): new
-            # buffers, on which the step is captured anew
-            plan.dedup = tuple(_buffer_like(trainer, plan.steps, a) for a in meta)
-            trainer._graphs.discard("gather")
-        for buf, a in zip(plan.dedup, meta):
-            _rows_into(buf, L, a)
-    drive_steps(trainer, "gather", plan, batch_size, L)
-    spans = [(min(batch_size, take - s * batch_size),) * 2 for s in range(L)]
-    return None, idx_full[:take], take, spans
-
-
-def run_streaming_epoch(trainer, order, ids, dense, y, dmask, batch_size, steps_this_epoch,
-                        timing):
-    """Streaming path (staging.py:691-754), for a dataset over the cap: a
-    single prefetch worker builds each batch (host slicing, the two-phase
-    host metadata, the upload from pinned memory on a side stream) up to
-    ``prefetch_batches`` ahead; one worker keeps the batch order, so the
-    fit equals the synchronous loop's.  ``order`` holds the epoch's rows;
-    the last partial batch is padded with row 0 at weight 0.  Returns
-    (losses, probs, weights) device tensors and the spans; adds the
-    batches' metadata and upload seconds to ``timing``."""
-    host_meta = trainer.two_phase_embedding and not trainer.device_metadata
-    on = span_on()
-
-    def make_batch(s):
-        idx = order[s * batch_size:(s + 1) * batch_size]
-        weight = np.ones(batch_size, np.float32)
-        pad = batch_size - len(idx)
-        if pad:
-            weight[len(idx):] = 0.0
-            idx = np.concatenate([idx, np.zeros(pad, np.int64)])
-        idx_r, weight_r = (idx, weight) if trainer.mesh is None else shard_batch(
-            (idx, weight), trainer.mesh)  # this rank's rows, or the whole batch
-        arrays = [ids[idx_r], dense[idx_r], y[idx_r],
-                  dmask[idx_r] if dmask is not None else None, weight_r]
-        host = {"meta_s": 0.0, "upload_s": 0.0}
-        if host_meta:
-            with timed(host, "meta_s", "mmlrec.fit.worker.metadata", on):
-                arrays += [a[0] for a in step_metadata(trainer, flat_ids(trainer, ids[idx], 1))]
-        with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
-            up = upload_async(trainer, arrays)
-        return weight, up, host
-
-    losses, probs, spans = [], [], []
-    depth = max(int(trainer._prefetch_batches), 1)
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        pending = deque(pool.submit(make_batch, s) for s in range(min(depth, steps_this_epoch)))
-        for s in range(steps_this_epoch):
-            weight, up, host = pending.popleft().result()
-            for key, seconds in host.items():
-                timing[key] += seconds
-            if s + depth < steps_this_epoch:
-                pending.append(pool.submit(make_batch, s + depth))
-            batch = claim(up)
-            trainer._reseed()
-            total, _, p = trainer._step_on_batch(*batch[:5], meta=batch[5:] or None)
-            losses.append(total)
-            if trainer.metric_fns:
-                probs.append(p)
-            spans.append((len(weight), int(weight.sum())))
-    return losses, probs, spans
-

@@ -60,8 +60,8 @@ one runs; a larger dataset streams with a prefetch worker
 (``prefetch_batches``).  Validation, ``predict``, ``evaluate`` and the
 test metrics replay one captured forward per batch.  A fit synchronises
 once per epoch, for the loss and the epoch's train metrics: their exact
-counts on the device where they are bitwise the host's (``_train_counts``),
-else the collected probabilities.
+counts on the device where they are bitwise the host's, else the collected
+probabilities (``train/fit_loop.py``: the one epoch loop of every fit).
 
 **Under a mesh** (``Trainer(mesh=parallel.create_mesh(data=N, model=M))``,
 one process per rank on ``torch.distributed``) the fit runs data
@@ -111,7 +111,6 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -124,14 +123,14 @@ from ..ops.embedding import fused_table_geometry, pack_factor_for
 from ..ops.layers import all_gather_rows, batch_shard
 from ..ops.row_gather import rows_gather_dual
 from ..parallel.mesh import data_group, model_size, shard_variables, table_shard
-from ..utils.spans import enabled as span_on, span, timed
-from . import checkpointing, device_metrics, staging
+from . import checkpointing, device_metrics, fit_loop, staging
+from .fit_loop import _EvalProgram
 from .graphs import StepGraphs
 from .cagrad import cagrad_merge
 from .cka import cka_domain_loss, cka_domain_loss_sharded
 from .gradnorm import gradnorm_update
 from .losses import l2_regularization, multitask_loss, per_task_losses
-from .metrics import COUNTED, get_metric_fns, regime_eval, regime_from_counts
+from .metrics import get_metric_fns, regime_eval
 from .optimizers import Adam, Flat, FlatTensors, _Elementwise, get_optimizer
 from .pcgrad import pcgrad_merge
 from .sparse_embedding import (
@@ -297,12 +296,13 @@ class Trainer:
         #: spent waiting for the epoch's indices and metadata (``prep_s``),
         #: building and uploading them wherever that ran (``meta_s``,
         #: ``upload_s``), issuing its steps, on the loss read that waits for
-        #: the card, on its train metrics and its validation, and the graphs
-        #: it captured with their host seconds; on the card also
-        #: ``steps_device_s``, the card's time between two events around the
-        #: epoch's steps (their device time when the host keeps ahead of the
-        #: card, else waits for the host included).  Each phase also opens
-        #: a profiler span (``utils/spans.py``).
+        #: the card, on its train metrics and its validation,
+        #: ``metrics_device`` (1.0 where the train metrics were counted on
+        #: the device), and the graphs it captured with their host seconds;
+        #: on the card also ``steps_device_s``, the card's time between two
+        #: events around the epoch's steps (their device time when the host
+        #: keeps ahead of the card, else waits for the host included).  Each
+        #: phase also opens a profiler span (``utils/spans.py``).
         self.fit_timing: List[Dict[str, float]] = []
         # (epochs done, best val_auc, epochs without a new best, best
         # snapshot) of the last fit, which save_training_state records
@@ -958,10 +958,10 @@ class Trainer:
         return FlatTensors(flat[:-1], views), flat[-1]
 
     def _gather_batches(self, t: torch.Tensor) -> torch.Tensor:
-        """[steps, B / N, ...] rank rows of each batch -> the [steps, B, ...]
-        global batches, rank r's rows at ``[r B / N, (r + 1) B / N)``."""
-        out = all_gather_rows(t, self._dp).view(self._dp.world, *t.shape).transpose(0, 1)
-        return out.reshape(t.shape[0], -1, *t.shape[2:])
+        """[steps, ..., B / N, heads] rank rows of each batch -> the global
+        batches [steps, ..., B, heads], rank r's at ``[r B / N, (r + 1) B / N)``."""
+        out = all_gather_rows(t, self._dp).view(self._dp.world, *t.shape).movedim(0, -3)
+        return out.reshape(*t.shape[:-2], -1, t.shape[-1])
 
     def _rank0_writes(self, write, directory: str) -> str:
         """Run ``write`` (which returns ``directory``) on rank 0 alone, the
@@ -1207,68 +1207,44 @@ class Trainer:
             raise ValueError(f"shuffle must be True, False or 'block', got {shuffle!r}")
         if not hasattr(self, "tx"):
             raise RuntimeError("call compile() before fit()")
-        oc = self.cfg.optim_config
         batch_size = batch_size or 256
         self._meta_codec = "unset"  # per fit: it follows this fit's K and Kp
-        # the fit's set-up, everything before its first epoch: the inputs
-        # packed, the first fit's state (or a resume's), the dataset staged
-        with span("mmlrec.fit.stage"):
+
+        def start(ids, dense, y, dmask, val):
+            # the first fit's state (or a resume's) and the fit's data path
             if self.two_phase_embedding:
                 staging.resolve_table_update(self, batch_size)
-            with span("mmlrec.fit.pack"):
-                ids, dense = self.pack_inputs(x)
-                y = self._prepare_y(y)
-                dmask = self._domain_mask_from(x)
-                n = len(ids)
-
-                val = None
-                if validation_data is not None:
-                    vx, vy = validation_data[:2]
-                    val = (*self.pack_inputs(vx), self._prepare_y(vy), self._domain_mask_from(vx))
-                elif validation_split and 0.0 < validation_split < 1.0:
-                    split = int(n * (1.0 - validation_split))
-                    val = (ids[split:], dense[split:], y[split:],
-                           dmask[split:] if dmask is not None else None)
-                    ids, dense, y = ids[:split], dense[:split], y[:split]
-                    dmask = dmask[:split] if dmask is not None else None
-                    n = split
-
             if self.opt_state is None:
                 self.init_state()
             if self.per_task == "gradnorm":
                 self.reset_gradnorm()
-            best_auc, early_stop_count, best_snapshot = 0.0, 0, None
+            progress = (initial_epoch, 0.0, 0, None)
             if resume_from is not None:
-                self._progress = checkpointing.restore_training_state(self, resume_from)
-                initial_epoch, best_auc, early_stop_count, best_snapshot = self._progress
+                progress = self._progress = checkpointing.restore_training_state(
+                    self, resume_from)
                 if verbose:
-                    print(f"resumed from {resume_from} at epoch {initial_epoch}")
-            steps_per_epoch = (n - 1) // batch_size + 1
+                    print(f"resumed from {resume_from} at epoch {progress[0]}")
             max_steps = self.cfg.training_config.max_steps or 0
-            if verbose:
-                print(f"Train on {n} samples, validate on {len(val[0]) if val else 0} samples, "
-                      f"{steps_per_epoch} steps per epoch")
-            rng_np = np.random.default_rng(self.seed)
             # under a mesh a batch that divides by the ranks is split, else
             # every rank computes all of it (shard_batch, mesh.py:116-129)
             self._dp_sharded = self._dp is None or batch_size % self._dp.world == 0
-            plan, ids, dense, y, dmask = staging.make_device_plan(
-                self, ids, dense, y, dmask, batch_size, shuffle, steps_per_epoch, n, rng_np,
-                epochs, initial_epoch, max_steps)
-        self._graphs = StepGraphs(self.device, self._dropout_gen)
-        self.fit_timing = []
+            self._graphs = StepGraphs(self.device, self._dropout_gen)
+            source = staging.make_device_plan(
+                self, ids, dense, y, dmask, batch_size, shuffle,
+                np.random.default_rng(self.seed), epochs, progress[0], max_steps)
+            if verbose:
+                print(f"Train on {source.n} samples, validate on {len(val[0]) if val else 0} "
+                      f"samples, {source.steps} steps per epoch")
+            return fit_loop.FitRun(
+                source, self._graphs, [self.history], self.model.state_dict, progress=progress,
+                max_steps=max_steps,
+                curves=bool(self.cfg.model_config.extra.get("batch_metric_curves")))
+
         try:
-            self._fit_epochs(plan, ids, dense, y, dmask, val, batch_size, epochs,
-                             initial_epoch, shuffle, steps_per_epoch, n, rng_np, max_steps,
-                             verbose, epoch_callback, best_auc, early_stop_count,
-                             best_snapshot)
+            fit_loop.fit(self, self, x, y, batch_size, epochs, validation_split,
+                         validation_data, verbose, epoch_callback, start)
         finally:
-            staging.close_plan(plan)
             self._dp_sharded = True
-            replays = self._graphs.replays
-            self.graph_replays = {
-                "train": sum(v for k, v in replays.items() if k[0] != "eval"),
-                "eval": sum(v for k, v in replays.items() if k[0] == "eval")}
             self._graphs = None
         if self.cfg.save_config.save:
             try:
@@ -1276,194 +1252,6 @@ class Trainer:
             except Exception as e:  # a file-system failure ends no fit (trainer.py:1742-1746)
                 print(f"checkpoint save failed: {e}")
         return self
-
-    def _fit_epochs(self, plan, ids, dense, y, dmask, val, batch_size, epochs, initial_epoch,
-                    shuffle, steps_per_epoch, n, rng_np, max_steps, verbose, epoch_callback,
-                    best_auc, early_stop_count, best_snapshot) -> None:
-        oc = self.cfg.optim_config
-        total_steps = examples_seen = 0
-        train_time = 0.0
-        val_program = val_metric = None
-        fs_future = None
-        fs_prep = (lambda order_e, steps_e, on=None: staging.fs_host_prep(
-            self, ids, n, batch_size, order_e, steps_e, on))
-        graphs = self._graphs
-        for epoch in range(initial_epoch, epochs):
-            t0 = time.time()
-            if self._gate_warmup_epochs:
-                self._gate_warmup_active = epoch < self._gate_warmup_epochs
-                self.model.set_gate_noise_off(self._gate_warmup_active)
-            if plan.fs_pool is not None and fs_future is not None:
-                order = None  # drawn ahead, in the synchronous loop's order
-            else:
-                order = rng_np.permutation(n) if shuffle is True else np.arange(n)
-            steps = steps_per_epoch
-            if max_steps:
-                steps = min(steps_per_epoch, max_steps - total_steps)
-                if steps <= 0:
-                    break
-            batch_order = None
-            if plan.block_mode:
-                batch_order = rng_np.permutation(steps_per_epoch)[:steps]
-            timing = dict.fromkeys(staging.TIMING_KEYS, 0.0)
-            self.fit_timing.append(timing)
-            captured = (graphs.captures, graphs.capture_s)
-            prep = None
-            with timed(timing, "prep_s", "mmlrec.fit.prep_wait"):
-                if plan.use_device_data and not plan.block_mode:
-                    if plan.fs_pool is None:
-                        prep = fs_prep(order, steps)
-                    else:
-                        prep = fs_prep(order, steps) if fs_future is None else fs_future.result()
-                        fs_future = None
-                        if epoch + 1 < epochs:
-                            fs_future = plan.fs_pool.submit(fs_prep, rng_np.permutation(n),
-                                                            steps_per_epoch, span_on())
-            if prep is not None:
-                timing.update(prep.host)  # built for this epoch, wherever it ran
-            with timed(timing, "issue_s", "mmlrec.fit.issue"):
-                events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                          if self.device.type == "cuda" else None)
-                if events:
-                    events[0].record()
-                if plan.use_device_data:
-                    plan.epoch_step.zero_()
-                    if plan.block_mode:
-                        valid, host_rows, take, spans = staging.run_block_epoch(
-                            self, plan, batch_size, steps_per_epoch, steps, batch_order)
-                    else:
-                        valid, host_rows, take, spans = staging.run_gather_epoch(
-                            self, plan, prep, batch_size, steps)
-                    loss_vec = plan.loss[:steps]
-                    probs_dev = plan.probs[:steps] if self.metric_fns else None
-                else:
-                    valid, host_rows, take, spans, loss_vec, probs_dev = self._streaming_epoch(
-                        order, ids, dense, y, dmask, batch_size, steps, n, timing)
-                if events:
-                    events[1].record()
-                if probs_dev is not None and self._shard() is not None:
-                    probs_dev = self._gather_batches(probs_dev)
-                # the train metrics' counts follow the steps on the device
-                stats = self._train_counts(plan, probs_dev) if self.metric_fns else None
-            total_steps += steps
-            examples_seen += take
-            with timed(timing, "sync_s", "mmlrec.fit.sync"):  # the epoch's first sync
-                if stats is None:
-                    epoch_loss = float(loss_vec.sum())
-                else:  # one copy: float64 holds the counts exactly (EXACT_ROWS)
-                    epoch_loss, *counts = torch.cat([loss_vec.sum().reshape(1).double(),
-                                                     stats.double()]).tolist()
-            if events:
-                timing["steps_device_s"] = events[0].elapsed_time(events[1]) / 1e3
-            epoch_time = time.time() - t0
-            train_time += epoch_time
-            logs = {"loss": epoch_loss / max(n, 1), "epoch_s": epoch_time}
-            if stats is not None:
-                with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
-                    logs.update(regime_from_counts(self.metric_fns, counts))
-                timing["metrics_device"] = 1.0
-            elif self.metric_fns:
-                with timed(timing, "metrics_s", "mmlrec.fit.train_metrics"):
-                    probs_all = self._selected(
-                        probs_dev.reshape(-1, probs_dev.shape[-1])).cpu().numpy()
-                    probs_all = (probs_all[valid] if valid is not None
-                                 else probs_all[:len(host_rows)])
-                    y_all = y[host_rows]
-                    logs.update(regime_eval(self.metric_fns, y_all, probs_all, self.task_name,
-                                            self.num_domains))
-                    if self.cfg.model_config.extra.get("batch_metric_curves"):
-                        logs.update(self._batch_curve(probs_all, y_all, spans))
-            if val is not None:
-                with timed(timing, "val_s", "mmlrec.fit.validate"):
-                    if val_program is None:  # the validation set goes to the device once
-                        val_ev = staging.prepare_eval_tensors(self, val[0], val[1], val[3],
-                                                              batch_size)
-                        val_program = _EvalProgram(self, val_ev, None,
-                                                   graphs if self._capturable else None)
-                        if self._use_device_eval():
-                            val_metric = staging.prepare_metric_tensors(
-                                self, val[2], val_ev.ids.shape[0] * batch_size)
-                    probs_val = val_program.run()
-                    if val_metric is not None:
-                        val_result = {k: float(v) for k, v in device_metrics.regime_metrics(
-                            self.metric_fns, val_metric[0], probs_val, val_metric[1],
-                            self.task_name, self.num_domains).items()}
-                    else:
-                        preds = probs_val.cpu().numpy()[:len(val[0])].astype(np.float64)
-                        val_result = regime_eval(self.metric_fns, val[2], preds,
-                                                 self.task_name, self.num_domains)
-                    logs.update({f"val_{k}": v for k, v in val_result.items()})
-                    auc = val_result.get("auc", 0.0)
-                    if auc > best_auc:
-                        best_auc, early_stop_count = auc, 0
-                        # the steps update parameters and BatchNorm statistics in
-                        # place: the snapshot owns its copy
-                        best_snapshot = {k: v.detach().clone()
-                                         for k, v in self.model.state_dict().items()}
-                    else:
-                        early_stop_count += 1
-            timing["captures"] = graphs.captures - captured[0]
-            timing["capture_s"] = graphs.capture_s - captured[1]
-            self.history.append(logs)
-            self._progress = (epoch + 1, best_auc, early_stop_count, best_snapshot)
-            self.best_variables = best_snapshot
-            if epoch_callback is not None:
-                epoch_callback(epoch, self)
-            if verbose:
-                print(f"Epoch {epoch + 1}/{epochs} - {epoch_time:.1f}s - " + " - ".join(
-                    f"{k}: {v:.4f}" for k, v in logs.items() if k != "epoch_s"))
-            if val is not None and early_stop_count >= oc.early_stop:
-                break
-            if max_steps and total_steps >= max_steps:
-                break
-
-        if train_time > 0:
-            # steady state: the first epoch (warm-up) is left out when more ran
-            epoch_times = [h["epoch_s"] for h in self.history]
-            warm_time = sum(epoch_times[1:])
-            if len(epoch_times) > 1 and warm_time > 0:
-                per_epoch = examples_seen / len(epoch_times)
-                self.throughput_examples_per_s = per_epoch * (len(epoch_times) - 1) / warm_time
-            else:
-                self.throughput_examples_per_s = examples_seen / train_time
-        self.best_variables = best_snapshot
-
-    def _streaming_epoch(self, order, ids, dense, y, dmask, batch_size, steps, n, timing):
-        """One epoch on the streaming path, in ``order`` (data order for
-        ``shuffle="block"``, as the JAX streaming loop takes it).  The train
-        metrics see every row of every batch, the last batch's pads (row 0)
-        included, as JAX's do (staging.py:748-752).  The batches' metadata
-        and upload seconds go into ``timing``."""
-        take = min(n, steps * batch_size)
-        host_rows = np.zeros(steps * batch_size, np.int64)
-        host_rows[:take] = order[:take]
-        losses, probs, spans = staging.run_streaming_epoch(
-            self, order, ids, dense, y, dmask, batch_size, steps, timing)
-        probs_dev = torch.stack(probs) if probs else None
-        return None, host_rows, take, spans, torch.stack(losses), probs_dev
-
-    def _train_counts(self, plan, probs_dev) -> Optional[torch.Tensor]:
-        """The epoch's train AUC and accuracy as exact counts, enqueued on
-        the device (``device_metrics.exact_train_stats`` over the staged
-        labels of the rows the steps read, by ``plan.arg`` and the weights
-        ``plan.w2d``), where the fit can see they are bitwise what
-        ``regime_eval`` gives on the host: the rows staged on this one
-        device, only counted metrics, no per-batch curves, and a regime sum
-        in numpy's order (``device_metrics.counts_exactly``).  None
-        elsewhere: the host path."""
-        if not (plan.use_device_data and self._dp is None
-                and set(self.metric_fns) <= set(COUNTED)
-                and not self.cfg.model_config.extra.get("batch_metric_curves")):
-            return None
-        steps, batch = probs_dev.shape[:2]
-        probs = self._selected(probs_dev.reshape(steps * batch, -1))
-        if not device_metrics.counts_exactly(self.task_name, self.num_domains, probs.shape[1],
-                                             plan.staged.y.shape[1], steps * batch):
-            return None
-        idx = plan.arg[:steps, None] + plan.arange_b if plan.block_mode else plan.arg[:steps]
-        return device_metrics.exact_train_stats(
-            plan.staged.y.index_select(0, idx.reshape(-1)), probs, plan.w2d[:steps].reshape(-1),
-            self.task_name, self.num_domains)
 
     def _batch_curve(self, probs_all, y_all, spans) -> Dict[str, float]:
         """The reference's per-batch train metrics (basemodel.py:316-331,
@@ -1488,7 +1276,7 @@ class Trainer:
     def _selected(self, probs: torch.Tensor) -> torch.Tensor:
         """The columns that metrics and predictions keep: all, or ESCM's
         [pCTR, pCTCVR]."""
-        return probs[:, [0, 2]] if self._escm else probs
+        return probs[..., [0, 2]] if self._escm else probs
 
     def _scanned_probs(self, ev: "staging.EvalTensors", use_best: bool = True) -> torch.Tensor:
         """[steps * batch, heads] selected probabilities of the staged eval
@@ -1662,59 +1450,6 @@ class Trainer:
         with open(path, "w") as f:
             for epoch, logs in enumerate(self.history):
                 f.write(json.dumps({"epoch": epoch, **logs}) + "\n")
-
-
-class _EvalProgram:
-    """The forward over a fixed set of staged eval batches (``_scanned_probs``,
-    trainer.py:1334-1350): a device counter picks the batch, the forward
-    writes its probabilities into ``out`` at it, so one captured graph is
-    replayed per batch on the card (eagerly without ``graphs``, in debug
-    mode and on the CPU).  A fit keeps one for its validation set and
-    replays it every epoch.  ``forward(ids, dense, dmask)`` stands in for
-    the model's (a stacked suite's forward under vmap: ``out`` is then
-    ``[steps, S, B, heads]``)."""
-
-    def __init__(self, trainer: Trainer, ev, best, graphs: Optional[StepGraphs], forward=None):
-        self.trainer, self.ev, self.best, self.graphs = trainer, ev, best, graphs
-        self.forward = forward
-        self.counter = torch.zeros(1, dtype=torch.int64, device=trainer.device)
-        self.out: Optional[torch.Tensor] = None
-        self.key = ("eval", id(self))
-
-    def body(self) -> None:
-        ev, s = self.ev, self.counter
-        args = tuple(None if a is None else a.index_select(0, s)[0]
-                     for a in (ev.ids, ev.dense, ev.dmask))
-        model = self.trainer.model
-        with torch.no_grad():
-            if self.forward is not None:
-                p = self.forward(*args)
-            else:
-                p = (model(*args) if self.best is None
-                     else torch.func.functional_call(model, self.best, args))
-        if self.out is None:  # the first call is eager: the shape is known there
-            self.out = torch.zeros((ev.ids.shape[0],) + tuple(p.shape), device=p.device)
-        self.out.index_copy_(0, s, p[None])
-        s.add_(1)
-
-    def collect(self) -> torch.Tensor:
-        """Every batch's forward: ``out`` [steps, ...] on the device."""
-        self.trainer.model.eval()
-        self.counter.zero_()
-        for _ in range(self.ev.ids.shape[0]):
-            if self.trainer.debug or self.graphs is None:
-                self.body()
-            else:
-                self.graphs.run(self.key, self.body)
-        return self.out
-
-    def run(self) -> torch.Tensor:
-        """[steps * batch, heads] selected probabilities on the device; under
-        a mesh that split the batches, every rank's in the global order."""
-        out = self.collect()
-        if self.ev.split:
-            out = self.trainer._gather_batches(out)
-        return self.trainer._selected(out.reshape(-1, out.shape[-1]))
 
 
 def _order_masked_row(vals: Dict[str, float]) -> Dict[str, float]:

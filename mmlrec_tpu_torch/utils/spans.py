@@ -7,7 +7,7 @@ span site costs one check of the profiler's state when nothing profiles.
 ``timing[key]``: the counter and the span measure the same interval.
 
 Names start with ``mmlrec.`` and follow PERF.md's layers: ``mmlrec.fit.*``
-is the fit loop (``train/trainer.py``, ``train/staging.py``),
+is the fit loop (``train/fit_loop.py``, ``train/staging.py``),
 ``mmlrec.serve.*`` the serving entry (``serving.py``).  A span adds no
 synchronisation, reads nothing back from the device and writes nothing to
 disk: spans live in the profiler's memory, counters in the caller's dict

@@ -222,13 +222,13 @@ def case_indivisible():
     from mmlrec_tpu_torch.train import staging
 
     streamed = []
-    run = staging.run_streaming_epoch
-    staging.run_streaming_epoch = lambda *a, **k: streamed.append(1) or run(*a, **k)
+    run = staging.StreamSource.run
+    staging.StreamSource.run = lambda *a, **k: streamed.append(1) or run(*a, **k)
     try:
         tr, x, y, _ = port_setup(mesh=_mesh())
         out = fit_arrays(tr, x, y, batch=62)
     finally:
-        staging.run_streaming_epoch = run
+        staging.StreamSource.run = run
     out["streamed_epochs"] = np.asarray(len(streamed))
     return out
 

@@ -203,8 +203,10 @@ def test_each_predict_is_one_span_with_its_children(fixed, tmp_path):
 
 def test_the_suite_fit_fills_the_same_keys():
     """The stacked suite's epochs hold ``Trainer.fit_timing``'s keys with its
-    spans; the sequential suite's capture seconds come from each member
-    fit's epochs."""
+    spans, recorded as the solo fit records them: its set-up once (the
+    packing inside it), each epoch phase once an epoch after it, in the
+    loop's order, all inside the fit; the sequential suite's capture
+    seconds come from each member fit's epochs."""
     cfg = tsyn.make_config(vocab=400, **BASE)
     layout, x, y, _ = tsyn.make_data(cfg, n=256, seed=0, vocab=400)
     _, xv, yv, _ = tsyn.make_data(cfg, n=128, seed=9, vocab=400)
@@ -219,6 +221,17 @@ def test_the_suite_fit_fills_the_same_keys():
     assert len(_named(events, "mmlrec.fit.stage")) == 1
     for name in EPOCH_SPANS:
         assert len(_named(events, name)) == 2, name
+    for name in ("mmlrec.fit.pack", "mmlrec.fit.stage", *EPOCH_SPANS):
+        assert all(_inside(e, outer) for e in _named(events, name)), name
+    (stage,) = _named(events, "mmlrec.fit.stage")
+    (pack,) = _named(events, "mmlrec.fit.pack")
+    assert _inside(pack, stage)
+    assert all(e.time_range.start >= stage.time_range.end
+               for n in EPOCH_SPANS for e in _named(events, n))
+    starts = {n: [e.time_range.start for e in _named(events, n)] for n in EPOCH_SPANS}
+    for epoch in range(2):
+        order = [starts[n][epoch] for n in EPOCH_SPANS]
+        assert order == sorted(order), epoch
 
     cfg2 = tsyn.make_config(vocab=400, two_phase_embedding=True, **BASE)
     seq = SeedSuiteTrainer(get_model("mmoe", layout, cfg2, device="cpu"), seeds=[0, 2],
