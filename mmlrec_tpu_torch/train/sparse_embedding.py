@@ -15,8 +15,9 @@ Ported, the whole of the JAX module at one shard:
   (``to_split_state``, ``to_runtime_state``, pack/unpack);
 * the dedup metadata, from one stable sort: in the step on the device
   (``device_step_metadata``) or per batch on the host
-  (``batch_step_metadata``: numpy, or one pass of ``native/step_metadata.cpp``
-  through ``mmlrec_tpu_torch.native``), with the gather route's lists
+  (``batch_step_metadata``, ``epoch_step_metadata``: numpy, or one pass of
+  ``csrc/step_metadata_host.cpp`` through ``mmlrec_tpu_torch.native``,
+  which also writes the upload form), with the gather route's lists
   (``want_route``: accperm, the pruned residuals, the logical duplicates);
 * the updates: the dense-gradient row update of ``sparse_embedding_update``
   (``sparse_adam_row_update``); the scatter route (``two_phase_sparse_adam``:
@@ -253,30 +254,92 @@ def _quantized_cap(need: int) -> int:
     return cap
 
 
-def _native_step_metadata(comp, idx_bits, pack_factor, Kp, want_route, r_cap_min):
-    """The single pass of native/step_metadata.cpp over the sorted composite
-    (sparse_embedding.py:294-325): ``sm_counts`` sizes the route lists,
-    ``sm_fill`` fills every array; output-identical to the numpy
-    formulation."""
-    from ..native import step_metadata_counts, step_metadata_fill
+#: the entries of the full metadata tuple, in order
+_META_NAMES = ("inv", "rep", "pids", "pinv", "nuniq", "prep", "accperm", "resid_pos",
+              "resid_slot", "gdup_pos", "gdup_tgt")
+_MASKS = ("rep", "prep")
+#: the 2-byte pad of resid_slot and gdup_tgt (``staging.MetaCodec``'s slot16)
+_U16_DROP = 65535
 
-    steps, K = comp.shape
-    comp = np.ascontiguousarray(comp)
-    base = (np.empty((steps, K), np.int32), np.empty((steps, K), np.float32),
-            np.empty((steps, Kp), np.int32), np.empty((steps, K), np.int32),
-            np.empty((steps, 1), np.int32), np.empty((steps, K), np.float32))
-    if not want_route:
-        step_metadata_fill(comp, idx_bits, pack_factor, Kp, 0, 0, *base)
-        return base
-    n_resid, n_ldup = step_metadata_counts(comp, idx_bits, pack_factor)
-    R_cap = _quantized_cap(max(int(n_resid.max(initial=0)), int(r_cap_min)))
-    G_cap = _quantized_cap(max(int(n_ldup.max(initial=0)), int(r_cap_min)))
-    route = (np.zeros((steps, Kp), np.int32), np.zeros((steps, R_cap), np.int32),
-             np.full((steps, R_cap), Kp, np.int32),  # Kp = drop
-             np.zeros((steps, G_cap), np.int32),
-             np.full((steps, G_cap), K, np.int32))  # K = drop
-    step_metadata_fill(comp, idx_bits, pack_factor, Kp, R_cap, G_cap, *base, *route)
-    return base + route
+
+def _array(out: Optional[dict], name: str, shape: tuple, dtype) -> np.ndarray:
+    """An uninitialised array, ``out[name]`` where it has this shape and
+    dtype (the caller's buffers, kept from call to call)."""
+    a = None if out is None else out.get(name)
+    if a is None or a.shape != shape or a.dtype != dtype:
+        a = np.empty(shape, dtype)
+        if out is not None:
+            out[name] = a
+    return a
+
+
+def _native_step_metadata(source, idx_bits, pack_factor, Kp, want_route, r_cap_min, widths,
+                          out):
+    """The port's pass (csrc/step_metadata_host.cpp) over ``source``
+    (``native.HostMetaSource``): one call, or under the gather route a sort
+    with the counts that size its lists and then the fill, on a composite
+    buffer ``out`` keeps.  Each entry in its width (``widths``; None: the
+    raw int32 / float32 arrays); width 0 builds nothing and gives the
+    codec's dead ``[steps, 1]`` uint8 zeros."""
+    from ..native import host_metadata_fill, host_metadata_sort
+
+    steps, K = source.steps, source.K
+    n = len(_META_NAMES) if want_route else 6 if pack_factor else 2
+    widths = tuple(widths or (4,) * n)
+    R_cap = G_cap = 0
+    comp = None
+    if want_route:
+        comp = _array(out, "comp", (steps, K), np.int64)
+        n_resid, n_ldup = host_metadata_sort(source, idx_bits, pack_factor, comp)
+        R_cap = _quantized_cap(max(int(n_resid.max(initial=0)), int(r_cap_min)))
+        G_cap = _quantized_cap(max(int(n_ldup.max(initial=0)), int(r_cap_min)))
+    cols = dict(pids=Kp, accperm=Kp, nuniq=1, resid_pos=R_cap, resid_slot=R_cap,
+                gdup_pos=G_cap, gdup_tgt=G_cap)
+    outs, meta = [None] * len(_META_NAMES), []
+    for i, (name, width) in enumerate(zip(_META_NAMES, widths)):
+        if width == 0:
+            meta.append(_array(out, name, (steps, 1), np.uint8))
+            meta[-1].fill(0)
+            continue
+        dtype = ({4: np.float32, 1: np.uint8} if name in _MASKS
+                 else {4: np.int32, 2: np.uint16})[width]
+        outs[i] = _array(out, name, (steps, cols.get(name, K)), dtype)
+        meta.append(outs[i])
+    drops = ((_U16_DROP if widths[8] == 2 else Kp, _U16_DROP if widths[10] == 2 else K)
+             if want_route else (0, 0))
+    host_metadata_fill(source, idx_bits, pack_factor or 1, comp, Kp or 0, R_cap, G_cap, drops,
+                       outs)
+    return tuple(meta)
+
+
+def _step_metadata(source, flat, pack_factor, n_phys_rows, chunk, want_route, r_cap_min,
+                   use_native, widths=None, out=None):
+    """(metadata, whether the native pass built it) of ``source``'s steps:
+    the pass where its library loads (``use_native`` None), else numpy
+    over the flat ids ``flat()`` in the raw form."""
+    steps, K = source.steps, source.K
+    idx_bits = max(1, int(K - 1).bit_length())
+    Kp = None
+    if pack_factor is not None:
+        if n_phys_rows is None:
+            raise ValueError("n_phys_rows required with pack_factor")
+        Kp = -(-K // chunk) * chunk
+        if n_phys_rows <= Kp:
+            raise ValueError(
+                f"unique-update metadata needs n_phys_rows > {Kp}, got {n_phys_rows}")
+    if use_native is not False:
+        from ..native import NativeUnavailable
+
+        try:
+            meta = _native_step_metadata(source, idx_bits, pack_factor, Kp, want_route,
+                                         r_cap_min, widths, out)
+            metadata_calls["native"] += 1
+            return meta, True
+        except NativeUnavailable:
+            if use_native:
+                raise
+    return _numpy_step_metadata(flat(), idx_bits, pack_factor, Kp, want_route,
+                                r_cap_min), False
 
 
 def batch_step_metadata(
@@ -310,34 +373,45 @@ def batch_step_metadata(
     drops).  R_cap and G_cap are ``_quantized_cap`` of the call's largest
     count and of ``r_cap_min``, the caller's monotone floor.
 
-    With the physical metadata, the single pass of
-    ``native/step_metadata.cpp`` runs when its library loads
-    (``use_native`` None); when it does not, numpy runs, unless
-    ``use_native=True`` asked for the library, which then raises."""
-    steps, K = flat_ids.shape
-    flat = np.asarray(flat_ids, np.int64)
-    idx_bits = max(1, int(K - 1).bit_length())
+    The port's pass (``mmlrec_tpu_torch/csrc/step_metadata_host.cpp``)
+    runs when its library loads (``use_native`` None), for every form; when
+    it does not, numpy runs, unless ``use_native=True`` asked for the
+    library, which then raises.  Both give the same bits."""
+    from ..native import HostMetaSource
+
+    flat = np.asarray(flat_ids)
+    return _step_metadata(HostMetaSource(flat), lambda: flat, pack_factor, n_phys_rows, chunk,
+                          want_route, r_cap_min, use_native)[0]
+
+
+def epoch_step_metadata(ids: np.ndarray, rows: np.ndarray, offsets: np.ndarray,
+                        pack_factor: Optional[int] = None, n_phys_rows: Optional[int] = None,
+                        want_route: bool = False, r_cap_min: int = 0,
+                        widths: Optional[tuple] = None, out: Optional[dict] = None,
+                        use_native: Optional[bool] = None):
+    """``batch_step_metadata`` of the steps whose flat ids are
+    ``ids[rows[b], :F] + offsets`` (F = len(offsets)) for ``rows`` [steps,
+    B], read inside the native pass.  With the pass, each entry comes in
+    its width of ``widths`` (an upload form: see ``_native_step_metadata``)
+    in ``out``'s buffers where they fit; without it, numpy gives the raw
+    form.  Returns (metadata, whether the pass built it)."""
+    from ..native import HostMetaSource
+
+    def flat():
+        F = len(offsets)
+        return (ids[rows.reshape(-1), :F].astype(np.int64) + offsets).reshape(len(rows), -1)
+
+    return _step_metadata(HostMetaSource(ids, rows, offsets), flat, pack_factor, n_phys_rows,
+                          256, want_route, r_cap_min, use_native, widths, out)
+
+
+def _numpy_step_metadata(flat, idx_bits, pack_factor, Kp, want_route, r_cap_min):
+    """The numpy formulation of ``batch_step_metadata``."""
+    steps, K = flat.shape
+    flat = np.asarray(flat, np.int64)
     assert int(flat.max(initial=0)) < (1 << (63 - idx_bits)), "id overflow"
     comp = np.sort((flat << idx_bits) | np.arange(K, dtype=np.int64), axis=1)
     want_phys = pack_factor is not None
-    if want_phys:
-        if n_phys_rows is None:
-            raise ValueError("n_phys_rows required with pack_factor")
-        Kp = -(-K // chunk) * chunk
-        if n_phys_rows <= Kp:
-            raise ValueError(
-                f"unique-update metadata needs n_phys_rows > {Kp}, got {n_phys_rows}")
-        if use_native is not False:
-            from ..native import NativeUnavailable
-
-            try:
-                out = _native_step_metadata(comp, idx_bits, pack_factor, Kp, want_route,
-                                            r_cap_min)
-                metadata_calls["native"] += 1
-                return out
-            except NativeUnavailable:
-                if use_native:
-                    raise
     metadata_calls["numpy"] += 1
     order = (comp & ((1 << idx_bits) - 1)).astype(np.int32)
     svals = comp >> idx_bits

@@ -8,10 +8,11 @@ Everything between the host arrays and the step:
   matrix) and batches taken from it by index on the device;
 * the two-phase step's fit-time resolution of ``table_update`` (with the
   stacked container's demotion) and ``update_space`` and its host metadata
-  (``step_metadata``: numpy or ``native/step_metadata.cpp``, the gather
+  (``step_metadata``, and ``encoded_step_metadata`` of the epoch's rows:
+  numpy or the native pass of ``csrc/step_metadata_host.cpp``, the gather
   route's lists included), with the upload compaction codec
   (``MetaCodec``: uint16 positions, uint8 masks, decoded on the device
-  after the per-step slice);
+  after the per-step slice; the native pass writes that form itself);
 * ``make_device_plan``: the fit's data path as its epoch source for
   ``train/fit_loop.py``: ``BlockSource`` (fixed batches, a new order each
   epoch) or ``ShuffleSource`` (full shuffle, epoch e+1's indices and
@@ -57,7 +58,8 @@ import torch
 
 from ..parallel.mesh import batch_rows, distributed_take, shard_batch
 from ..utils.spans import enabled as span_on, timed
-from .sparse_embedding import SparseAdamPackedState, batch_step_metadata, to_split_state
+from .sparse_embedding import (SparseAdamPackedState, batch_step_metadata, epoch_step_metadata,
+                               to_split_state)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +240,21 @@ def resolve_update_space(trainer, flat: np.ndarray) -> None:
     trainer.update_space = "slot" if dup >= 0.25 else "position"
 
 
+def _update_kwargs(trainer) -> dict:
+    """``batch_step_metadata``'s arguments for the fit's update: none for
+    the scatter update's (inv, rep); the physical rows, and under the gather
+    route its lists above the trainer's floor, for the others."""
+    if trainer.table_update == "scatter":
+        return {}
+    return dict(pack_factor=trainer._emb_pack_factor, n_phys_rows=trainer._emb_phys_rows,
+                want_route=trainer.dedup_route == "gather", r_cap_min=trainer._route_r_cap)
+
+
+def _raise_route_floor(trainer, meta: tuple) -> None:
+    if len(meta) > 6:
+        trainer._route_r_cap = max(trainer._route_r_cap, meta[7].shape[1], meta[9].shape[1])
+
+
 def step_metadata(trainer, flat: np.ndarray) -> tuple:
     """Host metadata of flat [steps, K] logical ids (staging.py:225-250):
     (inv, rep) for the scatter update, plus (pids, pinv, nuniq, prep) for
@@ -247,14 +264,38 @@ def step_metadata(trainer, flat: np.ndarray) -> tuple:
     (``_route_r_cap``, one floor for both), so the captured step's buffers
     change only when a batch needs more."""
     resolve_update_space(trainer, flat)
-    if trainer.table_update == "scatter":
-        return batch_step_metadata(flat)
-    want_route = trainer.dedup_route == "gather"
-    meta = batch_step_metadata(flat, trainer._emb_pack_factor, trainer._emb_phys_rows,
-                               want_route=want_route, r_cap_min=trainer._route_r_cap)
-    if want_route:
-        trainer._route_r_cap = max(trainer._route_r_cap, meta[7].shape[1], meta[9].shape[1])
+    meta = batch_step_metadata(flat, **_update_kwargs(trainer))
+    _raise_route_floor(trainer, meta)
     return meta
+
+
+def rows_step_metadata(trainer, ids: np.ndarray, rows: np.ndarray,
+                       widths: Optional[tuple] = None, out: Optional[dict] = None):
+    """``step_metadata`` of the steps whose rows of the host ids [N, S] are
+    ``rows`` [steps, B], the ids read and offset inside the native pass
+    (``epoch_step_metadata``; ``widths`` and ``out`` as there): (metadata,
+    whether the pass built it)."""
+    if trainer.update_space == "auto":
+        resolve_update_space(trainer, flat_ids(trainer, ids[rows[0]], 1))
+    meta, native = epoch_step_metadata(ids, rows, trainer._host_offsets, widths=widths,
+                                       out=out, **_update_kwargs(trainer))
+    _raise_route_floor(trainer, meta)
+    return meta, native
+
+
+def encoded_step_metadata(trainer, ids: np.ndarray, rows: np.ndarray,
+                          out: Optional[dict] = None):
+    """The upload form of ``rows_step_metadata`` under the fit's codec,
+    and whether the native pass built it.  Once the fit's first build has
+    fixed the codec the pass writes that form itself (``MetaCodec.widths``),
+    into ``out``'s buffers where given; the first build and the numpy
+    fallback are encoded here."""
+    codec = trainer._meta_codec
+    widths = codec.widths() if isinstance(codec, MetaCodec) else None
+    meta, native = rows_step_metadata(trainer, ids, rows, widths, out)
+    if widths is None or not native:
+        meta = encode_meta(trainer, meta)
+    return tuple(upload_form(a) for a in meta), native
 
 
 def flat_ids(trainer, ids: np.ndarray, steps: int) -> np.ndarray:
@@ -275,6 +316,7 @@ def flat_ids(trainer, ids: np.ndarray, steps: int) -> np.ndarray:
 # the same bits and decodes as ``& 0xFFFF``.
 
 _U16_MAX = 65535
+_KIND_WIDTHS = {"idx16": 2, "slot16": 2, "mask8": 1, "raw": 4, "dead": 0}
 
 
 class MetaCodec:
@@ -287,6 +329,11 @@ class MetaCodec:
         # kinds[i] = (kind, sentinel remap), kind in
         # {"idx16", "mask8", "slot16", "raw", "dead"}
         self.kinds = kinds
+
+    def widths(self) -> tuple:
+        """Each entry's bytes an element in the upload form, 0 for a dead
+        one: the native pass writes the form from these."""
+        return tuple(_KIND_WIDTHS[kind] for kind, _ in self.kinds)
 
     def encode(self, meta: tuple) -> tuple:
         out = []
@@ -464,20 +511,24 @@ class BlockSource(Plan):
         def padded(a):
             return np.concatenate([a, np.repeat(a[:1], pad_tail, 0)]) if pad_tail else a
 
-        self.staged = stage_dataset(trainer, padded(ids), padded(dense), padded(y),
+        ids = padded(ids)
+        self.staged = stage_dataset(trainer, ids, padded(dense), padded(y),
                                     padded(dmask) if dmask is not None else None)
         self.block_w_dev = to_device(trainer, self.block_w)
         self.arg = torch.zeros(steps, dtype=torch.int64, device=dev)
         self.arange_b = torch.arange(batch_size, dtype=torch.int64, device=dev)
         self.block_dedup = None
+        self.meta_native = 0.0  # the epochs' metadata: these stacks, from the pass or not
         if trainer.two_phase_embedding and not trainer.device_metadata:
-            meta = encode_meta(trainer, step_metadata(trainer, flat_ids(trainer, padded(ids),
-                                                                        steps)))
-            self.block_dedup = tuple(to_device(trainer, upload_form(a)) for a in meta)
+            meta, native = encoded_step_metadata(
+                trainer, ids, np.arange(steps * batch_size).reshape(steps, batch_size))
+            self.block_dedup = tuple(to_device(trainer, a) for a in meta)
             self.dedup = tuple(_buffer_like(trainer, steps, a) for a in self.block_dedup)
+            self.meta_native = float(native)
 
     def prepare(self, epoch, steps, timing) -> None:
         self.batch_order = self.rng.permutation(self.steps)[:steps]
+        timing["meta_native"] = self.meta_native
 
     def run(self, steps, timing) -> EpochResult:
         tr, B, batch_order = self.trainer, self.batch, self.batch_order
@@ -511,17 +562,22 @@ class ShuffleSource(Plan):
         self.arange_all = torch.arange(self.steps * batch_size, device=trainer.device)
         self.pool = ThreadPoolExecutor(max_workers=1) if epochs else None
         self.ahead = None
+        # the metadata's host buffers, rewritten by each epoch's build: on
+        # the card the upload copies them to pinned memory first, elsewhere
+        # the uploaded tensors share them, so each build takes new ones
+        self.meta_out = {} if trainer.device.type == "cuda" else None
 
     def prepare(self, epoch, steps, timing) -> None:
         if self.ahead is not None:
             self.prep, self.ahead = self.ahead.result(), None
         else:
             order = self.rng.permutation(self.n) if self.shuffle else np.arange(self.n)
-            self.prep = fs_host_prep(self.trainer, self.ids, self.n, self.batch, order, steps)
+            self.prep = fs_host_prep(self.trainer, self.ids, self.n, self.batch, order, steps,
+                                     None, self.meta_out)
         if self.pool is not None and epoch + 1 < self.epochs:
             self.ahead = self.pool.submit(fs_host_prep, self.trainer, self.ids, self.n,
                                           self.batch, self.rng.permutation(self.n),
-                                          self.steps, span_on())
+                                          self.steps, span_on(), self.meta_out)
         timing.update(self.prep.host)  # built for this epoch, wherever it ran
 
     def run(self, steps, timing) -> EpochResult:
@@ -585,19 +641,23 @@ class StreamSource(EpochSource):
             arrays = [ids[idx_r], self.dense[idx_r], self.y[idx_r],
                       self.dmask[idx_r] if self.dmask is not None else None, weight_r]
             host = {"meta_s": 0.0, "upload_s": 0.0}
+            native = False
             if host_meta:
                 with timed(host, "meta_s", "mmlrec.fit.worker.metadata", on):
-                    arrays += [a[0] for a in step_metadata(tr, flat_ids(tr, ids[idx], 1))]
+                    meta, native = rows_step_metadata(tr, ids, idx[None])
+                    arrays += [a[0] for a in meta]
             with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
                 up = upload_async(tr, arrays)
-            return weight, up, host
+            return weight, up, host, native
 
         losses, probs, spans = [], [], []
         depth = max(int(tr._prefetch_batches), 1)
+        natives = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             pending = deque(pool.submit(make_batch, s) for s in range(min(depth, steps)))
             for s in range(steps):
-                weight, up, host = pending.popleft().result()
+                weight, up, host, native = pending.popleft().result()
+                natives.append(native)
                 for key, seconds in host.items():
                     timing[key] += seconds
                 if s + depth < steps:
@@ -609,6 +669,7 @@ class StreamSource(EpochSource):
                 if tr.metric_fns:
                     probs.append(p)
                 spans.append((len(weight), int(weight.sum())))
+        timing["meta_native"] = float(host_meta and all(natives))
         take = min(self.n, steps * B)
         rows = np.zeros(steps * B, np.int64)
         rows[:take] = order[:take]
@@ -626,8 +687,9 @@ def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, rng, ep
     """The fit's data path, decided once, as its epoch source: staged when
     the dataset's bytes x 2 are under ``trainer._device_data_bytes_cap``
     (4 GB; a mesh's batch must divide by its ranks, staging.py:427-437), in
-    blocks or shuffled (the worker for two-phase fits of epochs > 1 without
-    ``max_steps``), else streamed."""
+    blocks or shuffled (the worker for two-phase fits of epochs > 1 whose
+    ``max_steps``, if set, cannot cut an epoch short: the worker builds
+    whole epochs), else streamed."""
     dataset_bytes = ids.nbytes + dense.nbytes + y.nbytes
     cap, dp = trainer._device_data_bytes_cap, trainer._dp
     staged = (dataset_bytes * 2 < cap if dp is None
@@ -636,7 +698,9 @@ def make_device_plan(trainer, ids, dense, y, dmask, batch_size, shuffle, rng, ep
         return StreamSource(trainer, ids, dense, y, dmask, batch_size, rng, shuffle)
     if shuffle == "block":
         return BlockSource(trainer, ids, dense, y, dmask, batch_size, rng)
-    ahead = (shuffle is True and trainer.two_phase_embedding and not max_steps
+    steps = (len(y) - 1) // batch_size + 1
+    capped = max_steps and max_steps < (epochs - initial_epoch) * steps
+    ahead = (shuffle is True and trainer.two_phase_embedding and not capped
              and trainer._prefetch_batches > 0 and epochs - initial_epoch > 1)
     return ShuffleSource(trainer, ids, dense, y, dmask, batch_size, rng, shuffle,
                          epochs if ahead else None)
@@ -712,9 +776,11 @@ def prepare_mask_tensor(trainer, test_mask, total: int):
 
 #: the keys of each epoch's ``Trainer.fit_timing`` entry, every one present
 #: (0 where its phase did not run); on the card also ``steps_device_s``.
+#: ``meta_native`` is 1.0 in an epoch whose host step metadata the native
+#: pass built (a block fit's, built once at staging, counts in each epoch);
 #: ``metrics_device`` is 1.0 in an epoch whose train metrics were counted
 #: on the device
-TIMING_KEYS = ("prep_s", "meta_s", "upload_s", "issue_s", "sync_s", "metrics_s",
+TIMING_KEYS = ("prep_s", "meta_s", "upload_s", "meta_native", "issue_s", "sync_s", "metrics_s",
                "metrics_device", "val_s", "captures", "capture_s")
 
 
@@ -746,7 +812,8 @@ def _rows_into(buffer: torch.Tensor, steps: int, values: torch.Tensor) -> None:
 class HostPrep(NamedTuple):
     """A full-shuffle epoch's host prep: its padded row indices, the real
     rows among them, their upload, and the host seconds of building the
-    metadata (``meta_s``) and of the upload (``upload_s``)."""
+    metadata (``meta_s``) and of the upload (``upload_s``), with
+    ``meta_native``."""
 
     idx: np.ndarray
     take: int
@@ -754,22 +821,25 @@ class HostPrep(NamedTuple):
     host: dict
 
 
-def fs_host_prep(trainer, ids, n, batch_size, order_e, steps_e, on=None) -> HostPrep:
+def fs_host_prep(trainer, ids, n, batch_size, order_e, steps_e, on=None, out=None) -> HostPrep:
     """Full-shuffle epoch host prep (staging.py:757-780): the padded index
     vector and, for the two-phase step with host metadata, the epoch's
-    metadata stacks, encoded and uploaded from the calling thread (the
+    metadata stacks in their upload form (``encoded_step_metadata``, in
+    ``out``'s buffers where given), uploaded from the calling thread (the
     worker, when threaded ahead) so the copies ride during the previous
     epoch's steps.  ``on``: the span gate the submitting thread read."""
     padded_e = steps_e * batch_size
     idx_e = np.zeros(padded_e, np.int64)
     take_e = min(n, padded_e)
     idx_e[:take_e] = order_e[:take_e]
-    arrays = [idx_e.reshape(steps_e, batch_size)]
-    host = {"meta_s": 0.0, "upload_s": 0.0}
+    idx2d = idx_e.reshape(steps_e, batch_size)
+    arrays = [idx2d]
+    host = {"meta_s": 0.0, "upload_s": 0.0, "meta_native": 0.0}
     if trainer.two_phase_embedding and not trainer.device_metadata:
         with timed(host, "meta_s", "mmlrec.fit.worker.metadata", on):
-            meta = step_metadata(trainer, flat_ids(trainer, ids[idx_e], steps_e))
-            arrays += [upload_form(a) for a in encode_meta(trainer, meta)]
+            meta, native = encoded_step_metadata(trainer, ids, idx2d, out)
+            arrays += meta
+        host["meta_native"] = float(native)
     with timed(host, "upload_s", "mmlrec.fit.worker.upload", on):
         up = upload_async(trainer, arrays)
     return HostPrep(idx_e, take_e, up, host)

@@ -87,13 +87,19 @@ def test_native_builds_outside_the_native_directory():
     assert path.parent != native.SOURCE.parent
 
 
-def test_native_fallback_rule(monkeypatch):
+def test_native_fallback_rule(monkeypatch, tmp_path):
     """As the JAX rule: numpy when the library is unavailable, an error when
-    the caller asked for the library."""
-    def unavailable():
-        raise native.NativeUnavailable("no library")
-
-    monkeypatch.setattr(native, "get_meta_lib", unavailable)
+    the caller asked for the library.  Here no compiler is found and no
+    library was built, for the JAX package's pass and the port's, which
+    builds every form (the scatter update's too) and reads the epoch's rows
+    itself."""
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    for load in (native.get_meta_lib, native.get_host_meta_lib):
+        with pytest.raises(native.NativeUnavailable, match="no C"):
+            load()
     ids = CASES["heavy"].astype(np.int64)
     T.reset_metadata_calls()
     got = T.batch_step_metadata(ids, 4, 1024)
@@ -108,6 +114,17 @@ def test_native_fallback_rule(monkeypatch):
                  "route fallback")
     with pytest.raises(ValueError, match="n_phys_rows"):
         T.batch_step_metadata(ids, 4, 512)  # Kp = 512 leaves no pad rows
+    # the scatter form, and the epoch's rows read from the ids matrix
+    _assert_same(T.batch_step_metadata(ids), J.batch_step_metadata(ids), "scatter fallback")
+    assert T.metadata_calls == {"native": 0, "numpy": 3}
+    with pytest.raises(native.NativeUnavailable):
+        T.batch_step_metadata(ids, use_native=True)
+    matrix, rows = ids.reshape(-1, 4).astype(np.int32), np.arange(ids.size // 4).reshape(2, -1)
+    got, built = T.epoch_step_metadata(matrix, rows, np.zeros(4, np.int64), 4, 1024)
+    assert not built and T.metadata_calls == {"native": 0, "numpy": 4}
+    _assert_same(got, J.batch_step_metadata(ids, 4, 1024, use_native=False), "rows fallback")
+    with pytest.raises(native.NativeUnavailable):
+        T.epoch_step_metadata(matrix, rows, np.zeros(4, np.int64), 4, 1024, use_native=True)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -198,11 +198,13 @@ def _c_type(decl: str) -> str:
 
 
 def test_native_ctypes_signatures_match_the_c_source():
-    """The host loaders declare each function of native/step_metadata.cpp
-    and native/fast_csv.cpp they call with its C return type and one ctypes
+    """The host loaders declare each function of native/step_metadata.cpp,
+    native/fast_csv.cpp and the port's mmlrec_tpu_torch/csrc/
+    step_metadata_host.cpp they call with its C return type and one ctypes
     entry per C parameter: int64_t as c_int64, int32_t as c_int32, char* as
     c_char_p, void* as c_void_p, pointers as pointers of their type; and
-    every ``fc_*`` function of the CSV loader is declared."""
+    every ``fc_*`` function of the CSV loader and every ``smh_*`` function
+    of the port's pass is declared."""
     from mmlrec_tpu_torch import native
 
     kinds = {None: "void", ctypes.c_void_p: "void*", ctypes.c_char_p: "char*",
@@ -210,7 +212,7 @@ def test_native_ctypes_signatures_match_the_c_source():
              ctypes.POINTER(ctypes.c_int64): "int64_t*", ctypes.POINTER(ctypes.c_int32): "int32_t*",
              ctypes.POINTER(ctypes.c_float): "float*", ctypes.POINTER(ctypes.c_double): "double*"}
     declared = {}  # name -> (return type, parameter types), per source
-    for source in (native.SOURCE, native.CSV_SOURCE):
+    for source in (native.SOURCE, native.CSV_SOURCE, native.HOST_SOURCE):
         for ret, name, params in re.findall(r"\n((?:const )?\w+[ *]+)(\w+)\(([^)]*)\)",
                                             source.read_text()):
             declared[source, name] = (_c_type(ret + name), [_c_type(p) for p in params.split(",")])
@@ -219,6 +221,9 @@ def test_native_ctypes_signatures_match_the_c_source():
         n for n in native.SIGNATURES if n.startswith("fc_")} == {
         "fc_load", "fc_error", "fc_rows", "fc_train_rows", "fc_vocab", "fc_read_floats",
         "fc_read_codes", "fc_free"}
+    assert {n for s, n in declared if s == native.HOST_SOURCE and n.startswith("smh_")} == {
+        n for n in native.SIGNATURES if n.startswith("smh_")} == {"smh_sort", "smh_fill"}
+    assert native.HOST_SOURCE.parent == ROOT / "mmlrec_tpu_torch" / "csrc"
     for name, (restype, argtypes) in native.SIGNATURES.items():
         ret, params = declared[native.EXPORTED_BY[name], name]
         assert (kinds[restype], [kinds[t] for t in argtypes]) == (ret, params), name

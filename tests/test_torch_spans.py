@@ -131,7 +131,8 @@ def test_every_epoch_holds_every_key(case):
     """Every key in every epoch, non-negative; the metadata's seconds above 0
     wherever the host builds it each epoch (worker, inline or streamed), 0
     in block mode (built and uploaded once, at staging: the epoch uploads
-    only its batch order, as part of its issue) and on the dense fit."""
+    only its batch order, as part of its issue) and on the dense fit;
+    ``meta_native`` 1.0 wherever the native pass built the metadata."""
     mode = "dense" if case == "dense" else "host_meta"
     tr, x, y = _trainer(mode)
     kw = {}
@@ -148,6 +149,8 @@ def test_every_epoch_holds_every_key(case):
         assert t["issue_s"] > 0 and t["val_s"] > 0 and t["metrics_s"] > 0
         assert (t["meta_s"] > 0) == (case not in ("dense", "host_meta_block")), case
         assert (t["upload_s"] > 0) == (case != "host_meta_block"), case
+        # the native pass built the metadata (in block mode once, at staging)
+        assert t["meta_native"] == (0.0 if case == "dense" else 1.0), case
         assert t["captures"] == 0 and t["capture_s"] == 0.0  # the CPU captures nothing
 
 
